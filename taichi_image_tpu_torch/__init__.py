@@ -1,0 +1,20 @@
+"""taichi_image_tpu_torch — the camera ISP on PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``taichi_image_tpu`` (JAX on a TPU), which stays beside it as
+the reference. This package covers the bf16 main path: packed12 decode,
+MHC/bilinear demosaic for all four Bayer patterns with the WB/CCM fold,
+EMA metering, the Reinhard tonemap and planar u8 output, through
+``CameraBF16(pattern, device="cuda").process(raws)``. It imports torch
+and numpy, never jax.
+"""
+
+from taichi_image_tpu_torch import types
+from taichi_image_tpu_torch.models.camera_isp import (
+    Camera16, Camera32, CameraBF16, camera_isp, default_cc, fused_isp_step,
+    state_from_jax)
+from taichi_image_tpu_torch.ops.bayer import BayerPattern
+from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+from taichi_image_tpu_torch.utils.bounds import lerp
+
+__version__ = "0.1.0"

@@ -1,0 +1,255 @@
+"""Bayer demosaic on phase planes (counterpart of
+``taichi_image_tpu/ops/bayer.py:45-347, 387-487, 616-623``).
+
+The CFA is split into its four half-resolution phase planes; every tap
+of the full-resolution 13-tap diamond stencils then lands on one phase
+plane at an offset in {-1, 0, 1}, so the demosaic is a 3x3 stencil from
+4 input channels (phases) to 12 output channels (4 output phases x RGB).
+Border renormalization is exact: the dropped (zero-padded) taps of the
+four border strips are renormalized by precomputed strip factors plus
+four corner corrections.
+
+The tables here are built in numpy and equal the JAX package's values
+exactly; ``demosaic_phases`` runs the K2 stencil (``ops/hopper/demosaic``)
+with the finish (renorm, optional CCM, clip, cast) fused in.
+"""
+
+from __future__ import annotations
+
+import enum
+import functools
+
+import numpy as np
+import torch
+
+from taichi_image_tpu_torch import types
+from taichi_image_tpu_torch.ops.kernel import symmetrical, zip_tuple
+
+__all__ = [
+    "BayerPattern", "pixel_orders", "kernel_patterns", "diamond_kernel",
+    "make_bayer_kernels", "make_bilinear_kernels", "demosaic_phases",
+    "phases_to_planar",
+]
+
+
+def diamond_kernel(weights):
+  """13 diamond-shaped (offset, weight) taps over a 5x5 support.
+  Offsets are (row, col)."""
+  diamond = [(0, 1), (-1, 2), (-2, 3), (-1, 2), (0, 1)]
+  offsets = [(i - 2, x) for i, r in enumerate(diamond) for x in range(*r)]
+  if len(offsets) != len(weights):
+    raise ValueError(f"incorrect weight length {len(offsets)} != "
+                     f"{len(weights)}")
+  return tuple(zip(offsets, weights))
+
+
+def make_bayer_kernels():
+  """Four per-phase vec3 Malvar-He-Cutler weight tables, integer weights
+  summing to 16 per channel."""
+  g_rb, r_g1, r_g2, rb_br, ident = [
+      symmetrical(w) for w in [
+          [(-2,), (0, 4), (-2, 4, 8)],   # G at R,B locations
+          [(-2,), (-2, 8), (1, 0, 10)],  # R at G1 and B at G2
+          [(1,), (-2, 0), (-2, 8, 10)],  # B at G1 and R at G2
+          [(-3,), (4, 0), (-3, 0, 12)],  # R at B and B at R
+          [(0,), (0, 0), (0, 0, 16)],    # Identity
+      ]
+  ]
+  b_g1 = r_g2
+  b_g2 = r_g1
+  vec_weights = [
+      zip_tuple(ident, g_rb, rb_br),  # R phase
+      zip_tuple(r_g1, ident, b_g1),   # G1 phase
+      zip_tuple(r_g2, ident, b_g2),   # G2 phase
+      zip_tuple(rb_br, g_rb, ident),  # B phase
+  ]
+  return tuple(diamond_kernel(w) for w in vec_weights)
+
+
+def make_bilinear_kernels():
+  """Four per-phase vec3 bilinear weight tables on the same support."""
+  ident = symmetrical([(0,), (0, 0), (0, 0, 4)])
+  cross = symmetrical([(0,), (0, 1), (0, 1, 0)])
+  vert = symmetrical([(0,), (0, 2), (0, 0, 0)])
+  horiz = symmetrical([(0,), (0, 0), (0, 2, 0)])
+  diag = symmetrical([(0,), (1, 0), (0, 0, 0)])
+  vec_weights = [
+      zip_tuple(ident, cross, diag),
+      zip_tuple(vert, ident, horiz),
+      zip_tuple(horiz, ident, vert),
+      zip_tuple(diag, cross, ident),
+  ]
+  return tuple(diamond_kernel(w) for w in vec_weights)
+
+
+bayer_kernels = make_bayer_kernels()
+bilinear_kernels = make_bilinear_kernels()
+
+
+class BayerPattern(enum.Enum):
+  """CFA layout of the top-left 2x2 quad."""
+  RGGB = 0
+  GRBG = 1
+  GBRG = 2
+  BGGR = 3
+
+  @property
+  def pixel_order(self):
+    return pixel_orders[self]
+
+
+# pattern -> RGB channel sampled at (even,even), (even,odd), (odd,even),
+# (odd,odd) of (row, col)
+pixel_orders = {
+    BayerPattern.RGGB: (0, 1, 1, 2),
+    BayerPattern.GRBG: (1, 0, 2, 1),
+    BayerPattern.GBRG: (1, 2, 0, 1),
+    BayerPattern.BGGR: (2, 1, 1, 0),
+}
+
+# pattern -> permutation of the 4 phase kernels, in the order
+# (even,even), (odd,even), (even,odd), (odd,odd) of (row, col)
+kernel_patterns = {
+    BayerPattern.RGGB: (0, 1, 2, 3),
+    BayerPattern.GBRG: (1, 0, 3, 2),
+    BayerPattern.GRBG: (2, 3, 0, 1),
+    BayerPattern.BGGR: (3, 2, 1, 0),
+}
+
+# Output phase p of the 12-channel layout -> (row parity, col parity).
+# Input phases use the other, row-major order: q = (row%2)*2 + col%2.
+_PHASE_PARITY = ((0, 0), (1, 0), (0, 1), (1, 1))
+
+
+def _phase_conv_weights(kernels) -> np.ndarray:
+  """Four full-res 13-tap vec3 kernels -> dense (12, 4, 3, 3) phase-plane
+  stencil weights. Out channel = out_phase * 3 + rgb (``_PHASE_PARITY``
+  order); in channel = row-major input phase."""
+  w = np.zeros((12, 4, 3, 3), np.float32)
+  for p, (dy, dx) in enumerate(_PHASE_PARITY):
+    for (oy, ox), weight in kernels[p]:
+      sy, sx = dy + oy, dx + ox
+      in_phase = (sy % 2) * 2 + (sx % 2)
+      u, v = sy // 2, sx // 2  # floor division: in {-1, 0, 1}
+      for c in range(3):
+        w[p * 3 + c, in_phase, u + 1, v + 1] += weight[c]
+  return w
+
+
+def _edge_sums(w: np.ndarray, hh: int, wh: int):
+  """Per-channel surviving-weight sums of the four border strips:
+  (interior (12,), top (12, wh), bottom (12, wh), left (12, hh),
+  right (12, hh)) float32. Assumes hh >= 2 and wh >= 2."""
+  ws = w.sum(axis=1)  # (12, 3, 3)
+
+  def rsum(rows, cols):
+    return ws[:, rows, :][:, :, cols].sum(axis=(1, 2))
+
+  full = rsum([0, 1, 2], [0, 1, 2])
+  t_mid = rsum([1, 2], [0, 1, 2])
+  b_mid = rsum([0, 1], [0, 1, 2])
+  l_mid = rsum([0, 1, 2], [1, 2])
+  r_mid = rsum([0, 1, 2], [0, 1])
+  tl = rsum([1, 2], [1, 2])
+  tr = rsum([1, 2], [0, 1])
+  bl = rsum([0, 1], [1, 2])
+  br = rsum([0, 1], [0, 1])
+
+  top = np.tile(t_mid[:, None], (1, wh))
+  top[:, 0], top[:, -1] = tl, tr
+  bottom = np.tile(b_mid[:, None], (1, wh))
+  bottom[:, 0], bottom[:, -1] = bl, br
+  left = np.tile(l_mid[:, None], (1, hh))
+  left[:, 0], left[:, -1] = tl, bl
+  right = np.tile(r_mid[:, None], (1, hh))
+  right[:, 0], right[:, -1] = tr, br
+  return full, top, bottom, left, right
+
+
+@functools.cache
+def _demosaic_tables(pattern: BayerPattern, method: str) -> np.ndarray:
+  base = bayer_kernels if method == "mhc" else bilinear_kernels
+  kernels = tuple(base[i] for i in kernel_patterns[pattern])
+  return _phase_conv_weights(kernels)
+
+
+def _stencil_finish_spec(weights, hh, wh, cc, out_dtype, top_row=0,
+                         bot_row=None):
+  """Constants of the stencil's fused finish: per-channel border factors
+  (full/strip sums), corner corrections and the optional CCM, as numpy
+  float32 — the same values as the JAX package's spec."""
+  if bot_row is None:
+    bot_row = hh - 1
+  full, top, bottom, left, right = _edge_sums(weights, hh, wh)
+  t_mid, b_mid = top[:, 1], bottom[:, 1]
+  l_mid, r_mid = left[:, 1], right[:, 1]
+  tl, tr_ = top[:, 0], top[:, -1]
+  bl, br = bottom[:, 0], bottom[:, -1]
+  topf, botf = full / t_mid, full / b_mid
+  leftf, rightf = full / l_mid, full / r_mid
+  cvals = np.stack([
+      (full / tl) / (topf * leftf),
+      (full / tr_) / (topf * rightf),
+      (full / bl) / (botf * leftf),
+      (full / br) / (botf * rightf),
+  ]).astype(np.float32)
+  ccm = None if cc is None else np.array(cc, np.float32).reshape(3, 3)
+  return dict(hh=hh, wh=wh, top_row=int(top_row), bot_row=int(bot_row),
+              topf=topf.astype(np.float32),
+              botf=botf.astype(np.float32),
+              leftf=leftf.astype(np.float32),
+              rightf=rightf.astype(np.float32), cvals=cvals, cc=ccm,
+              out_dtype=types.canonical_dtype(out_dtype))
+
+
+@functools.lru_cache(maxsize=64)
+def _finish_spec_for(pattern, method, hh, wh, cc, out_dtype):
+  """:func:`_stencil_finish_spec` per configuration and frame size, built
+  once instead of on every step (the strip sums are host work the step
+  would otherwise pay each frame). Shared between calls: never mutated."""
+  return _stencil_finish_spec(_demosaic_tables(pattern, method), hh, wh, cc,
+                              out_dtype)
+
+
+def demosaic_phases(phases: torch.Tensor, pattern: BayerPattern, cc=None,
+                    method: str = "mhc", out_dtype=torch.float32,
+                    backend: str = "auto", sample_step: int = 0):
+  """Demosaic normalized phase planes (N, 4, hh, wh) -> clamped
+  (N, 12, hh, wh) phase-RGB in [0, 1] of ``out_dtype``.
+
+  The 12-channel layout is out_phase * 3 + rgb with output phases in
+  (0,0), (1,0), (0,1), (1,1) (row, col) parity order. ``cc`` is an
+  optional row-major 3x3 CCM (9 floats). ``sample_step`` > 0 also returns
+  ``out[:, 0:3, ::step, ::step]`` (the metering sample grid) as
+  ``(out, sample)``, emitted by the stencil itself.
+
+  ``backend``: ``"auto"`` runs the K2 kernel on CUDA tensors and its
+  plain twin on CPU tensors; ``"kernel"``/``"plain"`` force a route.
+  """
+  from taichi_image_tpu_torch.ops.hopper import demosaic as hopper_dm
+  if method not in ("mhc", "bilinear"):
+    raise ValueError(f"unknown demosaic method {method!r}")
+  _, _, hh, wh = phases.shape
+  if hh < 2 or wh < 2:
+    raise NotImplementedError(
+        f"frames under 4x4 pixels (phase planes {hh}x{wh}) need the "
+        "denominator route of the JAX demosaic, not ported yet "
+        "(ROADMAP.md queue 1, item 13)")
+  weights = _demosaic_tables(pattern, method)
+  fin = _finish_spec_for(pattern, method, hh, wh,
+                         None if cc is None else tuple(cc),
+                         types.canonical_dtype(out_dtype))
+  out, samp = hopper_dm.demosaic_stencil(phases, weights, fin, sample_step,
+                                         backend=backend)
+  if not sample_step:
+    return out
+  return out, samp
+
+
+def phases_to_planar(x12: torch.Tensor, dtype=None) -> torch.Tensor:
+  """(N, 12, hh, wh) phase-RGB -> full-res planar (N, 3, H, W); pure data
+  movement."""
+  n, _, hh, wh = x12.shape
+  x = x12.reshape(n, 2, 2, 3, hh, wh)    # (n, pc, pr, c, hh, wh)
+  t = x.permute(0, 3, 4, 2, 5, 1)        # (n, c, hh, pr, wh, pc)
+  return t.reshape(n, 3, 2 * hh, 2 * wh).to(dtype or x12.dtype)

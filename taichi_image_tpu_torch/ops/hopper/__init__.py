@@ -1,0 +1,206 @@
+"""Hand-written Hopper (sm_90a) kernels: build, load and launch.
+
+Counterpart of ``taichi_image_tpu/ops/pallas/__init__.py``. Each kernel
+lives in ``csrc/<name>.cu`` as CUDA C++ with an ``extern "C"`` launcher
+that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
+``cudaGetLastError()``. A launcher's library is compiled with ``nvcc`` on
+first use into ``_build/`` (keyed by a hash of the sources, the flags and
+``nvcc --version``) and loaded with ``ctypes``; nothing includes
+PyTorch's headers, so a kernel builds in seconds and needs no ``ninja``.
+
+No fallback hides the device or the kernel: a failed build raises with
+nvcc's stderr, a failed launch raises with the CUDA error, and a CUDA
+device other than capability (9, 0) raises. The plain PyTorch twin of a
+kernel runs only for CPU tensors (``backend="auto"``) or when asked for
+by name (``backend="plain"``).
+
+Every wrapper adds one to its kernel's ``launches`` count where it
+launches the kernel, and nowhere else, so a run can show that the main
+path went through the kernels (``launch_counts``/``reset_launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+__all__ = ["Kernel", "KERNELS", "register", "build_all", "launch_counts",
+           "reset_launches", "use_kernel", "check_tensor", "stream_of", "ptr"]
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+
+# --fmad=false: the plain twins round after every op, and an FMA
+# contraction of e.g. the map's .299r + .587g + .114b or the CCM would
+# break the kernel-vs-plain comparison. No --use_fast_math either.
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+BACKENDS = ("auto", "kernel", "plain")
+
+
+def _nvcc() -> str:
+  from torch.utils.cpp_extension import CUDA_HOME
+  if CUDA_HOME is None:
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+  nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+  if not nvcc.exists():
+    raise RuntimeError(f"nvcc not found at {nvcc}")
+  return str(nvcc)
+
+
+@functools.cache
+def _nvcc_version(nvcc: str) -> str:
+  return subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                        check=True).stdout
+
+
+def _build(source: str) -> Path:
+  """Compile ``csrc/<source>`` into a shared library (cached by key);
+  returns its path. Raises ``RuntimeError`` with nvcc's stderr."""
+  nvcc = _nvcc()
+  src = CSRC / source
+  h = hashlib.sha256()
+  for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+    h.update(f.name.encode() + b"\0" + f.read_bytes())
+  h.update(" ".join(NVCC_FLAGS).encode())
+  h.update(_nvcc_version(nvcc).encode())
+  out = BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+  if out.exists():
+    return out
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+  proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                        capture_output=True, text=True)
+  if proc.returncode != 0:
+    tmp.unlink(missing_ok=True)
+    raise RuntimeError(f"nvcc failed to build {src.name} "
+                       f"(exit {proc.returncode}):\n{proc.stderr}")
+  out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+  os.replace(tmp, out)
+  return out
+
+
+class Kernel:
+  """One hand-written kernel: its source, its C launcher and its launch
+  count. ``replaces`` names the TPU kernel it ports (file:line)."""
+
+  def __init__(self, name: str, source: str, symbol: str, argtypes,
+               replaces: str):
+    self.name = name
+    self.source = source
+    self.symbol = symbol
+    self.argtypes = list(argtypes)
+    self.replaces = replaces
+    self.launches = 0
+    self._fn = None
+
+  def build(self) -> Path:
+    return _build(self.source)
+
+  def _launcher(self):
+    if self._fn is None:
+      lib = ctypes.CDLL(str(self.build()))
+      fn = getattr(lib, self.symbol)
+      fn.argtypes = self.argtypes
+      fn.restype = ctypes.c_int
+      self._fn = fn
+    return self._fn
+
+  def launch(self, *args) -> None:
+    """Call the C launcher (which enqueues the kernel on the given
+    stream) and count the launch; raise on a CUDA error."""
+    err = self._launcher()(*args)
+    if err != 0:
+      raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t "
+                         f"{err}")
+    self.launches += 1
+
+
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(kernel: Kernel) -> Kernel:
+  KERNELS[kernel.name] = kernel
+  return kernel
+
+
+def build_all() -> dict[str, Path]:
+  """Build every registered kernel's library in parallel nvcc processes;
+  returns {name: library path}."""
+  _import_kernel_modules()
+  with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    futs = {name: pool.submit(k.build) for name, k in KERNELS.items()}
+    return {name: f.result() for name, f in futs.items()}
+
+
+def _import_kernel_modules():
+  from taichi_image_tpu_torch.ops.hopper import (  # noqa: F401
+      decode, demosaic, finish, reinhard)
+
+
+def launch_counts() -> dict[str, int]:
+  _import_kernel_modules()
+  return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launches() -> None:
+  _import_kernel_modules()
+  for k in KERNELS.values():
+    k.launches = 0
+
+
+def use_kernel(backend: str, x: torch.Tensor) -> bool:
+  """Pick the route for tensor ``x``: the kernel for a CUDA tensor under
+  ``backend="auto"``, the plain twin for a CPU tensor. ``"kernel"`` on a
+  CPU tensor raises; ``"plain"`` always takes the twin."""
+  if backend not in BACKENDS:
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS}")
+  if backend == "plain":
+    return False
+  if not x.is_cuda:
+    if backend == "kernel":
+      raise ValueError(
+          f"backend='kernel' needs CUDA tensors, got a tensor on {x.device}")
+    return False
+  if x.device.index not in (None, 0):
+    raise NotImplementedError(
+        "the kernels launch on CUDA device 0 only; placement on other "
+        "devices comes with the multi-GPU work (ROADMAP.md queue 1, "
+        "item 11)")
+  major_minor = torch.cuda.get_device_capability(x.device)
+  if major_minor != (9, 0):
+    raise RuntimeError(
+        f"the Hopper kernels are built for sm_90a; {x.device} has "
+        f"capability {major_minor}")
+  return True
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 ndim: int, device: torch.device) -> None:
+  """A wrapper's input guard: device, dtype, rank and contiguity."""
+  if t.device != device:
+    raise ValueError(f"{name} is on {t.device}, expected {device}")
+  if t.dtype != dtype:
+    raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+  if t.ndim != ndim:
+    raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+  if not t.is_contiguous():
+    raise ValueError(f"{name} must be contiguous")
+
+
+def stream_of(device: torch.device) -> int:
+  """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+  return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+  return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,180 @@
+"""K2: the demosaic stencil with fused finish and metering samples
+(``csrc/demosaic.cu``).
+
+Replaces ``taichi_image_tpu/ops/pallas/demosaic.py::demosaic_stencil``
+with ``finish`` and ``sample_step`` (the bf16 in, bf16 out main path).
+The weights, ``inv_full``, border factors, corner corrections and CCM
+travel as one f32 block in the kernel's parameters.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from taichi_image_tpu_torch.ops import hopper
+from taichi_image_tpu_torch.ops.bayer import _PHASE_PARITY, diamond_kernel
+
+__all__ = ["demosaic_stencil", "demosaic_stencil_plain", "stencil_params"]
+
+KERNEL = hopper.register(hopper.Kernel(
+    name="demosaic", source="demosaic.cu",
+    symbol="tit_demosaic_stencil_bf16",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    replaces="taichi_image_tpu/ops/pallas/demosaic.py:377"))
+
+# layout of csrc/demosaic.cu StencilParams (without has_ccm)
+PARAM_FLOATS = 12 * 13 + 12 * 5 + 4 * 12 + 9
+
+
+def _diamond_taps() -> np.ndarray:
+  """(4, 13): for each output phase, its 13 diamond taps as positions
+  q*9 + u*3 + v of the 4 x 3 x 3 neighbourhood, ascending — the
+  kernel's compile-time kTaps table (csrc/demosaic.cu)."""
+  offsets = [o for o, _ in diamond_kernel([0] * 13)]
+  taps = []
+  for dy, dx in _PHASE_PARITY:
+    ks = []
+    for oy, ox in offsets:
+      sy, sx = dy + oy, dx + ox
+      ks.append(((sy % 2) * 2 + sx % 2) * 9 + (sy // 2 + 1) * 3 + sx // 2 + 1)
+    taps.append(sorted(ks))
+  return np.array(taps)
+
+
+DIAMOND_TAPS = _diamond_taps()
+
+
+def _inv_full(weights: np.ndarray) -> np.ndarray:
+  """f32(1 / sum of weights) per out channel, as the JAX stencil takes it
+  (a Python double rounded to f32)."""
+  full = weights.sum(axis=(1, 2, 3))
+  return np.array([1.0 / float(s) for s in full], np.float32)
+
+
+def stencil_params(weights: np.ndarray, finish: dict) -> np.ndarray:
+  """The kernel's f32 parameter block: weights at each phase's diamond
+  taps (12 x 13), inv_full, topf, botf, leftf, rightf (12 each), cvals
+  (4 x 12), CCM (9)."""
+  w36 = weights.reshape(12, 36)
+  inside = np.zeros((12, 36), bool)
+  for oc in range(12):
+    inside[oc, DIAMOND_TAPS[oc // 3]] = True
+  if np.any(w36[~inside]):
+    raise ValueError("stencil weights fall outside the diamond taps")
+  w13 = w36[inside].reshape(12, 13)
+  ccm = finish["cc"]
+  parts = [w13, _inv_full(weights), finish["topf"],
+           finish["botf"], finish["leftf"], finish["rightf"],
+           finish["cvals"],
+           np.zeros(9, np.float32) if ccm is None else ccm]
+  block = np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
+  if block.size != PARAM_FLOATS:
+    raise ValueError(f"stencil parameter block has {block.size} floats, "
+                     f"the kernel takes {PARAM_FLOATS}")
+  return block
+
+
+def _border_factor(oc: int, hh: int, wh: int, finish: dict, device):
+  """(hh, wh) f32 renorm factor of channel ``oc``: rvf * cvv, then the
+  corner multiplies (the kernel's order). Python-float operands act as
+  their f32 values, and every table value is an f32."""
+  rows = torch.arange(hh, device=device)
+  cols = torch.arange(wh, device=device)
+  on_top, on_bot = rows == finish["top_row"], rows == finish["bot_row"]
+  on_left, on_right = cols == 0, cols == wh - 1
+
+  def pick(mask, key):
+    return torch.where(mask, float(finish[key][oc]), 1.0)
+
+  rvf = pick(on_top, "topf") * pick(on_bot, "botf")
+  cvv = pick(on_left, "leftf") * pick(on_right, "rightf")
+  f = rvf[:, None] * cvv[None, :]
+  for k, (rmask, cmask) in enumerate(((on_top, on_left), (on_top, on_right),
+                                      (on_bot, on_left), (on_bot, on_right))):
+    mask = rmask[:, None] & cmask[None, :]
+    f = torch.where(mask, f * float(finish["cvals"][k, oc]), f)
+  return f
+
+
+def demosaic_stencil_plain(phases: torch.Tensor, weights: np.ndarray,
+                           finish: dict, sample_step: int = 0):
+  """Plain PyTorch twin of K2, in the kernel's arithmetic order: returns
+  ``(x12 (N, 12, hh, wh) finish["out_dtype"], sample (N, 3, hs, ws) or
+  None)``."""
+  n, _, hh, wh = phases.shape
+  xp = F.pad(phases.to(torch.float32), (1, 1, 1, 1))
+  inv_full = _inv_full(weights)
+  ccm = finish["cc"]
+  outs = []
+  for ph in range(4):
+    vals = []
+    for c in range(3):
+      oc = ph * 3 + c
+      a = None
+      for q in range(4):
+        for u in range(3):
+          for v in range(3):
+            w = float(weights[oc, q, u, v])
+            if w == 0.0:
+              continue
+            s = xp[:, q, u:u + hh, v:v + wh] * w
+            a = s if a is None else a + s
+      val = a * float(inv_full[oc])
+      vals.append(val * _border_factor(oc, hh, wh, finish, phases.device))
+    if ccm is not None:
+      vals = [vals[0] * float(ccm[d, 0]) + vals[1] * float(ccm[d, 1])
+              + vals[2] * float(ccm[d, 2]) for d in range(3)]
+    outs += [torch.clamp(v, 0.0, 1.0).to(finish["out_dtype"]) for v in vals]
+  x12 = torch.stack(outs, dim=1)
+  samp = None
+  if sample_step:
+    s = sample_step
+    samp = x12[:, 0:3, ::s, ::s].contiguous()
+  return x12, samp
+
+
+def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
+                     finish: dict, sample_step: int = 0,
+                     backend: str = "auto"):
+  """(N, 4, hh, wh) phase planes -> ``(x12 (N, 12, hh, wh), sample)``:
+  the finished stencil (border renorm, optional CCM, clip, cast) and,
+  with ``sample_step`` > 0, ``x12[:, 0:3, ::s, ::s]`` (else None).
+
+  The kernel takes bf16 phases and writes bf16 x12 and samples; the
+  plain twin takes any float phases.
+  """
+  if phases.ndim != 4 or phases.shape[1] != 4:
+    raise ValueError(f"phases must be (N, 4, hh, wh), got "
+                     f"{tuple(phases.shape)}")
+  if sample_step < 0:
+    raise ValueError(f"sample_step must be >= 0, got {sample_step}")
+  n, _, hh, wh = phases.shape
+  if (finish["hh"], finish["wh"]) != (hh, wh):
+    raise ValueError(f"finish spec is for {finish['hh']}x{finish['wh']}, "
+                     f"phases are {hh}x{wh}")
+  if not hopper.use_kernel(backend, phases):
+    return demosaic_stencil_plain(phases, weights, finish, sample_step)
+  if (phases.dtype != torch.bfloat16
+      or finish["out_dtype"] != torch.bfloat16
+      or (finish["top_row"], finish["bot_row"]) != (0, hh - 1)):
+    raise NotImplementedError(
+        "the stencil kernel covers whole bf16 frames; f16/f32 and banded "
+        "stencils are ROADMAP.md queue 1, items 14 and 10")
+  hopper.check_tensor("phases", phases, torch.bfloat16, 4, phases.device)
+  dev = phases.device
+  x12 = torch.empty((n, 12, hh, wh), dtype=torch.bfloat16, device=dev)
+  s = sample_step
+  samp = (torch.empty((n, 3, -(-hh // s), -(-wh // s)),
+                      dtype=torch.bfloat16, device=dev) if s else None)
+  params = stencil_params(weights, finish)
+  KERNEL.launch(hopper.ptr(phases), hopper.ptr(x12),
+                hopper.ptr(samp) if s else None, n, hh, wh, s,
+                params.ctypes.data_as(ctypes.c_void_p),
+                int(finish["cc"] is not None), hopper.stream_of(dev))
+  return x12, samp

@@ -1,0 +1,110 @@
+"""K3: the Reinhard map with the per-image max (``csrc/reinhard.cu``).
+
+Replaces ``taichi_image_tpu/ops/pallas/reinhard.py::reinhard_map_bf16_dma``.
+The scalar vector comes from :func:`reinhard_scal` /
+:func:`reinhard_scal_ca`, computed in torch on the tensor's device and
+handed to the kernel as a device pointer: the main path makes no host
+sync.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from taichi_image_tpu_torch.ops import hopper
+
+__all__ = ["reinhard_scal", "reinhard_scal_ca", "reinhard_map_bf16",
+           "reinhard_map_plain", "reinhard_map_f32"]
+
+KERNEL = hopper.register(hopper.Kernel(
+    name="reinhard", source="reinhard.cu", symbol="tit_reinhard_map_bf16",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    replaces="taichi_image_tpu/ops/pallas/reinhard.py:274"))
+
+
+def _scalar(v: float, device) -> torch.Tensor:
+  """A 0-d f32 tensor made on ``device`` by a fill (no host-to-device
+  copy, so no stream sync on the main path)."""
+  return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def reinhard_scal(metrics: torch.Tensor, intensity: float,
+                  light_adapt: float) -> torch.Tensor:
+  """(6,) f32 on ``metrics``' device: [m0, range, map_key, mean,
+  exp(-intensity), light_adapt]."""
+  m = metrics.to(torch.float32)
+  key = (m[3] - m[4]) / (m[3] - m[2])
+  map_key = 0.3 + 0.7 * torch.pow(key, 1.4)
+  eni = torch.exp(_scalar(-float(intensity), m.device))
+  return torch.stack([m[0], m[1] - m[0], map_key, m[5], eni,
+                      _scalar(light_adapt, m.device)])
+
+
+def reinhard_scal_ca(metrics: torch.Tensor, intensity: float,
+                     light_adapt: float, color_adapt: float) -> torch.Tensor:
+  """(10,) f32: reinhard_scal's six plus [color_adapt, cmean_r, cmean_g,
+  cmean_b], cmean_c = lerp(color_adapt, mean, channel_mean_c)."""
+  m = metrics.to(torch.float32)
+  base = reinhard_scal(m, intensity, light_adapt)
+  ca = _scalar(color_adapt, m.device)
+  cmean = m[5] + ca * (m[6:9] - m[5])
+  return torch.cat([base, ca[None], cmean])
+
+
+def reinhard_map_f32(x: torch.Tensor, scal: torch.Tensor,
+                     ca_mode: bool) -> torch.Tensor:
+  """The f32 pre-gamma map ``p`` of (N, C, hh, wh), C % 3 == 0, with the
+  kernel's expressions (pow as exp2(k * log2(b))) and NaN zeroed."""
+  n, nc, hh, wh = x.shape
+  xf = x.to(torch.float32).reshape(n, nc // 3, 3, hh, wh)
+  m0, rng, mk, mean, eni, la = (scal[i] for i in range(6))
+  scaled = (xf - m0) / rng
+  r, g, b = scaled[:, :, 0], scaled[:, :, 1], scaled[:, :, 2]
+  gray = (0.299 * r + 0.587 * g + 0.114 * b)[:, :, None]
+  if not ca_mode:
+    adapt = torch.exp2(mk * torch.log2(eni * (mean + la * (gray - mean))))
+  else:
+    ca = scal[6]
+    cmean = scal[7:10].reshape(1, 1, 3, 1, 1)
+    adapt_color = gray + ca * (scaled - gray)
+    adapt = torch.exp2(
+        mk * torch.log2(eni * (cmean + la * (adapt_color - cmean))))
+  p = scaled * (1.0 / (adapt + scaled))
+  p = torch.where(torch.isnan(p), 0.0, p)
+  return p.reshape(n, nc, hh, wh)
+
+
+def reinhard_map_plain(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool):
+  """Plain PyTorch twin of K3: ``(p bf16 (N, C, hh, wh), per-image max of
+  the f32 p (N, 1, 1, 1))``."""
+  p = reinhard_map_f32(x, scal, ca_mode)
+  return p.to(torch.bfloat16), p.amax(dim=(1, 2, 3)).reshape(-1, 1, 1, 1)
+
+
+def reinhard_map_bf16(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
+                      backend: str = "auto"):
+  """(N, C, hh, wh) bf16, C % 3 == 0 -> ``(p bf16 same shape, per-image
+  f32 max (N, 1, 1, 1))``; the max is over the f32 p before the cast.
+  ``scal`` is the (6,) or, with ``ca_mode``, (10,) vector."""
+  if x.ndim != 4 or x.shape[1] % 3 != 0 or x.shape[1] == 0:
+    raise ValueError(f"map input must be (N, 3k, hh, wh), got "
+                     f"{tuple(x.shape)}")
+  want = 10 if ca_mode else 6
+  if scal.shape != (want,):
+    raise ValueError(f"scal must be ({want},), got {tuple(scal.shape)}")
+  if not hopper.use_kernel(backend, x):
+    return reinhard_map_plain(x, scal, ca_mode)
+  hopper.check_tensor("x", x, torch.bfloat16, 4, x.device)
+  hopper.check_tensor("scal", scal, torch.float32, 1, x.device)
+  n, nc, hh, wh = x.shape
+  p = torch.empty_like(x)
+  mx_enc = torch.empty((n,), dtype=torch.int32, device=x.device)
+  mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=x.device)
+  KERNEL.launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(mx_enc),
+                hopper.ptr(mx), n, nc // 3, hh, wh, hopper.ptr(scal),
+                int(bool(ca_mode)), hopper.stream_of(x.device))
+  return p, mx

@@ -1,0 +1,67 @@
+"""Dtype conventions of the PyTorch port.
+
+Counterpart of ``taichi_image_tpu/types.py:57-129``: every stage works
+on normalized intensities in [0, 1], and an integer dtype relates to
+that range by its full-scale factor. Here the dtypes are torch dtypes;
+names from numpy or strings are accepted and mapped to them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+__all__ = ["scale_factor", "canonical_dtype", "scale_of",
+           "u8", "u16", "i16", "f16", "bf16", "f32"]
+
+u8 = torch.uint8
+u16 = torch.uint16
+i16 = torch.int16
+f16 = torch.float16
+bf16 = torch.bfloat16
+f32 = torch.float32
+
+DTypeLike = Union[str, torch.dtype, np.dtype, Any]
+
+# Full-scale value per dtype (taichi_image_tpu/types.py:57-64).
+scale_factor = {
+    u8: 255.0,
+    u16: 65535.0,
+    i16: 32767.0,
+    f16: 1.0,
+    bf16: 1.0,
+    f32: 1.0,
+}
+
+_names = {
+    "uint8": u8,
+    "uint16": u16,
+    "int16": i16,
+    "float16": f16,
+    "bfloat16": bf16,
+    "float32": f32,
+}
+
+
+def canonical_dtype(dtype: DTypeLike) -> torch.dtype:
+  """Normalize a dtype token (torch dtype, string, numpy dtype — JAX's
+  bfloat16 numpy dtype included) to a torch dtype.
+
+  Raises for dtypes outside {u8, u16, i16, f16, bf16, f32}.
+  """
+  if isinstance(dtype, torch.dtype):
+    name = str(dtype).removeprefix("torch.")
+  elif isinstance(dtype, str):
+    name = dtype
+  else:
+    name = np.dtype(dtype).name
+  if name not in _names:
+    raise ValueError(f"Unsupported dtype {name}; supported: {sorted(_names)}")
+  return _names[name]
+
+
+def scale_of(dtype: DTypeLike) -> float:
+  """Full-scale value for a dtype."""
+  return scale_factor[canonical_dtype(dtype)]

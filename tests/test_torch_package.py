@@ -1,0 +1,186 @@
+"""Package-level contracts of the PyTorch port: it imports no JAX, the
+kernel route never falls back to the CPU, configurations outside the
+ported slice raise NotImplementedError, and bad raw buffers raise
+ValueError before any kernel launch."""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import taichi_image_tpu_torch as ttit  # noqa: E402
+from taichi_image_tpu_torch.models import camera_isp as tci  # noqa: E402
+from taichi_image_tpu_torch.ops import hopper  # noqa: E402
+from taichi_image_tpu_torch.ops.bayer import (  # noqa: E402
+    BayerPattern, _demosaic_tables, _stencil_finish_spec)
+from taichi_image_tpu_torch.ops.hopper import decode as th_decode  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import demosaic as th_dm  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
+from taichi_image_tpu_torch.utils.debug import validate_raw  # noqa: E402
+
+
+def _raws(n=2, h=16, wb=96, seed=0):
+  return np.random.default_rng(seed).integers(0, 256, size=(n, h, wb),
+                                              dtype=np.uint8)
+
+
+def test_import_pulls_in_no_jax():
+  code = textwrap.dedent("""
+      import sys
+      import taichi_image_tpu_torch
+      import taichi_image_tpu_torch.ops.hopper.decode
+      import taichi_image_tpu_torch.ops.hopper.demosaic
+      import taichi_image_tpu_torch.ops.hopper.reinhard
+      import taichi_image_tpu_torch.ops.hopper.finish
+      import taichi_image_tpu_torch.models.camera_isp
+      bad = sorted(m for m in sys.modules
+                   if m == "jax" or m.startswith(("jax.", "taichi_image_tpu.")))
+      assert not bad, bad
+      assert "taichi_image_tpu" not in sys.modules
+      print("ok")
+  """)
+  r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                     text=True, timeout=120)
+  assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_kernels_registered_with_sources():
+  counts = hopper.launch_counts()
+  assert set(counts) == {"decode", "demosaic", "reinhard", "finish"}
+  for k in hopper.KERNELS.values():
+    assert (hopper.CSRC / k.source).is_file(), k.source
+    path, line = k.replaces.split(":")
+    assert path.startswith("taichi_image_tpu/ops/pallas/") and int(line) > 0
+
+
+def _kernel_calls():
+  x4 = torch.zeros(1, 4, 4, 6, dtype=torch.bfloat16)
+  w = _demosaic_tables(BayerPattern.RGGB, "mhc")
+  fin = _stencil_finish_spec(w, 4, 6, None, torch.bfloat16)
+  x12 = torch.zeros(1, 12, 4, 6, dtype=torch.bfloat16)
+  scal = torch.zeros(6)
+  return {
+      "decode": lambda: th_decode.decode12_phases_bf16(
+          torch.from_numpy(_raws(1, 8, 18)), backend="kernel"),
+      "demosaic": lambda: th_dm.demosaic_stencil(x4, w, fin, 4,
+                                                 backend="kernel"),
+      "reinhard": lambda: th_rh.reinhard_map_bf16(x12, scal, False,
+                                                  backend="kernel"),
+      "finish": lambda: th_fin.finish_planar_u8(x12, torch.ones(1, 1, 1, 1),
+                                                1.0, backend="kernel"),
+  }
+
+
+@pytest.mark.parametrize("name", ["decode", "demosaic", "reinhard",
+                                  "finish"])
+def test_kernel_backend_on_cpu_raises(name):
+  before = hopper.launch_counts()[name]
+  with pytest.raises(ValueError, match="needs CUDA tensors"):
+    _kernel_calls()[name]()
+  assert hopper.launch_counts()[name] == before
+
+
+def test_unknown_backend_raises():
+  with pytest.raises(ValueError, match="unknown backend"):
+    th_decode.decode12_phases_bf16(torch.from_numpy(_raws()),
+                                   backend="cuda")
+
+
+def test_auto_backend_on_cpu_is_plain_and_counts_nothing():
+  hopper.reset_launches()
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu")
+  isp.process(_raws())
+  assert all(v == 0 for v in hopper.launch_counts().values())
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"fmt": "packed16"}, "item 13"),
+    ({"tonemap": "linear"}, "item 15"),
+    ({"color_format": "yuv420"}, "item 8"),
+])
+def test_out_of_slice_process_args_raise(kw, match):
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu")
+  raws = _raws(2, 16, 64) if kw.get("fmt") == "packed16" else _raws()
+  with pytest.raises(NotImplementedError, match=match):
+    isp.process(raws, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"resize_width": 32}, "item 7"),
+    ({"scale": 0.5}, "item 7"),
+    ({"transform": ttit.ImageTransform.rotate_90}, "item 7"),
+    ({"metering_stride": 7}, "item 15"),
+])
+def test_out_of_slice_isp_config_raises(kw, match):
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **kw)
+  with pytest.raises(NotImplementedError, match=match):
+    isp.process(_raws())
+
+
+@pytest.mark.parametrize("cls", [ttit.Camera16, ttit.Camera32])
+def test_f16_f32_classes_raise(cls):
+  with pytest.raises(NotImplementedError, match="item 14"):
+    cls(BayerPattern.RGGB, device="cpu")
+
+
+def test_tiny_frames_raise_not_implemented():
+  with pytest.raises(NotImplementedError, match="item 13"):
+    ttit.CameraBF16(BayerPattern.RGGB, device="cpu").process(_raws(1, 2, 6))
+
+
+@pytest.mark.parametrize("shape,dtype,fmt,match", [
+    ((2, 16, 96), np.uint16, "packed12", "uint8"),
+    ((2, 16, 97), np.uint8, "packed12", "multiple of 3"),
+    ((2, 15, 96), np.uint8, "packed12", "even"),
+    ((2, 16, 30), np.uint8, "packed16", "even"),  # W = 15 px
+    ((16, 96), np.uint8, "packed12", "3-D"),
+])
+def test_bad_raws_raise_before_any_launch(shape, dtype, fmt, match):
+  raws = np.zeros(shape, dtype)
+  with pytest.raises(ValueError, match=match):
+    validate_raw(torch.from_numpy(raws), fmt)
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu")
+  hopper.reset_launches()
+  with pytest.raises(ValueError, match=match):
+    isp.process(raws, fmt=fmt)
+  assert isp.metrics is None
+
+
+def test_decode_wrapper_rejects_bad_width():
+  with pytest.raises(ValueError, match="3k"):
+    th_decode.decode12_phases_bf16(torch.zeros(1, 4, 10, dtype=torch.uint8))
+  with pytest.raises(ValueError, match="uint8"):
+    th_decode.decode12_phases_bf16(torch.zeros(1, 4, 9, dtype=torch.int16))
+
+
+def test_wrappers_reject_bad_shapes():
+  w = _demosaic_tables(BayerPattern.RGGB, "mhc")
+  fin = _stencil_finish_spec(w, 4, 6, None, torch.bfloat16)
+  with pytest.raises(ValueError, match="finish spec"):
+    th_dm.demosaic_stencil(torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16), w,
+                           fin)
+  with pytest.raises(ValueError, match="3k"):
+    th_rh.reinhard_map_bf16(torch.zeros(1, 4, 4, 4, dtype=torch.bfloat16),
+                            torch.zeros(6), False)
+  with pytest.raises(ValueError, match="one value per image"):
+    th_fin.finish_planar_u8(torch.zeros(2, 12, 2, 2, dtype=torch.bfloat16),
+                            torch.ones(1, 1, 1, 1), 1.0)
+
+
+def test_state_from_jax_dict_of_numpy():
+  st = {"metrics": np.arange(9, dtype=np.float32),
+        "white_balance": np.array([2.0, 1.0, 1.5])}
+  out = tci.state_from_jax(st)
+  assert out["metrics"].dtype == torch.float32
+  assert out["white_balance"].dtype == torch.float64
+  assert tci.state_from_jax({"metrics": None,
+                             "white_balance": None}) == {}
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu")
+  isp.load_state(out)
+  np.testing.assert_array_equal(isp.metrics.numpy(), st["metrics"])
+  np.testing.assert_array_equal(isp.white_balance, st["white_balance"])
