@@ -2,11 +2,12 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``taichi_image_tpu`` (JAX on a TPU), which stays beside it as
-the reference. This package covers the bf16 main path: packed12 decode,
-MHC/bilinear demosaic for all four Bayer patterns with the WB/CCM fold,
-EMA metering, the Reinhard tonemap and planar u8 output, through
-``CameraBF16(pattern, device="cuda").process(raws)``. It imports torch
-and numpy, never jax.
+the reference. This package covers the main path of the three ISP
+classes: packed12 decode, MHC/bilinear demosaic for all four Bayer
+patterns with the WB/CCM fold, EMA metering, the Reinhard tonemap and
+planar u8 output, through ``CameraBF16``, ``Camera16`` or
+``Camera32(pattern, device="cuda").process(raws)`` (bf16, f16 and f32
+working dtypes). It imports torch and numpy, never jax.
 """
 
 from taichi_image_tpu_torch import types

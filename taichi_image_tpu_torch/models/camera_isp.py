@@ -1,17 +1,25 @@
 """Multi-camera ISP step on PyTorch: packed12 RAW -> demosaic (+WB/CCM)
 -> EMA metering -> Reinhard -> planar u8.
 
-Counterpart of ``taichi_image_tpu/models/camera_isp.py`` for the bf16
-main path (``fused_isp_step`` with packed12 raws, no resize, no
-transform, even metering stride, Reinhard). On a CUDA device the step is
-four hand-written Hopper kernels plus the metering reduction in torch:
+Counterpart of ``taichi_image_tpu/models/camera_isp.py`` for the main
+path (``fused_isp_step`` with packed12 raws, no resize, no transform,
+even metering stride, Reinhard) of all three classes: CameraBF16 (bf16),
+Camera16 (f16) and Camera32 (f32). On a CUDA device the step is four
+hand-written Hopper kernels, each instantiated for the working dtype T,
+plus the metering reduction in torch:
 
-  K1 decode   (N, H, 1.5W) u8        -> phases (N, 4, H/2, W/2) bf16
-  K2 stencil  phases                 -> x12 (N, 12, H/2, W/2) bf16
-                                        + metering sample (N, 3, ., .)
-  metering    sample, prev vec9      -> new vec9 (torch, on device)
-  K3 map      x12, scal(vec9)        -> p bf16 + per-image max f32
-  K4 finish   p, max                 -> planar u8 (N, 3, H, W)
+  K1<T> decode   (N, H, 1.5W) u8     -> phases (N, 4, H/2, W/2) T
+  K2<T> stencil  phases              -> x12 (N, 12, H/2, W/2) T
+                                        + metering sample (N, 3, ., .) T
+  metering       sample, prev vec9   -> new vec9 (torch, f32, on device)
+  K3<T> map      x12, scal(vec9)     -> p T + per-image max of the f32 p
+  K4<T> finish   p, max              -> planar u8 (N, 3, H, W)
+
+Camera16 has the semantics of the JAX package's strict f16 route, which
+its TPU-only q16 route is held to (tests/test_q16.py): phases, x12 and p
+materialized in f16. The q16 containers are not carried over; they exist
+because the TPU's Mosaic toolchain cannot load or store f16
+(taichi_image_tpu/ops/pallas/q16.py:7-13), and Hopper can.
 
 No step syncs with the host: the metering vector feeds the map kernel
 as a device tensor. vec9 layout: [bounds.min, bounds.max,
@@ -74,13 +82,12 @@ def load_raw_phases(raws: torch.Tensor, fmt: str, work_dtype,
                     ids_format: bool = False,
                     backend: str = "auto") -> torch.Tensor:
   """Decode a raw batch to normalized CFA phase planes (N, 4, H/2, W/2)
-  in the working dtype (K1 for packed12 -> bf16)."""
+  in the working dtype (K1 for packed12)."""
   if fmt != "packed12":
     raise _not_ported(f"raw format {fmt!r}", 13)
-  if types.canonical_dtype(work_dtype) != types.bf16:
-    raise _not_ported(f"working dtype {work_dtype}", 14)
-  return hopper_decode.decode12_phases_bf16(raws, ids_format,
-                                            backend=backend)
+  return hopper_decode.decode12_phases(raws, ids_format,
+                                       types.canonical_dtype(work_dtype),
+                                       backend=backend)
 
 
 def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t):
@@ -121,12 +128,12 @@ def reinhard_map_max_ca(x: torch.Tensor, metrics: torch.Tensor, intensity,
                         light_adapt, color_adapt, work_dtype,
                         backend: str = "auto"):
   """Map stage (K3): ``(p in the working dtype, per-image max of the f32
-  p (N, 1, 1, 1))`` for (N, 3k, hh, wh) input."""
-  if types.canonical_dtype(work_dtype) != types.bf16:
-    raise _not_ported(f"working dtype {work_dtype}", 14)
+  p (N, 1, 1, 1))`` for (N, 3k, hh, wh) input of that dtype."""
+  wd = types.canonical_dtype(work_dtype)
+  if x.dtype != wd:
+    raise ValueError(f"map input is {x.dtype}, the working dtype {wd}")
   scal, ca_mode = _map_scal(metrics, intensity, light_adapt, color_adapt)
-  return hopper_reinhard.reinhard_map_bf16(x, scal, ca_mode,
-                                           backend=backend)
+  return hopper_reinhard.reinhard_map(x, scal, ca_mode, backend=backend)
 
 
 def reinhard_gamma_ca(p_cast: torch.Tensor, max_out: torch.Tensor,
@@ -214,9 +221,6 @@ class _ISPBase:
                transform: ImageTransform = ImageTransform.none,
                device="cuda",
                metering_stride: int = 8):
-    if self._work_dtype != types.bf16:
-      raise _not_ported(f"the {type(self).__name__} class "
-                        f"({self._work_dtype} working dtype)", 14)
     if scale is not None and resize_width != 0:
       raise ValueError("Cannot specify both scale and resize_width")
     self.bayer_pattern = bayer_pattern
@@ -341,8 +345,8 @@ def camera_isp(name: str, dtype=types.f32):
   return cls
 
 
-# Camera16/Camera32 raise NotImplementedError when constructed (ROADMAP.md
-# queue 1, item 14); CameraBF16 is the ported main path.
+# The three classes of the JAX package; each runs the ported main path
+# through its own dtype's instantiations of K1-K4.
 Camera16 = camera_isp("Camera16", types.f16)
 Camera32 = camera_isp("Camera32", types.f32)
 CameraBF16 = camera_isp("CameraBF16", types.bf16)

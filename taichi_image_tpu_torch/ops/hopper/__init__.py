@@ -1,12 +1,16 @@
 """Hand-written Hopper (sm_90a) kernels: build, load and launch.
 
 Counterpart of ``taichi_image_tpu/ops/pallas/__init__.py``. Each kernel
-lives in ``csrc/<name>.cu`` as CUDA C++ with an ``extern "C"`` launcher
+lives in ``csrc/<name>.cu`` as CUDA C++ templated over the working dtype
+T (bf16, f16, f32), with one ``extern "C"`` launcher per instantiation
 that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
-``cudaGetLastError()``. A launcher's library is compiled with ``nvcc`` on
-first use into ``_build/`` (keyed by a hash of the sources, the flags and
-``nvcc --version``) and loaded with ``ctypes``; nothing includes
-PyTorch's headers, so a kernel builds in seconds and needs no ``ninja``.
+``cudaGetLastError()``. Each instantiation is a registered
+:class:`Kernel` named ``<stage>_<suffix>`` (``decode_f16``,
+``demosaic_f32``, ...). A source's library, holding all its
+instantiations, is compiled with ``nvcc`` on first use into ``_build/``
+(keyed by a hash of the sources, the flags and ``nvcc --version``) and
+loaded with ``ctypes``; nothing includes PyTorch's headers, so a kernel
+builds in seconds and needs no ``ninja``.
 
 No fallback hides the device or the kernel: a failed build raises with
 nvcc's stderr, a failed launch raises with the CUDA error, and a CUDA
@@ -31,8 +35,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "register", "build_all", "launch_counts",
-           "reset_launches", "use_kernel", "check_tensor", "stream_of", "ptr"]
+__all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register_per_dtype",
+           "build_all", "launch_counts", "reset_launches", "use_kernel",
+           "check_dtype", "check_tensor", "stream_of", "ptr"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -44,6 +49,12 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 BACKENDS = ("auto", "kernel", "plain")
+
+# The working dtypes every kernel is instantiated for, and the suffix of
+# their C launchers and registered names (csrc/common.cuh
+# TIT_FOR_EACH_DTYPE).
+DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16",
+                torch.float32: "f32"}
 
 
 def _nvcc() -> str:
@@ -127,18 +138,26 @@ class Kernel:
 KERNELS: dict[str, Kernel] = {}
 
 
-def register(kernel: Kernel) -> Kernel:
-  KERNELS[kernel.name] = kernel
-  return kernel
+def register_per_dtype(stage: str, source: str, symbol: str, argtypes,
+                       replaces: dict) -> dict[torch.dtype, Kernel]:
+  """Register one :class:`Kernel` per working dtype: ``<stage>_<suffix>``
+  launched through ``<symbol>_<suffix>``; ``replaces`` maps each dtype to
+  the TPU kernel (or XLA route) it ports. Returns {dtype: Kernel}."""
+  out = {}
+  for dtype, suffix in DTYPE_SUFFIX.items():
+    k = Kernel(f"{stage}_{suffix}", source, f"{symbol}_{suffix}", argtypes,
+               replaces[dtype])
+    KERNELS[k.name] = out[dtype] = k
+  return out
 
 
 def build_all() -> dict[str, Path]:
-  """Build every registered kernel's library in parallel nvcc processes;
-  returns {name: library path}."""
+  """Build every kernel source's library, one nvcc process per source, all
+  in parallel; returns {source: library path}."""
   _import_kernel_modules()
-  with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-    futs = {name: pool.submit(k.build) for name, k in KERNELS.items()}
-    return {name: f.result() for name, f in futs.items()}
+  sources = sorted({k.source for k in KERNELS.values()})
+  with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    return dict(zip(sources, pool.map(_build, sources)))
 
 
 def _import_kernel_modules():
@@ -182,6 +201,14 @@ def use_kernel(backend: str, x: torch.Tensor) -> bool:
         f"the Hopper kernels are built for sm_90a; {x.device} has "
         f"capability {major_minor}")
   return True
+
+
+def check_dtype(name: str, dtype: torch.dtype) -> None:
+  """A wrapper's dtype guard on both routes: the kernels are instantiated
+  for bf16, f16 and f32 only."""
+  if dtype not in DTYPE_SUFFIX:
+    raise ValueError(f"{name} must be bfloat16, float16 or float32 (the "
+                     f"kernels' instantiations), got {dtype}")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

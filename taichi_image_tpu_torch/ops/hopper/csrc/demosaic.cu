@@ -1,16 +1,22 @@
-// K2: demosaic stencil with in-kernel finish and metering samples,
-// (N, 4, hh, wh) bf16 phase planes -> (N, 12, hh, wh) bf16 phase-RGB
-// plus the stride-`step` sample of channels 0..2, (N, 3, hs, ws) bf16.
+// K2<T>: demosaic stencil with in-kernel finish and metering samples,
+// (N, 4, hh, wh) phase planes of T (bf16, f16 or f32) -> (N, 12, hh, wh)
+// phase-RGB of T plus the stride-`step` sample of channels 0..2,
+// (N, 3, hs, ws) of T.
 //
 // Replaces taichi_image_tpu/ops/pallas/demosaic.py::_stencil_kernel with
 // `finish` and `sample_step` (via demosaic_stencil, pallas_call at
-// demosaic.py:377). The TPU kernel DMAs halo tiles and emits the sample
-// through one-hot MXU dots; here one thread computes all 12 channels of
-// one half-res pixel straight from device memory (the 3x3 x 4-phase
-// neighbourhood of neighbouring threads overlaps and is served by L1).
+// demosaic.py:377): its bf16 and f32 finishes, and its q16_io branch of
+// the Camera16 route, whose 16-bit fixed-point codes stand in for the f16
+// that Mosaic cannot load or store. The TPU kernel DMAs halo tiles and
+// emits the sample through one-hot MXU dots; here one thread computes all
+// 12 channels of one half-res pixel straight from device memory (the
+// 3x3 x 4-phase neighbourhood of neighbouring threads overlaps and is
+// served by L1).
 //
-// Bound: memory on paper (8 bytes of phases read and 24 bytes of x12
-// written per half-res pixel). Every output phase reads the same 13
+// Bound: memory on paper (4 * sizeof(T) bytes of phases read and
+// 12 * sizeof(T) bytes of x12 written per half-res pixel; f32 moves twice
+// the bytes of bf16 and f16 with the same arithmetic and registers).
+// Every output phase reads the same 13
 // diamond positions whatever the Bayer pattern or method, so those
 // positions are fixed at compile time (kTaps) and only their weights come
 // from the parameter block: 13 multiply-adds per channel and no run-time
@@ -22,7 +28,7 @@
 //      t * 0 == +0, which leaves the sum's value unchanged);
 //   2. the border factor rvf * cvv, then the four corner multiplies;
 //   3. the CCM as v0*c0 + v1*c1 + v2*c2 (no FMA: built with --fmad=false);
-//   4. clip to [0, 1], then round to bf16.
+//   4. clip to [0, 1], then round once to T (the sample is that T value).
 // Channel index = out_phase * 3 + rgb, output phases in
 // ops/bayer._PHASE_PARITY order ((0,0), (1,0), (0,1), (1,1) in (row, col));
 // input phases are in row-major parity order (q = (row%2)*2 + col%2).
@@ -64,9 +70,9 @@ constexpr int kParamFloats = 12 * 13 + 12 * 5 + 4 * 12 + 9;
 static_assert(offsetof(StencilParams, has_ccm) == kParamFloats * sizeof(float),
               "StencilParams must be a packed float block");
 
-__global__ void stencil_kernel(const __nv_bfloat16* __restrict__ x,
-                               __nv_bfloat16* __restrict__ out,
-                               __nv_bfloat16* __restrict__ samp, int n,
+template <typename T>
+__global__ void stencil_kernel(const T* __restrict__ x, T* __restrict__ out,
+                               T* __restrict__ samp, int n,
                                int hh, int wh, int step, int hs, int ws,
                                const StencilParams p) {
   const long long plane = static_cast<long long>(hh) * wh;
@@ -90,8 +96,8 @@ __global__ void stencil_kernel(const __nv_bfloat16* __restrict__ x,
           const int y = i + u - 1, xc = j + v - 1;
           const bool in = y >= 0 && y < hh && xc >= 0 && xc < wh;
           t[q * 9 + u * 3 + v] =
-              in ? __bfloat162float(x[(b * 4 + q) * plane +
-                                      static_cast<long long>(y) * wh + xc])
+              in ? tit::load_f32(x[(b * 4 + q) * plane +
+                                   static_cast<long long>(y) * wh + xc])
                  : 0.0f;
         }
       }
@@ -135,8 +141,7 @@ __global__ void stencil_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int oc = ph * 3 + c;
-        const __nv_bfloat16 o =
-            __float2bfloat16_rn(fminf(fmaxf(vals[c], 0.0f), 1.0f));
+        const T o = tit::store_rn<T>(fminf(fmaxf(vals[c], 0.0f), 1.0f));
         out[(b * 12 + oc) * plane + static_cast<long long>(i) * wh + j] = o;
         if (ph == 0 && sampled) {
           samp[((b * 3 + c) * hs + i / step) * static_cast<long long>(ws) +
@@ -147,12 +152,9 @@ __global__ void stencil_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-}  // namespace
-
-extern "C" int tit_demosaic_stencil_bf16(const void* x, void* out,
-                                         void* samp, int n, int hh, int wh,
-                                         int step, const float* params,
-                                         int has_ccm, cudaStream_t stream) {
+template <typename T>
+int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
+           int step, const float* params, int has_ccm, cudaStream_t stream) {
   StencilParams p;
   std::memcpy(&p, params, kParamFloats * sizeof(float));
   p.has_ccm = has_ccm;
@@ -160,8 +162,19 @@ extern "C" int tit_demosaic_stencil_bf16(const void* x, void* out,
   if (total == 0) return static_cast<int>(cudaSuccess);
   const int hs = step > 0 ? (hh + step - 1) / step : 0;
   const int ws = step > 0 ? (wh + step - 1) / step : 0;
-  stencil_kernel<<<tit::grid_for(total), tit::kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-      static_cast<__nv_bfloat16*>(samp), n, hh, wh, step, hs, ws, p);
+  stencil_kernel<T><<<tit::grid_for(total), tit::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(samp),
+      n, hh, wh, step, hs, ws, p);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define TIT_STENCIL_LAUNCHER(suffix, T)                                      \
+  extern "C" int tit_demosaic_stencil_##suffix(                              \
+      const void* x, void* out, void* samp, int n, int hh, int wh, int step, \
+      const float* params, int has_ccm, cudaStream_t stream) {               \
+    return launch<T>(x, out, samp, n, hh, wh, step, params, has_ccm,         \
+                     stream);                                                \
+  }
+TIT_FOR_EACH_DTYPE(TIT_STENCIL_LAUNCHER)

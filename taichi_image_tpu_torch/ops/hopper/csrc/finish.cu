@@ -1,17 +1,19 @@
-// K4: tonemap finish, (N, 12, hh, wh) bf16 pre-gamma p + per-image max
-// (N,) f32 -> planar u8 (N, 3, 2hh, 2wh): o = p / max(1e-6, max_out[n]),
-// exp2(log2(o) * inv_gamma) when gamma != 1, trunc(clip(255 o, 0, 255)),
-// and the 2x2 phase->planar interleave.
+// K4<T>: tonemap finish, (N, 12, hh, wh) pre-gamma p of T (bf16, f16 or
+// f32) + per-image max (N,) f32 -> planar u8 (N, 3, 2hh, 2wh):
+// o = p / max(1e-6, max_out[n]), exp2(log2(o) * inv_gamma) when
+// gamma != 1, trunc(clip(255 o, 0, 255)), and the 2x2 phase->planar
+// interleave.
 //
 // Replaces taichi_image_tpu/ops/pallas/finish.py::_finish_kernel (via
 // finish_planar_u8, pallas_call at finish.py:199). The TPU kernel packs
 // four bytes into i32 words through one-hot MXU dots because Mosaic
-// cannot store u8; Hopper stores the bytes directly.
+// cannot store u8; Hopper stores the bytes directly. The working dtype
+// changes only the load.
 //
-// Bound: memory. 24 bytes of p read and 12 bytes of u8 written per
-// half-res pixel. One thread per (n, c, i, j) writes the 2x2 output
-// quad as two 2-byte stores; channel pc*6 + pr*3 + c feeds output pixel
-// (2i + pr, 2j + pc).
+// Bound: memory. 12 * sizeof(T) bytes of p read and 12 bytes of u8
+// written per half-res pixel. One thread per (n, c, i, j) writes the 2x2
+// output quad as two 2-byte stores; channel pc*6 + pr*3 + c feeds output
+// pixel (2i + pr, 2j + pc).
 //
 // The division is a true IEEE division and the u8 convert truncates
 // toward zero (XLA's f32->u8 convert, camera_isp.py:1106); fmaxf maps a
@@ -20,7 +22,8 @@
 
 namespace {
 
-__global__ void finish_kernel(const __nv_bfloat16* __restrict__ x,
+template <typename T>
+__global__ void finish_kernel(const T* __restrict__ x,
                               const float* __restrict__ max_out,
                               uint8_t* __restrict__ out, int n, int hh,
                               int wh, int apply_gamma, float inv_gamma) {
@@ -36,14 +39,14 @@ __global__ void finish_kernel(const __nv_bfloat16* __restrict__ x,
     const int c = static_cast<int>(bc % 3);
     const long long b = bc / 3;
     const float mx = fmaxf(1e-6f, max_out[b]);
-    const __nv_bfloat16* xb = x + b * 12 * plane + static_cast<long long>(i) * wh + j;
+    const T* xb = x + b * 12 * plane + static_cast<long long>(i) * wh + j;
     uint8_t* ob = out + (bc * 2 * hh + 2LL * i) * row + 2LL * j;
 #pragma unroll
     for (int pr = 0; pr < 2; ++pr) {
       uint8_t v[2];
 #pragma unroll
       for (int pc = 0; pc < 2; ++pc) {
-        float o = __bfloat162float(xb[(pc * 6 + pr * 3 + c) * plane]) / mx;
+        float o = tit::load_f32(xb[(pc * 6 + pr * 3 + c) * plane]) / mx;
         if (apply_gamma) o = exp2f(log2f(o) * inv_gamma);
         const float s = fminf(fmaxf(255.0f * o, 0.0f), 255.0f);
         v[pc] = static_cast<uint8_t>(__float2uint_rz(s));
@@ -53,17 +56,24 @@ __global__ void finish_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-}  // namespace
-
-extern "C" int tit_finish_planar_u8(const void* x, const void* max_out,
-                                    void* out, int n, int hh, int wh,
-                                    int apply_gamma, float inv_gamma,
-                                    cudaStream_t stream) {
+template <typename T>
+int launch(const void* x, const void* max_out, void* out, int n, int hh,
+           int wh, int apply_gamma, float inv_gamma, cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * 3 * hh * wh;
   if (total == 0) return static_cast<int>(cudaSuccess);
-  finish_kernel<<<tit::grid_for(total), tit::kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const float*>(max_out), static_cast<uint8_t*>(out), n, hh,
-      wh, apply_gamma, inv_gamma);
+  finish_kernel<T><<<tit::grid_for(total), tit::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(max_out),
+      static_cast<uint8_t*>(out), n, hh, wh, apply_gamma, inv_gamma);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define TIT_FINISH_LAUNCHER(suffix, T)                                     \
+  extern "C" int tit_finish_planar_u8_##suffix(                            \
+      const void* x, const void* max_out, void* out, int n, int hh, int wh, \
+      int apply_gamma, float inv_gamma, cudaStream_t stream) {             \
+    return launch<T>(x, max_out, out, n, hh, wh, apply_gamma, inv_gamma,   \
+                     stream);                                              \
+  }
+TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)

@@ -1,15 +1,24 @@
-// K3: Reinhard map + per-image max, (N, C, hh, wh) bf16 (C % 3 == 0) ->
-// p bf16 of the same shape + the per-image max of the f32 p, (N,) f32.
+// K3<T>: Reinhard map + per-image max, (N, C, hh, wh) of T (bf16, f16 or
+// f32; C % 3 == 0) -> p of T and the same shape + the per-image max of
+// the f32 p, (N,) f32.
 //
-// Replaces taichi_image_tpu/ops/pallas/reinhard.py::_bf16_kernel_dma
-// (via reinhard_map_bf16_dma, pallas_call at reinhard.py:274). The TPU
-// kernel double-buffers tiles through VMEM and writes per-tile max
+// Replaces the TPU's Reinhard map kernels, ops/pallas/reinhard.py:
+//   bf16: _bf16_kernel_dma (reinhard_map_bf16_dma, pallas_call at :274);
+//   f32:  _kernel (reinhard_map_pallas, :124);
+//   f16:  _q16_kernel_dma (reinhard_map_q16_dma, :625), the Camera16
+//         route, and _packed_kernel(_dma) (reinhard_map_packed(_dma),
+//         :482 and :441). Those read and write 16-bit fixed-point codes or
+//         f16 bits packed two per i32 because Mosaic has no f16 I/O; here
+//         the f16 is loaded and stored natively.
+// The TPU kernels double-buffer tiles through VMEM and write per-tile max
 // partials that XLA reduces afterwards; here one thread maps one
 // (n, group k, i, j) pixel (3 channels) and the per-image max is a block
 // reduction followed by one atomicMax per block.
 //
-// Bound: memory on paper (6 bytes read, 6 written per pixel), with one
-// exp2f + log2f per pixel (three with color_adapt > 0) close behind.
+// Bound: memory on paper (3 * sizeof(T) bytes read and written per
+// pixel), with one exp2f + log2f per pixel (three with color_adapt > 0)
+// close behind. The p store rounds once to nearest even; an f16 p below
+// 6.1e-5 is a subnormal and is kept (no -ftz, no fast math).
 //
 // The scalars (reinhard_scal / reinhard_scal_ca, computed in torch on
 // the device) arrive as a device pointer, so the launch needs no host
@@ -40,9 +49,8 @@ __device__ __forceinline__ float pow_exp2(float base, float k) {
   return exp2f(k * log2f(base));
 }
 
-template <bool CA>
-__global__ void map_kernel(const __nv_bfloat16* __restrict__ x,
-                           __nv_bfloat16* __restrict__ p,
+template <typename T, bool CA>
+__global__ void map_kernel(const T* __restrict__ x, T* __restrict__ p,
                            unsigned* __restrict__ mx_enc, int ng, int hh,
                            int wh, const float* __restrict__ scal) {
   const long long b = blockIdx.y;
@@ -60,7 +68,7 @@ __global__ void map_kernel(const __nv_bfloat16* __restrict__ x,
     float sc[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      sc[c] = (__bfloat162float(x[base + c * plane]) - m0) / rng;
+      sc[c] = (tit::load_f32(x[base + c * plane]) - m0) / rng;
     }
     const float gray = 0.299f * sc[0] + 0.587f * sc[1] + 0.114f * sc[2];
     float adapt = 0.0f;
@@ -75,7 +83,7 @@ __global__ void map_kernel(const __nv_bfloat16* __restrict__ x,
       float pv = sc[c] * (1.0f / (adapt + sc[c]));
       if (pv != pv) pv = 0.0f;  // NaN (no fast math: the compare is kept)
       lmax = fmaxf(lmax, pv);
-      p[base + c * plane] = __float2bfloat16_rn(pv);
+      p[base + c * plane] = tit::store_rn<T>(pv);
     }
   }
 
@@ -104,12 +112,10 @@ __global__ void decode_max_kernel(const unsigned* __restrict__ mx_enc,
   if (i < n) mx[i] = decode_ordered(mx_enc[i]);
 }
 
-}  // namespace
-
-extern "C" int tit_reinhard_map_bf16(const void* x, void* p, void* mx_enc,
-                                     void* mx, int n, int ng, int hh, int wh,
-                                     const void* scal, int ca_mode,
-                                     cudaStream_t stream) {
+template <typename T>
+int launch(const void* x, void* p, void* mx_enc, void* mx, int n, int ng,
+           int hh, int wh, const void* scal, int ca_mode,
+           cudaStream_t stream) {
   if (static_cast<long long>(n) * ng * hh * wh == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -117,14 +123,16 @@ extern "C" int tit_reinhard_map_bf16(const void* x, void* p, void* mx_enc,
   if (err != cudaSuccess) return static_cast<int>(err);
   // up to 1024 blocks per image: few atomics, many pixels per thread
   const dim3 grid(tit::grid_for(static_cast<long long>(ng) * hh * wh, 1024), n);
-  const auto* xin = static_cast<const __nv_bfloat16*>(x);
-  auto* pout = static_cast<__nv_bfloat16*>(p);
+  const auto* xin = static_cast<const T*>(x);
+  auto* pout = static_cast<T*>(p);
   auto* enc = static_cast<unsigned*>(mx_enc);
   const auto* s = static_cast<const float*>(scal);
   if (ca_mode) {
-    map_kernel<true><<<grid, tit::kThreads, 0, stream>>>(xin, pout, enc, ng, hh, wh, s);
+    map_kernel<T, true><<<grid, tit::kThreads, 0, stream>>>(xin, pout, enc,
+                                                            ng, hh, wh, s);
   } else {
-    map_kernel<false><<<grid, tit::kThreads, 0, stream>>>(xin, pout, enc, ng, hh, wh, s);
+    map_kernel<T, false><<<grid, tit::kThreads, 0, stream>>>(xin, pout, enc,
+                                                             ng, hh, wh, s);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -132,3 +140,14 @@ extern "C" int tit_reinhard_map_bf16(const void* x, void* p, void* mx_enc,
       enc, static_cast<float*>(mx), n);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define TIT_MAP_LAUNCHER(suffix, T)                                          \
+  extern "C" int tit_reinhard_map_##suffix(                                  \
+      const void* x, void* p, void* mx_enc, void* mx, int n, int ng, int hh, \
+      int wh, const void* scal, int ca_mode, cudaStream_t stream) {          \
+    return launch<T>(x, p, mx_enc, mx, n, ng, hh, wh, scal, ca_mode,         \
+                     stream);                                                \
+  }
+TIT_FOR_EACH_DTYPE(TIT_MAP_LAUNCHER)

@@ -1,8 +1,10 @@
 """K2: the demosaic stencil with fused finish and metering samples
-(``csrc/demosaic.cu``).
+(``csrc/demosaic.cu``, one instantiation per working dtype).
 
 Replaces ``taichi_image_tpu/ops/pallas/demosaic.py::demosaic_stencil``
-with ``finish`` and ``sample_step`` (the bf16 in, bf16 out main path).
+with ``finish`` and ``sample_step``: its bf16 and f32 finishes and, as
+the f16 instantiation, its ``q16_io`` branch (the Camera16 route, whose
+16-bit codes stand in for the f16 the TPU cannot load or store).
 The weights, ``inv_full``, border factors, corner corrections and CCM
 travel as one f32 block in the kernel's parameters.
 """
@@ -20,13 +22,14 @@ from taichi_image_tpu_torch.ops.bayer import _PHASE_PARITY, diamond_kernel
 
 __all__ = ["demosaic_stencil", "demosaic_stencil_plain", "stencil_params"]
 
-KERNEL = hopper.register(hopper.Kernel(
-    name="demosaic", source="demosaic.cu",
-    symbol="tit_demosaic_stencil_bf16",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-    replaces="taichi_image_tpu/ops/pallas/demosaic.py:377"))
+KERNELS = hopper.register_per_dtype(
+    "demosaic", "demosaic.cu", "tit_demosaic_stencil",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_void_p],
+    # one pallas_call serves the bf16 and f32 finishes and the q16 branch
+    dict.fromkeys(hopper.DTYPE_SUFFIX,
+                  "taichi_image_tpu/ops/pallas/demosaic.py:377"))
 
 # layout of csrc/demosaic.cu StencilParams (without has_ccm)
 PARAM_FLOATS = 12 * 13 + 12 * 5 + 4 * 12 + 9
@@ -146,8 +149,8 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
   the finished stencil (border renorm, optional CCM, clip, cast) and,
   with ``sample_step`` > 0, ``x12[:, 0:3, ::s, ::s]`` (else None).
 
-  The kernel takes bf16 phases and writes bf16 x12 and samples; the
-  plain twin takes any float phases.
+  Phases, x12 and sample share one working dtype (bf16, f16 or f32),
+  ``finish["out_dtype"]``.
   """
   if phases.ndim != 4 or phases.shape[1] != 4:
     raise ValueError(f"phases must be (N, 4, hh, wh), got "
@@ -158,23 +161,26 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
   if (finish["hh"], finish["wh"]) != (hh, wh):
     raise ValueError(f"finish spec is for {finish['hh']}x{finish['wh']}, "
                      f"phases are {hh}x{wh}")
+  dtype = finish["out_dtype"]
+  hopper.check_dtype("the stencil's output dtype", dtype)
+  if phases.dtype != dtype:
+    raise ValueError(f"phases are {phases.dtype} but the stencil writes "
+                     f"{dtype}: the kernels take one working dtype")
   if not hopper.use_kernel(backend, phases):
     return demosaic_stencil_plain(phases, weights, finish, sample_step)
-  if (phases.dtype != torch.bfloat16
-      or finish["out_dtype"] != torch.bfloat16
-      or (finish["top_row"], finish["bot_row"]) != (0, hh - 1)):
+  if (finish["top_row"], finish["bot_row"]) != (0, hh - 1):
     raise NotImplementedError(
-        "the stencil kernel covers whole bf16 frames; f16/f32 and banded "
-        "stencils are ROADMAP.md queue 1, items 14 and 10")
-  hopper.check_tensor("phases", phases, torch.bfloat16, 4, phases.device)
+        "the stencil kernel covers whole frames; banded stencils are "
+        "ROADMAP.md queue 1, item 10")
+  hopper.check_tensor("phases", phases, dtype, 4, phases.device)
   dev = phases.device
-  x12 = torch.empty((n, 12, hh, wh), dtype=torch.bfloat16, device=dev)
+  x12 = torch.empty((n, 12, hh, wh), dtype=dtype, device=dev)
   s = sample_step
-  samp = (torch.empty((n, 3, -(-hh // s), -(-wh // s)),
-                      dtype=torch.bfloat16, device=dev) if s else None)
+  samp = (torch.empty((n, 3, -(-hh // s), -(-wh // s)), dtype=dtype,
+                      device=dev) if s else None)
   params = stencil_params(weights, finish)
-  KERNEL.launch(hopper.ptr(phases), hopper.ptr(x12),
-                hopper.ptr(samp) if s else None, n, hh, wh, s,
-                params.ctypes.data_as(ctypes.c_void_p),
-                int(finish["cc"] is not None), hopper.stream_of(dev))
+  KERNELS[dtype].launch(hopper.ptr(phases), hopper.ptr(x12),
+                        hopper.ptr(samp) if s else None, n, hh, wh, s,
+                        params.ctypes.data_as(ctypes.c_void_p),
+                        int(finish["cc"] is not None), hopper.stream_of(dev))
   return x12, samp

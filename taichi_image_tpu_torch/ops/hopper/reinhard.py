@@ -1,10 +1,14 @@
-"""K3: the Reinhard map with the per-image max (``csrc/reinhard.cu``).
+"""K3: the Reinhard map with the per-image max (``csrc/reinhard.cu``,
+one instantiation per working dtype).
 
-Replaces ``taichi_image_tpu/ops/pallas/reinhard.py::reinhard_map_bf16_dma``.
-The scalar vector comes from :func:`reinhard_scal` /
-:func:`reinhard_scal_ca`, computed in torch on the tensor's device and
-handed to the kernel as a device pointer: the main path makes no host
-sync.
+Replaces the TPU map kernels of ``taichi_image_tpu/ops/pallas/reinhard.py``:
+``reinhard_map_bf16_dma`` (bf16), ``reinhard_map_pallas`` (f32) and, as
+the f16 instantiation, ``reinhard_map_q16_dma`` (the Camera16 route) and
+``reinhard_map_packed(_dma)``, whose i32 containers stand in for the f16
+the TPU cannot load or store. The scalar vector comes from
+:func:`reinhard_scal` / :func:`reinhard_scal_ca`, computed in torch on
+the tensor's device and handed to the kernel as a device pointer: the
+main path makes no host sync.
 """
 
 from __future__ import annotations
@@ -15,15 +19,18 @@ import torch
 
 from taichi_image_tpu_torch.ops import hopper
 
-__all__ = ["reinhard_scal", "reinhard_scal_ca", "reinhard_map_bf16",
+__all__ = ["reinhard_scal", "reinhard_scal_ca", "reinhard_map",
            "reinhard_map_plain", "reinhard_map_f32"]
 
-KERNEL = hopper.register(hopper.Kernel(
-    name="reinhard", source="reinhard.cu", symbol="tit_reinhard_map_bf16",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-    replaces="taichi_image_tpu/ops/pallas/reinhard.py:274"))
+_PALLAS = "taichi_image_tpu/ops/pallas/reinhard.py"
+KERNELS = hopper.register_per_dtype(
+    "reinhard", "reinhard.cu", "tit_reinhard_map",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    # f16 also covers reinhard_map_packed_dma (:441) and _packed (:482)
+    {torch.bfloat16: f"{_PALLAS}:274", torch.float16: f"{_PALLAS}:625",
+     torch.float32: f"{_PALLAS}:124"})
 
 
 def _scalar(v: float, device) -> torch.Tensor:
@@ -78,33 +85,37 @@ def reinhard_map_f32(x: torch.Tensor, scal: torch.Tensor,
   return p.reshape(n, nc, hh, wh)
 
 
-def reinhard_map_plain(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool):
-  """Plain PyTorch twin of K3: ``(p bf16 (N, C, hh, wh), per-image max of
-  the f32 p (N, 1, 1, 1))``."""
+def reinhard_map_plain(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
+                       dtype: torch.dtype):
+  """Plain PyTorch twin of K3: ``(p (N, C, hh, wh) of dtype, per-image max
+  of the f32 p (N, 1, 1, 1))``."""
   p = reinhard_map_f32(x, scal, ca_mode)
-  return p.to(torch.bfloat16), p.amax(dim=(1, 2, 3)).reshape(-1, 1, 1, 1)
+  return p.to(dtype), p.amax(dim=(1, 2, 3)).reshape(-1, 1, 1, 1)
 
 
-def reinhard_map_bf16(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
-                      backend: str = "auto"):
-  """(N, C, hh, wh) bf16, C % 3 == 0 -> ``(p bf16 same shape, per-image
-  f32 max (N, 1, 1, 1))``; the max is over the f32 p before the cast.
-  ``scal`` is the (6,) or, with ``ca_mode``, (10,) vector."""
+def reinhard_map(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
+                 backend: str = "auto"):
+  """(N, C, hh, wh) x12 of the working dtype (bf16, f16 or f32),
+  C % 3 == 0 -> ``(p of x's dtype and shape, per-image f32 max
+  (N, 1, 1, 1))``; the max is over the f32 p before the cast. ``scal`` is
+  the (6,) or, with ``ca_mode``, (10,) vector."""
   if x.ndim != 4 or x.shape[1] % 3 != 0 or x.shape[1] == 0:
     raise ValueError(f"map input must be (N, 3k, hh, wh), got "
                      f"{tuple(x.shape)}")
+  hopper.check_dtype("the map's input", x.dtype)
   want = 10 if ca_mode else 6
   if scal.shape != (want,):
     raise ValueError(f"scal must be ({want},), got {tuple(scal.shape)}")
   if not hopper.use_kernel(backend, x):
-    return reinhard_map_plain(x, scal, ca_mode)
-  hopper.check_tensor("x", x, torch.bfloat16, 4, x.device)
+    return reinhard_map_plain(x, scal, ca_mode, x.dtype)
+  hopper.check_tensor("x", x, x.dtype, 4, x.device)
   hopper.check_tensor("scal", scal, torch.float32, 1, x.device)
   n, nc, hh, wh = x.shape
   p = torch.empty_like(x)
   mx_enc = torch.empty((n,), dtype=torch.int32, device=x.device)
   mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=x.device)
-  KERNEL.launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(mx_enc),
-                hopper.ptr(mx), n, nc // 3, hh, wh, hopper.ptr(scal),
-                int(bool(ca_mode)), hopper.stream_of(x.device))
+  KERNELS[x.dtype].launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(mx_enc),
+                          hopper.ptr(mx), n, nc // 3, hh, wh,
+                          hopper.ptr(scal), int(bool(ca_mode)),
+                          hopper.stream_of(x.device))
   return p, mx

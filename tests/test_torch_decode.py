@@ -35,7 +35,8 @@ def test_decode_matches_pallas_interpret(ids, fill):
   raws = _raws((2, 32, 1152), fill)  # W=768 -> 1152 bytes (decode.py:57)
   want = pl_decode.decode12_phases_bf16(jnp.asarray(raws), ids,
                                         interpret=True)
-  got = th_decode.decode12_phases_plain(torch.from_numpy(raws), ids)
+  got = th_decode.decode12_phases_plain(torch.from_numpy(raws), ids,
+                                        torch.bfloat16)
   assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
   np.testing.assert_array_equal(_bits(got), _bits(want))
 
@@ -45,7 +46,8 @@ def test_decode_matches_pallas_interpret(ids, fill):
 def test_decode_matches_xla_route(ids, shape):
   raws = _raws(shape, None, seed=shape[1])
   want = load_raw_phases(jnp.asarray(raws), "packed12", jtypes.bf16, ids)
-  got = th_decode.decode12_phases_bf16(torch.from_numpy(raws), ids)
+  got = th_decode.decode12_phases(torch.from_numpy(raws), ids,
+                                  torch.bfloat16)
   assert tuple(got.shape) == (shape[0], 4, shape[1] // 2, shape[2] // 3)
   np.testing.assert_array_equal(_bits(got), _bits(want))
 
@@ -56,7 +58,8 @@ def test_decode_phase_order():
   raws = np.zeros((1, 2, 3), np.uint8)
   raws[0, 0] = [0x21, 0x43, 0x65]  # even=0x321, odd=0x654
   raws[0, 1] = [0xFF, 0x0F, 0x00]  # even=0xFFF, odd=0x000
-  got = th_decode.decode12_phases_plain(torch.from_numpy(raws))
+  got = th_decode.decode12_phases_plain(torch.from_numpy(raws), False,
+                                        torch.bfloat16)
   codes = np.array([0x321, 0x654, 0xFFF, 0x000], np.float32)
   want = torch.from_numpy(codes * np.float32(1 / 4095)).to(torch.bfloat16)
   np.testing.assert_array_equal(_bits(got[0, :, 0, 0]), _bits(want))

@@ -6,6 +6,7 @@ ValueError before any kernel launch."""
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +23,8 @@ from taichi_image_tpu_torch.ops.hopper import demosaic as th_dm  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
 from taichi_image_tpu_torch.utils.debug import validate_raw  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _raws(n=2, h=16, wb=96, seed=0):
@@ -49,46 +52,110 @@ def test_import_pulls_in_no_jax():
   assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+STAGES = ["decode", "demosaic", "reinhard", "finish"]
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
 def test_kernels_registered_with_sources():
   counts = hopper.launch_counts()
-  assert set(counts) == {"decode", "demosaic", "reinhard", "finish"}
+  assert set(counts) == {f"{st}_{sfx}" for st in STAGES
+                         for sfx in ("bf16", "f16", "f32")}
   for k in hopper.KERNELS.values():
     assert (hopper.CSRC / k.source).is_file(), k.source
-    path, line = k.replaces.split(":")
-    assert path.startswith("taichi_image_tpu/ops/pallas/") and int(line) > 0
+    # the launcher tit_<name>_<suffix> comes from the source's X-macro
+    base, suffix = k.symbol.rsplit("_", 1)
+    assert k.name.endswith(f"_{suffix}"), (k.name, k.symbol)
+    src = (hopper.CSRC / k.source).read_text()
+    assert f"{base}_##suffix" in src and "TIT_FOR_EACH_DTYPE(" in src
+    path, lines = k.replaces.split(":")
+    assert (REPO / path).is_file(), path
+    if k.name == "decode_f32":  # no Pallas kernel: the XLA decode route
+      assert path == "taichi_image_tpu/models/camera_isp.py", path
+      assert lines == "960-972"
+    else:
+      assert path.startswith("taichi_image_tpu/ops/pallas/"), path
+      text = (REPO / path).read_text().splitlines()
+      assert "pallas_call" in text[int(lines) - 1], (k.name, lines)
 
 
-def _kernel_calls():
-  x4 = torch.zeros(1, 4, 4, 6, dtype=torch.bfloat16)
+def _kernel_calls(dtype):
+  x4 = torch.zeros(1, 4, 4, 6, dtype=dtype)
   w = _demosaic_tables(BayerPattern.RGGB, "mhc")
-  fin = _stencil_finish_spec(w, 4, 6, None, torch.bfloat16)
-  x12 = torch.zeros(1, 12, 4, 6, dtype=torch.bfloat16)
+  fin = _stencil_finish_spec(w, 4, 6, None, dtype)
+  x12 = torch.zeros(1, 12, 4, 6, dtype=dtype)
   scal = torch.zeros(6)
   return {
-      "decode": lambda: th_decode.decode12_phases_bf16(
-          torch.from_numpy(_raws(1, 8, 18)), backend="kernel"),
+      "decode": lambda: th_decode.decode12_phases(
+          torch.from_numpy(_raws(1, 8, 18)), False, dtype, backend="kernel"),
       "demosaic": lambda: th_dm.demosaic_stencil(x4, w, fin, 4,
                                                  backend="kernel"),
-      "reinhard": lambda: th_rh.reinhard_map_bf16(x12, scal, False,
-                                                  backend="kernel"),
+      "reinhard": lambda: th_rh.reinhard_map(x12, scal, False,
+                                             backend="kernel"),
       "finish": lambda: th_fin.finish_planar_u8(x12, torch.ones(1, 1, 1, 1),
                                                 1.0, backend="kernel"),
   }
 
 
-@pytest.mark.parametrize("name", ["decode", "demosaic", "reinhard",
-                                  "finish"])
+@pytest.mark.parametrize("name", STAGES)
 def test_kernel_backend_on_cpu_raises(name):
-  before = hopper.launch_counts()[name]
-  with pytest.raises(ValueError, match="needs CUDA tensors"):
-    _kernel_calls()[name]()
-  assert hopper.launch_counts()[name] == before
+  for dtype in DTYPES:
+    kname = f"{name}_{hopper.DTYPE_SUFFIX[dtype]}"
+    before = hopper.launch_counts()[kname]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+      _kernel_calls(dtype)[name]()
+    assert hopper.launch_counts()[kname] == before
 
 
 def test_unknown_backend_raises():
   with pytest.raises(ValueError, match="unknown backend"):
-    th_decode.decode12_phases_bf16(torch.from_numpy(_raws()),
-                                   backend="cuda")
+    th_decode.decode12_phases(torch.from_numpy(_raws()), False,
+                              torch.bfloat16, backend="cuda")
+
+
+# dtypes no kernel is instantiated for: every wrapper refuses them on
+# both routes, before any launch
+_NO_KERNEL = [torch.uint16, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", _NO_KERNEL, ids=["u16", "f64"])
+def test_decode_refuses_dtype_without_kernel(dtype):
+  with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+    th_decode.decode12_phases(torch.from_numpy(_raws()), False, dtype)
+
+
+@pytest.mark.parametrize("dtype", _NO_KERNEL, ids=["u16", "f64"])
+def test_stencil_refuses_dtype_without_kernel(dtype):
+  w = _demosaic_tables(BayerPattern.RGGB, "mhc")
+  fin = _stencil_finish_spec(w, 4, 6, None, torch.float32)
+  fin = dict(fin, out_dtype=dtype)
+  with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+    th_dm.demosaic_stencil(torch.zeros(1, 4, 4, 6, dtype=dtype), w, fin)
+
+
+@pytest.mark.parametrize("dtype", _NO_KERNEL, ids=["u16", "f64"])
+def test_map_and_finish_refuse_dtype_without_kernel(dtype):
+  x12 = torch.zeros(1, 12, 4, 6, dtype=dtype)
+  with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+    th_rh.reinhard_map(x12, torch.zeros(6), False)
+  with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+    th_fin.finish_planar_u8(x12, torch.ones(1, 1, 1, 1), 1.0)
+
+
+@pytest.mark.parametrize("pin,pout", [
+    (torch.float16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float16)])
+def test_stencil_refuses_dtype_mismatch(pin, pout):
+  w = _demosaic_tables(BayerPattern.RGGB, "mhc")
+  fin = _stencil_finish_spec(w, 4, 6, None, pout)
+  with pytest.raises(ValueError, match="one working dtype"):
+    th_dm.demosaic_stencil(torch.zeros(1, 4, 4, 6, dtype=pin), w, fin)
+
+
+def test_map_stage_refuses_dtype_mismatch():
+  x12 = torch.zeros(1, 12, 4, 6, dtype=torch.float16)
+  with pytest.raises(ValueError, match="working dtype"):
+    tci.reinhard_map_max_ca(x12, torch.zeros(9), 1.0, 1.0, 0.0,
+                            torch.float32)
 
 
 def test_auto_backend_on_cpu_is_plain_and_counts_nothing():
@@ -122,12 +189,6 @@ def test_out_of_slice_isp_config_raises(kw, match):
     isp.process(_raws())
 
 
-@pytest.mark.parametrize("cls", [ttit.Camera16, ttit.Camera32])
-def test_f16_f32_classes_raise(cls):
-  with pytest.raises(NotImplementedError, match="item 14"):
-    cls(BayerPattern.RGGB, device="cpu")
-
-
 def test_tiny_frames_raise_not_implemented():
   with pytest.raises(NotImplementedError, match="item 13"):
     ttit.CameraBF16(BayerPattern.RGGB, device="cpu").process(_raws(1, 2, 6))
@@ -153,9 +214,11 @@ def test_bad_raws_raise_before_any_launch(shape, dtype, fmt, match):
 
 def test_decode_wrapper_rejects_bad_width():
   with pytest.raises(ValueError, match="3k"):
-    th_decode.decode12_phases_bf16(torch.zeros(1, 4, 10, dtype=torch.uint8))
+    th_decode.decode12_phases(torch.zeros(1, 4, 10, dtype=torch.uint8),
+                              False, torch.bfloat16)
   with pytest.raises(ValueError, match="uint8"):
-    th_decode.decode12_phases_bf16(torch.zeros(1, 4, 9, dtype=torch.int16))
+    th_decode.decode12_phases(torch.zeros(1, 4, 9, dtype=torch.int16),
+                              False, torch.bfloat16)
 
 
 def test_wrappers_reject_bad_shapes():
@@ -165,8 +228,8 @@ def test_wrappers_reject_bad_shapes():
     th_dm.demosaic_stencil(torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16), w,
                            fin)
   with pytest.raises(ValueError, match="3k"):
-    th_rh.reinhard_map_bf16(torch.zeros(1, 4, 4, 4, dtype=torch.bfloat16),
-                            torch.zeros(6), False)
+    th_rh.reinhard_map(torch.zeros(1, 4, 4, 4, dtype=torch.bfloat16),
+                       torch.zeros(6), False)
   with pytest.raises(ValueError, match="one value per image"):
     th_fin.finish_planar_u8(torch.zeros(2, 12, 2, 2, dtype=torch.bfloat16),
                             torch.ones(1, 1, 1, 1), 1.0)
