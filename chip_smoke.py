@@ -9,25 +9,37 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device   CUDA available, capability (9, 0); the card's name and power
             limit as nvidia-smi reports them.
-2. build    nvcc builds the four kernel sources (csrc/*.cu, one process
-            each, in parallel) from this checkout; each holds its
-            kernel's bf16, f16 and f32 instantiations (12 in all).
-3. kernels  each instantiation against its plain PyTorch twin on the
-            card, at the 6 x 2160 x 5760-byte packed12 shape of the main
-            path and at a small odd shape; kernel and twin times from CUDA
-            events around batches of 10 calls.
+2. build    nvcc builds the six kernel sources (csrc/*.cu, one process
+            each, in parallel) from this checkout: K1-K4 and K12 for bf16,
+            f16 and f32, and the bf16 front-fused K7 (16 kernels).
+3. kernels  each kernel against its plain PyTorch twin on the card, at
+            the 6 x 2160 x 5760-byte packed12 shape of the main path and
+            at a small odd shape: K1-K4 as before, K4's linear mode and
+            its 8 transforms, K12 at x0.5 (6x4K -> 1920x1080) and x0.37,
+            K3 on the resized planar image, K7 against K2 -> K3 on the
+            card; kernel and twin times from CUDA events around batches
+            of 10 calls.
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
             the EMA carried over, compared frame by frame with the
             all-plain route on the card; the launch counts of that run
             (each class through its own dtype's four kernels); a small
             input against the plain route on the CPU.
-5. timing   for each class, the step by bench.py's method (K chained
+5. routes   the other routes the same way, each with the launch counts
+            set to 0 just before it and read just after, held to the
+            kernels it must launch and no others: resize_width=1920 with
+            rotate_90 for each class, scale 0.37, flip_horiz for each
+            class, the linear tonemap at gamma 2.2 for each class,
+            metering stride 7, and the front-fused route
+            (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only).
+6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
             sync-debug "error" mode (the step must not sync with the
             host); the step without the checksum; the device busy share
-            from a torch.profiler trace; a per-stage table.
+            from a torch.profiler trace; a per-stage table. Then the same
+            step method for the resize->1920 step of each class and the
+            front-fused bf16 step.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,6 +61,7 @@ FRAMES = 5
 K = 10                      # chained steps per timed run
 REPS = 5                    # timed runs (median)
 CLASSES = {"bf16": "CameraBF16", "f16": "Camera16", "f32": "Camera32"}
+FRONT_FUSED = "TAICHI_IMAGE_TPU_FRONT_FUSED"
 
 
 def log(msg: str) -> None:
@@ -120,18 +133,48 @@ def phase_build():
   return dt
 
 
-def phase_kernels(results):
-  """Each kernel instantiation vs its plain twin on the card; fills
-  ``results`` {kernel name: {ms, plain_ms, max_abs_err}}."""
+def _check_bitwise(what, k, p):
   import torch
-  from taichi_image_tpu_torch.models.camera_isp import (default_cc,
+  if k.shape != p.shape or not torch.equal(k, p):
+    d = ((k.float() - p.float()).abs().max().item()
+         if k.shape == p.shape else "shape")
+    raise AssertionError(f"{what}: not bitwise (max |d| {d})")
+
+
+def _check_map(what, kp, km, pp, pm):
+  """K3's contract: p within 1 ulp of T, the max within 1e-6 relative."""
+  u = ulps(kp, pp)
+  rel = ((km - pm).abs() / pm.abs().clamp_min(1e-30)).max().item()
+  if u > 1 or rel > 1e-6:
+    raise AssertionError(f"{what}: {u} ulps, max rel {rel:.3g}")
+
+
+def _time(results, name, call, shape_note="6x4K"):
+  """Kernel and twin times, in turns plain, kernel, kernel, plain; the
+  lower median of each side."""
+  t = [median_ms(lambda: call(b)) for b in
+       ("plain", "kernel", "kernel", "plain")]
+  results[name] = dict(ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]))
+  log(f"  {name}: kernel {results[name]['ms']:.4f} ms, plain "
+      f"{results[name]['plain_ms']:.4f} ms ({shape_note}, median of 7 "
+      "batches of 10)")
+
+
+def phase_kernels(results):
+  """Each kernel against its plain twin on the card; fills ``results``
+  {name: {ms, plain_ms, max_abs_err}} (kernel names, plus extra timed
+  modes named "<kernel> <mode>")."""
+  import torch
+  from taichi_image_tpu_torch.models.camera_isp import (_plan_scales,
+                                                        default_cc,
                                                         metering_update_ca)
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.bayer import (BayerPattern,
                                                 _demosaic_tables,
                                                 _stencil_finish_spec)
   from taichi_image_tpu_torch.ops.hopper import decode, demosaic, finish
-  from taichi_image_tpu_torch.ops.hopper import reinhard
+  from taichi_image_tpu_torch.ops.hopper import front_fused, reinhard, resize
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
   dev = torch.device("cuda")
   gen = torch.Generator(device=dev).manual_seed(0)
@@ -184,32 +227,69 @@ def phase_kernels(results):
                 else reinhard.reinhard_scal(metrics, 1.0, 1.0))
         kp, km = reinhard.reinhard_map(x12, scal, bool(ca), backend="kernel")
         pp, pm = reinhard.reinhard_map(x12, scal, bool(ca), backend="plain")
-        u = ulps(kp, pp)
-        rel = ((km - pm).abs() / pm.abs().clamp_min(1e-30)).max().item()
-        if u > 1 or rel > 1e-6:
-          raise AssertionError(f"reinhard {kt} ca={ca}: {u} ulps, max rel "
-                               f"{rel:.3g}")
+        _check_map(f"reinhard {kt} ca={ca}", kp, km, pp, pm)
         note(f"reinhard_{sfx}", kp, pp)
         note(f"reinhard_{sfx}", km, pm)
-      # K4: bitwise at gamma 1 and 2.2
+      # K4: bitwise, Reinhard and linear modes at gamma 1 and 2.2, and
+      # the 8 transforms
       scal0 = reinhard.reinhard_scal(metrics, 1.0, 1.0)
       p_cast, max_out = reinhard.reinhard_map(x12, scal0, False)
-      for gamma in (1.0, 2.2):
-        ko = finish.finish_planar_u8(p_cast, max_out, gamma,
+      lin = finish.linear_scal(metrics)
+      for mode, src, sc in (("reinhard", p_cast, max_out),
+                            ("linear", x12, lin)):
+        for gamma in (1.0, 2.2):
+          ko = finish.finish_planar_u8(src, sc, gamma, mode,
+                                       backend="kernel")
+          po = finish.finish_planar_u8(src, sc, gamma, mode,
+                                       backend="plain")
+          _check_bitwise(f"finish {kt} {mode} gamma={gamma}", ko, po)
+          note(f"finish_{sfx}", ko, po)
+      for t in ImageTransform:
+        ko = finish.finish_planar_u8(p_cast, max_out, 2.2, transform=t,
                                      backend="kernel")
-        po = finish.finish_planar_u8(p_cast, max_out, gamma,
+        po = finish.finish_planar_u8(p_cast, max_out, 2.2, transform=t,
                                      backend="plain")
-        if not torch.equal(ko, po):
-          d = (ko.int() - po.int()).abs()
-          raise AssertionError(f"finish {kt} gamma={gamma}: not bitwise "
-                               f"(max {d.max().item()}, "
-                               f"{(d != 0).sum().item()} bytes)")
-        note(f"finish_{sfx}", ko, po)
-      log(f"kernels {kt}: decode, demosaic, reinhard, finish agree with "
-          "their plain twins")
+        _check_bitwise(f"finish {kt} {t.value}", ko, po)
+      # K12: bitwise at x0.5 and x0.37 (odd h', w'); K3 on its output
+      plans = {}
+      for scale in (0.5, 0.37):
+        size = (round(2 * wh * scale), round(2 * hh * scale))
+        taps = resize.resize_taps(hh, wh, size,
+                                  _plan_scales(2 * hh, 2 * wh, size, scale),
+                                  dev)
+        kr = resize.resize_x12(x12, taps, backend="kernel")
+        pr = resize.resize_x12(x12, taps, backend="plain")
+        _check_bitwise(f"resize {kt} x{scale} -> {size}", kr, pr)
+        note(f"resize_{sfx}", kr, pr)
+        kp, km = reinhard.reinhard_map(kr, scal0, False, backend="kernel")
+        pp, pm = reinhard.reinhard_map(kr, scal0, False, backend="plain")
+        _check_map(f"reinhard {kt} on planar {tuple(kr.shape)}", kp, km, pp,
+                   pm)
+        plans[scale] = (taps, kr)
+      # K7 (bf16): bitwise against K2 -> K3 on the card, K3's contract
+      # against its twin
+      if dtype == torch.bfloat16:
+        for cc in (None, ccm):
+          fin_c = _stencil_finish_spec(weights, hh, wh, cc, dtype)
+          fp, fm = front_fused.front_fused(phases, weights, fin_c, scal0,
+                                           backend="kernel")
+          cx, _ = demosaic.demosaic_stencil(phases, weights, fin_c,
+                                            backend="kernel")
+          cp, cm = reinhard.reinhard_map(cx, scal0, False, backend="kernel")
+          _check_bitwise(f"front_fused {kt} cc={cc is not None} p", fp, cp)
+          _check_bitwise(f"front_fused {kt} cc={cc is not None} max", fm, cm)
+          pp, pm = front_fused.front_fused(phases, weights, fin_c, scal0,
+                                           backend="plain")
+          _check_map(f"front_fused {kt} vs twin", fp, fm, pp, pm)
+          note("front_fused_bf16", fp, pp)
+      log(f"kernels {kt}: decode, demosaic, reinhard, finish (both modes, 8 "
+          "transforms), resize"
+          + (", front_fused" if dtype == torch.bfloat16 else "")
+          + " agree with their plain twins")
       if shape == ODD:
         continue
       # times at the main path's shapes
+      taps, rgb = plans[0.5]
       calls = {
           f"decode_{sfx}": lambda b: decode.decode12_phases(
               raws, False, dtype, backend=b),
@@ -219,80 +299,150 @@ def phase_kernels(results):
               x12, scal0, False, backend=b),
           f"finish_{sfx}": lambda b: finish.finish_planar_u8(
               p_cast, max_out, 1.0, backend=b),
+          f"finish_{sfx} linear": lambda b: finish.finish_planar_u8(
+              x12, lin, 1.0, "linear", backend=b),
+          f"finish_{sfx} flip_horiz": lambda b: finish.finish_planar_u8(
+              p_cast, max_out, 1.0, transform=ImageTransform.flip_horiz,
+              backend=b),
+          f"finish_{sfx} rotate_90": lambda b: finish.finish_planar_u8(
+              p_cast, max_out, 1.0, transform=ImageTransform.rotate_90,
+              backend=b),
+          f"resize_{sfx}": lambda b: resize.resize_x12(x12, taps, backend=b),
+          f"reinhard_{sfx} planar1080": lambda b: reinhard.reinhard_map(
+              rgb, scal0, False, backend=b),
       }
+      if dtype == torch.bfloat16:
+        calls["front_fused_bf16"] = lambda b: front_fused.front_fused(
+            phases, weights, fin, scal0, backend=b)
       for name, call in calls.items():
-        # plain, kernel, kernel, plain; keep the lower median of each side
-        t = [median_ms(lambda: call(b)) for b in
-             ("plain", "kernel", "kernel", "plain")]
-        results[name] = dict(ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]))
-        log(f"  {name}: kernel {results[name]['ms']:.4f} ms, plain "
-            f"{results[name]['plain_ms']:.4f} ms (6x4K, median of 7 "
-            "batches of 10)")
+        _time(results, name, call,
+              "6x4K -> 1920x1080" if name.startswith("resize") else "6x4K")
+      if dtype == torch.bfloat16:
+        # the composed pair K7 replaces, kernels only
+        ms = median_ms(lambda: reinhard.reinhard_map(
+            demosaic.demosaic_stencil(phases, weights, fin,
+                                      backend="kernel")[0], scal0, False,
+            backend="kernel"))
+        results["demosaic_bf16+reinhard_bf16"] = dict(ms=ms)
+        log(f"  demosaic_bf16 -> reinhard_bf16 (what front_fused_bf16 "
+            f"replaces): {ms:.4f} ms (6x4K)")
   for name in err:
     results[name]["max_abs_err"] = err[name]
   torch.cuda.synchronize()
 
 
-def _step_args(dtype):
-  """fused_isp_step's static arguments of the main path after prev, t:
-  gamma, intensity, light_adapt, color_adapt, fmt, ids_format,
-  work_dtype, pattern, cc, resize_plan, stride, transform, tonemap."""
+def _step_args(dtype, plan=None, stride=8, transform=None,
+               tonemap="reinhard", gamma=1.0):
+  """fused_isp_step's static arguments after prev, t: gamma, intensity,
+  light_adapt, color_adapt, fmt, ids_format, work_dtype, pattern, cc,
+  resize_plan, stride, transform, tonemap (the main path's by default)."""
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
-  return (1.0, 1.0, 1.0, 0.0, "packed12", False, dtype, BayerPattern.RGGB,
-          None, None, 8, ImageTransform.none, "reinhard")
+  return (gamma, 1.0, 1.0, 0.0, "packed12", False, dtype, BayerPattern.RGGB,
+          None, plan, stride, transform or ImageTransform.none, tonemap)
 
 
-def phase_slice(frames, sfx):
-  """One class's main path, 5 frames at 6x4K, against the all-plain
-  route; returns the launch counts of its run."""
-  import numpy as np
+class _env:
+  """Set an environment variable inside a ``with`` block only."""
+
+  def __init__(self, env):
+    self.env = env or {}
+
+  def __enter__(self):
+    import os
+    self.old = {k: os.environ.get(k) for k in self.env}
+    os.environ.update(self.env)
+
+  def __exit__(self, *exc):
+    import os
+    for k, v in self.old.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
+def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
+                env=None):
+  """One route of one class: ``process`` over the frames with the launch
+  counts set to 0 just before and read just after, each frame against
+  the all-plain route (metrics within 1e-5, u8 within 1 count). Fails
+  unless exactly the ``expect`` stages of the class's dtype launched.
+  Returns (isp, launch counts)."""
   import torch
   import taichi_image_tpu_torch as ttit
   from taichi_image_tpu_torch import BayerPattern
   from taichi_image_tpu_torch.models.camera_isp import fused_isp_step
   from taichi_image_tpu_torch.ops import hopper
 
+  isp_kw, proc_kw = isp_kw or {}, proc_kw or {}
   cls = getattr(ttit, CLASSES[sfx])
   dev = torch.device("cuda")
-  isp = cls(BayerPattern.RGGB, device="cuda")
-  torch.cuda.synchronize()
-  hopper.reset_launches()
-  prevs, outs, metrics = [], [], []
-  for raws in frames:
-    prevs.append(None if isp.metrics is None else isp.metrics.clone())
-    outs.append(isp.process(raws))
-    metrics.append(isp.metrics.clone())
-  torch.cuda.synchronize()
-  launches = hopper.launch_counts()
-  own = {f"{st}_{sfx}" for st in ("decode", "demosaic", "reinhard",
-                                  "finish")}
-  if (any(launches[n] == 0 for n in own)
-      or any(v for n, v in launches.items() if n not in own)):
-    raise AssertionError(f"{cls.__name__} did not run through its own four "
-                         f"kernels alone: {launches}")
-  log(f"slice {cls.__name__}: launches over {FRAMES} frames "
-      f"{ {n: launches[n] for n in sorted(own)} }")
+  isp = cls(BayerPattern.RGGB, device="cuda", **isp_kw)
+  with _env(env):
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    prevs, outs, metrics = [], [], []
+    for raws in frames:
+      prevs.append(None if isp.metrics is None else isp.metrics.clone())
+      outs.append(isp.process(raws, **proc_kw))
+      metrics.append(isp.metrics.clone())
+    torch.cuda.synchronize()
+    launches = hopper.launch_counts()
+    own = {f"{st}_{sfx}" for st in expect}
+    if (any(launches[n] == 0 for n in own)
+        or any(v for n, v in launches.items() if n not in own)):
+      raise AssertionError(f"{name} {cls.__name__} did not run through "
+                           f"{sorted(own)} alone: {launches}")
+    plan = isp._resize_plan(H, W)
+    args = _step_args(cls._work_dtype, plan, isp.metering_stride,
+                      isp.transform, proc_kw.get("tonemap", "reinhard"),
+                      proc_kw.get("gamma", 1.0))
+    worst = [0.0, 0, 0.0]
+    for f, raws in enumerate(frames):
+      out, m = outs[f], metrics[f]
+      if out.dtype != torch.uint8 or out.ndim != 4 or out.shape[:2] != (
+          N_CAM, 3):
+        raise AssertionError(f"{name} frame {f}: output "
+                             f"{tuple(out.shape)} {out.dtype}")
+      if out.max().item() == out.min().item():
+        raise AssertionError(f"{name} frame {f}: constant output")
+      if not torch.isfinite(m).all():
+        raise AssertionError(f"{name} frame {f}: non-finite metrics {m}")
+      prev = torch.zeros(9, device=dev) if prevs[f] is None else prevs[f]
+      t = 0.0 if prevs[f] is None else 1.0 - isp.moving_alpha
+      pm, po = fused_isp_step(raws, prev, t, *args, backend="plain")
+      if po.shape != out.shape:
+        raise AssertionError(f"{name} frame {f}: {tuple(out.shape)} vs the "
+                             f"plain route's {tuple(po.shape)}")
+      dm = (m - pm).abs().max().item()
+      d = (out.int() - po.int()).abs()
+      if dm > 1e-5 or d.max().item() > 1:
+        raise AssertionError(f"{name} frame {f}: vs plain route metrics "
+                             f"|d| {dm:.3g}, u8 max {d.max().item()}")
+      worst = [max(worst[0], dm), max(worst[1], d.max().item()),
+               max(worst[2], (d != 0).float().mean().item())]
+  log(f"route {name} {cls.__name__}: {FRAMES} frames -> "
+      f"{tuple(outs[0].shape)}, launches "
+      f"{ {n: launches[n] for n in sorted(own)} }; vs the plain route "
+      f"metrics |d| <= {worst[0]:.3g}, u8 max |d| {worst[1]} "
+      f"({worst[2]:.2e} of bytes)")
+  return isp, {n: launches[n] for n in own}
 
-  for f, raws in enumerate(frames):
-    out, m = outs[f], metrics[f]
-    if out.shape != (N_CAM, 3, H, W) or out.dtype != torch.uint8:
-      raise AssertionError(f"frame {f}: output {tuple(out.shape)} {out.dtype}")
-    if out.max().item() == out.min().item():
-      raise AssertionError(f"frame {f}: constant output")
-    if not torch.isfinite(m).all():
-      raise AssertionError(f"frame {f}: non-finite metrics {m}")
-    prev = (torch.zeros(9, device=dev) if prevs[f] is None else prevs[f])
-    t = 0.0 if prevs[f] is None else 1.0 - isp.moving_alpha
-    pm, po = fused_isp_step(raws, prev, t, *_step_args(cls._work_dtype),
-                            backend="plain")
-    dm = (m - pm).abs().max().item()
-    d = (out.int() - po.int()).abs()
-    if dm > 1e-5 or d.max().item() > 1:
-      raise AssertionError(f"frame {f}: vs plain route metrics |d| {dm:.3g}"
-                           f", u8 max {d.max().item()}")
-    log(f"  frame {f}: metrics |d| {dm:.3g}, u8 max |d| {d.max().item()} "
-        f"({(d != 0).float().mean().item():.2e} of bytes)")
+
+_MAIN = ("decode", "demosaic", "reinhard", "finish")
+
+
+def phase_slice(frames, sfx):
+  """One class's main path, 5 frames at 6x4K, against the all-plain
+  route, and a small input against the CPU; returns the launch counts of
+  its run."""
+  import numpy as np
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import BayerPattern
+
+  cls = getattr(ttit, CLASSES[sfx])
+  _, launches = drive_route(frames, "main", sfx, _MAIN)
 
   # a small input against the plain route on the CPU, which the CPU
   # tests hold to the JAX package
@@ -311,7 +461,92 @@ def phase_slice(frames, sfx):
   log(f"slice {cls.__name__}: 2x64x768 GBRG+CCM gamma 2.2, 3 frames on the "
       f"card agree with the CPU plain route (last: metrics |d| {dm:.3g}, "
       f"u8 max {d.max().item()})")
-  return {n: launches[n] for n in own}
+  return launches
+
+
+def phase_routes(frames):
+  """Every other route, each driven alone; returns the launch counts
+  summed over the routes."""
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  resize = ("decode", "demosaic", "resize", "reinhard")
+  routes = []
+  for sfx in CLASSES:
+    routes += [
+        ("resize1920+rotate_90", sfx, resize,
+         dict(resize_width=1920, transform=ImageTransform.rotate_90), {}),
+        ("flip_horiz", sfx, _MAIN,
+         dict(transform=ImageTransform.flip_horiz), {}),
+        ("linear gamma 2.2", sfx, ("decode", "demosaic", "finish"), {},
+         dict(tonemap="linear", gamma=2.2)),
+    ]
+  routes += [
+      ("scale 0.37", "bf16", resize, dict(scale=0.37), {}),
+      ("stride 7", "bf16", _MAIN, dict(metering_stride=7), {}),
+  ]
+  total = {}
+  for name, sfx, expect, isp_kw, proc_kw in routes:
+    _, launches = drive_route(frames, name, sfx, expect, isp_kw, proc_kw)
+    for n, v in launches.items():
+      total[n] = total.get(n, 0) + v
+  # the front-fused route: the variable set for this route only
+  _, launches = drive_route(frames, "front-fused", "bf16",
+                            ("decode", "front_fused", "finish"),
+                            env={FRONT_FUSED: "1"})
+  for n, v in launches.items():
+    total[n] = total.get(n, 0) + v
+  return total
+
+
+def _inputs():
+  """K raw batches at 6x4K, a distinct XOR byte per chained step, made
+  before the clock starts."""
+  import torch
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  base = torch.randint(0, 256, (N_CAM, H, WB), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+  return [base ^ i for i in range(K)]
+
+
+def _chain(inputs, args, checksum=True):
+  """K chained steps, the EMA carried over; with ``checksum``, every
+  output summed into one device scalar."""
+  import torch
+  from taichi_image_tpu_torch.models import camera_isp as ci
+  m = torch.zeros(9, device="cuda")
+  acc = torch.zeros((), dtype=torch.int64, device="cuda")
+  for raws in inputs:
+    m, out = ci.fused_isp_step(raws, m, 0.9, *args)
+    if checksum:
+      acc += out.sum(dtype=torch.int64)
+  return acc
+
+
+def bench_step(inputs, args, checksum=True, env=None):
+  """bench.py's method with CUDA events: :func:`_chain` REPS times under
+  torch's sync-debug "error" mode, the scalar read at the end. Returns
+  (device ms/step per rep, host enqueue ms/step per rep, checksum)."""
+  import torch
+  with _env(env):
+    _chain(inputs, args, checksum)
+    torch.cuda.synchronize()
+    times, host = [], []
+    torch.cuda.set_sync_debug_mode("error")  # the step must not sync
+    try:
+      for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        acc = _chain(inputs, args, checksum)
+        host.append((time.perf_counter() - t0) * 1e3 / K)
+        b.record()
+        torch.cuda.set_sync_debug_mode(0)
+        b.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        times.append(a.elapsed_time(b) / K)
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  return times, host, acc.item()
 
 
 def phase_timing(card, sfx):
@@ -326,53 +561,16 @@ def phase_timing(card, sfx):
   dtype = next(d for d, s in hopper.DTYPE_SUFFIX.items() if s == sfx)
   name = CLASSES[sfx]
   dev = torch.device("cuda")
-  gen = torch.Generator(device=dev).manual_seed(0)
-  base = torch.randint(0, 256, (N_CAM, H, WB), generator=gen, device=dev,
-                       dtype=torch.uint8)
-  # a distinct XOR byte per chained step, made before the clock starts
-  inputs = [base ^ i for i in range(K)]
+  inputs = _inputs()
   args = _step_args(dtype)
-
-  def chain(checksum=True):
-    m = torch.zeros(9, device=dev)
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
-    for raws in inputs:
-      m, out = ci.fused_isp_step(raws, m, 0.9, *args)
-      if checksum:
-        acc += out.sum(dtype=torch.int64)
-    return acc
-
-  def timed(checksum):
-    """(device ms/step per rep, host enqueue ms/step per rep, checksum)"""
-    chain(checksum)
-    torch.cuda.synchronize()
-    times, host = [], []
-    torch.cuda.set_sync_debug_mode("error")  # the step must not sync
-    try:
-      for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        t0 = time.perf_counter()
-        acc = chain(checksum)
-        host.append((time.perf_counter() - t0) * 1e3 / K)
-        b.record()
-        torch.cuda.set_sync_debug_mode(0)
-        b.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        times.append(a.elapsed_time(b) / K)
-    finally:
-      torch.cuda.set_sync_debug_mode(0)
-    return times, host, acc.item()
-
-  times, host, checksum = timed(True)
+  times, host, checksum = bench_step(inputs, args)
   step_ms = statistics.median(times)
   fps = N_CAM / (step_ms / 1e3)
   log(f"timing {name}: {step_ms:.4f} ms/step (median of {REPS} x {K} "
       f"chained steps, incl. the u8 checksum), {fps:.2f} frames/s, best "
       f"{min(times):.4f} ms; host enqueue {statistics.median(host):.4f} "
       f"ms/step; checksum {checksum}; {card}")
-  bare, bare_host, _ = timed(False)
+  bare, bare_host, _ = bench_step(inputs, args, checksum=False)
   bare_ms = statistics.median(bare)
   log(f"timing {name}: {bare_ms:.4f} ms/step without the checksum "
       f"reduction, {N_CAM / (bare_ms / 1e3):.2f} frames/s; host enqueue "
@@ -387,7 +585,7 @@ def phase_timing(card, sfx):
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    chain(False)
+    _chain(inputs, args, checksum=False)
     b.record()
     b.synchronize()
   window_us = a.elapsed_time(b) * 1e3
@@ -447,6 +645,52 @@ def phase_timing(card, sfx):
               stage_bytes=nbytes)
 
 
+def phase_route_timing(card):
+  """The same step method for the other routes: the resize->1920 step of
+  each class, the transform and linear marginals (bf16), and the
+  front-fused bf16 step against the composed one in turns (composed,
+  fused, fused, composed)."""
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+
+  inputs = _inputs()
+  plan = ((1920, 1080), 1920 / W)
+  steps = {}
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    steps[f"{CLASSES[sfx]} resize1920"] = (_step_args(dtype, plan), None)
+  bf16 = next(d for d, s in hopper.DTYPE_SUFFIX.items() if s == "bf16")
+  steps.update({
+      "CameraBF16 resize1920+rotate_90": (_step_args(
+          bf16, plan, transform=ImageTransform.rotate_90), None),
+      "CameraBF16 flip_horiz": (_step_args(
+          bf16, transform=ImageTransform.flip_horiz), None),
+      "CameraBF16 rotate_90": (_step_args(
+          bf16, transform=ImageTransform.rotate_90), None),
+      "CameraBF16 linear": (_step_args(bf16, tonemap="linear"), None),
+  })
+  out = {}
+  for name, (args, env) in steps.items():
+    times, host, checksum = bench_step(inputs, args, env=env)
+    out[name] = dict(step_ms=statistics.median(times), times=times,
+                     host_ms=host)
+    log(f"timing {name}: {out[name]['step_ms']:.4f} ms/step (median of "
+        f"{REPS} x {K} chained steps, incl. the u8 checksum); host enqueue "
+        f"{statistics.median(host):.4f} ms/step; checksum {checksum}; "
+        f"{card}")
+  main_args = _step_args(bf16)
+  pair = {"composed": [], "front-fused": []}
+  for which in ("composed", "front-fused", "front-fused", "composed"):
+    env = {FRONT_FUSED: "1"} if which == "front-fused" else None
+    times, _, _ = bench_step(inputs, main_args, env=env)
+    pair[which].append(statistics.median(times))
+  for which, ms in pair.items():
+    out[f"CameraBF16 {which}"] = dict(step_ms=min(ms), runs=ms)
+  log(f"timing CameraBF16 front-fused {min(pair['front-fused']):.4f} vs "
+      f"composed {min(pair['composed']):.4f} ms/step (lower of two medians "
+      f"each, taken in turns); {card}")
+  return out
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--out", help="also write every measurement to this JSON")
@@ -462,10 +706,17 @@ def main(argv=None):
   frames = [torch.randint(0, 256, (N_CAM, H, WB), generator=gen,
                           device="cuda", dtype=torch.uint8)
             for _ in range(FRAMES)]
-  launches = {}
+  launches = dict.fromkeys(hopper.KERNELS, 0)
   for sfx in CLASSES:
-    launches.update(phase_slice(frames, sfx))
+    for n, v in phase_slice(frames, sfx).items():
+      launches[n] += v
+  for n, v in phase_routes(frames).items():
+    launches[n] += v
+  never = sorted(n for n, v in launches.items() if v == 0)
+  if never:
+    raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
+  timing["routes"] = phase_route_timing(card)
 
   kernels = []
   for name, k in hopper.KERNELS.items():
@@ -478,7 +729,7 @@ def main(argv=None):
   if args.out:
     with open(args.out, "w") as f:
       json.dump(dict(card=card, build_s=build_s, kernels=kernels,
-                     timing=timing), f, indent=1)
+                     kernel_modes=results, timing=timing), f, indent=1)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

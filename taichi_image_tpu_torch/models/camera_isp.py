@@ -1,19 +1,33 @@
 """Multi-camera ISP step on PyTorch: packed12 RAW -> demosaic (+WB/CCM)
--> EMA metering -> Reinhard -> planar u8.
+-> [resize] -> EMA metering -> Reinhard or linear tonemap -> [transform]
+-> planar u8.
 
-Counterpart of ``taichi_image_tpu/models/camera_isp.py`` for the main
-path (``fused_isp_step`` with packed12 raws, no resize, no transform,
-even metering stride, Reinhard) of all three classes: CameraBF16 (bf16),
-Camera16 (f16) and Camera32 (f32). On a CUDA device the step is four
-hand-written Hopper kernels, each instantiated for the working dtype T,
-plus the metering reduction in torch:
+Counterpart of ``taichi_image_tpu/models/camera_isp.py``: every route of
+``fused_isp_step`` with packed12 raws and RGB output, for all three
+classes: CameraBF16 (bf16), Camera16 (f16) and Camera32 (f32). On a CUDA
+device each route is hand-written Hopper kernels, each instantiated for
+the working dtype T, plus the metering reduction in torch. The phase
+route (no resize):
 
   K1<T> decode   (N, H, 1.5W) u8     -> phases (N, 4, H/2, W/2) T
   K2<T> stencil  phases              -> x12 (N, 12, H/2, W/2) T
                                         + metering sample (N, 3, ., .) T
   metering       sample, prev vec9   -> new vec9 (torch, f32, on device)
   K3<T> map      x12, scal(vec9)     -> p T + per-image max of the f32 p
-  K4<T> finish   p, max              -> planar u8 (N, 3, H, W)
+  K4<T> finish   p, max              -> planar u8 (N, 3, H, W), or (W, H)
+                                        under a transform that swaps axes
+
+The linear tonemap skips K3: K4's linear mode reads x12 with [m0,
+1/(m1-m0)] from the metrics. An odd metering stride samples the planar
+image's pixels from x12 through a cached index (``planar_subsample``).
+The resize route runs K2 without the sample, K12<T> to planar
+(N, 3, h', w'), metering on its stride grid, K3<T> on the planar image,
+then the gamma (or the linear tonemap) and the transform in torch, as
+the JAX package leaves them to XLA. The front-fused route (bf16,
+Reinhard, color_adapt 0, no resize, even stride, opt-in through
+``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, the variable the JAX package reads)
+meters from ``demosaic_samples`` first and then runs K7, the stencil and
+the map in one kernel, before K4.
 
 Camera16 has the semantics of the JAX package's strict f16 route, which
 its TPU-only q16 route is held to (tests/test_q16.py): phases, x12 and p
@@ -21,16 +35,19 @@ materialized in f16. The q16 containers are not carried over; they exist
 because the TPU's Mosaic toolchain cannot load or store f16
 (taichi_image_tpu/ops/pallas/q16.py:7-13), and Hopper can.
 
-No step syncs with the host: the metering vector feeds the map kernel
-as a device tensor. vec9 layout: [bounds.min, bounds.max,
+No step syncs with the host: the metering vector feeds the kernels as a
+device tensor, and the resize taps and sample indices are made on the
+device once per configuration. vec9 layout: [bounds.min, bounds.max,
 log_bounds.min, log_bounds.max, log_mean, mean, rgb_mean(3)].
 
-Configurations outside the slice raise ``NotImplementedError`` naming
-the ROADMAP.md item that will port them; none is approximated.
+Configurations outside the port (I420 output, raw formats other than
+packed12, frames under 4x4) raise ``NotImplementedError`` naming the
+ROADMAP.md item that will port them; none is approximated.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -38,10 +55,15 @@ import torch
 
 from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
-from taichi_image_tpu_torch.ops.bayer import demosaic_phases, phases_to_planar
+from taichi_image_tpu_torch.ops import interpolate
+from taichi_image_tpu_torch.ops.bayer import (
+    demosaic_phases, planar_from_phases_transformed,
+    subsample_hw)
 from taichi_image_tpu_torch.ops.hopper import decode as hopper_decode
 from taichi_image_tpu_torch.ops.hopper import finish as hopper_finish
+from taichi_image_tpu_torch.ops.hopper import front_fused as hopper_front
 from taichi_image_tpu_torch.ops.hopper import reinhard as hopper_reinhard
+from taichi_image_tpu_torch.ops.hopper import resize as hopper_resize
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 from taichi_image_tpu_torch.utils import debug as debug_util
 from taichi_image_tpu_torch.utils.bounds import lerp
@@ -49,6 +71,7 @@ from taichi_image_tpu_torch.utils.bounds import lerp
 __all__ = ["camera_isp", "Camera16", "Camera32", "CameraBF16", "default_cc",
            "fused_isp_step", "load_raw_phases", "metering_update_ca",
            "reinhard_map_ca", "reinhard_map_max_ca", "reinhard_gamma_ca",
+           "reinhard_apply_ca", "linear_apply_ca", "demosaic_reinhard_front",
            "planar_from_phases_transformed", "state_from_jax"]
 
 # Default 3x3 color-correction matrix (taichi_image_tpu camera_isp.py:208).
@@ -142,13 +165,120 @@ def reinhard_gamma_ca(p_cast: torch.Tensor, max_out: torch.Tensor,
   return hopper_finish.gamma_u8(p_cast, max_out, gamma)
 
 
-def planar_from_phases_transformed(out12: torch.Tensor, t: ImageTransform,
-                                   out_dtype=None) -> torch.Tensor:
-  """(N, 12, hh, wh) -> planar (N, 3, H, W); only the identity transform
-  is ported."""
-  if t != ImageTransform.none:
-    raise _not_ported(f"output transform {t.value}", 7)
-  return phases_to_planar(out12, out_dtype)
+def reinhard_apply_ca(x: torch.Tensor, metrics: torch.Tensor, gamma,
+                      intensity, light_adapt, color_adapt, work_dtype,
+                      backend: str = "auto") -> torch.Tensor:
+  """Reinhard on any (N, 3k, h, w) layout (the resize route's planar
+  image): K3 map + per-image max, then the gamma stage -> u8 of x's
+  shape."""
+  p_cast, max_out = reinhard_map_max_ca(x, metrics, intensity, light_adapt,
+                                        color_adapt, work_dtype,
+                                        backend=backend)
+  return reinhard_gamma_ca(p_cast, max_out, gamma)
+
+
+def linear_apply_ca(x: torch.Tensor, metrics: torch.Tensor,
+                    gamma) -> torch.Tensor:
+  """The linear tonemap on any layout (torch; the JAX package's XLA
+  elementwise chain)."""
+  return hopper_finish.linear_u8(x, hopper_finish.linear_scal(metrics),
+                                 gamma)
+
+
+def demosaic_reinhard_front(phases: torch.Tensor, metrics: torch.Tensor,
+                            intensity, light_adapt, pattern, cc,
+                            backend: str = "auto"):
+  """Front-fused demosaic + Reinhard map (K7, bf16): ``(p (N, 12, hh, wh)
+  bf16, per-image max (N, 1, 1, 1))`` from the phase planes, with metrics
+  computed beforehand (from ``ops/bayer.demosaic_samples``)."""
+  _, _, hh, wh = phases.shape
+  weights = bayer_ops._demosaic_tables(pattern, "mhc")
+  fin = bayer_ops._finish_spec_for(pattern, "mhc", hh, wh,
+                                   None if cc is None else tuple(cc),
+                                   types.bf16)
+  scal = hopper_reinhard.reinhard_scal(metrics, intensity, light_adapt)
+  return hopper_front.front_fused(phases, weights, fin, scal,
+                                  backend=backend)
+
+
+def _plan_scales(h_in, w_in, size, scale):
+  """(scale_y, scale_x) of a resize plan, by the resize API's rule."""
+  return interpolate._norm_scale_hw(h_in, w_in, size, scale)
+
+
+def _resize_taps(hh, wh, size, scale, device):
+  sy, sx = _plan_scales(2 * hh, 2 * wh, size, scale)
+  return hopper_resize.resize_taps(hh, wh, (int(size[0]), int(size[1])),
+                                   (float(sy), float(sx)), device)
+
+
+def _resize_from_phases(x12: torch.Tensor, size, scale,
+                        work_dtype) -> torch.Tensor:
+  """Bilinear resize from 12-channel phase form (N, 12, hh, wh) -> planar
+  (N, 3, h_out, w_out): K12's plain twin, the JAX package's gather
+  formulation."""
+  _, _, hh, wh = x12.shape
+  taps = _resize_taps(hh, wh, size, scale, x12.device)
+  return hopper_resize.resize_x12_plain(x12, taps,
+                                        types.canonical_dtype(work_dtype))
+
+
+def _resize_x12(x12: torch.Tensor, size, scale, work_dtype,
+                backend: str = "auto") -> torch.Tensor:
+  """The resize stage (K12): x12 of the working dtype -> planar
+  (N, 3, h_out, w_out) of that dtype."""
+  wd = types.canonical_dtype(work_dtype)
+  if x12.dtype != wd:
+    raise ValueError(f"resize input is {x12.dtype}, the working dtype {wd}")
+  _, _, hh, wh = x12.shape
+  taps = _resize_taps(hh, wh, size, scale, x12.device)
+  return hopper_resize.resize_x12(x12, taps, backend=backend)
+
+
+def _resize_planar(images: torch.Tensor, size, scale,
+                   work_dtype) -> torch.Tensor:
+  """Bilinear resize on planar (N, 3, H, W) with the reference's
+  sampling (rows, then columns, in f32)."""
+  w_out, h_out = size
+  sy, sx = _plan_scales(images.shape[2], images.shape[3], size, scale)
+  return interpolate.bilinear_axes(images, h_out, w_out, sy, sx, 2, 3).to(
+      types.canonical_dtype(work_dtype))
+
+
+# The ImageTransform of a phase-form image: the same geometric op on the
+# half-res planes plus this permutation of the four output phases.
+_PHASE_TRANSFORM_PERM = {
+    ImageTransform.rotate_90: (1, 3, 0, 2),
+    ImageTransform.rotate_180: (3, 2, 1, 0),
+    ImageTransform.rotate_270: (2, 0, 3, 1),
+    ImageTransform.transpose: (0, 2, 1, 3),
+    ImageTransform.flip_horiz: (2, 3, 0, 1),
+    ImageTransform.flip_vert: (1, 0, 3, 2),
+    ImageTransform.transverse: (3, 1, 2, 0),
+}
+
+
+def _transform_phases(x12: torch.Tensor, t: ImageTransform) -> torch.Tensor:
+  """ImageTransform on 12-channel phase form (N, 12, hh, wh)."""
+  if t == ImageTransform.none:
+    return x12
+  perm4 = _PHASE_TRANSFORM_PERM[t]
+  perm12 = [p * 3 + c for p in perm4 for c in range(3)]
+  return _transform_planar(x12, t)[:, perm12]
+
+
+def _transform_planar(images: torch.Tensor,
+                      t: ImageTransform) -> torch.Tensor:
+  """ImageTransform on planar (N, C, H, W) spatial dims (a view)."""
+  return interpolate.transform_axes(images, t, 2, 3)
+
+
+def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
+  """The JAX package's gate of the front-fused route (off unless
+  TAICHI_IMAGE_TPU_FRONT_FUSED=1)."""
+  return (os.environ.get("TAICHI_IMAGE_TPU_FRONT_FUSED", "") == "1"
+          and wd == types.bf16 and resize_plan is None and stride % 2 == 0
+          and tonemap == "reinhard" and float(color_adapt) == 0.0)
 
 
 def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
@@ -157,33 +287,66 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                    tonemap, color_format: str = "rgb",
                    backend: str = "auto"):
   """One ISP step over a camera batch: ``(new_metrics (9,) f32, planar
-  u8 (N, 3, H, W))``. Arguments as in the JAX ``fused_isp_step``;
+  u8 (N, 3, h', w'))``. Arguments as in the JAX ``fused_isp_step``;
   ``backend`` ("auto" | "kernel" | "plain") routes every kernel stage."""
-  if resize_plan is not None:
-    raise _not_ported("resize", 7)
-  if transform != ImageTransform.none:
-    raise _not_ported(f"output transform {transform.value}", 7)
   if color_format != "rgb":
-    raise _not_ported(f"color_format {color_format!r}", 8)
-  if tonemap != "reinhard":
-    if tonemap == "linear":
-      raise _not_ported("the linear tonemap", 15)
+    if color_format == "yuv420":
+      raise _not_ported(f"color_format {color_format!r}", 8)
+    raise ValueError(f"unknown color_format {color_format!r}")
+  if tonemap not in ("reinhard", "linear"):
     raise ValueError(f"unknown tonemap {tonemap}")
-  if stride % 2 != 0:
-    raise _not_ported(f"odd metering stride {stride}", 15)
   wd = types.canonical_dtype(work_dtype)
   phases = load_raw_phases(raws, fmt, wd, ids_format, backend=backend)
-  # full-res stride-s pixels are exactly phase (0, 0) at half-res s/2
-  x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
-                                 backend=backend,
-                                 sample_step=max(stride // 2, 1))
+
+  if _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
+    # metering first, from the sample pre-pass; then stencil + map as one
+    # kernel (K7) and the finish
+    new_metrics = metering_update_ca(bayer_ops.demosaic_samples(
+        phases, pattern, cc=cc, out_dtype=wd,
+        sample_step=max(stride // 2, 1)), prev, t)
+    p_cast, max_out = demosaic_reinhard_front(
+        phases, new_metrics, intensity, light_adapt, pattern, cc,
+        backend=backend)
+    return new_metrics, hopper_finish.finish_planar_u8(
+        p_cast, max_out, gamma, "reinhard", transform, backend=backend)
+
+  if resize_plan is not None:
+    x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                          backend=backend)
+    size, scale = resize_plan
+    rgb = _resize_x12(x12, size, scale, wd, backend=backend)
+    new_metrics = metering_update_ca(subsample_hw(rgb, stride, stride),
+                                     prev, t)
+    if tonemap == "reinhard":
+      out = reinhard_apply_ca(rgb, new_metrics, gamma, intensity,
+                              light_adapt, color_adapt, wd, backend=backend)
+    else:
+      out = linear_apply_ca(rgb, new_metrics, gamma)
+    return new_metrics, _transform_planar(out, transform).contiguous()
+
+  if stride % 2 != 0:
+    # the samples of an odd stride fall on every phase: gather them from
+    # x12 (the planar image's pixels); the tonemap stays in phase form,
+    # since the map is per pixel and the max runs over the same pixels
+    x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                          backend=backend)
+    strided = bayer_ops.planar_subsample(x12, stride)
+  else:
+    # full-res stride-s pixels are exactly phase (0, 0) at half-res s/2
+    x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                                   backend=backend,
+                                   sample_step=max(stride // 2, 1))
   new_metrics = metering_update_ca(strided, prev, t)
+  # K3 + K4, or K4's linear mode; the transform lives in K4's stores
+  if tonemap == "linear":
+    return new_metrics, hopper_finish.finish_planar_u8(
+        x12, hopper_finish.linear_scal(new_metrics), gamma, "linear",
+        transform, backend=backend)
   p_cast, max_out = reinhard_map_max_ca(x12, new_metrics, intensity,
                                         light_adapt, color_adapt, wd,
                                         backend=backend)
-  out = hopper_finish.finish_planar_u8(p_cast, max_out, gamma,
-                                       backend=backend)
-  return new_metrics, out
+  return new_metrics, hopper_finish.finish_planar_u8(
+      p_cast, max_out, gamma, "reinhard", transform, backend=backend)
 
 
 def state_from_jax(state: dict) -> dict:
@@ -309,12 +472,13 @@ class _ISPBase:
               light_adapt: float = 1.0, color_adapt: float = 0.0,
               tonemap: str = "reinhard", layout: str = "planar",
               color_format: str = "rgb"):
-    """Whole-rig step: decode -> demosaic+WB/CCM -> metering EMA ->
-    Reinhard -> u8, updating the EMA state.
+    """Whole-rig step: decode -> demosaic+WB/CCM -> the rig's resize ->
+    metering EMA -> Reinhard or linear tonemap -> the rig's transform ->
+    u8, updating the EMA state.
 
     ``raws``: (n_cameras, H, W_bytes) uint8, a tensor or numpy array
-    (moved to the ISP's device). Returns planar (n, 3, H, W) u8 on the
-    device, or with ``layout='hwc'`` a host numpy (n, H, W, 3) array.
+    (moved to the ISP's device). Returns planar (n, 3, h', w') u8 on the
+    device, or with ``layout='hwc'`` a host numpy (n, h', w', 3) array.
     """
     debug_util.validate_raw(raws, fmt)
     raws = torch.as_tensor(raws).to(self.device)

@@ -11,7 +11,9 @@ four corner corrections.
 
 The tables here are built in numpy and equal the JAX package's values
 exactly; ``demosaic_phases`` runs the K2 stencil (``ops/hopper/demosaic``)
-with the finish (renorm, optional CCM, clip, cast) fused in.
+with the finish (renorm, optional CCM, clip, cast) fused in, and
+``demosaic_samples`` evaluates the same arithmetic on the metering grid
+only (the front-fused route's metering pre-pass).
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import numpy as np
 import torch
 
 from taichi_image_tpu_torch import types
+from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 from taichi_image_tpu_torch.ops.kernel import symmetrical, zip_tuple
 
 __all__ = [
     "BayerPattern", "pixel_orders", "kernel_patterns", "diamond_kernel",
     "make_bayer_kernels", "make_bilinear_kernels", "demosaic_phases",
-    "phases_to_planar",
+    "demosaic_samples", "edge_renorm_factor_sampled", "phases_to_planar",
+    "planar_from_phases_transformed", "planar_subsample", "subsample_hw",
 ]
 
 
@@ -253,3 +257,159 @@ def phases_to_planar(x12: torch.Tensor, dtype=None) -> torch.Tensor:
   x = x12.reshape(n, 2, 2, 3, hh, wh)    # (n, pc, pr, c, hh, wh)
   t = x.permute(0, 3, 4, 2, 5, 1)        # (n, c, hh, pr, wh, pc)
   return t.reshape(n, 3, 2 * hh, 2 * wh).to(dtype or x12.dtype)
+
+
+def subsample_hw(x: torch.Tensor, sr: int, sc: int) -> torch.Tensor:
+  """``x[..., ::sr, ::sc]`` (a view; the JAX package's reshape-select form
+  of it exists for the TPU's strided-slice lowering)."""
+  return x[..., ::sr, ::sc]
+
+
+def edge_renorm_factor_sampled(weights: np.ndarray, hh: int, wh: int,
+                               step: int) -> np.ndarray:
+  """The border-renormalization factor evaluated on the (::step, ::step)
+  sample grid, (1, 12, hs, ws) float32 in numpy, with the stencil's f32
+  arithmetic (rvf * cvv, then the corner multiplies): bitwise the K2
+  kernel's factor at those pixels and the JAX package's values."""
+  full, top, bottom, left, right = _edge_sums(weights, hh, wh)
+  t_mid, b_mid = top[:, 1], bottom[:, 1]
+  l_mid, r_mid = left[:, 1], right[:, 1]
+  tl, tr_ = top[:, 0], top[:, -1]
+  bl, br = bottom[:, 0], bottom[:, -1]
+
+  hs, ws = -(-hh // step), -(-wh // step)
+  rows = np.arange(hs) * step
+  cols = np.arange(ws) * step
+  on_top = rows == 0
+  on_bot = rows == hh - 1
+  one = np.float32(1.0)
+  rvf = (np.where(on_top[None, :], (full / t_mid)[:, None], one)
+         * np.where(on_bot[None, :], (full / b_mid)[:, None], one))
+  cv_full = np.ones((12, wh), np.float32)
+  cv_full[:, 0] = full / l_mid
+  cv_full[:, -1] = full / r_mid
+  cv = cv_full[:, cols]
+  f = rvf[:, :, None] * cv[:, None, :]
+  for corner, rvec, rmask, cpos in (
+      (tl, full / t_mid, on_top, 0), (tr_, full / t_mid, on_top, wh - 1),
+      (bl, full / b_mid, on_bot, 0), (br, full / b_mid, on_bot, wh - 1)):
+    cval = (full / corner) / (rvec * cv_full[:, cpos])
+    mask = rmask[:, None] & (cols == cpos)[None, :]
+    f = np.where(mask[None, :, :], f * cval[:, None, None], f)
+  return f[None].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _sample_factor(pattern, method, hh, wh, step, device) -> torch.Tensor:
+  """(3, hs, ws) f32 factor of channels 0..2 on ``device``, made once per
+  configuration (the step then makes no host-to-device copy)."""
+  f = edge_renorm_factor_sampled(_demosaic_tables(pattern, method), hh, wh,
+                                 step)[0, 0:3]
+  return torch.from_numpy(np.ascontiguousarray(f)).to(device)
+
+
+def demosaic_samples(phases: torch.Tensor, pattern: BayerPattern, cc=None,
+                     method: str = "mhc", out_dtype=torch.float32,
+                     sample_step: int = 4) -> torch.Tensor:
+  """Metering-sample pre-pass: the demosaic of output channels 0..2
+  evaluated only on the ``(::step, ::step)`` grid, (N, 3, hs, ws) of
+  ``out_dtype``. The front-fused route needs its metrics before its one
+  kernel runs, so it cannot take the stencil's own sample emission.
+
+  The arithmetic is K2's plain twin at the sampled pixels, in its tap
+  order (taps in (q, u, v) order, * inv_full, * border factor, CCM as
+  v0*c0 + v1*c1 + v2*c2, clip, one cast): bitwise equal to
+  ``demosaic_phases(..., sample_step=step)``'s sample on either device.
+  The JAX package's strided convolution sums the taps in another order
+  (within one ulp of the working dtype)."""
+  from taichi_image_tpu_torch.ops.hopper.demosaic import _inv_full
+  n, _, hh, wh = phases.shape
+  s = sample_step
+  if s < 1:
+    raise ValueError(f"sample_step must be >= 1, got {s}")
+  weights = _demosaic_tables(pattern, method)
+  inv_full = _inv_full(weights)
+  factor = _sample_factor(pattern, method, hh, wh, s, phases.device)
+  xp = torch.nn.functional.pad(phases.to(torch.float32), (1, 1, 1, 1))
+  vals = []
+  for oc in range(3):
+    a = None
+    for q in range(4):
+      for u in range(3):
+        for v in range(3):
+          w = float(weights[oc, q, u, v])
+          if w == 0.0:
+            continue
+          t = xp[:, q, u:u + hh:s, v:v + wh:s] * w
+          a = t if a is None else a + t
+    vals.append(a * float(inv_full[oc]) * factor[oc])
+  if cc is not None:
+    ccm = np.array(cc, np.float32).reshape(3, 3)
+    vals = [vals[0] * float(ccm[d, 0]) + vals[1] * float(ccm[d, 1])
+            + vals[2] * float(ccm[d, 2]) for d in range(3)]
+  return torch.stack([torch.clamp(v, 0.0, 1.0) for v in vals],
+                     dim=1).to(types.canonical_dtype(out_dtype))
+
+
+@functools.lru_cache(maxsize=32)
+def _planar_sample_index(hh, wh, step, device) -> torch.Tensor:
+  """Flat (c, hh, wh) indices into one image's x12 of the full-res planar
+  pixels (c, y, x) for y, x multiples of ``step``; (3 * hs * ws,) int64."""
+  ys = np.arange(0, 2 * hh, step)
+  xs = np.arange(0, 2 * wh, step)
+  c = np.arange(3)[:, None, None]
+  y, x = ys[None, :, None], xs[None, None, :]
+  chan = ((x % 2) * 2 + y % 2) * 3 + c
+  idx = (chan * hh + y // 2) * wh + x // 2
+  return torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(device)
+
+
+def planar_subsample(x12: torch.Tensor, step: int) -> torch.Tensor:
+  """``phases_to_planar(x12)[..., ::step, ::step]`` without the planar
+  image: one gather from x12 through a cached index (the odd metering
+  strides, whose samples fall on every phase)."""
+  n, _, hh, wh = x12.shape
+  idx = _planar_sample_index(hh, wh, step, x12.device)
+  hs, ws = -(-2 * hh // step), -(-2 * wh // step)
+  return x12.reshape(n, -1).index_select(1, idx).reshape(n, 3, hs, ws)
+
+
+# (swap, flip_y_axes, flip_x_axes) per transform: swap puts the input
+# rows (ih, pr) in the output's x slot and (iw, pc) in its y slot; a flip
+# reverses an axis pair (H-1-(2a+b) == 2(hh-1-a) + (1-b) for even H).
+_TRANSFORM_SFF = {
+    ImageTransform.none:       (False, False, False),
+    ImageTransform.rotate_90:  (True,  True,  False),
+    ImageTransform.rotate_270: (True,  False, True),
+    ImageTransform.transpose:  (True,  False, False),
+    ImageTransform.transverse: (True,  True,  True),
+    ImageTransform.rotate_180: (False, True,  True),
+    ImageTransform.flip_vert:  (False, True,  False),
+    ImageTransform.flip_horiz: (False, False, True),
+}
+
+
+def planar_from_phases_transformed(out12: torch.Tensor, t: ImageTransform,
+                                   out_dtype=None) -> torch.Tensor:
+  """(N, 12, hh, wh) -> transformed planar (N, 3, h', w'), equal to the
+  transform of ``phases_to_planar(out12)``: the interleave, the
+  transform's axis swap and its flips are one permute plus flips (the
+  same store addresses as the K4 kernel's transform)."""
+  if t == ImageTransform.none:
+    return phases_to_planar(out12, out_dtype)
+  n, _, hh, wh = out12.shape
+  x6 = out12.reshape(n, 2, 2, 3, hh, wh)   # (n, pc, pr, c, ih, iw)
+  swap, fy, fx = _TRANSFORM_SFF[t]
+  if swap:
+    z = x6.permute(0, 3, 5, 1, 4, 2)       # (n, c, iw, pc, ih, pr)
+    ho, wo = 2 * wh, 2 * hh
+    ysl, xsl = (4, 5), (2, 3)              # where (ih,pr)/(iw,pc) landed
+  else:
+    z = x6.permute(0, 3, 4, 2, 5, 1)       # (n, c, ih, pr, iw, pc)
+    ho, wo = 2 * hh, 2 * wh
+    ysl, xsl = (2, 3), (4, 5)
+  if fy:
+    z = z.flip(ysl)
+  if fx:
+    z = z.flip(xsl)
+  return z.reshape(n, 3, ho, wo).to(out_dtype or out12.dtype)

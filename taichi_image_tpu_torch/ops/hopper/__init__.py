@@ -6,8 +6,10 @@ T (bf16, f16, f32), with one ``extern "C"`` launcher per instantiation
 that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``. Each instantiation is a registered
 :class:`Kernel` named ``<stage>_<suffix>`` (``decode_f16``,
-``demosaic_f32``, ...). A source's library, holding all its
-instantiations, is compiled with ``nvcc`` on first use into ``_build/``
+``demosaic_f32``, ...); the front-fused stencil exists for bf16 only
+(``front_fused_bf16``, registered with :func:`register`). A source's
+library, holding all its instantiations, is compiled with ``nvcc`` on
+first use into ``_build/``
 (keyed by a hash of the sources, the flags and ``nvcc --version``) and
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a kernel
 builds in seconds and needs no ``ninja``.
@@ -35,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register_per_dtype",
+__all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
            "build_all", "launch_counts", "reset_launches", "use_kernel",
            "check_dtype", "check_tensor", "stream_of", "ptr"]
 
@@ -138,17 +140,22 @@ class Kernel:
 KERNELS: dict[str, Kernel] = {}
 
 
+def register(name: str, source: str, symbol: str, argtypes,
+             replaces: str) -> Kernel:
+  """Register one :class:`Kernel` (a single instantiation, such as the
+  bf16-only front-fused stencil)."""
+  k = KERNELS[name] = Kernel(name, source, symbol, argtypes, replaces)
+  return k
+
+
 def register_per_dtype(stage: str, source: str, symbol: str, argtypes,
                        replaces: dict) -> dict[torch.dtype, Kernel]:
   """Register one :class:`Kernel` per working dtype: ``<stage>_<suffix>``
   launched through ``<symbol>_<suffix>``; ``replaces`` maps each dtype to
   the TPU kernel (or XLA route) it ports. Returns {dtype: Kernel}."""
-  out = {}
-  for dtype, suffix in DTYPE_SUFFIX.items():
-    k = Kernel(f"{stage}_{suffix}", source, f"{symbol}_{suffix}", argtypes,
-               replaces[dtype])
-    KERNELS[k.name] = out[dtype] = k
-  return out
+  return {dtype: register(f"{stage}_{suffix}", source, f"{symbol}_{suffix}",
+                          argtypes, replaces[dtype])
+          for dtype, suffix in DTYPE_SUFFIX.items()}
 
 
 def build_all() -> dict[str, Path]:
@@ -162,7 +169,7 @@ def build_all() -> dict[str, Path]:
 
 def _import_kernel_modules():
   from taichi_image_tpu_torch.ops.hopper import (  # noqa: F401
-      decode, demosaic, finish, reinhard)
+      decode, demosaic, finish, front_fused, reinhard, resize)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,86 @@
+// K7<bf16>: front-fused demosaic + Reinhard map, (N, 4, hh, wh) bf16
+// phase planes -> pre-gamma p (N, 12, hh, wh) bf16 + the per-image max of
+// the f32 p, (N,) f32.
+//
+// Replaces taichi_image_tpu/ops/pallas/demosaic.py::_stencil_kernel with
+// `tonemap` (via demosaic_reinhard_stencil, pallas_call at
+// demosaic.py:466). One thread takes one half-res pixel: the K2 stencil
+// (stencil.cuh), each finished channel rounded to bf16 in registers (the
+// x12 the composed route would have stored), then the K3 map
+// (tonemap.cuh) on each output phase's three channels; the per-image max
+// is K3's block reduction and ordered-uint atomicMax. Both pieces are the
+// composed kernels' own device code, so p and the max are bitwise equal
+// to K2<bf16> -> K3<bf16>. The TPU kernel writes per-tile max partials
+// that XLA reduces; here the atomics finish the reduction in the kernel.
+//
+// Bound: memory on paper, 8 bytes of phases read and 24 bytes of p
+// written per half-res pixel, against K2 + K3's 8 + 24 + 24 + 24: the
+// x12 round trip through device memory is what the fusion saves. Only the
+// color_adapt == 0 map is fused (the JAX route's gate). The metering
+// that sets the map's scalars must run before this kernel, from
+// ops/bayer.demosaic_samples.
+#include "stencil.cuh"
+#include "tonemap.cuh"
+
+namespace {
+
+using T = __nv_bfloat16;
+
+__global__ void front_fused_kernel(const T* __restrict__ x,
+                                   T* __restrict__ p,
+                                   unsigned* __restrict__ mx_enc, int hh,
+                                   int wh,
+                                   const __grid_constant__ tit::StencilParams sp,
+                                   const float* __restrict__ scal) {
+  const long long b = blockIdx.y;
+  const long long plane = static_cast<long long>(hh) * wh;
+  const tit::MapScalars s = tit::load_map_scalars<false>(scal);
+  float lmax = -INFINITY;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < plane; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(idx % wh);
+    const int i = static_cast<int>(idx / wh);
+    float v[12];
+    tit::stencil_pixel(x, b, i, j, hh, wh, sp, v);
+#pragma unroll
+    for (int ph = 0; ph < 4; ++ph) {
+      float q[3], pv[3];
+      // quantize-then-map: the composed route stores x12 in bf16 first
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        q[c] = tit::load_f32(tit::store_rn<T>(v[ph * 3 + c]));
+      }
+      tit::reinhard_pixel<false>(q, s, pv);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        lmax = fmaxf(lmax, pv[c]);
+        p[(b * 12 + ph * 3 + c) * plane + idx] = tit::store_rn<T>(pv[c]);
+      }
+    }
+  }
+  tit::block_max_into(lmax, mx_enc + b);
+}
+
+}  // namespace
+
+extern "C" int tit_front_fused_bf16(const void* x, void* p, void* mx_enc,
+                                    void* mx, int n, int hh, int wh,
+                                    const float* params, int has_ccm,
+                                    const void* scal, cudaStream_t stream) {
+  if (static_cast<long long>(n) * hh * wh == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const tit::StencilParams sp = tit::stencil_params_from(params, has_ccm);
+  cudaError_t err = tit::clear_max(mx_enc, n, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // up to 1024 blocks per image, as K3
+  const dim3 grid(tit::grid_for(static_cast<long long>(hh) * wh, 1024), n);
+  front_fused_kernel<<<grid, tit::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(p),
+      static_cast<unsigned*>(mx_enc), hh, wh, sp,
+      static_cast<const float*>(scal));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tit::decode_max(mx_enc, mx, n, stream));
+}

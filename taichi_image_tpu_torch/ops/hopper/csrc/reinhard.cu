@@ -20,34 +20,11 @@
 // close behind. The p store rounds once to nearest even; an f16 p below
 // 6.1e-5 is a subnormal and is kept (no -ftz, no fast math).
 //
-// The scalars (reinhard_scal / reinhard_scal_ca, computed in torch on
-// the device) arrive as a device pointer, so the launch needs no host
-// sync: [m0, range, map_key, mean, exp(-intensity), light_adapt] and,
-// with ca_mode, [color_adapt, cmean_r, cmean_g, cmean_b].
-//
-// p can be negative (a channel below m0), so the max uses an ordered
-// unsigned encoding of the float (negative floats bit-inverted, positive
-// ones with the sign bit set); 0 is below every encoded float and is the
-// initial value. NaN p is zeroed before the max and the store.
-#include <cmath>
-
-#include "common.cuh"
+// The pixel map, the block max and the ordered max encoding are in
+// tonemap.cuh, shared with the front-fused K7.
+#include "tonemap.cuh"
 
 namespace {
-
-__device__ __forceinline__ unsigned encode_ordered(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float decode_ordered(unsigned e) {
-  return __uint_as_float((e & 0x80000000u) ? (e & 0x7FFFFFFFu) : ~e);
-}
-
-__device__ __forceinline__ float pow_exp2(float base, float k) {
-  // exp2(k * log2(b)): the TPU kernel's pow lowering (reinhard.py:218-222)
-  return exp2f(k * log2f(base));
-}
 
 template <typename T, bool CA>
 __global__ void map_kernel(const T* __restrict__ x, T* __restrict__ p,
@@ -56,60 +33,24 @@ __global__ void map_kernel(const T* __restrict__ x, T* __restrict__ p,
   const long long b = blockIdx.y;
   const long long plane = static_cast<long long>(hh) * wh;
   const long long per_image = ng * plane;
-  const float m0 = scal[0], rng = scal[1], mk = scal[2], mean = scal[3];
-  const float eni = scal[4], la = scal[5];
+  const tit::MapScalars s = tit::load_map_scalars<CA>(scal);
   float lmax = -INFINITY;
   for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
                        threadIdx.x;
        idx < per_image; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long k = idx / plane;
-    const long long s = idx - k * plane;
-    const long long base = (b * ng + k) * 3 * plane + s;
-    float sc[3];
+    const long long base = (b * ng + k) * 3 * plane + (idx - k * plane);
+    float xv[3], pv[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) xv[c] = tit::load_f32(x[base + c * plane]);
+    tit::reinhard_pixel<CA>(xv, s, pv);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      sc[c] = (tit::load_f32(x[base + c * plane]) - m0) / rng;
-    }
-    const float gray = 0.299f * sc[0] + 0.587f * sc[1] + 0.114f * sc[2];
-    float adapt = 0.0f;
-    if (!CA) adapt = pow_exp2(eni * (mean + la * (gray - mean)), mk);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (CA) {
-        const float ca = scal[6], cmean = scal[7 + c];
-        const float adapt_color = gray + ca * (sc[c] - gray);
-        adapt = pow_exp2(eni * (cmean + la * (adapt_color - cmean)), mk);
-      }
-      float pv = sc[c] * (1.0f / (adapt + sc[c]));
-      if (pv != pv) pv = 0.0f;  // NaN (no fast math: the compare is kept)
-      lmax = fmaxf(lmax, pv);
-      p[base + c * plane] = tit::store_rn<T>(pv);
+      lmax = fmaxf(lmax, pv[c]);
+      p[base + c * plane] = tit::store_rn<T>(pv[c]);
     }
   }
-
-  // block max: warp shuffles, then one warp over the per-warp maxima
-  __shared__ float warp_max[tit::kThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = lmax;
-  __syncthreads();
-  if (warp == 0) {
-    lmax = lane < tit::kThreads / 32 ? warp_max[lane] : -INFINITY;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
-    }
-    if (lane == 0) atomicMax(mx_enc + b, encode_ordered(lmax));
-  }
-}
-
-__global__ void decode_max_kernel(const unsigned* __restrict__ mx_enc,
-                                  float* __restrict__ mx, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) mx[i] = decode_ordered(mx_enc[i]);
+  tit::block_max_into(lmax, mx_enc + b);
 }
 
 template <typename T>
@@ -119,7 +60,7 @@ int launch(const void* x, void* p, void* mx_enc, void* mx, int n, int ng,
   if (static_cast<long long>(n) * ng * hh * wh == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(mx_enc, 0, sizeof(unsigned) * n, stream);
+  cudaError_t err = tit::clear_max(mx_enc, n, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   // up to 1024 blocks per image: few atomics, many pixels per thread
   const dim3 grid(tit::grid_for(static_cast<long long>(ng) * hh * wh, 1024), n);
@@ -136,9 +77,7 @@ int launch(const void* x, void* p, void* mx_enc, void* mx, int n, int ng,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_max_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      enc, static_cast<float*>(mx), n);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(tit::decode_max(enc, mx, n, stream));
 }
 
 }  // namespace

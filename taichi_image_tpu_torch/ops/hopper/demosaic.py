@@ -31,14 +31,14 @@ KERNELS = hopper.register_per_dtype(
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/ops/pallas/demosaic.py:377"))
 
-# layout of csrc/demosaic.cu StencilParams (without has_ccm)
+# layout of csrc/stencil.cuh StencilParams (without has_ccm)
 PARAM_FLOATS = 12 * 13 + 12 * 5 + 4 * 12 + 9
 
 
 def _diamond_taps() -> np.ndarray:
   """(4, 13): for each output phase, its 13 diamond taps as positions
   q*9 + u*3 + v of the 4 x 3 x 3 neighbourhood, ascending — the
-  kernel's compile-time kTaps table (csrc/demosaic.cu)."""
+  kernel's compile-time kTaps table (csrc/stencil.cuh)."""
   offsets = [o for o, _ in diamond_kernel([0] * 13)]
   taps = []
   for dy, dx in _PHASE_PARITY:

@@ -1,12 +1,14 @@
-"""K4: the tonemap finish — gamma, u8 truncation and the 2x2
-phase->planar interleave (``csrc/finish.cu``, one instantiation per
-working dtype of the p it reads).
+"""K4: the tonemap finish — the Reinhard gamma or the linear tonemap, u8
+truncation, the 2x2 phase->planar interleave and the output transform
+(``csrc/finish.cu``, one instantiation per working dtype of the input).
 
-Replaces ``taichi_image_tpu/ops/pallas/finish.py::finish_planar_u8``
-(Reinhard mode). In JAX this step is the XLA tail of the main path
-(``reinhard_gamma_ca`` + ``phases_to_planar``); the Pallas form is
-opt-in there only because Mosaic cannot store u8. Hopper writes u8
-directly, so here it is the main path's tail.
+Replaces ``taichi_image_tpu/ops/pallas/finish.py::finish_planar_u8``, both
+its modes. In JAX this step is the XLA tail of the phase route
+(``reinhard_gamma_ca`` or ``linear_apply_ca``, then
+``planar_from_phases_transformed``); the Pallas form is opt-in there
+only because Mosaic cannot store u8. Hopper writes u8 directly, so here
+it is the phase route's tail, with the transform folded into the store
+addresses.
 """
 
 from __future__ import annotations
@@ -17,16 +19,21 @@ import numpy as np
 import torch
 
 from taichi_image_tpu_torch.ops import hopper
-from taichi_image_tpu_torch.ops.bayer import phases_to_planar
+from taichi_image_tpu_torch.ops.bayer import (_TRANSFORM_SFF,
+                                              planar_from_phases_transformed)
+from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
-__all__ = ["finish_planar_u8", "finish_planar_u8_plain", "gamma_u8"]
+__all__ = ["finish_planar_u8", "finish_planar_u8_plain", "gamma_u8",
+           "linear_scal", "linear_u8"]
+
+MODES = ("reinhard", "linear")
 
 _REPLACES = "taichi_image_tpu/ops/pallas/finish.py:199"
 KERNELS = hopper.register_per_dtype(
     "finish", "finish.cu", "tit_finish_planar_u8",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX, _REPLACES))
 
 
@@ -54,35 +61,73 @@ def gamma_u8(p: torch.Tensor, max_out: torch.Tensor,
   return v.to(torch.uint8)
 
 
-def finish_planar_u8_plain(x12: torch.Tensor, max_out: torch.Tensor,
-                           gamma: float) -> torch.Tensor:
-  """Plain PyTorch twin of K4: (N, 12, hh, wh) -> (N, 3, 2hh, 2wh) u8."""
-  return phases_to_planar(gamma_u8(x12, max_out, gamma))
+def linear_scal(metrics: torch.Tensor) -> torch.Tensor:
+  """(2,) f32 [m0, inv_range = 1 / (m1 - m0)] on ``metrics``' device (no
+  host sync)."""
+  m = metrics.to(torch.float32)
+  return torch.stack([m[0], 1.0 / (m[1] - m[0])])
 
 
-def finish_planar_u8(x12: torch.Tensor, max_out: torch.Tensor,
-                     gamma: float, backend: str = "auto") -> torch.Tensor:
-  """(N, 12, hh, wh) pre-gamma p (bf16, f16 or f32) + per-image f32 max
-  (N, 1, 1, 1) -> planar (N, 3, 2hh, 2wh) u8; bitwise equal to the plain
-  twin."""
+def linear_u8(x: torch.Tensor, lin: torch.Tensor,
+              gamma: float) -> torch.Tensor:
+  """The linear tonemap on any layout: u8 of ``x``'s shape,
+  trunc(clip(clip(y, 0, 1) * 255, 0, 255)) with
+  y = max((x - m0) * inv_range, 0)^(1/gamma) and ``lin`` =
+  :func:`linear_scal`; a NaN gives 0."""
+  y = torch.clamp_min((x.to(torch.float32) - lin[0]) * lin[1], 0.0)
+  inv_gamma = _inv_gamma(gamma)
+  if inv_gamma is not None:
+    y = torch.exp2(torch.log2(y) * inv_gamma)
+  v = torch.clamp(torch.clamp(y, 0.0, 1.0) * 255.0, 0.0, 255.0)
+  return torch.nan_to_num(v, nan=0.0).to(torch.uint8)
+
+
+def finish_planar_u8_plain(x12: torch.Tensor, scal: torch.Tensor,
+                           gamma: float, mode: str = "reinhard",
+                           transform: ImageTransform = ImageTransform.none
+                           ) -> torch.Tensor:
+  """Plain PyTorch twin of K4: the mode's u8 in phase layout, then
+  :func:`planar_from_phases_transformed`."""
+  u8 = (gamma_u8(x12, scal, gamma) if mode == "reinhard"
+        else linear_u8(x12, scal, gamma))
+  return planar_from_phases_transformed(u8, transform)
+
+
+def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
+                     mode: str = "reinhard",
+                     transform: ImageTransform = ImageTransform.none,
+                     backend: str = "auto") -> torch.Tensor:
+  """(N, 12, hh, wh) input (bf16, f16 or f32) -> transformed planar u8
+  (N, 3, h', w'); bitwise equal to the plain twin.
+
+  ``mode="reinhard"``: the input is the pre-gamma p and ``scal`` its
+  per-image f32 max (N, 1, 1, 1). ``mode="linear"``: the input is x12 and
+  ``scal`` is :func:`linear_scal` of the metrics."""
   if x12.ndim != 4 or x12.shape[1] != 12:
     raise ValueError(f"finish input must be (N, 12, hh, wh), got "
                      f"{tuple(x12.shape)}")
+  if mode not in MODES:
+    raise ValueError(f"unknown finish mode {mode!r}; expected one of {MODES}")
   hopper.check_dtype("the finish's input", x12.dtype)
   n, _, hh, wh = x12.shape
-  if max_out.numel() != n:
+  if mode == "reinhard" and scal.numel() != n:
     raise ValueError(f"max_out must hold one value per image ({n}), got "
-                     f"shape {tuple(max_out.shape)}")
+                     f"shape {tuple(scal.shape)}")
+  if mode == "linear" and scal.shape != (2,):
+    raise ValueError(f"the linear finish takes [m0, inv_range] (2,), got "
+                     f"shape {tuple(scal.shape)}")
   if not hopper.use_kernel(backend, x12):
-    return finish_planar_u8_plain(x12, max_out, gamma)
+    return finish_planar_u8_plain(x12, scal, gamma, mode, transform)
   hopper.check_tensor("x12", x12, x12.dtype, 4, x12.device)
-  hopper.check_tensor("max_out", max_out, torch.float32, 4, x12.device)
-  out = torch.empty((n, 3, 2 * hh, 2 * wh), dtype=torch.uint8,
-                    device=x12.device)
+  hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x12.device)
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
+  out = torch.empty(shape, dtype=torch.uint8, device=x12.device)
   inv_gamma = _inv_gamma(gamma)
-  KERNELS[x12.dtype].launch(hopper.ptr(x12), hopper.ptr(max_out),
+  KERNELS[x12.dtype].launch(hopper.ptr(x12), hopper.ptr(scal),
                             hopper.ptr(out), n, hh, wh,
-                            int(inv_gamma is not None),
+                            int(mode == "linear"), int(inv_gamma is not None),
                             1.0 if inv_gamma is None else inv_gamma,
+                            int(swap), int(fy), int(fx),
                             hopper.stream_of(x12.device))
   return out

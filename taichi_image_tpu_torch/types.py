@@ -13,7 +13,7 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-__all__ = ["scale_factor", "canonical_dtype", "scale_of",
+__all__ = ["scale_factor", "canonical_dtype", "dtype_of", "scale_of",
            "u8", "u16", "i16", "f16", "bf16", "f32"]
 
 u8 = torch.uint8
@@ -60,6 +60,11 @@ def canonical_dtype(dtype: DTypeLike) -> torch.dtype:
   if name not in _names:
     raise ValueError(f"Unsupported dtype {name}; supported: {sorted(_names)}")
   return _names[name]
+
+
+def dtype_of(arr) -> torch.dtype:
+  """The canonical dtype of a tensor or numpy array."""
+  return canonical_dtype(arr.dtype)
 
 
 def scale_of(dtype: DTypeLike) -> float:

@@ -140,10 +140,11 @@ def test_tables_equal_jax(pattern, method, cc):
 
 
 def test_kernel_tap_table_matches_python():
-  """csrc/demosaic.cu's compile-time kTaps equals the table the wrapper
-  gathers the weights with (ops/hopper/demosaic.DIAMOND_TAPS)."""
+  """The stencil's compile-time kTaps (csrc/stencil.cuh, shared by K2
+  and K7) equals the table the wrapper gathers the weights with
+  (ops/hopper/demosaic.DIAMOND_TAPS)."""
   import re
-  src = (th_dm.hopper.CSRC / "demosaic.cu").read_text()
+  src = (th_dm.hopper.CSRC / "stencil.cuh").read_text()
   body = re.search(r"kTaps\[4\]\[13\] = \{(.*?)\};", src, re.S).group(1)
   rows = [[int(v) for v in r.split(",")]
           for r in re.findall(r"\{([^{}]*)\}", body)]

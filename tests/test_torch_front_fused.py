@@ -1,0 +1,231 @@
+"""The front-fused route (K7): the metering pre-pass ``demosaic_samples``,
+K7's plain twin and the route of ``fused_isp_step`` behind
+``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, against the JAX package on the CPU
+and against the port's own composed route.
+
+Contracts:
+  * ``edge_renorm_factor_sampled``: bitwise (the same numpy).
+  * ``demosaic_samples``: within one ulp of the working dtype of JAX's
+    for bf16 and f16 (its strided convolution sums the taps in another
+    order; f32 phases: within 5e-7), and bitwise equal to the port's
+    own K2 sample emission (the same arithmetic, in the twin's tap
+    order).
+  * K7's twin vs the Pallas K7 in interpret mode: p within one bf16 ulp
+    (the Pallas kernel's exp2/log2 come from XLA's CPU library, the
+    twin's from PyTorch's), two with a CCM (XLA's CPU compiler contracts
+    the CCM into FMAs, which moves x12 by a bf16 ulp before the map, as
+    tests/test_torch_demosaic.py measures for K2), the per-image max
+    within 1e-6 relative.
+  * the route vs the JAX step with its front-fused gate forced open (K7
+    in interpret mode, as tests/test_pallas.py runs it): as
+    tests/test_torch_resize.py's ``compare_step``; vs the port's composed
+    route: bitwise, metrics and u8 (the samples, x12 rounding and map are
+    the same arithmetic).
+  * the gate: the route runs exactly when JAX's would (bf16, Reinhard,
+    color_adapt 0, no resize, even stride, the variable set to "1").
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import taichi_image_tpu as jtit  # noqa: E402
+import taichi_image_tpu_torch as ttit  # noqa: E402
+from taichi_image_tpu import types as jtypes  # noqa: E402
+from taichi_image_tpu.models import camera_isp as jci  # noqa: E402
+from taichi_image_tpu.ops import bayer as jbayer  # noqa: E402
+from taichi_image_tpu.ops.pallas import demosaic as pl_dm  # noqa: E402
+from taichi_image_tpu.ops.pallas.reinhard import (  # noqa: E402
+    reinhard_scal as j_scal)
+from taichi_image_tpu_torch.models import camera_isp as tci  # noqa: E402
+from taichi_image_tpu_torch.ops import bayer as tbayer  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
+from test_torch_resize import (  # noqa: E402
+    JDT, PLANS, _raws, _to_torch, compare_step)
+
+ENV = "TAICHI_IMAGE_TPU_FRONT_FUSED"
+CCM = tuple(np.array([[1.2, -0.1, 0.0], [-0.05, 1.1, -0.05],
+                      [0.0, -0.1, 1.3]], np.float32).ravel().tolist())
+
+
+def _phases(dtype=torch.bfloat16, n=2, hh=32, wh=128, seed=0):
+  x = np.random.default_rng(seed).random((n, 4, hh, wh), np.float32)
+  j = jnp.asarray(x, JDT[dtype])
+  return j, _to_torch(j)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+  it, mag = ((torch.int32, 0x7FFFFFFF) if a.dtype == torch.float32
+             else (torch.int16, 0x7FFF))
+
+  def key(t):
+    s = t.contiguous().view(it).to(torch.int64)
+    return torch.where(s < 0, -(s & mag), s)
+  return int((key(a) - key(b)).abs().max())
+
+
+# ------------------------------------------------- the sample pre-pass
+
+@pytest.mark.parametrize("shape,step", [((32, 128), 4), ((19, 50), 3),
+                                        ((8, 12), 1)])
+def test_edge_renorm_factor_sampled_bitwise(shape, step):
+  w = jbayer._demosaic_tables(jbayer.BayerPattern.RGGB, "mhc")
+  got = tbayer.edge_renorm_factor_sampled(w, *shape, step)
+  want = np.asarray(jbayer.edge_renorm_factor_sampled(w, *shape, step))
+  assert got.dtype == np.float32
+  np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", list(JDT), ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("cc", [None, CCM], ids=["plain", "ccm"])
+@pytest.mark.parametrize("pattern,step", [("RGGB", 4), ("GBRG", 3)])
+def test_demosaic_samples(pattern, step, cc, dtype):
+  j, t = _phases(dtype, hh=19, wh=50, seed=1)
+  want = jbayer.demosaic_samples(j, jbayer.BayerPattern[pattern], cc=cc,
+                                 out_dtype=JDT[dtype], sample_step=step)
+  got = tbayer.demosaic_samples(t, tbayer.BayerPattern[pattern], cc=cc,
+                                out_dtype=dtype, sample_step=step)
+  assert got.dtype == dtype and tuple(got.shape) == tuple(want.shape)
+  if dtype == torch.float32:
+    # f32 phases are not exact sums: the order moves the f32 result
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=5e-7)
+  else:
+    assert _ulps(got, _to_torch(want)) <= 1
+  # the port's own K2 sample emission: the same arithmetic
+  _, samp = tbayer.demosaic_phases(t, tbayer.BayerPattern[pattern], cc=cc,
+                                   out_dtype=dtype, sample_step=step)
+  assert torch.equal(got.view(torch.uint8), samp.view(torch.uint8))
+
+
+# ----------------------------------------------------------- K7's twin
+
+def _front_inputs(cc, seed=2, hh=64, wh=256):
+  j, t = _phases(n=2, hh=hh, wh=wh, seed=seed)
+  samp = jbayer.demosaic_samples(j, jbayer.BayerPattern.RGGB, cc=cc,
+                                 out_dtype=jnp.bfloat16, sample_step=4)
+  metrics = jci.metering_update_ca(samp.astype(jnp.float32),
+                                   jnp.zeros(9, jnp.float32),
+                                   jnp.float32(0.0))
+  return j, t, metrics
+
+
+@pytest.mark.parametrize("cc", [None, CCM], ids=["plain", "ccm"])
+def test_front_fused_twin_vs_pallas_k7(cc):
+  j, t, metrics = _front_inputs(cc)
+  hh, wh = j.shape[-2:]
+  wj = jbayer._demosaic_tables(jbayer.BayerPattern.RGGB, "mhc")
+  fin_j = jbayer._stencil_finish_spec(wj, hh, wh, cc, jnp.bfloat16)
+  tiles = pl_dm.tiling_for(hh, wh, in_bf16=True, out_bf16=True,
+                           extra_f32_tmp=pl_dm._TONEMAP_TMPS)
+  p_j, mx_j = pl_dm.demosaic_reinhard_stencil(
+      j, wj, *tiles, j_scal(metrics, 1.0, 1.0), fin_j, interpret=True)
+
+  m_t = torch.from_numpy(np.array(metrics))
+  p_t, mx_t = tci.demosaic_reinhard_front(t, m_t, 1.0, 1.0,
+                                          tbayer.BayerPattern.RGGB, cc)
+  assert p_t.dtype == torch.bfloat16 and tuple(p_t.shape) == (2, 12, hh, wh)
+  assert _ulps(p_t, _to_torch(p_j)) <= (1 if cc is None else 2)
+  np.testing.assert_allclose(mx_t.numpy().ravel(), np.asarray(mx_j).ravel(),
+                             rtol=1e-6, atol=0)
+
+
+def test_front_fused_twin_is_composed_twins():
+  _, t, metrics = _front_inputs(CCM, seed=3, hh=19, wh=50)
+  hh, wh = t.shape[-2:]
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc")
+  fin = tbayer._stencil_finish_spec(w, hh, wh, CCM, torch.bfloat16)
+  scal = th_rh.reinhard_scal(torch.from_numpy(np.array(metrics)), 1.2, 0.8)
+  p, mx = th_ff.front_fused(t, w, fin, scal)
+  x12 = tbayer.demosaic_phases(t, tbayer.BayerPattern.RGGB, cc=CCM,
+                               out_dtype=torch.bfloat16)
+  p_c, mx_c = th_rh.reinhard_map(x12, scal, False)
+  assert torch.equal(p.view(torch.int16), p_c.view(torch.int16))
+  assert torch.equal(mx, mx_c)
+
+
+# ------------------------------------------------------------- the route
+
+def _open_jax_gate(monkeypatch):
+  monkeypatch.setattr(pl_dm, "front_fused_available",
+                      lambda hh, wh, in_bf16: True)
+  monkeypatch.setattr(pl_dm, "demosaic_reinhard_stencil",
+                      functools.partial(pl_dm.demosaic_reinhard_stencil,
+                                        interpret=True))
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"gamma": 2.2, "transform": "rotate_90", "cc": CCM},
+], ids=["default", "gamma-rot90-ccm"])
+def test_front_fused_route_matches_jax(kw, monkeypatch):
+  _open_jax_gate(monkeypatch)
+  monkeypatch.setenv(ENV, "1")
+  gamma = kw.get("gamma", 1.0)
+  cc = kw.get("cc")
+  tr = kw.get("transform", "none")
+  jstep = jax.jit(lambda r, prev, t: jci.fused_isp_step(
+      r, prev, t, gamma, 1.0, 1.0, 0.0, "packed12", False, jtypes.bf16,
+      jtit.BayerPattern.RGGB, cc, None, 8, jtit.ImageTransform(tr),
+      "reinhard"))
+  m_j, m_t = jnp.zeros(9, jnp.float32), torch.zeros(9)
+  for f in range(3):
+    raws = _raws(300 + f)
+    t = 0.0 if f == 0 else 0.9
+    m_j, o_j = jstep(jnp.asarray(raws), m_j, jnp.float32(t))
+    m_t, o_t = tci.fused_isp_step(
+        torch.from_numpy(raws), m_t, t, gamma, 1.0, 1.0, 0.0, "packed12",
+        False, torch.bfloat16, ttit.BayerPattern.RGGB, cc, None, 8,
+        ttit.ImageTransform(tr), "reinhard")
+    compare_step(m_t, o_t, m_j, o_j, torch.bfloat16)
+
+
+def test_front_fused_route_equals_composed_route(monkeypatch):
+  fused = ttit.CameraBF16(ttit.BayerPattern.BGGR, correct_colors=True,
+                          device="cpu")
+  composed = ttit.CameraBF16(ttit.BayerPattern.BGGR, correct_colors=True,
+                             device="cpu")
+  for f in range(3):
+    raws = _raws(310 + f)
+    monkeypatch.setenv(ENV, "1")
+    o_f = fused.process(raws, gamma=2.2, intensity=1.3)
+    monkeypatch.delenv(ENV)
+    o_c = composed.process(raws, gamma=2.2, intensity=1.3)
+    assert torch.equal(fused.metrics, composed.metrics)
+    assert torch.equal(o_f, o_c)
+
+
+@pytest.mark.parametrize("env,cls,isp_kw,kw,taken", [
+    ("1", "CameraBF16", {}, {}, True),
+    ("1", "CameraBF16", {"metering_stride": 4}, {"gamma": 0.8}, True),
+    (None, "CameraBF16", {}, {}, False),
+    ("0", "CameraBF16", {}, {}, False),
+    ("1", "Camera16", {}, {}, False),
+    ("1", "Camera32", {}, {}, False),
+    ("1", "CameraBF16", {"scale": 0.5}, {}, False),
+    ("1", "CameraBF16", {"metering_stride": 7}, {}, False),
+    ("1", "CameraBF16", {}, {"tonemap": "linear"}, False),
+    ("1", "CameraBF16", {}, {"color_adapt": 0.5}, False),
+])
+def test_front_fused_gate(env, cls, isp_kw, kw, taken, monkeypatch):
+  calls = []
+  real = tci.demosaic_reinhard_front
+  monkeypatch.setattr(tci, "demosaic_reinhard_front",
+                      lambda *a, **k: calls.append(1) or real(*a, **k))
+  if env is None:
+    monkeypatch.delenv(ENV, raising=False)
+  else:
+    monkeypatch.setenv(ENV, env)
+  isp = getattr(ttit, cls)(ttit.BayerPattern.RGGB, device="cpu", **isp_kw)
+  out = isp.process(_raws(320), **kw)
+  assert bool(calls) == taken
+  assert out.dtype == torch.uint8 and torch.isfinite(isp.metrics).all()
+  if isp_kw.get("scale"):
+    assert tuple(out.shape[-2:]) == PLANS["x0.5"][0][::-1]

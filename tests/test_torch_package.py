@@ -1,7 +1,7 @@
 """Package-level contracts of the PyTorch port: it imports no JAX, the
 kernel route never falls back to the CPU, configurations outside the
-ported slice raise NotImplementedError, and bad raw buffers raise
-ValueError before any kernel launch."""
+port raise NotImplementedError while the ones ported since run, and bad
+raw buffers raise ValueError before any kernel launch."""
 
 import subprocess
 import sys
@@ -21,7 +21,9 @@ from taichi_image_tpu_torch.ops.bayer import (  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import decode as th_decode  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import demosaic as th_dm  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import resize as th_rs  # noqa: E402
 from taichi_image_tpu_torch.utils.debug import validate_raw  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,6 +42,9 @@ def test_import_pulls_in_no_jax():
       import taichi_image_tpu_torch.ops.hopper.demosaic
       import taichi_image_tpu_torch.ops.hopper.reinhard
       import taichi_image_tpu_torch.ops.hopper.finish
+      import taichi_image_tpu_torch.ops.hopper.resize
+      import taichi_image_tpu_torch.ops.hopper.front_fused
+      import taichi_image_tpu_torch.ops.interpolate
       import taichi_image_tpu_torch.models.camera_isp
       bad = sorted(m for m in sys.modules
                    if m == "jax" or m.startswith(("jax.", "taichi_image_tpu.")))
@@ -52,26 +57,33 @@ def test_import_pulls_in_no_jax():
   assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
-STAGES = ["decode", "demosaic", "reinhard", "finish"]
+STAGES = ["decode", "demosaic", "reinhard", "finish", "resize"]
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+# XLA routes of the JAX package that a kernel instantiation replaces
+_XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
+               "resize_f32": "1315"}
 
 
 def test_kernels_registered_with_sources():
   counts = hopper.launch_counts()
   assert set(counts) == {f"{st}_{sfx}" for st in STAGES
-                         for sfx in ("bf16", "f16", "f32")}
+                         for sfx in ("bf16", "f16", "f32")} | {
+                             "front_fused_bf16"}
   for k in hopper.KERNELS.values():
     assert (hopper.CSRC / k.source).is_file(), k.source
-    # the launcher tit_<name>_<suffix> comes from the source's X-macro
-    base, suffix = k.symbol.rsplit("_", 1)
-    assert k.name.endswith(f"_{suffix}"), (k.name, k.symbol)
     src = (hopper.CSRC / k.source).read_text()
-    assert f"{base}_##suffix" in src and "TIT_FOR_EACH_DTYPE(" in src
+    if k.name == "front_fused_bf16":  # one instantiation, no X-macro
+      assert f'extern "C" int {k.symbol}(' in src
+    else:
+      # the launcher tit_<name>_<suffix> comes from the source's X-macro
+      base, suffix = k.symbol.rsplit("_", 1)
+      assert k.name.endswith(f"_{suffix}"), (k.name, k.symbol)
+      assert f"{base}_##suffix" in src and "TIT_FOR_EACH_DTYPE(" in src
     path, lines = k.replaces.split(":")
     assert (REPO / path).is_file(), path
-    if k.name == "decode_f32":  # no Pallas kernel: the XLA decode route
+    if k.name in _XLA_ROUTES:  # no Pallas kernel: an XLA route
       assert path == "taichi_image_tpu/models/camera_isp.py", path
-      assert lines == "960-972"
+      assert lines == _XLA_ROUTES[k.name]
     else:
       assert path.startswith("taichi_image_tpu/ops/pallas/"), path
       text = (REPO / path).read_text().splitlines()
@@ -93,6 +105,9 @@ def _kernel_calls(dtype):
                                              backend="kernel"),
       "finish": lambda: th_fin.finish_planar_u8(x12, torch.ones(1, 1, 1, 1),
                                                 1.0, backend="kernel"),
+      "resize": lambda: th_rs.resize_x12(
+          x12, th_rs.resize_taps(4, 6, (6, 4), (0.5, 0.5),
+                                 torch.device("cpu")), backend="kernel"),
   }
 
 
@@ -104,6 +119,18 @@ def test_kernel_backend_on_cpu_raises(name):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
       _kernel_calls(dtype)[name]()
     assert hopper.launch_counts()[kname] == before
+
+
+def test_front_fused_kernel_backend_on_cpu_raises():
+  w = _demosaic_tables(BayerPattern.RGGB, "mhc")
+  fin = _stencil_finish_spec(w, 4, 6, None, torch.bfloat16)
+  x4 = torch.zeros(1, 4, 4, 6, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="needs CUDA tensors"):
+    th_ff.front_fused(x4, w, fin, torch.zeros(6), backend="kernel")
+  assert hopper.launch_counts()["front_fused_bf16"] == 0
+  with pytest.raises(ValueError, match="bf16 only"):
+    th_ff.front_fused(x4.float(), w, dict(fin, out_dtype=torch.float32),
+                      torch.zeros(6))
 
 
 def test_unknown_backend_raises():
@@ -165,28 +192,34 @@ def test_auto_backend_on_cpu_is_plain_and_counts_nothing():
   assert all(v == 0 for v in hopper.launch_counts().values())
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"fmt": "packed16"}, "item 13"),
-    ({"tonemap": "linear"}, "item 15"),
-    ({"color_format": "yuv420"}, "item 8"),
-])
-def test_out_of_slice_process_args_raise(kw, match):
-  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu")
+@pytest.mark.parametrize("kw,isp_kw,match", [
+    ({"fmt": "packed16"}, {}, "item 13"),
+    ({"color_format": "yuv420"}, {}, "item 8"),
+    ({"color_format": "yuv420"}, {"resize_width": 32}, "item 8"),
+], ids=["kw0-item 13", "kw2-item 8", "resize_width-yuv420-item 8"])
+def test_out_of_slice_process_args_raise(kw, isp_kw, match):
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
   raws = _raws(2, 16, 64) if kw.get("fmt") == "packed16" else _raws()
   with pytest.raises(NotImplementedError, match=match):
     isp.process(raws, **kw)
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"resize_width": 32}, "item 7"),
-    ({"scale": 0.5}, "item 7"),
-    ({"transform": ttit.ImageTransform.rotate_90}, "item 7"),
-    ({"metering_stride": 7}, "item 15"),
-])
-def test_out_of_slice_isp_config_raises(kw, match):
-  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **kw)
-  with pytest.raises(NotImplementedError, match=match):
-    isp.process(_raws())
+# configurations that raised until the resize, transform, linear and
+# odd-stride routes were ported: (ISP keywords, process keywords,
+# output (h, w) for 16 x 64-pixel raws)
+@pytest.mark.parametrize("isp_kw,kw,hw", [
+    ({"resize_width": 32}, {}, (8, 32)),
+    ({"scale": 0.5}, {}, (8, 32)),
+    ({"transform": ttit.ImageTransform.rotate_90}, {}, (64, 16)),
+    ({"metering_stride": 7}, {}, (16, 64)),
+    ({}, {"tonemap": "linear"}, (16, 64)),
+], ids=["resize_width", "scale", "rotate_90", "stride7", "linear"])
+def test_ported_configs_run(isp_kw, kw, hw):
+  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
+  for _ in range(2):
+    out = isp.process(_raws(), **kw)
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 3, *hw)
+    assert isp.metrics.shape == (9,) and torch.isfinite(isp.metrics).all()
 
 
 def test_tiny_frames_raise_not_implemented():
