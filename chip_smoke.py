@@ -11,14 +11,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
             limit as nvidia-smi reports them.
 2. build    nvcc builds the six kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4 and K12 for bf16,
-            f16 and f32, and the bf16 front-fused K7 (16 kernels).
+            f16 and f32, and the bf16 front-fused K7 (16 kernels); each
+            source's register range and spill bytes from ptxas.
 3. kernels  each kernel against its plain PyTorch twin on the card, at
-            the 6 x 2160 x 5760-byte packed12 shape of the main path and
-            at a small odd shape: K1-K4 as before, K4's linear mode and
-            its 8 transforms, K12 at x0.5 (6x4K -> 1920x1080) and x0.37,
+            the 6 x 2160 x 5760-byte packed12 shape of the main path, at
+            a small odd shape, at a ragged mid-size shape (515 x 1003
+            half-res: tiles cut on both axes, rows that are not whole
+            vectors, planes that are not 16-byte aligned) and at a cut
+            shape (520 x 1000: whole vectors, tiles cut on both axes):
+            K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
+            methods, with and without a CCM), K4's two modes, each under
+            the 8 transforms, K12 at x0.5 (6x4K -> 1920x1080) and x0.37,
             K3 on the resized planar image, K7 against K2 -> K3 on the
             card; kernel and twin times from CUDA events around batches
-            of 10 calls.
+            of 10 calls, K4 under every transform that swaps the axes,
+            and each time's bound (logical bytes over 3.35 TB/s, or f32
+            operations over 67 TFLOP/s, the larger) and share of it.
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
             the EMA carried over, compared frame by frame with the
@@ -48,7 +56,9 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +67,10 @@ import time
 N_CAM, H, W = 6, 2160, 3840
 WB = W * 3 // 2
 ODD = (3, 38, 150)          # small odd shape: H/2 = 19, W/2 = 50
+RAGGED = (2, 1030, 3009)    # H/2 = 515, W/2 = 1003
+CUT = (2, 1040, 3000)       # H/2 = 520, W/2 = 1000: whole vectors, cut tiles
+HBM_BPS = 3.35e12           # H100 SXM memory rate (data sheet, 700 W)
+F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 FRAMES = 5
 K = 10                      # chained steps per timed run
 REPS = 5                    # timed runs (median)
@@ -126,11 +140,18 @@ def phase_build():
   dt = time.perf_counter() - t0
   log(f"build: {len(libs)} sources, {len(hopper.KERNELS)} kernels in "
       f"{dt:.1f} s")
+  sources = {}
   for source, path in libs.items():
-    regs = [ln.strip() for ln in path.with_suffix(".log").read_text()
-            .splitlines() if "registers" in ln]
-    log(f"  {source}: {path.name} | {'; '.join(regs)}")
-  return dt
+    text = path.with_suffix(".log").read_text()
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
+    sources[source] = dict(kernels=len(regs), registers=[min(regs),
+                                                         max(regs)],
+                           spill_bytes=spills)
+    log(f"  {source}: {path.name}, {len(regs)} kernels, {min(regs)}-"
+        f"{max(regs)} registers, {spills} spill bytes")
+  return dict(seconds=dt, sources=sources)
 
 
 def _check_bitwise(what, k, p):
@@ -149,14 +170,35 @@ def _check_map(what, kp, km, pp, pm):
     raise AssertionError(f"{what}: {u} ulps, max rel {rel:.3g}")
 
 
-def _time(results, name, call, shape_note="6x4K"):
+def _nbytes(*tensors) -> int:
+  import torch
+  total = 0
+  for t in tensors:
+    if isinstance(t, (tuple, list)):
+      total += _nbytes(*t)
+    elif isinstance(t, torch.Tensor):
+      total += t.numel() * t.element_size()
+  return total
+
+
+def _time(results, name, call, inputs, ops=0, shape_note="6x4K"):
   """Kernel and twin times, in turns plain, kernel, kernel, plain; the
-  lower median of each side."""
+  lower median of each side. The bound is the larger of the logical
+  bytes (``inputs`` read once, the kernel's outputs written once) over
+  the memory rate and ``ops`` f32 operations over the f32 rate."""
+  nbytes = _nbytes(inputs, call("kernel"))
   t = [median_ms(lambda: call(b)) for b in
        ("plain", "kernel", "kernel", "plain")]
-  results[name] = dict(ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]))
-  log(f"  {name}: kernel {results[name]['ms']:.4f} ms, plain "
-      f"{results[name]['plain_ms']:.4f} ms ({shape_note}, median of 7 "
+  by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+  r = results[name] = dict(
+      ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]), bytes=nbytes, ops=ops,
+      bound_ms=max(by_bytes, by_ops),
+      bound_by="bytes" if by_bytes >= by_ops else "operations",
+      library_ms=None)
+  r["share"] = r["bound_ms"] / r["ms"]
+  log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, "
+      f"{ops} f32 ops), {r['share']:.1%} of it ({shape_note}, median of 7 "
       "batches of 10)")
 
 
@@ -169,13 +211,15 @@ def phase_kernels(results):
                                                         default_cc,
                                                         metering_update_ca)
   from taichi_image_tpu_torch.ops import hopper
-  from taichi_image_tpu_torch.ops.bayer import (BayerPattern,
+  from taichi_image_tpu_torch.ops.bayer import (_TRANSFORM_SFF,
+                                                BayerPattern,
                                                 _demosaic_tables,
                                                 _stencil_finish_spec)
   from taichi_image_tpu_torch.ops.hopper import decode, demosaic, finish
   from taichi_image_tpu_torch.ops.hopper import front_fused, reinhard, resize
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
+  swaps = [t for t in ImageTransform if _TRANSFORM_SFF[t][0]]
   dev = torch.device("cuda")
   gen = torch.Generator(device=dev).manual_seed(0)
   ccm = tuple((default_cc * [1.8, 1.0, 2.1]).astype("float32").ravel()
@@ -186,7 +230,7 @@ def phase_kernels(results):
   def note(name, a, b):
     err[name] = max(err[name], (a.float() - b.float()).abs().max().item())
 
-  for shape in ((N_CAM, H, WB), ODD):
+  for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
     raws = torch.randint(0, 256, shape, generator=gen, device=dev,
                          dtype=torch.uint8)
     tag = "x".join(map(str, shape))
@@ -201,22 +245,26 @@ def phase_kernels(results):
         note(f"decode_{sfx}", k, p)
       phases = decode.decode12_phases(raws, False, dtype, backend="kernel")
       hh, wh = phases.shape[-2:]
-      # K2: bitwise without a CCM, <= 1 ulp of T with one
-      for cc in (None, ccm):
-        fin = _stencil_finish_spec(weights, hh, wh, cc, dtype)
-        kx, ks = demosaic.demosaic_stencil(phases, weights, fin, 4,
-                                           backend="kernel")
-        px, ps = demosaic.demosaic_stencil(phases, weights, fin, 4,
-                                           backend="plain")
-        ux, us = ulps(kx, px), ulps(ks, ps)
-        if cc is None and (ux or us):
-          raise AssertionError(f"demosaic {kt}: not bitwise ({ux}, {us})")
-        if max(ux, us) > 1:
-          raise AssertionError(f"demosaic {kt} ccm: {max(ux, us)} ulps")
-        if ulps(ks, kx[:, 0:3, ::4, ::4]):
-          raise AssertionError(f"demosaic {kt}: sample != "
-                               "x12[:, :3, ::4, ::4]")
-        note(f"demosaic_{sfx}", kx, px)
+      # K2: bitwise without a CCM, <= 1 ulp of T with one, for every
+      # tap-mask variant
+      for pattern, method in demosaic.VARIANTS:
+        w = _demosaic_tables(pattern, method)
+        for cc in (None, ccm):
+          kv = f"{kt} {pattern.name} {method} cc={cc is not None}"
+          fin = _stencil_finish_spec(w, hh, wh, cc, dtype)
+          kx, ks = demosaic.demosaic_stencil(phases, w, fin, 4,
+                                             backend="kernel")
+          px, ps = demosaic.demosaic_stencil(phases, w, fin, 4,
+                                             backend="plain")
+          ux, us = ulps(kx, px), ulps(ks, ps)
+          if cc is None and (ux or us):
+            raise AssertionError(f"demosaic {kv}: not bitwise ({ux}, {us})")
+          if max(ux, us) > 1:
+            raise AssertionError(f"demosaic {kv}: {max(ux, us)} ulps")
+          if ulps(ks, kx[:, 0:3, ::4, ::4]):
+            raise AssertionError(f"demosaic {kv}: sample != "
+                                 "x12[:, :3, ::4, ::4]")
+          note(f"demosaic_{sfx}", kx, px)
       fin = _stencil_finish_spec(weights, hh, wh, None, dtype)
       x12, samp = demosaic.demosaic_stencil(phases, weights, fin, 4,
                                             backend="kernel")
@@ -230,26 +278,23 @@ def phase_kernels(results):
         _check_map(f"reinhard {kt} ca={ca}", kp, km, pp, pm)
         note(f"reinhard_{sfx}", kp, pp)
         note(f"reinhard_{sfx}", km, pm)
-      # K4: bitwise, Reinhard and linear modes at gamma 1 and 2.2, and
-      # the 8 transforms
+      # K4: bitwise, Reinhard and linear modes at gamma 1 and 2.2, each
+      # under the 8 transforms at gamma 2.2
       scal0 = reinhard.reinhard_scal(metrics, 1.0, 1.0)
       p_cast, max_out = reinhard.reinhard_map(x12, scal0, False)
       lin = finish.linear_scal(metrics)
       for mode, src, sc in (("reinhard", p_cast, max_out),
                             ("linear", x12, lin)):
-        for gamma in (1.0, 2.2):
-          ko = finish.finish_planar_u8(src, sc, gamma, mode,
+        cases = [(1.0, ImageTransform.none)]
+        cases += [(2.2, t) for t in ImageTransform]
+        for gamma, t in cases:
+          ko = finish.finish_planar_u8(src, sc, gamma, mode, t,
                                        backend="kernel")
-          po = finish.finish_planar_u8(src, sc, gamma, mode,
+          po = finish.finish_planar_u8(src, sc, gamma, mode, t,
                                        backend="plain")
-          _check_bitwise(f"finish {kt} {mode} gamma={gamma}", ko, po)
+          _check_bitwise(f"finish {kt} {mode} gamma={gamma} {t.value}", ko,
+                         po)
           note(f"finish_{sfx}", ko, po)
-      for t in ImageTransform:
-        ko = finish.finish_planar_u8(p_cast, max_out, 2.2, transform=t,
-                                     backend="kernel")
-        po = finish.finish_planar_u8(p_cast, max_out, 2.2, transform=t,
-                                     backend="plain")
-        _check_bitwise(f"finish {kt} {t.value}", ko, po)
       # K12: bitwise at x0.5 and x0.37 (odd h', w'); K3 on its output
       plans = {}
       for scale in (0.5, 0.37):
@@ -269,54 +314,78 @@ def phase_kernels(results):
       # K7 (bf16): bitwise against K2 -> K3 on the card, K3's contract
       # against its twin
       if dtype == torch.bfloat16:
-        for cc in (None, ccm):
-          fin_c = _stencil_finish_spec(weights, hh, wh, cc, dtype)
-          fp, fm = front_fused.front_fused(phases, weights, fin_c, scal0,
+        for (pattern, method), cc in itertools.product(demosaic.VARIANTS,
+                                                       (None, ccm)):
+          kv = f"{kt} {pattern.name} {method} cc={cc is not None}"
+          w = _demosaic_tables(pattern, method)
+          fin_c = _stencil_finish_spec(w, hh, wh, cc, dtype)
+          fp, fm = front_fused.front_fused(phases, w, fin_c, scal0,
                                            backend="kernel")
-          cx, _ = demosaic.demosaic_stencil(phases, weights, fin_c,
+          cx, _ = demosaic.demosaic_stencil(phases, w, fin_c,
                                             backend="kernel")
           cp, cm = reinhard.reinhard_map(cx, scal0, False, backend="kernel")
-          _check_bitwise(f"front_fused {kt} cc={cc is not None} p", fp, cp)
-          _check_bitwise(f"front_fused {kt} cc={cc is not None} max", fm, cm)
-          pp, pm = front_fused.front_fused(phases, weights, fin_c, scal0,
+          _check_bitwise(f"front_fused {kv} p", fp, cp)
+          _check_bitwise(f"front_fused {kv} max", fm, cm)
+          pp, pm = front_fused.front_fused(phases, w, fin_c, scal0,
                                            backend="plain")
-          _check_map(f"front_fused {kt} vs twin", fp, fm, pp, pm)
+          _check_map(f"front_fused {kv} vs twin", fp, fm, pp, pm)
           note("front_fused_bf16", fp, pp)
-      log(f"kernels {kt}: decode, demosaic, reinhard, finish (both modes, 8 "
-          "transforms), resize"
-          + (", front_fused" if dtype == torch.bfloat16 else "")
+      log(f"kernels {kt}: decode, demosaic (8 variants), reinhard, finish "
+          "(both modes, each under 8 transforms), resize"
+          + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
-      if shape == ODD:
+      if shape != (N_CAM, H, WB):
         continue
-      # times at the main path's shapes
+      # times at the main path's shapes, each with its inputs and f32
+      # operations (counted from the kernel's arithmetic: the stencil's
+      # live taps as a multiply and an add each, inv_full and the clip;
+      # the map's ~30 operations per pixel; 4 to 7 per finished byte; a
+      # resize output's 2 x 3 lerp operations per tap pair)
       taps, rgb = plans[0.5]
+      npix = N_CAM * hh * wh
+      live = sum(bin(m).count("1") for m in demosaic.TAP_MASKS[
+          demosaic.tap_variant(weights)])
       calls = {
-          f"decode_{sfx}": lambda b: decode.decode12_phases(
-              raws, False, dtype, backend=b),
-          f"demosaic_{sfx}": lambda b: demosaic.demosaic_stencil(
-              phases, weights, fin, 4, backend=b),
-          f"reinhard_{sfx}": lambda b: reinhard.reinhard_map(
-              x12, scal0, False, backend=b),
-          f"finish_{sfx}": lambda b: finish.finish_planar_u8(
-              p_cast, max_out, 1.0, backend=b),
-          f"finish_{sfx} linear": lambda b: finish.finish_planar_u8(
-              x12, lin, 1.0, "linear", backend=b),
-          f"finish_{sfx} flip_horiz": lambda b: finish.finish_planar_u8(
-              p_cast, max_out, 1.0, transform=ImageTransform.flip_horiz,
-              backend=b),
-          f"finish_{sfx} rotate_90": lambda b: finish.finish_planar_u8(
-              p_cast, max_out, 1.0, transform=ImageTransform.rotate_90,
-              backend=b),
-          f"resize_{sfx}": lambda b: resize.resize_x12(x12, taps, backend=b),
-          f"reinhard_{sfx} planar1080": lambda b: reinhard.reinhard_map(
-              rgb, scal0, False, backend=b),
+          f"decode_{sfx}": (lambda b: decode.decode12_phases(
+              raws, False, dtype, backend=b), [raws], 2 * 4 * npix),
+          f"demosaic_{sfx}": (lambda b: demosaic.demosaic_stencil(
+              phases, weights, fin, 4, backend=b), [phases],
+              (2 * live + 12 + 24) * npix),
+          f"reinhard_{sfx}": (lambda b: reinhard.reinhard_map(
+              x12, scal0, False, backend=b), [x12, scal0], 30 * 4 * npix),
+          f"finish_{sfx}": (lambda b: finish.finish_planar_u8(
+              p_cast, max_out, 1.0, backend=b), [p_cast, max_out],
+              4 * 12 * npix),
+          f"finish_{sfx} linear": (lambda b: finish.finish_planar_u8(
+              x12, lin, 1.0, "linear", backend=b), [x12, lin],
+              7 * 12 * npix),
       }
+      for t in [ImageTransform.flip_horiz, *swaps]:
+        calls[f"finish_{sfx} {t.value}"] = (
+            lambda b, t=t: finish.finish_planar_u8(
+                p_cast, max_out, 1.0, transform=t, backend=b),
+            [p_cast, max_out], 4 * 12 * npix)
+      calls.update({
+          f"resize_{sfx}": (lambda b: resize.resize_x12(x12, taps, backend=b),
+                            [x12, taps.r_lo, taps.r_hi, taps.r_f,
+                             taps.c_lo, taps.c_hi, taps.c_f],
+                            6 * rgb.numel()),
+          f"reinhard_{sfx} planar1080": (lambda b: reinhard.reinhard_map(
+              rgb, scal0, False, backend=b), [rgb, scal0],
+              10 * rgb.numel()),
+      })
       if dtype == torch.bfloat16:
-        calls["front_fused_bf16"] = lambda b: front_fused.front_fused(
-            phases, weights, fin, scal0, backend=b)
-      for name, call in calls.items():
-        _time(results, name, call,
+        calls["front_fused_bf16"] = (lambda b: front_fused.front_fused(
+            phases, weights, fin, scal0, backend=b), [phases, scal0],
+            (2 * live + 36 + 30 * 4) * npix)
+      for name, (call, inputs, ops) in calls.items():
+        _time(results, name, call, inputs, ops,
               "6x4K -> 1920x1080" if name.startswith("resize") else "6x4K")
+      base = results[f"finish_{sfx}"]["ms"]
+      ratios = [results[f"finish_{sfx} {t.value}"]["ms"] / base
+                for t in swaps]
+      log(f"  finish_{sfx} under a swap / without a transform: "
+          + ", ".join(f"{t.value} {r:.3f}x" for t, r in zip(swaps, ratios)))
       if dtype == torch.bfloat16:
         # the composed pair K7 replaces, kernels only
         ms = median_ms(lambda: reinhard.reinhard_map(
@@ -699,7 +768,7 @@ def main(argv=None):
   card = phase_device()
   import torch
   from taichi_image_tpu_torch.ops import hopper
-  build_s = phase_build()
+  build = phase_build()
   results = {}
   phase_kernels(results)
   gen = torch.Generator(device="cuda").manual_seed(1)
@@ -725,10 +794,12 @@ def main(argv=None):
         name=name, route="cuda",
         source=f"taichi_image_tpu_torch/ops/hopper/csrc/{k.source}",
         replaces=k.replaces, launches=launches[name],
-        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"]))
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], share=r["share"]))
   if args.out:
     with open(args.out, "w") as f:
-      json.dump(dict(card=card, build_s=build_s, kernels=kernels,
+      json.dump(dict(card=card, build=build, kernels=kernels,
                      kernel_modes=results, timing=timing), f, indent=1)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {

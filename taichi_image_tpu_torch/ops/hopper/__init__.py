@@ -39,7 +39,8 @@ import torch
 
 __all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
            "build_all", "launch_counts", "reset_launches", "use_kernel",
-           "check_dtype", "check_tensor", "stream_of", "ptr"]
+           "check_dtype", "check_tensor", "check_frame_size", "stream_of",
+           "ptr"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -47,8 +48,12 @@ BUILD_DIR = Path(__file__).parent / "_build"
 # --fmad=false: the plain twins round after every op, and an FMA
 # contraction of e.g. the map's .299r + .587g + .114b or the CCM would
 # break the kernel-vs-plain comparison. No --use_fast_math either.
+# --split-compile=0 runs the device compiler's optimizer on every CPU core:
+# the 24 stencil instantiations of demosaic.cu take about 3 minutes in one
+# thread.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "--split-compile=0", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
 
 BACKENDS = ("auto", "kernel", "plain")
 
@@ -229,6 +234,14 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
   if not t.is_contiguous():
     raise ValueError(f"{name} must be contiguous")
+
+
+def check_frame_size(hh: int, wh: int) -> None:
+  """The kernels index an image in 32 bits: its 12 half-res planes must
+  hold fewer than 2**31 values (csrc/common.cuh image_fits_int32)."""
+  if 12 * hh * wh >= 2 ** 31:
+    raise ValueError(f"a {hh}x{wh} half-res frame is too large for the "
+                     "kernels' 32-bit indexing (12 planes >= 2**31 values)")
 
 
 def stream_of(device: torch.device) -> int:

@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tit {
 
@@ -42,6 +43,84 @@ __device__ __forceinline__ __half store_rn<__half>(float f) {
 template <>
 __device__ __forceinline__ float store_rn<float>(float f) {
   return f;
+}
+
+// Runs of kN consecutive elements of T moved as one 8- or 16-byte vector
+// access (kN * sizeof(T) bytes, aligned to that size). In the 32-bit
+// words of a run the elements sit in address order, two 16-bit elements
+// to a word (the low half first). Element indices are compile-time after
+// unrolling, so the unpacking is shifts and moves between registers.
+template <typename T, int kN>
+struct Run {
+  static constexpr int kWords = kN * static_cast<int>(sizeof(T)) / 4;
+  static_assert(kWords == 2 || kWords == 4, "a run is 8 or 16 bytes");
+
+  // The kN elements at p, each converted exactly to f32.
+  __device__ static __forceinline__ void load(const T* p, float* f) {
+    unsigned w[4];
+    if constexpr (kWords == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      if constexpr (sizeof(T) == 4) {
+        f[k] = __uint_as_float(w[k]);
+      } else if constexpr (std::is_same_v<T, __half>) {
+        f[k] = __half2float(__ushort_as_half(static_cast<unsigned short>(
+            (k & 1) ? (w[k >> 1] >> 16) : (w[k >> 1] & 0xFFFFu))));
+      } else {  // bf16 -> f32 is exact: the bits shifted up
+        f[k] = __uint_as_float((k & 1) ? (w[k >> 1] & 0xFFFF0000u)
+                                       : (w[k >> 1] << 16));
+      }
+    }
+  }
+
+  // f[0 .. kN) each rounded once to T (store_rn) and stored at p.
+  __device__ static __forceinline__ void store(T* p, const float* f) {
+    unsigned w[kWords];
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) {
+      if constexpr (sizeof(T) == 4) {
+        w[m] = __float_as_uint(f[m]);
+      } else {
+        w[m] = bits16(f[2 * m]) | bits16(f[2 * m + 1]) << 16;
+      }
+    }
+    if constexpr (kWords == 4) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    }
+  }
+
+ private:
+  __device__ static __forceinline__ unsigned bits16(float f) {
+    if constexpr (std::is_same_v<T, __half>) {
+      return __half_as_ushort(store_rn<__half>(f));
+    } else {
+      return __bfloat16_as_ushort(store_rn<__nv_bfloat16>(f));
+    }
+  }
+};
+
+// The launchers index within one image in 32 bits: the 12 planes of an
+// image must fit in an int (the wrappers refuse larger frames).
+inline bool image_fits_int32(int hh, int wh) {
+  return 12LL * hh * wh <= 0x7FFFFFFFLL;
+}
+
+// Whether 16-byte vector accesses at p (and every 16th byte after it)
+// are aligned.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace tit

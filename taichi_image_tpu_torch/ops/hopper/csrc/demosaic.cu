@@ -8,68 +8,235 @@
 // demosaic.py:377): its bf16 and f32 finishes, and its q16_io branch of
 // the Camera16 route, whose 16-bit fixed-point codes stand in for the f16
 // that Mosaic cannot load or store. The TPU kernel DMAs halo tiles and
-// emits the sample through one-hot MXU dots; here one thread computes all
-// 12 channels of one half-res pixel straight from device memory (the
-// 3x3 x 4-phase neighbourhood of neighbouring threads overlaps and is
-// served by L1).
+// emits the sample through one-hot MXU dots.
 //
-// Bound: memory on paper (4 * sizeof(T) bytes of phases read and
-// 12 * sizeof(T) bytes of x12 written per half-res pixel; f32 moves twice
-// the bytes of bf16 and f16 with the same arithmetic and registers).
-// Every output phase reads the same 13
-// diamond positions whatever the Bayer pattern or method, so those
-// positions are fixed at compile time (tap_index) and only their weights
-// come from the parameter block: 13 multiply-adds per channel and no
-// run-time test of the weights, which had made a first version
-// instruction-bound.
-//
-// The stencil itself (stencil.cuh, shared with the front-fused K7) gives
-// the clipped f32 channels; each is rounded once to T, and the sample is
-// that T value.
+// Bound: memory, 4 values of T in and 12 out per half-res pixel (0.120 ms
+// for 6 x 4K in bf16 at 3.35 TB/s, 0.241 ms in f32), with the f32
+// arithmetic close behind: 84 live taps of an MHC variant are 168
+// multiplies and adds per channel set (no FMA), about 250 instructions
+// per pixel, 0.10 ms of dispatch at 6 x 4K. The design keeps loads in
+// flight while the arithmetic runs, and spends as few instructions per
+// pixel as it can:
+//   - a block of 32 x 8 threads takes a tile of 32 x 128 half-res pixels
+//     of one image (blockIdx = column tile, row tile, image) and stages
+//     the four phase planes of the tile with a one-pixel halo in shared
+//     memory through 16-byte cp.async copies, all in flight at once, with
+//     zeros outside the frame (the padding that the border factors
+//     renormalize);
+//   - __launch_bounds__(256, 2) holds a thread to 128 registers, so two
+//     blocks share an SM and one stages its tile while the other computes;
+//   - each thread finishes kV = 4 consecutive pixels of a row from the
+//     3 x 6 window of each phase (f32 in registers), and writes each of
+//     the 12 channels as one 4 * sizeof(T)-byte store: a warp writes a
+//     whole 128-pixel row of a channel, 256 or 512 contiguous bytes. Four
+//     pixels, not eight: the 16-bit types' eight-pixel window does not
+//     fit in 128 registers without spilling;
+//   - only the nonzero taps of the Bayer pattern and method are summed
+//     (stencil.cuh's compile-time tap-mask variants, one kernel each);
+//   - only tiles on the frame's edge evaluate the border and corner
+//     factors; interior tiles skip them;
+//   - all indexing is 32-bit within an image, with no division per pixel.
+// A frame whose row is not a whole number of 16-byte copies, or a plane
+// that is not 16-byte aligned, stages and stores element by element
+// instead (the launcher picks `vec` from the sizes and pointers); the
+// arithmetic is the same. Each channel is rounded once to T, and the
+// sample is that T value.
 #include "stencil.cuh"
 
 namespace {
 
+constexpr int kV = 4;                 // pixels per thread
+constexpr int kRunsX = 32;            // threads across a tile row: a warp
+constexpr int kRowsY = 8;             // warps of a block
+constexpr int kThreads = kRunsX * kRowsY;
+constexpr int kTileH = 32;            // half-res rows of a tile
+constexpr int kTileW = kRunsX * kV;   // half-res columns of a tile
+
 template <typename T>
-__global__ void stencil_kernel(const T* __restrict__ x, T* __restrict__ out,
-                               T* __restrict__ samp, int n,
-                               int hh, int wh, int step, int hs, int ws,
-                               const __grid_constant__ tit::StencilParams p) {
-  const long long plane = static_cast<long long>(hh) * wh;
-  const long long total = static_cast<long long>(n) * plane;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int j = static_cast<int>(idx % wh);
-    const int i = static_cast<int>((idx / wh) % hh);
-    const long long b = idx / plane;
-    float v[12];
-    tit::stencil_pixel(x, b, i, j, hh, wh, p, v);
-    const bool sampled = step > 0 && i % step == 0 && j % step == 0;
+struct Tile {
+  static constexpr int kS = 16 / sizeof(T);     // elements per 16-byte copy
+  static constexpr int kSW = kTileW + 2 * kS;   // staged row: a halo copy
+                                                // on each side
+  static constexpr int kSH = kTileH + 2;        // staged rows: a halo row
+                                                // on each side
+  static constexpr int kBytes = 4 * kSH * kSW * static_cast<int>(sizeof(T));
+};
+
+struct Frame {
+  int hh, wh, step, hs, ws;
+};
+
+// One thread's run: pixels (i, j0 .. j0 + kV) from the staged tile, pixel
+// j0's column at s[.][kS + c0].
+template <typename T, int kVariant, bool kBorder>
+__device__ __forceinline__ void stencil_run(
+    const T* __restrict__ s, int rr, int c0, int i, int j0, const Frame& f,
+    bool vec, const tit::StencilParams& p, T* __restrict__ outb,
+    T* __restrict__ sampb) {
+  using Tl = Tile<T>;
+  float win[4][3][kV + 2];  // the 3 x (kV + 2) window of each phase
 #pragma unroll
-    for (int oc = 0; oc < 12; ++oc) {
-      const T o = tit::store_rn<T>(v[oc]);
-      out[(b * 12 + oc) * plane + static_cast<long long>(i) * wh + j] = o;
-      if (oc < 3 && sampled) {
-        samp[((b * 3 + oc) * hs + i / step) * static_cast<long long>(ws) +
-             j / step] = o;
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const T* row = s + (q * Tl::kSH + rr + u) * Tl::kSW + Tl::kS + c0;
+      tit::Run<T, kV>::load(row, win[q][u] + 1);
+      win[q][u][0] = tit::load_f32(row[-1]);
+      win[q][u][kV + 1] = tit::load_f32(row[kV]);
+    }
+  }
+  const int plane = f.hh * f.wh;
+  const int at = i * f.wh + j0;
+#pragma unroll
+  for (int ph = 0; ph < 4; ++ph) {
+    float o[3][kV];
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      float t[36];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+#pragma unroll
+          for (int v = 0; v < 3; ++v) t[q * 9 + u * 3 + v] = win[q][u][k + v];
+        }
       }
+      const tit::Edges edges{i == 0, i == f.hh - 1, j0 + k == 0,
+                             j0 + k == f.wh - 1};
+      float v3[3];
+      tit::stencil_phase<kVariant, kBorder>(ph, t, edges, p, v3);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[c][k] = v3[c];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      T* dst = outb + (ph * 3 + c) * plane + at;
+      if (vec) {
+        tit::Run<T, kV>::store(dst, o[c]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kV; ++k) {
+          if (j0 + k < f.wh) dst[k] = tit::store_rn<T>(o[c][k]);
+        }
+      }
+    }
+    // the sampled pixels of the run: k0, k0 + step, ...
+    if (ph == 0 && f.step > 0 && i % f.step == 0) {
+      const int m = j0 % f.step;
+      int kn = m ? f.step - m : 0, jn = (j0 + kn) / f.step;
+      const int srow = (i / f.step) * f.ws;
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        if (k == kn && j0 + k < f.wh) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            sampb[c * f.hs * f.ws + srow + jn] = tit::store_rn<T>(o[c][k]);
+          }
+          kn += f.step;
+          ++jn;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int kVariant>
+__global__ void __launch_bounds__(kThreads, 2)
+    stencil_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   T* __restrict__ samp, Frame f, int vec,
+                   const __grid_constant__ tit::StencilParams p) {
+  using Tl = Tile<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int b = blockIdx.z;
+  const int plane = f.hh * f.wh;
+  const T* xb = x + static_cast<size_t>(b) * 4 * plane;
+  const int tid = threadIdx.y * kRunsX + threadIdx.x;
+
+  // stage the tile and its halo, zero outside the frame
+  if (vec) {
+    constexpr int kCopies = Tl::kSW / Tl::kS;
+#pragma unroll 4
+    for (int k = tid; k < 4 * Tl::kSH * kCopies; k += kThreads) {
+      const int row = k / kCopies, cv = k - row * kCopies;  // q * kSH + r
+      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
+      const int y = y0 - 1 + r, xc = x0 - Tl::kS + cv * Tl::kS;
+      const bool in = y >= 0 && y < f.hh && xc >= 0 && xc < f.wh;
+      // a copy of 0 source bytes fills the 16 bytes with zeros
+      const unsigned dst = static_cast<unsigned>(
+          __cvta_generic_to_shared(s + row * Tl::kSW + cv * Tl::kS));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst),
+                   "l"(in ? xb + q * plane + y * f.wh + xc : xb),
+                   "r"(in ? 16 : 0));
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+    constexpr int kCols = kTileW + 2;
+    const T zero = tit::store_rn<T>(0.0f);
+    for (int k = tid; k < 4 * Tl::kSH * kCols; k += kThreads) {
+      const int row = k / kCols, c = k - row * kCols;
+      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
+      const int y = y0 - 1 + r, xc = x0 - 1 + c;
+      const bool in = y >= 0 && y < f.hh && xc >= 0 && xc < f.wh;
+      s[row * Tl::kSW + Tl::kS - 1 + c] =
+          in ? xb[q * plane + y * f.wh + xc] : zero;
+    }
+  }
+  __syncthreads();
+
+  // whether the tile touches the frame's edge, decided once per tile
+  const bool edge = y0 == 0 || y0 + kTileH >= f.hh || x0 == 0 ||
+                    x0 + kTileW >= f.wh;
+  const int c0 = threadIdx.x * kV, j0 = x0 + c0;
+  if (j0 >= f.wh) return;
+  T* outb = out + static_cast<size_t>(b) * 12 * plane;
+  T* sampb = samp + static_cast<size_t>(b) * 3 * f.hs * f.ws;
+  for (int rr = threadIdx.y; rr < kTileH; rr += kRowsY) {
+    const int i = y0 + rr;
+    if (i >= f.hh) break;
+    if (edge) {
+      stencil_run<T, kVariant, true>(s, rr, c0, i, j0, f, vec, p, outb,
+                                     sampb);
+    } else {
+      stencil_run<T, kVariant, false>(s, rr, c0, i, j0, f, vec, p, outb,
+                                      sampb);
     }
   }
 }
 
 template <typename T>
 int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
-           int step, const float* params, int has_ccm, cudaStream_t stream) {
+           int step, const float* params, int has_ccm, int variant,
+           cudaStream_t stream) {
+  using Tl = Tile<T>;
+  if (static_cast<long long>(n) * hh * wh == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (!tit::image_fits_int32(hh, wh) || n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const tit::StencilParams p = tit::stencil_params_from(params, has_ccm);
-  const long long total = static_cast<long long>(n) * hh * wh;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  const int hs = step > 0 ? (hh + step - 1) / step : 0;
-  const int ws = step > 0 ? (wh + step - 1) / step : 0;
-  stencil_kernel<T><<<tit::grid_for(total), tit::kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(samp),
-      n, hh, wh, step, hs, ws, p);
-  return static_cast<int>(cudaGetLastError());
+  Frame f{hh, wh, step, step > 0 ? (hh + step - 1) / step : 0,
+          step > 0 ? (wh + step - 1) / step : 0};
+  // 16-byte copies of whole rows (so every plane and row starts aligned)
+  // and kV-element stores
+  const int vec = wh % Tl::kS == 0 && tit::aligned16(x) &&
+                  tit::aligned16(out);
+  const dim3 grid((wh + kTileW - 1) / kTileW, (hh + kTileH - 1) / kTileH, n);
+  const dim3 block(kRunsX, kRowsY);
+  return tit::with_variant(variant, [&](auto v) {
+    auto* kernel = stencil_kernel<T, decltype(v)::value>;
+    // f32 tiles take 74 KB, above the 48 KB of static shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, block, Tl::kBytes, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(samp),
+        f, vec, p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -77,8 +244,8 @@ int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
 #define TIT_STENCIL_LAUNCHER(suffix, T)                                      \
   extern "C" int tit_demosaic_stencil_##suffix(                              \
       const void* x, void* out, void* samp, int n, int hh, int wh, int step, \
-      const float* params, int has_ccm, cudaStream_t stream) {               \
+      const float* params, int has_ccm, int variant, cudaStream_t stream) {  \
     return launch<T>(x, out, samp, n, hh, wh, step, params, has_ccm,         \
-                     stream);                                                \
+                     variant, stream);                                       \
   }
 TIT_FOR_EACH_DTYPE(TIT_STENCIL_LAUNCHER)

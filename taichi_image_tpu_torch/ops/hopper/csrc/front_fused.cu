@@ -4,10 +4,12 @@
 //
 // Replaces taichi_image_tpu/ops/pallas/demosaic.py::_stencil_kernel with
 // `tonemap` (via demosaic_reinhard_stencil, pallas_call at
-// demosaic.py:466). One thread takes one half-res pixel: the K2 stencil
-// (stencil.cuh), each finished channel rounded to bf16 in registers (the
-// x12 the composed route would have stored), then the K3 map
-// (tonemap.cuh) on each output phase's three channels; the per-image max
+// demosaic.py:466). One thread takes one half-res pixel: its 36 taps
+// straight from device memory (stencil_taps) and K2's arithmetic on them
+// (stencil_finish, of the same tap-mask variant as K2: stencil.cuh), each
+// finished channel rounded to bf16 in registers (the x12 the composed
+// route would have stored), then the K3 map (tonemap.cuh) on each output
+// phase's three channels; the per-image max
 // is K3's block reduction and ordered-uint atomicMax. Both pieces are the
 // composed kernels' own device code, so p and the max are bitwise equal
 // to K2<bf16> -> K3<bf16>. The TPU kernel writes per-tile max partials
@@ -26,23 +28,27 @@ namespace {
 
 using T = __nv_bfloat16;
 
+template <int kVariant>
 __global__ void front_fused_kernel(const T* __restrict__ x,
                                    T* __restrict__ p,
                                    unsigned* __restrict__ mx_enc, int hh,
                                    int wh,
                                    const __grid_constant__ tit::StencilParams sp,
                                    const float* __restrict__ scal) {
-  const long long b = blockIdx.y;
-  const long long plane = static_cast<long long>(hh) * wh;
+  const int b = blockIdx.y;
+  const int plane = hh * wh;
+  const T* xb = x + static_cast<size_t>(b) * 4 * plane;
+  T* pb = p + static_cast<size_t>(b) * 12 * plane;
   const tit::MapScalars s = tit::load_map_scalars<false>(scal);
   float lmax = -INFINITY;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < plane; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int j = static_cast<int>(idx % wh);
-    const int i = static_cast<int>(idx / wh);
-    float v[12];
-    tit::stencil_pixel(x, b, i, j, hh, wh, sp, v);
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < plane;
+       idx += gridDim.x * blockDim.x) {
+    const int i = idx / wh;
+    const int j = idx - i * wh;
+    float t[36], v[12];
+    tit::stencil_taps(xb, i, j, hh, wh, t);
+    tit::stencil_finish<kVariant, true>(
+        t, tit::Edges{i == 0, i == hh - 1, j == 0, j == wh - 1}, sp, v);
 #pragma unroll
     for (int ph = 0; ph < 4; ++ph) {
       float q[3], pv[3];
@@ -55,7 +61,7 @@ __global__ void front_fused_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         lmax = fmaxf(lmax, pv[c]);
-        p[(b * 12 + ph * 3 + c) * plane + idx] = tit::store_rn<T>(pv[c]);
+        pb[(ph * 3 + c) * plane + idx] = tit::store_rn<T>(pv[c]);
       }
     }
   }
@@ -67,8 +73,12 @@ __global__ void front_fused_kernel(const T* __restrict__ x,
 extern "C" int tit_front_fused_bf16(const void* x, void* p, void* mx_enc,
                                     void* mx, int n, int hh, int wh,
                                     const float* params, int has_ccm,
-                                    const void* scal, cudaStream_t stream) {
+                                    int variant, const void* scal,
+                                    cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!tit::image_fits_int32(hh, wh)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const tit::StencilParams sp = tit::stencil_params_from(params, has_ccm);
@@ -76,11 +86,13 @@ extern "C" int tit_front_fused_bf16(const void* x, void* p, void* mx_enc,
   if (err != cudaSuccess) return static_cast<int>(err);
   // up to 1024 blocks per image, as K3
   const dim3 grid(tit::grid_for(static_cast<long long>(hh) * wh, 1024), n);
-  front_fused_kernel<<<grid, tit::kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(p),
-      static_cast<unsigned*>(mx_enc), hh, wh, sp,
-      static_cast<const float*>(scal));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = tit::with_variant(variant, [&](auto v) {
+    front_fused_kernel<decltype(v)::value><<<grid, tit::kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(p),
+        static_cast<unsigned*>(mx_enc), hh, wh, sp,
+        static_cast<const float*>(scal));
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (rc != 0) return rc;
   return static_cast<int>(tit::decode_max(mx_enc, mx, n, stream));
 }

@@ -1,22 +1,43 @@
 // The demosaic stencil of one half-res pixel, shared by K2 (demosaic.cu)
 // and the front-fused K7 (front_fused.cu) so that both run the same
-// instructions in the same order.
+// instructions in the same order. It comes in two pieces: a loader that
+// gathers the pixel's 4 x 3 x 3 neighbourhood of phase values (K2 stages
+// a tile in shared memory and slides a window over it; K7 reads device
+// memory through stencil_taps), and stencil_phase / stencil_finish, which
+// turn those 36 taps into an output phase's 3 finished channels or all
+// 12.
 //
 // Arithmetic order matches taichi_image_tpu/ops/pallas/demosaic.py
-// _stencil_kernel exactly, so the result is bitwise equal to the plain
-// twin (ops/hopper/demosaic.demosaic_stencil_plain) without a CCM:
-//   1. taps in (q, u, v) order, then * inv_full[oc] (a zero weight adds
-//      t * 0 == +0, which leaves the sum's value unchanged);
+// _stencil_kernel and the plain twin
+// (ops/hopper/demosaic.demosaic_stencil_plain), bitwise without a CCM:
+//   1. the nonzero-weight taps in (q, u, v) order, from -0, then
+//      * inv_full[oc];
 //   2. the border factor rvf * cvv, then the four corner multiplies;
 //   3. the CCM as v0*c0 + v1*c1 + v2*c2 (no FMA: built with --fmad=false);
 //   4. clip to [0, 1].
 // Channel index = out_phase * 3 + rgb, output phases in
 // ops/bayer._PHASE_PARITY order ((0,0), (1,0), (0,1), (1,1) in (row, col));
 // input phases are in row-major parity order (q = (row%2)*2 + col%2).
+//
+// Bound: each half-res pixel is 4 values in and 12 out (32 bytes in bf16),
+// so memory bounds the stencil only while its arithmetic stays under
+// about 10 f32 instructions per byte moved (the H100's ~33 T f32
+// instructions/s over 3.35 TB/s): ~320 per bf16 pixel. Multiplying all 13
+// diamond taps of all 12 channels costs 312 mul/add per pixel (no FMA),
+// as long as the bytes on their own. The weights of a Bayer pattern and
+// method leave 84 (MHC) or 28 (bilinear) of those 156 taps nonzero, so
+// each (pattern, method) is a compile-time variant whose tap masks drop
+// the rest: the plain twin skips zero weights too, and a sum that starts
+// at -0 and adds only the nonzero taps is the twin's sum, sign of zero
+// included. The weight values still come from the parameter block at run
+// time. What is left, about 250 instructions per MHC pixel with the loads
+// and stores, is still close to the bytes' time, which is why K2 keeps
+// its loads in flight while it computes (demosaic.cu).
 #pragma once
 
 #include <cstddef>
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -33,6 +54,51 @@ __host__ __device__ constexpr int tap_index(int p, int i) {
       {4, 5, 10, 12, 13, 14, 16, 19, 20, 22, 23, 28, 31},
       {4, 5, 7, 8, 13, 16, 22, 23, 28, 30, 31, 32, 34}};
   return kTaps[p][i];
+}
+
+// The tap-mask variants: bit k of kTapMasks[v][oc] is set where channel
+// oc's weight at tap_index(oc / 3, k) is nonzero. Variant
+// v = pattern * 2 + method, patterns RGGB, GRBG, GBRG, BGGR and methods
+// mhc, bilinear (ops/hopper/demosaic.VARIANTS, which looks a weight
+// table's variant up and refuses one that is not here; the CPU tests hold
+// this table to ops/bayer._demosaic_tables).
+constexpr int kVariants = 8;
+__host__ __device__ constexpr unsigned tap_mask(int variant, int oc) {
+  constexpr unsigned kTapMasks[kVariants][12] = {
+      {0x4, 0x1ff, 0x1e1f, 0x7ff, 0x100, 0x1ffc, 0x7ff, 0x10, 0x1ffc,
+       0x1f0f, 0x1ff0, 0x400},
+      {0x4, 0x1e0, 0x1e00, 0x3, 0x100, 0x1800, 0x3, 0x10, 0x1800, 0xf,
+       0xf0, 0x400},
+      {0x1e7f, 0x4, 0x1f9f, 0x7fc, 0x1fc3, 0x100, 0x10, 0x187f, 0x7fc,
+       0x1f3f, 0x400, 0x1fcf},
+      {0x60, 0x4, 0x180, 0x3c, 0x1803, 0x100, 0x10, 0x1803, 0x780, 0x30,
+       0x400, 0xc0},
+      {0x1f9f, 0x4, 0x1e7f, 0x100, 0x1fc3, 0x7fc, 0x7fc, 0x187f, 0x10,
+       0x1fcf, 0x400, 0x1f3f},
+      {0x180, 0x4, 0x60, 0x100, 0x1803, 0x3c, 0x780, 0x1803, 0x10, 0xc0,
+       0x400, 0x30},
+      {0x1e1f, 0x1ff, 0x4, 0x1ffc, 0x100, 0x7ff, 0x1ffc, 0x10, 0x7ff,
+       0x400, 0x1ff0, 0x1f0f},
+      {0x1e00, 0x1e0, 0x4, 0x1800, 0x100, 0x3, 0x1800, 0x10, 0x3, 0x400,
+       0xf0, 0xf}};
+  return kTapMasks[variant][oc];
+}
+
+// Run f(std::integral_constant<int, v>) for the run-time variant v: the
+// launchers instantiate one kernel per variant through it.
+template <typename F>
+int with_variant(int variant, F&& f) {
+  switch (variant) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One f32 block passed by value as a __grid_constant__ kernel parameter
@@ -54,18 +120,20 @@ constexpr int kParamFloats = 12 * 13 + 12 * 5 + 4 * 12 + 9;
 static_assert(offsetof(StencilParams, has_ccm) == kParamFloats * sizeof(float),
               "StencilParams must be a packed float block");
 
-// The 12 finished channels of half-res pixel (b, i, j), clipped to [0, 1]
-// and not yet rounded to the working dtype.
+// The frame edges a pixel lies on; only pixels on an edge take the
+// border and corner factors.
+struct Edges {
+  bool top, bot, left, right;
+};
+
+// K7's loader: the 4 x 3 x 3 neighbourhood of half-res pixel (i, j) of
+// image xb (4 phase planes of hh x wh), zero outside the image (the zero
+// padding whose dropped taps the border factors renormalize).
 template <typename T>
-__device__ __forceinline__ void stencil_pixel(const T* __restrict__ x,
-                                              long long b, int i, int j,
-                                              int hh, int wh,
-                                              const StencilParams& p,
-                                              float out[12]) {
-  const long long plane = static_cast<long long>(hh) * wh;
-  // the 4 x 3 x 3 neighbourhood, zero outside the image (the zero
-  // padding whose dropped taps the border factors renormalize)
-  float t[36];
+__device__ __forceinline__ void stencil_taps(const T* __restrict__ xb, int i,
+                                             int j, int hh, int wh,
+                                             float t[36]) {
+  const int plane = hh * wh;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
 #pragma unroll
@@ -75,51 +143,67 @@ __device__ __forceinline__ void stencil_pixel(const T* __restrict__ x,
         const int y = i + u - 1, xc = j + v - 1;
         const bool in = y >= 0 && y < hh && xc >= 0 && xc < wh;
         t[q * 9 + u * 3 + v] =
-            in ? load_f32(x[(b * 4 + q) * plane +
-                            static_cast<long long>(y) * wh + xc])
-               : 0.0f;
+            in ? load_f32(xb[q * plane + y * wh + xc]) : 0.0f;
       }
     }
   }
+}
 
-  const bool on_top = i == 0, on_bot = i == hh - 1;
-  const bool on_left = j == 0, on_right = j == wh - 1;
-  const bool corner[4] = {on_top && on_left, on_top && on_right,
-                          on_bot && on_left, on_bot && on_right};
+// The 3 finished channels of output phase ph of one pixel from its 36
+// taps, clipped to [0, 1] and not yet rounded to the working dtype.
+// kBorder = false skips the border factors, which are exactly 1 away from
+// the edges.
+template <int kVariant, bool kBorder>
+__device__ __forceinline__ void stencil_phase(int ph, const float t[36],
+                                              Edges e, const StencilParams& p,
+                                              float out[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int oc = ph * 3 + c;
+    float a = -0.0f;  // -0 + s == s for every s: same as starting at a tap
+#pragma unroll
+    for (int k = 0; k < 13; ++k) {
+      if (tap_mask(kVariant, oc) >> k & 1u) {
+        a = a + t[tap_index(ph, k)] * p.w[oc][k];
+      }
+    }
+    float val = a * p.inv_full[oc];
+    if (kBorder) {
+      const float rvf =
+          (e.top ? p.topf[oc] : 1.0f) * (e.bot ? p.botf[oc] : 1.0f);
+      const float cvv =
+          (e.left ? p.leftf[oc] : 1.0f) * (e.right ? p.rightf[oc] : 1.0f);
+      float f = rvf * cvv;
+      if (e.top && e.left) f = f * p.cvals[0][oc];
+      if (e.top && e.right) f = f * p.cvals[1][oc];
+      if (e.bot && e.left) f = f * p.cvals[2][oc];
+      if (e.bot && e.right) f = f * p.cvals[3][oc];
+      val = val * f;
+    }
+    out[c] = val;
+  }
+  if (p.has_ccm) {
+    float cc[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      cc[d] = out[0] * p.ccm[d * 3 + 0] + out[1] * p.ccm[d * 3 + 1] +
+              out[2] * p.ccm[d * 3 + 2];
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[d] = cc[d];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = fminf(fmaxf(out[c], 0.0f), 1.0f);
+}
 
+// All 12 channels of one pixel (K7's order: phase by phase).
+template <int kVariant, bool kBorder>
+__device__ __forceinline__ void stencil_finish(const float t[36], Edges e,
+                                               const StencilParams& p,
+                                               float out[12]) {
 #pragma unroll
   for (int ph = 0; ph < 4; ++ph) {
-    float vals[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int oc = ph * 3 + c;
-      float a = -0.0f;  // -0 + s == s for every s: same as starting at tap 0
-#pragma unroll
-      for (int k = 0; k < 13; ++k) a = a + t[tap_index(ph, k)] * p.w[oc][k];
-      const float val = a * p.inv_full[oc];
-      const float rvf = (on_top ? p.topf[oc] : 1.0f) * (on_bot ? p.botf[oc] : 1.0f);
-      const float cvv = (on_left ? p.leftf[oc] : 1.0f) * (on_right ? p.rightf[oc] : 1.0f);
-      float f = rvf * cvv;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (corner[k]) f = f * p.cvals[k][oc];
-      }
-      vals[c] = val * f;
-    }
-    if (p.has_ccm) {
-      float cc[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        cc[d] = vals[0] * p.ccm[d * 3 + 0] + vals[1] * p.ccm[d * 3 + 1] +
-                vals[2] * p.ccm[d * 3 + 2];
-      }
-#pragma unroll
-      for (int d = 0; d < 3; ++d) vals[d] = cc[d];
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[ph * 3 + c] = fminf(fmaxf(vals[c], 0.0f), 1.0f);
-    }
+    stencil_phase<kVariant, kBorder>(ph, t, e, p, out + ph * 3);
   }
 }
 

@@ -6,7 +6,9 @@ with ``finish`` and ``sample_step``: its bf16 and f32 finishes and, as
 the f16 instantiation, its ``q16_io`` branch (the Camera16 route, whose
 16-bit codes stand in for the f16 the TPU cannot load or store).
 The weights, ``inv_full``, border factors, corner corrections and CCM
-travel as one f32 block in the kernel's parameters.
+travel as one f32 block in the kernel's parameters; which of the 13
+diamond taps of each channel are summed is fixed at compile time, one
+kernel per (pattern, method) variant (:func:`tap_variant`).
 """
 
 from __future__ import annotations
@@ -18,15 +20,18 @@ import torch
 import torch.nn.functional as F
 
 from taichi_image_tpu_torch.ops import hopper
-from taichi_image_tpu_torch.ops.bayer import _PHASE_PARITY, diamond_kernel
+from taichi_image_tpu_torch.ops.bayer import (_PHASE_PARITY, BayerPattern,
+                                              _demosaic_tables,
+                                              diamond_kernel)
 
-__all__ = ["demosaic_stencil", "demosaic_stencil_plain", "stencil_params"]
+__all__ = ["demosaic_stencil", "demosaic_stencil_plain", "stencil_params",
+           "tap_variant"]
 
 KERNELS = hopper.register_per_dtype(
     "demosaic", "demosaic.cu", "tit_demosaic_stencil",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     # one pallas_call serves the bf16 and f32 finishes and the q16 branch
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/ops/pallas/demosaic.py:377"))
@@ -57,20 +62,62 @@ def _inv_full(weights: np.ndarray) -> np.ndarray:
   """f32(1 / sum of weights) per out channel, as the JAX stencil takes it
   (a Python double rounded to f32)."""
   full = weights.sum(axis=(1, 2, 3))
-  return np.array([1.0 / float(s) for s in full], np.float32)
+  return (1.0 / full.astype(np.float64)).astype(np.float32)
+
+
+# Flat indices of each channel's diamond taps in a (12, 36) weight table,
+# and the bit of each tap in a channel's mask. The wrapper gathers the
+# diamond weights and the masks on every launch, in numpy: a Python loop
+# there took longer than the kernel.
+_W13_INDEX = (np.arange(12)[:, None] * 36
+              + DIAMOND_TAPS[np.arange(12) // 3]).ravel()
+_TAP_BITS = 1 << np.arange(13)
+
+
+def _w13(weights: np.ndarray) -> np.ndarray:
+  """(12, 13): each channel's weights at its phase's diamond taps, in
+  DIAMOND_TAPS order."""
+  w = np.asarray(weights).reshape(-1)
+  w13 = w[_W13_INDEX]
+  if np.count_nonzero(w) != np.count_nonzero(w13):
+    raise ValueError("stencil weights fall outside the diamond taps")
+  return w13.reshape(12, 13)
+
+
+def tap_masks(weights: np.ndarray) -> tuple[int, ...]:
+  """Per channel, the 13-bit mask of its nonzero diamond taps (bit k for
+  DIAMOND_TAPS[oc // 3][k])."""
+  return tuple(((_w13(weights) != 0) @ _TAP_BITS).tolist())
+
+
+# The stencil's compile-time variants (csrc/stencil.cuh kTapMasks), in its
+# order: variant = pattern * 2 + method.
+VARIANTS = tuple((pattern, method)
+                 for pattern in (BayerPattern.RGGB, BayerPattern.GRBG,
+                                 BayerPattern.GBRG, BayerPattern.BGGR)
+                 for method in ("mhc", "bilinear"))
+TAP_MASKS = tuple(tap_masks(_demosaic_tables(pattern, method))
+                  for pattern, method in VARIANTS)
+_VARIANT_OF = {masks: v for v, masks in enumerate(TAP_MASKS)}
+
+
+def tap_variant(weights: np.ndarray) -> int:
+  """The kernel variant whose compile-time tap masks are the nonzero
+  pattern of ``weights``; raises ValueError for a pattern no variant
+  has (the kernel sums only the masked taps, so it cannot take it)."""
+  masks = tap_masks(weights)
+  if masks not in _VARIANT_OF:
+    raise ValueError("the stencil weights' nonzero taps match no compiled "
+                     "variant (a Bayer pattern x {mhc, bilinear}); got "
+                     f"masks {[hex(m) for m in masks]}")
+  return _VARIANT_OF[masks]
 
 
 def stencil_params(weights: np.ndarray, finish: dict) -> np.ndarray:
   """The kernel's f32 parameter block: weights at each phase's diamond
   taps (12 x 13), inv_full, topf, botf, leftf, rightf (12 each), cvals
   (4 x 12), CCM (9)."""
-  w36 = weights.reshape(12, 36)
-  inside = np.zeros((12, 36), bool)
-  for oc in range(12):
-    inside[oc, DIAMOND_TAPS[oc // 3]] = True
-  if np.any(w36[~inside]):
-    raise ValueError("stencil weights fall outside the diamond taps")
-  w13 = w36[inside].reshape(12, 13)
+  w13 = _w13(weights)
   ccm = finish["cc"]
   parts = [w13, _inv_full(weights), finish["topf"],
            finish["botf"], finish["leftf"], finish["rightf"],
@@ -173,6 +220,8 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
         "the stencil kernel covers whole frames; banded stencils are "
         "ROADMAP.md queue 1, item 10")
   hopper.check_tensor("phases", phases, dtype, 4, phases.device)
+  hopper.check_frame_size(hh, wh)
+  variant = tap_variant(weights)
   dev = phases.device
   x12 = torch.empty((n, 12, hh, wh), dtype=dtype, device=dev)
   s = sample_step
@@ -182,5 +231,6 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
   KERNELS[dtype].launch(hopper.ptr(phases), hopper.ptr(x12),
                         hopper.ptr(samp) if s else None, n, hh, wh, s,
                         params.ctypes.data_as(ctypes.c_void_p),
-                        int(finish["cc"] is not None), hopper.stream_of(dev))
+                        int(finish["cc"] is not None), variant,
+                        hopper.stream_of(dev))
   return x12, samp

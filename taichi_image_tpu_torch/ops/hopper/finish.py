@@ -120,6 +120,7 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
     return finish_planar_u8_plain(x12, scal, gamma, mode, transform)
   hopper.check_tensor("x12", x12, x12.dtype, 4, x12.device)
   hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x12.device)
+  hopper.check_frame_size(hh, wh)
   swap, fy, fx = _TRANSFORM_SFF[transform]
   shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
   out = torch.empty(shape, dtype=torch.uint8, device=x12.device)

@@ -19,7 +19,7 @@ import torch
 
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.hopper.demosaic import (
-    demosaic_stencil_plain, stencil_params)
+    demosaic_stencil_plain, stencil_params, tap_variant)
 from taichi_image_tpu_torch.ops.hopper.reinhard import reinhard_map_plain
 
 __all__ = ["front_fused", "front_fused_plain"]
@@ -28,7 +28,7 @@ KERNEL = hopper.register(
     "front_fused_bf16", "front_fused.cu", "tit_front_fused_bf16",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "taichi_image_tpu/ops/pallas/demosaic.py:466")
 
 
@@ -67,6 +67,8 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
         "ROADMAP.md queue 1, item 10")
   hopper.check_tensor("phases", phases, torch.bfloat16, 4, phases.device)
   hopper.check_tensor("scal", scal, torch.float32, 1, phases.device)
+  hopper.check_frame_size(hh, wh)
+  variant = tap_variant(weights)
   dev = phases.device
   p = torch.empty((n, 12, hh, wh), dtype=torch.bfloat16, device=dev)
   mx_enc = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -75,6 +77,6 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
   KERNEL.launch(hopper.ptr(phases), hopper.ptr(p), hopper.ptr(mx_enc),
                 hopper.ptr(mx), n, hh, wh,
                 params.ctypes.data_as(ctypes.c_void_p),
-                int(finish["cc"] is not None), hopper.ptr(scal),
+                int(finish["cc"] is not None), variant, hopper.ptr(scal),
                 hopper.stream_of(dev))
   return p, mx

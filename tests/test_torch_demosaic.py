@@ -149,3 +149,145 @@ def test_kernel_tap_table_matches_python():
   rows = [[int(v) for v in r.split(",")]
           for r in re.findall(r"\{([^{}]*)\}", body)]
   np.testing.assert_array_equal(np.array(rows), th_dm.DIAMOND_TAPS)
+
+
+def _c_table(name):
+  """The rows of a brace-initialised table in csrc/stencil.cuh."""
+  import re
+  src = (th_dm.hopper.CSRC / "stencil.cuh").read_text()
+  body = re.search(name + r"\[[^\]]*\]\[\d+\] = \{(.*?)\};", src,
+                   re.S).group(1)
+  return [[int(v, 0) for v in r.split(",")]
+          for r in re.findall(r"\{([^{}]*)\}", body)]
+
+
+VARIANT_IDS = [f"{p.name}-{m}" for p, m in th_dm.VARIANTS]
+
+
+def _nonzero_masks(weights):
+  """Per channel, the 13-bit mask of nonzero weights at its phase's
+  diamond taps, from a (12, 4, 3, 3) weight table."""
+  w36 = np.asarray(weights).reshape(12, 36)
+  return [sum(1 << k for k, tap in enumerate(th_dm.DIAMOND_TAPS[oc // 3])
+              if w36[oc, tap] != 0) for oc in range(12)]
+
+
+@pytest.mark.parametrize("variant", range(8), ids=VARIANT_IDS)
+def test_kernel_tap_masks_match_tables(variant):
+  """Row ``variant`` of the stencil's compile-time kTapMasks is the
+  nonzero pattern of the JAX package's weight table for that (pattern,
+  method), and no weight lies off the masks."""
+  pattern, method = th_dm.VARIANTS[variant]
+  jw = jbayer._demosaic_tables(jbayer.BayerPattern[pattern.name], method)
+  table = _c_table("kTapMasks")
+  assert len(table) == len(th_dm.VARIANTS)
+  assert table[variant] == _nonzero_masks(jw)
+  live = sum(bin(m).count("1") for m in table[variant])
+  assert live == (84 if method == "mhc" else 28)
+
+
+@pytest.mark.parametrize("variant", range(8), ids=VARIANT_IDS)
+def test_tap_variant_picks_each_table(variant):
+  pattern, method = th_dm.VARIANTS[variant]
+  weights = tbayer._demosaic_tables(pattern, method)
+  assert th_dm.tap_variant(weights) == variant
+  assert th_dm.TAP_MASKS[variant] == tuple(_nonzero_masks(weights))
+
+
+@pytest.mark.parametrize("change", ["drop_tap", "add_tap", "dense"])
+def test_tap_variant_refuses_other_patterns(change):
+  """Weights whose zero pattern no compiled variant has are refused:
+  the kernel sums only the masked taps and has no all-13-tap path."""
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc").copy()
+  w36 = w.reshape(12, 36)
+  taps = th_dm.DIAMOND_TAPS[1]          # channel 3's phase
+  if change == "drop_tap":
+    w36[3, taps[np.flatnonzero(w36[3, taps])[0]]] = 0.0
+  elif change == "add_tap":
+    w36[3, taps[np.flatnonzero(w36[3, taps] == 0)[0]]] = 0.5
+  else:
+    for oc in range(12):
+      w36[oc, th_dm.DIAMOND_TAPS[oc // 3]] = 1.0 / 13
+  with pytest.raises(ValueError, match="no compiled variant"):
+    th_dm.tap_variant(w)
+
+
+def _masked_twin(phases, weights, fin):
+  """The kernel's arithmetic in torch: per channel, only the taps its
+  compile-time mask keeps, summed from -0 in DIAMOND_TAPS order, then
+  inv_full, the border factor, the CCM, the clip and one cast."""
+  n, _, hh, wh = phases.shape
+  xp = torch.nn.functional.pad(phases.to(torch.float32), (1, 1, 1, 1))
+  block = th_dm.stencil_params(weights, fin)
+  w13, inv_full = block[:156].reshape(12, 13), block[156:168]
+  masks = th_dm.TAP_MASKS[th_dm.tap_variant(weights)]
+  outs = []
+  for ph in range(4):
+    vals = []
+    for c in range(3):
+      oc = ph * 3 + c
+      a = torch.full((n, hh, wh), -0.0)
+      for k in range(13):
+        if masks[oc] >> k & 1:
+          q, u, v = np.unravel_index(th_dm.DIAMOND_TAPS[ph][k], (4, 3, 3))
+          a = a + xp[:, q, u:u + hh, v:v + wh] * float(w13[oc, k])
+      val = a * float(inv_full[oc])
+      vals.append(val * th_dm._border_factor(oc, hh, wh, fin, a.device))
+    if fin["cc"] is not None:
+      ccm = fin["cc"]
+      vals = [vals[0] * float(ccm[d, 0]) + vals[1] * float(ccm[d, 1])
+              + vals[2] * float(ccm[d, 2]) for d in range(3)]
+    outs += [torch.clamp(v, 0.0, 1.0).to(fin["out_dtype"]) for v in vals]
+  return torch.stack(outs, dim=1)
+
+
+def _int_bits(t):
+  it = torch.int32 if t.dtype == torch.float32 else torch.int16
+  return t.contiguous().view(it).numpy()
+
+
+@pytest.mark.parametrize("cc", [None, CCM], ids=["nocc", "ccm"])
+@pytest.mark.parametrize("variant", range(8), ids=VARIANT_IDS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_masked_tap_sum_is_twin(dtype, variant, cc):
+  """Summing only the masked taps from -0 (the kernel's order) gives the
+  plain twin's x12 bit for bit, sign of zero included, on phases with
+  exact zeros: a dark band, a zero column and scattered zero pixels."""
+  dt = getattr(torch, dtype)
+  n, hh, wh = 2, 12, 21
+  rng = np.random.default_rng(variant)
+  x = rng.random((n, 4, hh, wh), np.float32)
+  x[rng.random(x.shape) < 0.3] = 0.0
+  x[:, :, 3:6, :] = 0.0
+  x[:, :, :, 7] = 0.0
+  phases = torch.from_numpy(x).to(dt)
+  pattern, method = th_dm.VARIANTS[variant]
+  weights = tbayer._demosaic_tables(pattern, method)
+  fin = tbayer._stencil_finish_spec(weights, hh, wh, cc, dt)
+  want, _ = th_dm.demosaic_stencil_plain(phases, weights, fin)
+  got = _masked_twin(phases, weights, fin)
+  np.testing.assert_array_equal(_int_bits(got), _int_bits(want))
+
+
+@pytest.mark.parametrize("method", ["mhc", "bilinear"])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_params_block_inv_full(pattern, method):
+  """The parameter block's inv_full is f32(1 / sum of weights) with the
+  sum's f32 value divided in Python double, as the JAX stencil takes it."""
+  w = tbayer._demosaic_tables(tbayer.BayerPattern[pattern], method)
+  fin = tbayer._stencil_finish_spec(w, 19, 50, None, torch.bfloat16)
+  block = th_dm.stencil_params(w, fin)
+  want = [np.float32(1.0 / float(s)) for s in w.sum(axis=(1, 2, 3))]
+  np.testing.assert_array_equal(block[156:168], np.array(want, np.float32))
+
+
+def test_params_refuse_weights_off_the_diamond():
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc").copy()
+  w36 = w.reshape(12, 36)
+  off = np.setdiff1d(np.arange(36), th_dm.DIAMOND_TAPS[0])[0]
+  w36[0, off] = 0.25
+  fin = tbayer._stencil_finish_spec(w, 19, 50, None, torch.bfloat16)
+  with pytest.raises(ValueError, match="outside the diamond"):
+    th_dm.stencil_params(w, fin)
+  with pytest.raises(ValueError, match="outside the diamond"):
+    th_dm.tap_variant(w)
