@@ -12,7 +12,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
 2. build    nvcc builds the six kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4 and K12 for bf16,
             f16 and f32, and the bf16 front-fused K7 (16 kernels); each
-            source's register range and spill bytes from ptxas.
+            source's register range and spill bytes from ptxas (K1-K4's
+            sources must show 0 spill bytes); the SASS instructions of
+            each K1 and K3 instantiation (cuobjdump) and of its vector
+            loop per pixel (K3) or column pair (K1).
 3. kernels  each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
@@ -22,10 +25,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
             methods, with and without a CCM), K4's two modes, each under
             the 8 transforms, K12 at x0.5 (6x4K -> 1920x1080) and x0.37,
-            K3 on the resized planar image, K7 against K2 -> K3 on the
-            card; kernel and twin times from CUDA events around batches
-            of 10 calls, K4 under every transform that swaps the axes,
-            and each time's bound (logical bytes over 3.35 TB/s, or f32
+            K3 on the resized planar image, K3 with degenerate scalars
+            (range 0, range < 0, every pixel at m0) and with NaN pixels
+            at the small shapes, K7 against K2 -> K3 on the card; kernel
+            and twin times from CUDA events around batches of 10 calls,
+            K3 in both adapt modes, K4 under every transform that swaps
+            the axes, and each time's bound (logical bytes over 3.35 TB/s, or f32
             operations over 67 TFLOP/s, the larger) and share of it.
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
@@ -45,7 +50,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
             one scalar read at the end, median of 5) under torch's
             sync-debug "error" mode (the step must not sync with the
             host); the step without the checksum; the device busy share
-            from a torch.profiler trace; a per-stage table. Then the same
+            and the device operations per step from a torch.profiler
+            trace; a per-stage table. Then the same
             step method for the resize->1920 step of each class and the
             front-fused bf16 step.
 
@@ -133,6 +139,48 @@ def phase_device():
   return card
 
 
+# sources redesigned for the card, which must build without spills
+NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "reinhard.cu")
+# K3's and K1's instantiations in a mangled name: the kernel, T, then two
+# bools (K3: color_adapt, vector path; K1: vector path, IDS layout)
+_KERNEL_ARGS = re.compile(r"(map_kernel|decode12_kernel)I(13__nv_bfloat16|"
+                          r"6__half|f)Lb([01])ELb([01])E")
+_T_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+# elements per pass of K3's and K1's vector loops, one 16-byte run of T:
+# K3 maps that many pixels, K1 unpacks that many column pairs
+PER_PASS = {"bf16": 8, "f16": 8, "f32": 4}
+
+
+def _cuobjdump(path, flag):
+  from torch.utils.cpp_extension import CUDA_HOME
+  return subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", flag, str(path)],
+                        capture_output=True, text=True, check=True).stdout
+
+
+def sass_counts(path):
+  """{mangled kernel: (SASS instructions, instructions of its longest
+  loop, registers)} of a built library, from ``cuobjdump -sass`` and
+  ``-res-usage`` (NOPs not counted)."""
+  regs = dict(re.findall(r"Function (\S+):\s*REG:(\d+)",
+                         _cuobjdump(path, "-res-usage")))
+  out = {}
+  for chunk in _cuobjdump(path, "-sass").split("Function : ")[1:]:
+    name = chunk.split(None, 1)[0]
+    insns = []  # (address, instruction)
+    for line in chunk.splitlines():
+      m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+      if m and not m.group(2).strip().startswith("NOP"):
+        insns.append((int(m.group(1), 16), m.group(2)))
+    loop = 0
+    for at, ins in insns:
+      t = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", ins)
+      if t and int(t.group(1), 16) < at:  # a backward branch: a loop
+        loop = max(loop, sum(int(t.group(1), 16) <= a <= at
+                             for a, _ in insns))
+    out[name] = (len(insns), loop, int(regs.get(name, 0)))
+  return out
+
+
 def phase_build():
   from taichi_image_tpu_torch.ops import hopper
   t0 = time.perf_counter()
@@ -151,6 +199,33 @@ def phase_build():
                            spill_bytes=spills)
     log(f"  {source}: {path.name}, {len(regs)} kernels, {min(regs)}-"
         f"{max(regs)} registers, {spills} spill bytes")
+    if spills and source in NO_SPILLS:
+      raise AssertionError(f"{source} spills {spills} bytes")
+  # SASS of K3 and K1: the vector loop's instructions (static: the
+  # branches around the slow paths included) per pixel or column pair
+  for source in ("reinhard.cu", "decode.cu"):
+    rows = {}
+    try:
+      counts = sass_counts(libs[source])
+    except (OSError, subprocess.CalledProcessError) as e:
+      log(f"  {source}: SASS not measured (cuobjdump: {e})")
+      continue
+    for mangled, (total, loop, regs) in counts.items():
+      m = _KERNEL_ARGS.search(mangled)
+      if not m:
+        continue
+      kind, t, a, b = m.groups()
+      if kind == "map_kernel":
+        name, vec = f"reinhard_{_T_NAMES[t]} ca={a} vec={b}", b
+      else:
+        name, vec = f"decode_{_T_NAMES[t]} vec={a} ids={b}", a
+      per = loop / PER_PASS[_T_NAMES[t]] if vec == "1" else None
+      unit = "pixel" if kind == "map_kernel" else "column pair"
+      rows[name] = dict(sass=total, loop=loop, registers=regs,
+                        per_element=per, unit=unit)
+      log(f"  {name}: {regs} registers, {total} SASS instructions, "
+          f"longest loop {loop}" + (f"; {per:.1f} per {unit}" if per else ""))
+    sources[source]["sass"] = rows
   return dict(seconds=dt, sources=sources)
 
 
@@ -168,6 +243,42 @@ def _check_map(what, kp, km, pp, pm):
   rel = ((km - pm).abs() / pm.abs().clamp_min(1e-30)).max().item()
   if u > 1 or rel > 1e-6:
     raise AssertionError(f"{what}: {u} ulps, max rel {rel:.3g}")
+
+
+def _map_edge_cases(kt, x12, scal, scal_ca):
+  """K3 against its twin where the map degenerates: range 0 (every
+  quotient inf or NaN), range < 0, every pixel at m0 (a zero dividend
+  everywhere, also with range 0 and < 0), and NaN pixels; both adapt
+  modes. Returns the largest |kernel - twin| of p."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import reinhard
+
+  def with_(s, at):  # scal with entries {index: value} replaced
+    s = s.clone()
+    for i, v in at.items():
+      s[i] = v
+    return s
+
+  at_m0 = torch.full_like(x12, 0.25)  # 0.25 is exact in every T
+  nan = x12.clone()
+  nan.view(-1)[::97] = float("nan")
+  worst = 0.0
+  for ca, s in ((False, scal), (True, scal_ca)):
+    rng = s[1].abs().item()
+    cases = {
+        "range 0": (x12, with_(s, {1: 0.0})),
+        "range < 0": (x12, with_(s, {1: -rng})),
+        "x == m0": (at_m0, with_(s, {0: 0.25})),
+        "x == m0, range 0": (at_m0, with_(s, {0: 0.25, 1: 0.0})),
+        "x == m0, range < 0": (at_m0, with_(s, {0: 0.25, 1: -rng})),
+        "NaN pixels": (nan, s),
+    }
+    for name, (x, sc) in cases.items():
+      kp, km = reinhard.reinhard_map(x, sc, ca, backend="kernel")
+      pp, pm = reinhard.reinhard_map(x, sc, ca, backend="plain")
+      _check_map(f"reinhard {kt} ca={int(ca)} {name}", kp, km, pp, pm)
+      worst = max(worst, (kp.float() - pp.float()).abs().max().item())
+  return worst
 
 
 def _nbytes(*tensors) -> int:
@@ -278,6 +389,13 @@ def phase_kernels(results):
         _check_map(f"reinhard {kt} ca={ca}", kp, km, pp, pm)
         note(f"reinhard_{sfx}", kp, pp)
         note(f"reinhard_{sfx}", km, pm)
+      scal_ca = reinhard.reinhard_scal_ca(metrics, 1.0, 1.0, 0.5)
+      if shape != (N_CAM, H, WB):
+        # degenerate scalars and NaN pixels, on both of K3's paths (CUT's
+        # planes are whole runs, ODD's and RAGGED's are not)
+        edge = _map_edge_cases(kt, x12, reinhard.reinhard_scal(
+            metrics, 1.0, 1.0), scal_ca)
+        err[f"reinhard_{sfx}"] = max(err[f"reinhard_{sfx}"], edge)
       # K4: bitwise, Reinhard and linear modes at gamma 1 and 2.2, each
       # under the 8 transforms at gamma 2.2
       scal0 = reinhard.reinhard_scal(metrics, 1.0, 1.0)
@@ -330,8 +448,9 @@ def phase_kernels(results):
                                            backend="plain")
           _check_map(f"front_fused {kv} vs twin", fp, fm, pp, pm)
           note("front_fused_bf16", fp, pp)
-      log(f"kernels {kt}: decode, demosaic (8 variants), reinhard, finish "
-          "(both modes, each under 8 transforms), resize"
+      log(f"kernels {kt}: decode, demosaic (8 variants), reinhard"
+          + (" (and its degenerate cases)" if shape != (N_CAM, H, WB) else "")
+          + ", finish (both modes, each under 8 transforms), resize"
           + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
       if shape != (N_CAM, H, WB):
@@ -353,6 +472,9 @@ def phase_kernels(results):
               (2 * live + 12 + 24) * npix),
           f"reinhard_{sfx}": (lambda b: reinhard.reinhard_map(
               x12, scal0, False, backend=b), [x12, scal0], 30 * 4 * npix),
+          f"reinhard_{sfx} ca": (lambda b: reinhard.reinhard_map(
+              x12, scal_ca, True, backend=b), [x12, scal_ca],
+              50 * 4 * npix),
           f"finish_{sfx}": (lambda b: finish.finish_planar_u8(
               p_cast, max_out, 1.0, backend=b), [p_cast, max_out],
               4 * 12 * npix),
@@ -663,11 +785,13 @@ def phase_timing(card, sfx):
           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
   busy_us = sum(t for _, t, _ in kern)
   busy = busy_us / window_us if busy_us else None
+  ops = sum(c for _, _, c in kern) / K  # kernels and memsets
   if busy is None:
     log("profile: no device time in the trace (busy share not measured)")
   else:
     log(f"profile {name}: device busy {busy:.1%} of a {K}-step window "
-        f"({window_us / K / 1e3:.4f} ms/step traced); per step:")
+        f"({window_us / K / 1e3:.4f} ms/step traced), {ops:g} device "
+        "operations (kernels and memsets) per step; per step:")
     for key, t, count in sorted(kern, key=lambda r: -r[1])[:12]:
       log(f"  {t / K / 1e3:.4f} ms  x{count // K:<3d} {key[:70]}")
 
@@ -710,7 +834,8 @@ def phase_timing(card, sfx):
     log(f"  {stage:9s} {stage_ms[stage]:.4f} {gbs:8.1f}")
   return dict(step_ms=step_ms, best_ms=min(times), fps=fps, times=times,
               host_ms=host, bare_step_ms=bare_ms, bare_times=bare,
-              bare_host_ms=bare_host, busy_share=busy, stages=stage_ms,
+              bare_host_ms=bare_host, busy_share=busy, ops_per_step=ops,
+              stages=stage_ms,
               stage_bytes=nbytes)
 
 

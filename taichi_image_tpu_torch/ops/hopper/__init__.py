@@ -39,8 +39,8 @@ import torch
 
 __all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
            "build_all", "launch_counts", "reset_launches", "use_kernel",
-           "check_dtype", "check_tensor", "check_frame_size", "stream_of",
-           "ptr"]
+           "check_dtype", "check_tensor", "check_int32_extent",
+           "check_frame_size", "stream_of", "ptr"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -236,12 +236,18 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     raise ValueError(f"{name} must be contiguous")
 
 
+def check_int32_extent(what: str, count: int) -> None:
+  """The kernels index within one image in 32 bits: the ``count`` values
+  (or bytes) that ``what`` names, per image, must be fewer than 2**31."""
+  if count >= 2 ** 31:
+    raise ValueError(f"{what} is too large for the kernels' 32-bit "
+                     f"indexing ({count} >= 2**31 per image)")
+
+
 def check_frame_size(hh: int, wh: int) -> None:
-  """The kernels index an image in 32 bits: its 12 half-res planes must
-  hold fewer than 2**31 values (csrc/common.cuh image_fits_int32)."""
-  if 12 * hh * wh >= 2 ** 31:
-    raise ValueError(f"a {hh}x{wh} half-res frame is too large for the "
-                     "kernels' 32-bit indexing (12 planes >= 2**31 values)")
+  """The 12 half-res planes of an image must hold fewer than 2**31 values
+  (csrc/common.cuh image_fits_int32)."""
+  check_int32_extent(f"a {hh}x{wh} half-res frame's 12 planes", 12 * hh * wh)
 
 
 def stream_of(device: torch.device) -> int:

@@ -57,7 +57,14 @@ struct Run {
 
   // The kN elements at p, each converted exactly to f32.
   __device__ static __forceinline__ void load(const T* p, float* f) {
-    unsigned w[4];
+    unsigned w[kWords];
+    load_words(p, w);
+    unpack(w, f);
+  }
+
+  // The run's words as they lie in memory: a kernel can issue the loads
+  // of several runs before it converts any of them.
+  __device__ static __forceinline__ void load_words(const T* p, unsigned* w) {
     if constexpr (kWords == 4) {
       const uint4 v = *reinterpret_cast<const uint4*>(p);
       w[0] = v.x;
@@ -69,6 +76,10 @@ struct Run {
       w[0] = v.x;
       w[1] = v.y;
     }
+  }
+
+  // The kN elements of the words w, each converted exactly to f32.
+  __device__ static __forceinline__ void unpack(const unsigned* w, float* f) {
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
       if constexpr (sizeof(T) == 4) {
@@ -91,7 +102,7 @@ struct Run {
       if constexpr (sizeof(T) == 4) {
         w[m] = __float_as_uint(f[m]);
       } else {
-        w[m] = bits16(f[2 * m]) | bits16(f[2 * m + 1]) << 16;
+        w[m] = pair16(f[2 * m], f[2 * m + 1]);
       }
     }
     if constexpr (kWords == 4) {
@@ -102,14 +113,36 @@ struct Run {
   }
 
  private:
-  __device__ static __forceinline__ unsigned bits16(float f) {
+  // lo and hi each rounded to nearest even, in one word (lo in the low
+  // half): one cvt.rn.{f16,bf16}x2.f32, the rounding of store_rn.
+  __device__ static __forceinline__ unsigned pair16(float lo, float hi) {
     if constexpr (std::is_same_v<T, __half>) {
-      return __half_as_ushort(store_rn<__half>(f));
+      const __half2 v = __floats2half2_rn(lo, hi);
+      return __half_as_ushort(v.x) | static_cast<unsigned>(__half_as_ushort(v.y))
+                                         << 16;
     } else {
-      return __bfloat16_as_ushort(store_rn<__nv_bfloat16>(f));
+      const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+      return __bfloat16_as_ushort(v.x) |
+             static_cast<unsigned>(__bfloat16_as_ushort(v.y)) << 16;
     }
   }
 };
+
+// a / b rounded to nearest even, as `/` compiles it (PTX div.rn.f32). A
+// zero dividend sends that division down its slow path, a subroutine
+// call, and zeros are common in these images (clipped or dark pixels, a
+// pixel at the metering minimum). For b > 0 the quotient of a zero is the
+// zero itself, sign and all, so a zero divides 1 instead and is put back;
+// every other zero dividend (b <= 0 or NaN) takes the true division, so
+// the result is bitwise a / b. The division is PTX behind the select so
+// that the compiler cannot fold the select into a select of two
+// quotients, one of them the zero's.
+__device__ __forceinline__ float div_rn_keep_zero(float a, float b) {
+  const bool zero = a == 0.0f && b > 0.0f;
+  float q;
+  asm("div.rn.f32 %0, %1, %2;" : "=f"(q) : "f"(zero ? 1.0f : a), "f"(b));
+  return zero ? a : q;
+}
 
 // The launchers index within one image in 32 bits: the 12 planes of an
 // image must fit in an int (the wrappers refuse larger frames).
@@ -121,6 +154,23 @@ inline bool image_fits_int32(int hh, int wh) {
 // are aligned.
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Blocks of `threads` threads that the card holds at once for `kernel`
+// (SMs x resident blocks per SM): a grid-stride kernel given that many
+// runs in one wave. A failed query returns 0 and leaves its error for
+// the launcher's cudaGetLastError.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess) {
+    return 0;
+  }
+  return sms * per_sm;
 }
 
 }  // namespace tit

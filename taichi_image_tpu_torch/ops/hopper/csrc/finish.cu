@@ -84,18 +84,8 @@ __device__ __forceinline__ unsigned tone_u8(float xv, const Scal& sc,
     if (f.apply_gamma) y = exp2f(log2f(y) * f.inv_gamma);
     s = fminf(fmaxf(fminf(fmaxf(y, 0.0f), 1.0f) * 255.0f, 0.0f), 255.0f);
   } else {
-    // 0 / mx is 0 of the same sign (mx > 0). A zero dividend would send
-    // the division down its slow path, and zeros are common (dark or
-    // clipped pixels), so a zero divides 1 instead and is kept as it is.
-    // The division is written as PTX (the IEEE div.rn.f32 that `/`
-    // compiles to) so that the compiler cannot fold the select of the
-    // dividend into a select of two quotients, one of them 0 / mx.
-    const bool zero = xv == 0.0f;
-    float o;
-    asm("div.rn.f32 %0, %1, %2;"
-        : "=f"(o)
-        : "f"(zero ? 1.0f : xv), "f"(sc.mx));
-    if (zero) o = xv;
+    // mx >= 1e-6, so a zero p keeps off the division's slow path
+    float o = tit::div_rn_keep_zero(xv, sc.mx);
     if (f.apply_gamma) o = exp2f(log2f(o) * f.inv_gamma);
     s = fminf(fmaxf(255.0f * o, 0.0f), 255.0f);
   }

@@ -10,10 +10,11 @@
 // finished channel rounded to bf16 in registers (the x12 the composed
 // route would have stored), then the K3 map (tonemap.cuh) on each output
 // phase's three channels; the per-image max
-// is K3's block reduction and ordered-uint atomicMax. Both pieces are the
-// composed kernels' own device code, so p and the max are bitwise equal
-// to K2<bf16> -> K3<bf16>. The TPU kernel writes per-tile max partials
-// that XLA reduces; here the atomics finish the reduction in the kernel.
+// is K3's block reduction, ordered-uint atomicMax and last-block decode
+// (tonemap.cuh block_max_finish). Both pieces are the composed kernels'
+// own device code, so p and the max are bitwise equal to K2<bf16> ->
+// K3<bf16>. The TPU kernel writes per-tile max partials that XLA
+// reduces; here the kernel finishes the reduction itself.
 //
 // Bound: memory on paper, 8 bytes of phases read and 24 bytes of p
 // written per half-res pixel, against K2 + K3's 8 + 24 + 24 + 24: the
@@ -31,11 +32,11 @@ using T = __nv_bfloat16;
 template <int kVariant>
 __global__ void front_fused_kernel(const T* __restrict__ x,
                                    T* __restrict__ p,
-                                   unsigned* __restrict__ mx_enc, int hh,
-                                   int wh,
+                                   unsigned* __restrict__ scratch,
+                                   float* __restrict__ mx, int hh, int wh,
                                    const __grid_constant__ tit::StencilParams sp,
                                    const float* __restrict__ scal) {
-  const int b = blockIdx.y;
+  const int b = blockIdx.y, n = gridDim.y;
   const int plane = hh * wh;
   const T* xb = x + static_cast<size_t>(b) * 4 * plane;
   T* pb = p + static_cast<size_t>(b) * 12 * plane;
@@ -65,12 +66,13 @@ __global__ void front_fused_kernel(const T* __restrict__ x,
       }
     }
   }
-  tit::block_max_into(lmax, mx_enc + b);
+  tit::block_max_finish(lmax, scratch + b, scratch + n + b, mx + b,
+                        gridDim.x);
 }
 
 }  // namespace
 
-extern "C" int tit_front_fused_bf16(const void* x, void* p, void* mx_enc,
+extern "C" int tit_front_fused_bf16(const void* x, void* p, void* scratch,
                                     void* mx, int n, int hh, int wh,
                                     const float* params, int has_ccm,
                                     int variant, const void* scal,
@@ -82,17 +84,15 @@ extern "C" int tit_front_fused_bf16(const void* x, void* p, void* mx_enc,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const tit::StencilParams sp = tit::stencil_params_from(params, has_ccm);
-  cudaError_t err = tit::clear_max(mx_enc, n, stream);
+  cudaError_t err = tit::clear_max(scratch, n, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // up to 1024 blocks per image, as K3
+  // up to 1024 blocks per image
   const dim3 grid(tit::grid_for(static_cast<long long>(hh) * wh, 1024), n);
-  const int rc = tit::with_variant(variant, [&](auto v) {
+  return tit::with_variant(variant, [&](auto v) {
     front_fused_kernel<decltype(v)::value><<<grid, tit::kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(p),
-        static_cast<unsigned*>(mx_enc), hh, wh, sp,
+        static_cast<unsigned*>(scratch), static_cast<float*>(mx), hh, wh, sp,
         static_cast<const float*>(scal));
     return static_cast<int>(cudaGetLastError());
   });
-  if (rc != 0) return rc;
-  return static_cast<int>(tit::decode_max(mx_enc, mx, n, stream));
 }

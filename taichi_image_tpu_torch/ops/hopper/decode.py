@@ -69,10 +69,13 @@ def decode12_phases(raws: torch.Tensor, ids_format: bool,
   bitwise equal to the plain twin and to the JAX decode."""
   _check_raws(raws)
   hopper.check_dtype("the decode's output dtype", dtype)
+  n, h, wb = raws.shape
+  # the bytes of an image in, and its 4 phase planes out
+  hopper.check_int32_extent(f"a {h}x{wb}-byte packed12 frame",
+                            max(h * wb, 4 * (h // 2) * (wb // 3)))
   if not hopper.use_kernel(backend, raws):
     return decode12_phases_plain(raws, ids_format, dtype)
   hopper.check_tensor("raws", raws, torch.uint8, 3, raws.device)
-  n, h, wb = raws.shape
   out = torch.empty((n, 4, h // 2, wb // 3), dtype=dtype, device=raws.device)
   KERNELS[dtype].launch(hopper.ptr(raws), hopper.ptr(out), n, h, wb,
                         int(bool(ids_format)), DECODE_SCALE,

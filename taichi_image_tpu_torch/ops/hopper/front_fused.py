@@ -71,10 +71,11 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
   variant = tap_variant(weights)
   dev = phases.device
   p = torch.empty((n, 12, hh, wh), dtype=torch.bfloat16, device=dev)
-  mx_enc = torch.empty((n,), dtype=torch.int32, device=dev)
+  # the encoded maxima, then the block counters (csrc/tonemap.cuh)
+  scratch = torch.empty((2 * n,), dtype=torch.int32, device=dev)
   mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=dev)
   params = stencil_params(weights, finish)
-  KERNEL.launch(hopper.ptr(phases), hopper.ptr(p), hopper.ptr(mx_enc),
+  KERNEL.launch(hopper.ptr(phases), hopper.ptr(p), hopper.ptr(scratch),
                 hopper.ptr(mx), n, hh, wh,
                 params.ctypes.data_as(ctypes.c_void_p),
                 int(finish["cc"] is not None), variant, hopper.ptr(scal),

@@ -106,15 +106,17 @@ def reinhard_map(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
   want = 10 if ca_mode else 6
   if scal.shape != (want,):
     raise ValueError(f"scal must be ({want},), got {tuple(scal.shape)}")
+  n, nc, hh, wh = x.shape
+  hopper.check_int32_extent(f"a ({nc}, {hh}, {wh}) map image", nc * hh * wh)
   if not hopper.use_kernel(backend, x):
     return reinhard_map_plain(x, scal, ca_mode, x.dtype)
   hopper.check_tensor("x", x, x.dtype, 4, x.device)
   hopper.check_tensor("scal", scal, torch.float32, 1, x.device)
-  n, nc, hh, wh = x.shape
   p = torch.empty_like(x)
-  mx_enc = torch.empty((n,), dtype=torch.int32, device=x.device)
+  # the encoded maxima, then the block counters: one memset clears both
+  scratch = torch.empty((2 * n,), dtype=torch.int32, device=x.device)
   mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=x.device)
-  KERNELS[x.dtype].launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(mx_enc),
+  KERNELS[x.dtype].launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(scratch),
                           hopper.ptr(mx), n, nc // 3, hh, wh,
                           hopper.ptr(scal), int(bool(ca_mode)),
                           hopper.stream_of(x.device))

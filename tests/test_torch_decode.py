@@ -63,3 +63,43 @@ def test_decode_phase_order():
   codes = np.array([0x321, 0x654, 0xFFF, 0x000], np.float32)
   want = torch.from_numpy(codes * np.float32(1 / 4095)).to(torch.bfloat16)
   np.testing.assert_array_equal(_bits(got[0, :, 0, 0]), _bits(want))
+
+
+# widths whose column pairs are not a whole number of the kernel's
+# 16-pair vectors: the ragged 6x4K-like row and 16k + 5 pairs
+_DTYPES = {"bf16": (jtypes.bf16, torch.bfloat16),
+           "f16": (jnp.float16, torch.float16),
+           "f32": (jnp.float32, torch.float32)}
+
+
+@pytest.mark.parametrize("dt", list(_DTYPES))
+@pytest.mark.parametrize("ids", [False, True])
+@pytest.mark.parametrize("wb", [3009, 3 * (16 * 3 + 5)])
+def test_decode_ragged_widths_match_xla_route(wb, ids, dt):
+  jd, td = _DTYPES[dt]
+  raws = _raws((2, 6, wb), None, seed=wb)
+  want = np.asarray(load_raw_phases(jnp.asarray(raws), "packed12", jd, ids))
+  got = th_decode.decode12_phases(torch.from_numpy(raws), ids, td)
+  assert got.dtype == td and tuple(got.shape) == want.shape
+  np.testing.assert_array_equal(got.contiguous().view(torch.uint8).numpy(),
+                                want.view(np.uint8))
+
+
+@pytest.mark.parametrize("backend", ["auto", "plain"])
+def test_decode_refuses_frames_past_32_bit_offsets(backend):
+  # 2^16 rows of 3 * 2^15 bytes: a stride-0 view, nothing allocated
+  raws = torch.zeros(1, 1, 1, dtype=torch.uint8).expand(1, 2 ** 16,
+                                                        3 * 2 ** 15)
+  with pytest.raises(ValueError, match="32-bit"):
+    th_decode.decode12_phases(raws, False, torch.bfloat16, backend=backend)
+
+
+@pytest.mark.parametrize("count,ok", [(2 ** 31 - 1, True), (2 ** 31, False),
+                                      (12 * 1080 * 1920, True)])
+def test_int32_extent_guard(count, ok):
+  from taichi_image_tpu_torch.ops import hopper
+  if ok:
+    hopper.check_int32_extent("x", count)
+  else:
+    with pytest.raises(ValueError, match="32-bit"):
+      hopper.check_int32_extent("x", count)

@@ -118,3 +118,91 @@ def test_scal_matches_jax(ca):
   want = (pl_rh.reinhard_scal_ca(jnp.asarray(M), 1.3, 0.7, ca) if ca
           else pl_rh.reinhard_scal(jnp.asarray(M), 1.3, 0.7))
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+# ----------------------------------------------- zero dividends, m0 == 0
+
+def _div_keep_zero(d, rng):
+  """Torch mirror of the kernels' division (csrc/common.cuh
+  div_rn_keep_zero): a zero dividend over a positive divisor divides 1
+  and is put back; everything else divides as written."""
+  zero = (d == 0) & (rng > 0)
+  q = torch.where(zero, torch.ones_like(d), d) / rng
+  return torch.where(zero, d, q)
+
+
+_TINY = float(np.float32(1e-45))  # the smallest f32 subnormal
+_DIVIDENDS = [0.0, -0.0, _TINY, -_TINY, 1.0, float("nan"), float("inf"),
+              float("-inf")]
+
+
+@pytest.mark.parametrize("rng", [0.7, 1e-40, 0.0, -0.0, -0.7, float("nan"),
+                                 float("inf")],
+                         ids=["positive", "subnormal", "zero", "minus_zero",
+                              "negative", "nan", "inf"])
+def test_zero_dividend_select_is_bitwise_division(rng):
+  d = torch.tensor(_DIVIDENDS, dtype=torch.float32)
+  r = torch.full_like(d, rng)
+  got, want = _div_keep_zero(d, r), d / r
+  np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                want.view(torch.int32).numpy())
+
+
+M0 = M.copy()
+M0[0] = 0.0  # the metering minimum at 0, as clipped stencil output gives
+
+
+def _x_clipped(shape, seed):
+  """bf16 inputs of which 40% are exactly 0 == m0 (the stencil's clipped
+  pixels), as JAX and torch arrays."""
+  r = np.random.default_rng(seed)
+  x = np.asarray(r.random(shape) * 0.9 + 0.05, np.float32)
+  x[r.random(shape) < 0.4] = 0.0
+  assert (x == 0).mean() >= 1 / 3
+  j = jnp.asarray(x, jnp.bfloat16)
+  t = torch.from_numpy(_bits(j).view(np.int16).copy()).view(torch.bfloat16)
+  return j, t
+
+
+def _port_map_m0(t, ca):
+  return tci.reinhard_map_max_ca(t, torch.from_numpy(M0), 1.0, 1.0, ca,
+                                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("ca", [0.0, 0.5])
+def test_map_at_m0_matches_pallas_interpret(ca):
+  j, t = _x_clipped((2, 12, 16, 128), seed=5)
+  want = jax.jit(lambda x: pl_rh.reinhard_map_bf16_dma(
+      x, jnp.asarray(M0), 1.0, 1.0, color_adapt=ca, interpret=True))(j)
+  _check(_port_map_m0(t, ca), want)
+
+
+@pytest.mark.parametrize("ca", [0.0, 0.5])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 37), (1, 12, 9, 30)])
+def test_map_at_m0_matches_xla(shape, ca):
+  j, t = _x_clipped(shape, seed=6)
+
+  def xla(x):
+    n, c = x.shape[:2]
+    p = jci.reinhard_map_ca(x.reshape(n, c // 3, 3, *x.shape[2:]),
+                            jnp.asarray(M0), 1.0, 1.0, ca)
+    return (p.astype(jnp.bfloat16).reshape(x.shape),
+            jnp.max(p, axis=tuple(range(1, p.ndim))).reshape(n, 1, 1, 1))
+  got = _port_map_m0(t, ca)
+  _check(got, jax.jit(xla)(j))
+  # a pixel at m0 maps to exactly +0 in every channel
+  at_m0 = (t == 0).reshape(t.shape[0], -1, 3, *t.shape[2:]).all(dim=2)
+  p = got[0].reshape(t.shape[0], -1, 3, *t.shape[2:])
+  assert at_m0.any()
+  assert (p.movedim(2, -1)[at_m0].view(torch.int16) == 0).all()
+
+
+# ------------------------------------------------ the 32-bit offset guard
+
+@pytest.mark.parametrize("backend", ["auto", "plain"])
+def test_map_refuses_images_past_32_bit_offsets(backend):
+  # 3 x 2^15 x 2^15 values per image: a stride-0 view, nothing allocated
+  x = torch.zeros(1, 3, 1, 1, dtype=torch.bfloat16).expand(
+      1, 3, 2 ** 15, 2 ** 15)
+  with pytest.raises(ValueError, match="32-bit"):
+    th_rh.reinhard_map(x, torch.zeros(6), False, backend=backend)
