@@ -12,10 +12,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
 2. build    nvcc builds the six kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4 and K12 for bf16,
             f16 and f32, and the bf16 front-fused K7 (16 kernels); each
-            source's register range and spill bytes from ptxas (K1-K4's
-            sources must show 0 spill bytes); the SASS instructions of
-            each K1 and K3 instantiation (cuobjdump) and of its vector
-            loop per pixel (K3) or column pair (K1).
+            source's register range and spill bytes from ptxas (every
+            source must show 0 spill bytes); the SASS instructions of
+            each K1, K3 and K12 instantiation and of K7 (cuobjdump), and
+            of their loops per pixel (K3), column pair (K1), output (K12)
+            or half-res pixel (K7, with its map loop).
 3. kernels  each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
@@ -24,14 +25,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
             shape (520 x 1000: whole vectors, tiles cut on both axes):
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
             methods, with and without a CCM), K4's two modes, each under
-            the 8 transforms, K12 at x0.5 (6x4K -> 1920x1080) and x0.37,
+            the 8 transforms, K12 at x0.5 (6x4K -> 1920x1080), x0.37,
+            x1.5 and x0.25 on the path its wrapper plans and, at x0.5,
+            also on the direct path that any resize can take,
             K3 on the resized planar image, K3 with degenerate scalars
             (range 0, range < 0, every pixel at m0) and with NaN pixels
             at the small shapes, K7 against K2 -> K3 on the card; kernel
             and twin times from CUDA events around batches of 10 calls,
             K3 in both adapt modes, K4 under every transform that swaps
-            the axes, and each time's bound (logical bytes over 3.35 TB/s, or f32
-            operations over 67 TFLOP/s, the larger) and share of it.
+            the axes, K12's direct path at x0.5 and, in bf16, K12 at x1.5
+            and x0.37, and each time's bound (logical bytes over 3.35
+            TB/s, or f32 operations over 67 TFLOP/s, the larger; a
+            resize counts only the x12 its taps touch) and share of it.
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
             the EMA carried over, compared frame by frame with the
@@ -53,7 +58,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             and the device operations per step from a torch.profiler
             trace; a per-stage table. Then the same
             step method for the resize->1920 step of each class and the
-            front-fused bf16 step.
+            front-fused bf16 step, each resize->1920 step and the
+            front-fused step with its profile (busy share, device
+            operations per step) and its host enqueue without the
+            checksum.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -140,12 +148,19 @@ def phase_device():
 
 
 # sources redesigned for the card, which must build without spills
-NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "reinhard.cu")
+NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "front_fused.cu",
+             "reinhard.cu", "resize.cu")
 # K3's and K1's instantiations in a mangled name: the kernel, T, then two
 # bools (K3: color_adapt, vector path; K1: vector path, IDS layout)
 _KERNEL_ARGS = re.compile(r"(map_kernel|decode12_kernel)I(13__nv_bfloat16|"
                           r"6__half|f)Lb([01])ELb([01])E")
 _T_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+# K12's instantiations: T, then the aligned path; K7's: the tap-mask
+# variant
+_RESIZE_ARGS = re.compile(r"resize_kernelI(13__nv_bfloat16|6__half|f)"
+                          r"Lb([01])E")
+_RESIZE_PATHS = ("direct", "aligned")  # csrc/resize.cu's kAligned
+_FRONT_ARGS = re.compile(r"front_fused_kernelILi(\d)E")
 # elements per pass of K3's and K1's vector loops, one 16-byte run of T:
 # K3 maps that many pixels, K1 unpacks that many column pairs
 PER_PASS = {"bf16": 8, "f16": 8, "f32": 4}
@@ -159,8 +174,8 @@ def _cuobjdump(path, flag):
 
 def sass_counts(path):
   """{mangled kernel: (SASS instructions, instructions of its longest
-  loop, registers)} of a built library, from ``cuobjdump -sass`` and
-  ``-res-usage`` (NOPs not counted)."""
+  loop, registers, the instructions of each loop)} of a built library,
+  from ``cuobjdump -sass`` and ``-res-usage`` (NOPs not counted)."""
   regs = dict(re.findall(r"Function (\S+):\s*REG:(\d+)",
                          _cuobjdump(path, "-res-usage")))
   out = {}
@@ -171,13 +186,13 @@ def sass_counts(path):
       m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
       if m and not m.group(2).strip().startswith("NOP"):
         insns.append((int(m.group(1), 16), m.group(2)))
-    loop = 0
+    loops = []
     for at, ins in insns:
       t = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", ins)
       if t and int(t.group(1), 16) < at:  # a backward branch: a loop
-        loop = max(loop, sum(int(t.group(1), 16) <= a <= at
-                             for a, _ in insns))
-    out[name] = (len(insns), loop, int(regs.get(name, 0)))
+        loops.append(sum(int(t.group(1), 16) <= a <= at for a, _ in insns))
+    out[name] = (len(insns), max(loops, default=0), int(regs.get(name, 0)),
+                 sorted(loops))
   return out
 
 
@@ -200,7 +215,11 @@ def phase_build():
     log(f"  {source}: {path.name}, {len(regs)} kernels, {min(regs)}-"
         f"{max(regs)} registers, {spills} spill bytes")
     if spills and source in NO_SPILLS:
-      raise AssertionError(f"{source} spills {spills} bytes")
+      which = [name for name, st, ld in re.findall(
+          r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) "
+          r"bytes spill stores, (\d+) bytes spill loads", text)
+               if int(st) + int(ld)]
+      raise AssertionError(f"{source} spills {spills} bytes in {which}")
   # SASS of K3 and K1: the vector loop's instructions (static: the
   # branches around the slow paths included) per pixel or column pair
   for source in ("reinhard.cu", "decode.cu"):
@@ -210,7 +229,7 @@ def phase_build():
     except (OSError, subprocess.CalledProcessError) as e:
       log(f"  {source}: SASS not measured (cuobjdump: {e})")
       continue
-    for mangled, (total, loop, regs) in counts.items():
+    for mangled, (total, loop, regs, _) in counts.items():
       m = _KERNEL_ARGS.search(mangled)
       if not m:
         continue
@@ -225,6 +244,39 @@ def phase_build():
                         per_element=per, unit=unit)
       log(f"  {name}: {regs} registers, {total} SASS instructions, "
           f"longest loop {loop}" + (f"; {per:.1f} per {unit}" if per else ""))
+    sources[source]["sass"] = rows
+  # SASS of K12 and K7: K12's row loop per output (a run of kV columns
+  # times 3 colors); K7's row loop (the edge and the interior run of
+  # front_fused.cu's kV = 2 pixels, so both are counted) and its map loop
+  # (kU = 2 maps of 3 channels, run 4 times a run)
+  for source, pattern in (("resize.cu", _RESIZE_ARGS),
+                          ("front_fused.cu", _FRONT_ARGS)):
+    rows = {}
+    try:
+      counts = sass_counts(libs[source])
+    except (OSError, subprocess.CalledProcessError) as e:
+      log(f"  {source}: SASS not measured (cuobjdump: {e})")
+      continue
+    for mangled, (total, loop, regs, loops) in counts.items():
+      m = pattern.search(mangled)
+      if not m:
+        continue
+      if source == "resize.cu":
+        t, path = m.groups()
+        name = f"resize_{_T_NAMES[t]} {_RESIZE_PATHS[int(path)]}"
+        per, unit = loop / (3 * PER_PASS[_T_NAMES[t]]), "output"
+        extra = ""
+      else:
+        if m.group(1) != "0":  # the variants differ only in their live taps
+          continue
+        name = "front_fused_bf16 variant=0"
+        per, unit = loop / 2, "pixel (edge + interior run)"
+        inner = max((n for n in loops if n < loop), default=0)
+        extra = f"; map loop {inner} for 2 maps"
+      rows[name] = dict(sass=total, loop=loop, registers=regs,
+                        per_element=per, unit=unit, loops=loops)
+      log(f"  {name}: {regs} registers, {total} SASS instructions, "
+          f"longest loop {loop}; {per:.1f} per {unit}{extra}")
     sources[source]["sass"] = rows
   return dict(seconds=dt, sources=sources)
 
@@ -289,6 +341,8 @@ def _nbytes(*tensors) -> int:
       total += _nbytes(*t)
     elif isinstance(t, torch.Tensor):
       total += t.numel() * t.element_size()
+    elif isinstance(t, _Bytes):
+      total += t
   return total
 
 
@@ -311,6 +365,29 @@ def _time(results, name, call, inputs, ops=0, shape_note="6x4K"):
       f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, "
       f"{ops} f32 ops), {r['share']:.1%} of it ({shape_note}, median of 7 "
       "batches of 10)")
+
+
+RESIZE_SCALES = (0.5, 0.37, 1.5, 0.25)
+
+
+class _Bytes(int):
+  """A count of bytes that ``_nbytes`` takes as it stands: the part of a
+  tensor that a kernel must read, where that is not all of it."""
+
+
+def _resize_x12_bytes(x12, taps):
+  """The bytes of x12 that a resize must read: in each of the four
+  phases (row parity, column parity), the half-res rows and columns that
+  its taps touch, in 3 colors (at x0.5 all of x12; a downscale by more
+  skips rows and columns)."""
+  import torch
+
+  def touched(lo, hi):
+    t = torch.cat([lo, hi])
+    return [torch.unique(t[t % 2 == p] >> 1).numel() for p in (0, 1)]
+  rows, cols = touched(taps.r_lo, taps.r_hi), touched(taps.c_lo, taps.c_hi)
+  return _Bytes(x12.shape[0] * 3 * x12.element_size()
+                * sum(r * c for r in rows for c in cols))
 
 
 def phase_kernels(results):
@@ -413,9 +490,11 @@ def phase_kernels(results):
           _check_bitwise(f"finish {kt} {mode} gamma={gamma} {t.value}", ko,
                          po)
           note(f"finish_{sfx}", ko, po)
-      # K12: bitwise at x0.5 and x0.37 (odd h', w'); K3 on its output
-      plans = {}
-      for scale in (0.5, 0.37):
+      # K12: bitwise at x0.5, x0.37 (odd h', w'), x1.5 and x0.25, on the
+      # path the wrapper plans and, where that is the aligned one, on the
+      # direct one too; K3 on its output
+      plans, paths = {}, []
+      for scale in RESIZE_SCALES:
         size = (round(2 * wh * scale), round(2 * hh * scale))
         taps = resize.resize_taps(hh, wh, size,
                                   _plan_scales(2 * hh, 2 * wh, size, scale),
@@ -424,11 +503,18 @@ def phase_kernels(results):
         pr = resize.resize_x12(x12, taps, backend="plain")
         _check_bitwise(f"resize {kt} x{scale} -> {size}", kr, pr)
         note(f"resize_{sfx}", kr, pr)
+        pick = resize.plan(x12, taps)
+        if pick != "direct":
+          ko = resize._launch(x12, taps, "direct")
+          _check_bitwise(f"resize {kt} x{scale} -> {size} direct", ko, pr)
+        paths.append(f"x{scale} {pick}"
+                     + (" + direct" if pick != "direct" else ""))
         kp, km = reinhard.reinhard_map(kr, scal0, False, backend="kernel")
         pp, pm = reinhard.reinhard_map(kr, scal0, False, backend="plain")
         _check_map(f"reinhard {kt} on planar {tuple(kr.shape)}", kp, km, pp,
                    pm)
         plans[scale] = (taps, kr)
+        del kr, pr, kp, km, pp, pm
       # K7 (bf16): bitwise against K2 -> K3 on the card, K3's contract
       # against its twin
       if dtype == torch.bfloat16:
@@ -437,11 +523,11 @@ def phase_kernels(results):
           kv = f"{kt} {pattern.name} {method} cc={cc is not None}"
           w = _demosaic_tables(pattern, method)
           fin_c = _stencil_finish_spec(w, hh, wh, cc, dtype)
-          fp, fm = front_fused.front_fused(phases, w, fin_c, scal0,
-                                           backend="kernel")
           cx, _ = demosaic.demosaic_stencil(phases, w, fin_c,
                                             backend="kernel")
           cp, cm = reinhard.reinhard_map(cx, scal0, False, backend="kernel")
+          fp, fm = front_fused.front_fused(phases, w, fin_c, scal0,
+                                           backend="kernel")
           _check_bitwise(f"front_fused {kv} p", fp, cp)
           _check_bitwise(f"front_fused {kv} max", fm, cm)
           pp, pm = front_fused.front_fused(phases, w, fin_c, scal0,
@@ -450,7 +536,8 @@ def phase_kernels(results):
           note("front_fused_bf16", fp, pp)
       log(f"kernels {kt}: decode, demosaic (8 variants), reinhard"
           + (" (and its degenerate cases)" if shape != (N_CAM, H, WB) else "")
-          + ", finish (both modes, each under 8 transforms), resize"
+          + ", finish (both modes, each under 8 transforms), resize ("
+          + ", ".join(paths) + ")"
           + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
       if shape != (N_CAM, H, WB):
@@ -460,7 +547,8 @@ def phase_kernels(results):
       # live taps as a multiply and an add each, inv_full and the clip;
       # the map's ~30 operations per pixel; 4 to 7 per finished byte; a
       # resize output's 2 x 3 lerp operations per tap pair)
-      taps, rgb = plans[0.5]
+      rgb = plans[0.5][1]
+      both = {s: plans[s][0] for s in RESIZE_SCALES}
       npix = N_CAM * hh * wh
       live = sum(bin(m).count("1") for m in demosaic.TAP_MASKS[
           demosaic.tap_variant(weights)])
@@ -487,22 +575,36 @@ def phase_kernels(results):
             lambda b, t=t: finish.finish_planar_u8(
                 p_cast, max_out, 1.0, transform=t, backend=b),
             [p_cast, max_out], 4 * 12 * npix)
-      calls.update({
-          f"resize_{sfx}": (lambda b: resize.resize_x12(x12, taps, backend=b),
-                            [x12, taps.r_lo, taps.r_hi, taps.r_f,
-                             taps.c_lo, taps.c_hi, taps.c_f],
-                            6 * rgb.numel()),
-          f"reinhard_{sfx} planar1080": (lambda b: reinhard.reinhard_map(
-              rgb, scal0, False, backend=b), [rgb, scal0],
-              10 * rgb.numel()),
-      })
+      calls[f"reinhard_{sfx} planar1080"] = (
+          lambda b: reinhard.reinhard_map(rgb, scal0, False, backend=b),
+          [rgb, scal0], 10 * rgb.numel())
+      # K12: at x0.5 (every dtype, also on the direct path) and, in bf16,
+      # at x1.5 and x0.37; the bound counts the x12 that the taps touch
+      for scale in (0.5, 1.5, 0.37) if dtype == torch.bfloat16 else (0.5,):
+        t_s = both[scale]
+        tag = "" if scale == 0.5 else f" x{scale}"
+        out_numel = N_CAM * 3 * t_s.h_out * t_s.w_out
+        resize_in = [_resize_x12_bytes(x12, t_s), t_s.r_lo, t_s.r_hi,
+                     t_s.r_f, t_s.c_lo, t_s.c_hi, t_s.c_f]
+        calls[f"resize_{sfx}{tag}"] = (
+            lambda b, t_s=t_s: resize.resize_x12(x12, t_s, backend=b),
+            resize_in, 6 * out_numel)
+        if resize.plan(x12, t_s) != "direct":
+          calls[f"resize_{sfx}{tag} direct"] = (
+              lambda b, t_s=t_s: (
+                  resize._launch(x12, t_s, "direct") if b == "kernel"
+                  else resize.resize_x12_plain(x12, t_s)),
+              resize_in, 6 * out_numel)
       if dtype == torch.bfloat16:
         calls["front_fused_bf16"] = (lambda b: front_fused.front_fused(
             phases, weights, fin, scal0, backend=b), [phases, scal0],
             (2 * live + 36 + 30 * 4) * npix)
       for name, (call, inputs, ops) in calls.items():
-        _time(results, name, call, inputs, ops,
-              "6x4K -> 1920x1080" if name.startswith("resize") else "6x4K")
+        note_ = "6x4K"
+        if name.startswith("resize"):
+          sc = next((s for s in (1.5, 0.37) if f"x{s}" in name), 0.5)
+          note_ = (f"6x4K x{sc} -> {both[sc].w_out}x{both[sc].h_out}")
+        _time(results, name, call, inputs, ops, note_)
       base = results[f"finish_{sfx}"]["ms"]
       ratios = [results[f"finish_{sfx} {t.value}"]["ms"] / base
                 for t in swaps]
@@ -740,6 +842,44 @@ def bench_step(inputs, args, checksum=True, env=None):
   return times, host, acc.item()
 
 
+def profile_step(name, inputs, args, env=None):
+  """Device busy share of K chained steps (no checksum) from a profiler
+  trace, the sum of kernel times on the one stream over the window, and
+  the device operations (kernels and memsets) per step; logs the
+  kernels by device time. Returns (busy share or None, operations)."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with _env(env):
+    _chain(inputs, args, checksum=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      a = torch.cuda.Event(enable_timing=True)
+      b = torch.cuda.Event(enable_timing=True)
+      a.record()
+      _chain(inputs, args, checksum=False)
+      b.record()
+      b.synchronize()
+  window_us = a.elapsed_time(b) * 1e3
+  kern = [(e.key, e.self_device_time_total, e.count)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+  busy_us = sum(t for _, t, _ in kern)
+  busy = busy_us / window_us if busy_us else None
+  ops = sum(c for _, _, c in kern) / K  # kernels and memsets
+  if busy is None:
+    log(f"profile {name}: no device time in the trace (busy share not "
+        "measured)")
+  else:
+    log(f"profile {name}: device busy {busy:.1%} of a {K}-step window "
+        f"({window_us / K / 1e3:.4f} ms/step traced), {ops:g} device "
+        "operations (kernels and memsets) per step; per step:")
+    for key, t, count in sorted(kern, key=lambda r: -r[1])[:12]:
+      log(f"  {t / K / 1e3:.4f} ms  x{count // K:<3d} {key[:70]}")
+  return busy, ops
+
+
 def phase_timing(card, sfx):
   """bench.py's method with CUDA events, plus a per-stage table, for one
   class's step."""
@@ -767,33 +907,7 @@ def phase_timing(card, sfx):
       f"reduction, {N_CAM / (bare_ms / 1e3):.2f} frames/s; host enqueue "
       f"{statistics.median(bare_host):.4f} ms/step")
 
-  # device busy share of K chained steps (no checksum), from a profiler
-  # trace: the sum of kernel times on the one stream over the window
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    _chain(inputs, args, checksum=False)
-    b.record()
-    b.synchronize()
-  window_us = a.elapsed_time(b) * 1e3
-  kern = [(e.key, e.self_device_time_total, e.count)
-          for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-  busy_us = sum(t for _, t, _ in kern)
-  busy = busy_us / window_us if busy_us else None
-  ops = sum(c for _, _, c in kern) / K  # kernels and memsets
-  if busy is None:
-    log("profile: no device time in the trace (busy share not measured)")
-  else:
-    log(f"profile {name}: device busy {busy:.1%} of a {K}-step window "
-        f"({window_us / K / 1e3:.4f} ms/step traced), {ops:g} device "
-        "operations (kernels and memsets) per step; per step:")
-    for key, t, count in sorted(kern, key=lambda r: -r[1])[:12]:
-      log(f"  {t / K / 1e3:.4f} ms  x{count // K:<3d} {key[:70]}")
+  busy, ops = profile_step(name, inputs, args)
 
   # per-stage table, each stage alone at the main path's shapes
   raws = inputs[0]
@@ -871,6 +985,14 @@ def phase_route_timing(card):
         f"{REPS} x {K} chained steps, incl. the u8 checksum); host enqueue "
         f"{statistics.median(host):.4f} ms/step; checksum {checksum}; "
         f"{card}")
+    if name.endswith("resize1920"):
+      # the resize step's profile and its enqueue without the checksum
+      _, bare_host, _ = bench_step(inputs, args, checksum=False)
+      busy, ops = profile_step(name, inputs, args)
+      out[name].update(bare_host_ms=bare_host, busy_share=busy,
+                       ops_per_step=ops)
+      log(f"timing {name}: host enqueue {statistics.median(bare_host):.4f} "
+          "ms/step without the checksum")
   main_args = _step_args(bf16)
   pair = {"composed": [], "front-fused": []}
   for which in ("composed", "front-fused", "front-fused", "composed"):
@@ -879,6 +1001,14 @@ def phase_route_timing(card):
     pair[which].append(statistics.median(times))
   for which, ms in pair.items():
     out[f"CameraBF16 {which}"] = dict(step_ms=min(ms), runs=ms)
+  ff_env = {FRONT_FUSED: "1"}
+  _, ff_host, _ = bench_step(inputs, main_args, checksum=False, env=ff_env)
+  busy, ops = profile_step("CameraBF16 front-fused", inputs, main_args,
+                           env=ff_env)
+  out["CameraBF16 front-fused"].update(bare_host_ms=ff_host, busy_share=busy,
+                                       ops_per_step=ops)
+  log(f"timing CameraBF16 front-fused: host enqueue "
+      f"{statistics.median(ff_host):.4f} ms/step without the checksum")
   log(f"timing CameraBF16 front-fused {min(pair['front-fused']):.4f} vs "
       f"composed {min(pair['composed']):.4f} ms/step (lower of two medians "
       f"each, taken in turns); {card}")

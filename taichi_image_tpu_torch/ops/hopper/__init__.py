@@ -12,7 +12,9 @@ library, holding all its instantiations, is compiled with ``nvcc`` on
 first use into ``_build/``
 (keyed by a hash of the sources, the flags and ``nvcc --version``) and
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a kernel
-builds in seconds and needs no ``ninja``.
+builds in seconds and needs no ``ninja``. A source may take ``-D``
+definitions from the module that registers it (``defines``), so that a
+launch geometry the wrapper plans with has one home.
 
 No fallback hides the device or the kernel: a failed build raises with
 nvcc's stderr, a failed launch raises with the CUDA error, and a CUDA
@@ -38,8 +40,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
-           "build_all", "launch_counts", "reset_launches", "use_kernel",
-           "check_dtype", "check_tensor", "check_int32_extent",
+           "nvcc_flags", "build_all", "launch_counts", "reset_launches",
+           "use_kernel", "check_dtype", "check_tensor", "check_int32_extent",
            "check_frame_size", "stream_of", "ptr"]
 
 CSRC = Path(__file__).parent / "csrc"
@@ -80,22 +82,34 @@ def _nvcc_version(nvcc: str) -> str:
                         check=True).stdout
 
 
+# {source: {macro: value}}: the ``-D`` definitions a source is built with
+DEFINES: dict[str, dict[str, int]] = {}
+
+
+def nvcc_flags(source: str) -> tuple[str, ...]:
+  """The flags ``csrc/<source>`` is built with: NVCC_FLAGS and its
+  DEFINES."""
+  return NVCC_FLAGS + tuple(f"-D{name}={value}" for name, value
+                            in sorted(DEFINES.get(source, {}).items()))
+
+
 def _build(source: str) -> Path:
   """Compile ``csrc/<source>`` into a shared library (cached by key);
   returns its path. Raises ``RuntimeError`` with nvcc's stderr."""
   nvcc = _nvcc()
   src = CSRC / source
+  flags = nvcc_flags(source)
   h = hashlib.sha256()
   for f in [src, *sorted(CSRC.glob("*.cuh"))]:
     h.update(f.name.encode() + b"\0" + f.read_bytes())
-  h.update(" ".join(NVCC_FLAGS).encode())
+  h.update(" ".join(flags).encode())
   h.update(_nvcc_version(nvcc).encode())
   out = BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
   if out.exists():
     return out
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-  proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+  proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
                         capture_output=True, text=True)
   if proc.returncode != 0:
     tmp.unlink(missing_ok=True)
@@ -154,10 +168,14 @@ def register(name: str, source: str, symbol: str, argtypes,
 
 
 def register_per_dtype(stage: str, source: str, symbol: str, argtypes,
-                       replaces: dict) -> dict[torch.dtype, Kernel]:
+                       replaces: dict, defines: dict | None = None
+                       ) -> dict[torch.dtype, Kernel]:
   """Register one :class:`Kernel` per working dtype: ``<stage>_<suffix>``
   launched through ``<symbol>_<suffix>``; ``replaces`` maps each dtype to
-  the TPU kernel (or XLA route) it ports. Returns {dtype: Kernel}."""
+  the TPU kernel (or XLA route) it ports; ``source`` is built with
+  ``-D<macro>=<value>`` for each of ``defines``. Returns {dtype: Kernel}."""
+  if defines:
+    DEFINES[source] = dict(defines)
   return {dtype: register(f"{stage}_{suffix}", source, f"{symbol}_{suffix}",
                           argtypes, replaces[dtype])
           for dtype, suffix in DTYPE_SUFFIX.items()}

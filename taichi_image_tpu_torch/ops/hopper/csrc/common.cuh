@@ -45,15 +45,17 @@ __device__ __forceinline__ float store_rn<float>(float f) {
   return f;
 }
 
-// Runs of kN consecutive elements of T moved as one 8- or 16-byte vector
-// access (kN * sizeof(T) bytes, aligned to that size). In the 32-bit
-// words of a run the elements sit in address order, two 16-bit elements
-// to a word (the low half first). Element indices are compile-time after
-// unrolling, so the unpacking is shifts and moves between registers.
+// Runs of kN consecutive elements of T moved as one 4-, 8- or 16-byte
+// vector access (kN * sizeof(T) bytes, aligned to that size). In the
+// 32-bit words of a run the elements sit in address order, two 16-bit
+// elements to a word (the low half first). Element indices are
+// compile-time after unrolling, so the unpacking is shifts and moves
+// between registers.
 template <typename T, int kN>
 struct Run {
   static constexpr int kWords = kN * static_cast<int>(sizeof(T)) / 4;
-  static_assert(kWords == 2 || kWords == 4, "a run is 8 or 16 bytes");
+  static_assert(kWords == 1 || kWords == 2 || kWords == 4,
+                "a run is 4, 8 or 16 bytes");
 
   // The kN elements at p, each converted exactly to f32.
   __device__ static __forceinline__ void load(const T* p, float* f) {
@@ -71,10 +73,12 @@ struct Run {
       w[1] = v.y;
       w[2] = v.z;
       w[3] = v.w;
-    } else {
+    } else if constexpr (kWords == 2) {
       const uint2 v = *reinterpret_cast<const uint2*>(p);
       w[0] = v.x;
       w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
     }
   }
 
@@ -105,10 +109,17 @@ struct Run {
         w[m] = pair16(f[2 * m], f[2 * m + 1]);
       }
     }
+    store_words(p, w);
+  }
+
+  // The words w of a run (as load_words gives them) stored at p.
+  __device__ static __forceinline__ void store_words(T* p, const unsigned* w) {
     if constexpr (kWords == 4) {
       *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
+    } else if constexpr (kWords == 2) {
       *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(p) = w[0];
     }
   }
 

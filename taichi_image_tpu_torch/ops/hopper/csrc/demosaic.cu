@@ -16,7 +16,8 @@
 // multiplies and adds per channel set (no FMA), about 250 instructions
 // per pixel, 0.10 ms of dispatch at 6 x 4K. The design keeps loads in
 // flight while the arithmetic runs, and spends as few instructions per
-// pixel as it can:
+// pixel as it can (the tile, its loader and the run window are
+// stencil.cuh's, which K7 shares):
 //   - a block of 32 x 8 threads takes a tile of 32 x 128 half-res pixels
 //     of one image (blockIdx = column tile, row tile, image) and stages
 //     the four phase planes of the tile with a one-pixel halo in shared
@@ -45,69 +46,30 @@
 
 namespace {
 
-constexpr int kV = 4;                 // pixels per thread
-constexpr int kRunsX = 32;            // threads across a tile row: a warp
-constexpr int kRowsY = 8;             // warps of a block
-constexpr int kThreads = kRunsX * kRowsY;
-constexpr int kTileH = 32;            // half-res rows of a tile
-constexpr int kTileW = kRunsX * kV;   // half-res columns of a tile
-
+constexpr int kV = 4;  // pixels per thread
 template <typename T>
-struct Tile {
-  static constexpr int kS = 16 / sizeof(T);     // elements per 16-byte copy
-  static constexpr int kSW = kTileW + 2 * kS;   // staged row: a halo copy
-                                                // on each side
-  static constexpr int kSH = kTileH + 2;        // staged rows: a halo row
-                                                // on each side
-  static constexpr int kBytes = 4 * kSH * kSW * static_cast<int>(sizeof(T));
-};
+using Tile = tit::StencilTile<T, kV>;
 
 struct Frame {
   int hh, wh, step, hs, ws;
 };
 
 // One thread's run: pixels (i, j0 .. j0 + kV) from the staged tile, pixel
-// j0's column at s[.][kS + c0].
+// j0 at tile row rr, column c0.
 template <typename T, int kVariant, bool kBorder>
 __device__ __forceinline__ void stencil_run(
     const T* __restrict__ s, int rr, int c0, int i, int j0, const Frame& f,
     bool vec, const tit::StencilParams& p, T* __restrict__ outb,
     T* __restrict__ sampb) {
-  using Tl = Tile<T>;
   float win[4][3][kV + 2];  // the 3 x (kV + 2) window of each phase
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int u = 0; u < 3; ++u) {
-      const T* row = s + (q * Tl::kSH + rr + u) * Tl::kSW + Tl::kS + c0;
-      tit::Run<T, kV>::load(row, win[q][u] + 1);
-      win[q][u][0] = tit::load_f32(row[-1]);
-      win[q][u][kV + 1] = tit::load_f32(row[kV]);
-    }
-  }
+  tit::load_window<T, kV>(s, rr, c0, win);
   const int plane = f.hh * f.wh;
   const int at = i * f.wh + j0;
 #pragma unroll
   for (int ph = 0; ph < 4; ++ph) {
     float o[3][kV];
-#pragma unroll
-    for (int k = 0; k < kV; ++k) {
-      float t[36];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int u = 0; u < 3; ++u) {
-#pragma unroll
-          for (int v = 0; v < 3; ++v) t[q * 9 + u * 3 + v] = win[q][u][k + v];
-        }
-      }
-      const tit::Edges edges{i == 0, i == f.hh - 1, j0 + k == 0,
-                             j0 + k == f.wh - 1};
-      float v3[3];
-      tit::stencil_phase<kVariant, kBorder>(ph, t, edges, p, v3);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) o[c][k] = v3[c];
-    }
+    tit::stencil_run_phase<kVariant, kBorder, kV>(win, ph, i, j0, f.hh,
+                                                  f.wh, p, o);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       T* dst = outb + (ph * 3 + c) * plane + at;
@@ -141,59 +103,24 @@ __device__ __forceinline__ void stencil_run(
 }
 
 template <typename T, int kVariant>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(tit::kTileThreads, 2)
     stencil_kernel(const T* __restrict__ x, T* __restrict__ out,
                    T* __restrict__ samp, Frame f, int vec,
                    const __grid_constant__ tit::StencilParams p) {
-  using Tl = Tile<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s = reinterpret_cast<T*>(smem);
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * Tile<T>::kTileW, y0 = blockIdx.y * tit::kTileH;
   const int b = blockIdx.z;
   const int plane = f.hh * f.wh;
   const T* xb = x + static_cast<size_t>(b) * 4 * plane;
-  const int tid = threadIdx.y * kRunsX + threadIdx.x;
-
-  // stage the tile and its halo, zero outside the frame
-  if (vec) {
-    constexpr int kCopies = Tl::kSW / Tl::kS;
-#pragma unroll 4
-    for (int k = tid; k < 4 * Tl::kSH * kCopies; k += kThreads) {
-      const int row = k / kCopies, cv = k - row * kCopies;  // q * kSH + r
-      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
-      const int y = y0 - 1 + r, xc = x0 - Tl::kS + cv * Tl::kS;
-      const bool in = y >= 0 && y < f.hh && xc >= 0 && xc < f.wh;
-      // a copy of 0 source bytes fills the 16 bytes with zeros
-      const unsigned dst = static_cast<unsigned>(
-          __cvta_generic_to_shared(s + row * Tl::kSW + cv * Tl::kS));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       dst),
-                   "l"(in ? xb + q * plane + y * f.wh + xc : xb),
-                   "r"(in ? 16 : 0));
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  } else {
-    constexpr int kCols = kTileW + 2;
-    const T zero = tit::store_rn<T>(0.0f);
-    for (int k = tid; k < 4 * Tl::kSH * kCols; k += kThreads) {
-      const int row = k / kCols, c = k - row * kCols;
-      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
-      const int y = y0 - 1 + r, xc = x0 - 1 + c;
-      const bool in = y >= 0 && y < f.hh && xc >= 0 && xc < f.wh;
-      s[row * Tl::kSW + Tl::kS - 1 + c] =
-          in ? xb[q * plane + y * f.wh + xc] : zero;
-    }
-  }
-  __syncthreads();
-
-  // whether the tile touches the frame's edge, decided once per tile
-  const bool edge = y0 == 0 || y0 + kTileH >= f.hh || x0 == 0 ||
-                    x0 + kTileW >= f.wh;
+  tit::stage_tile<T, kV>(s, xb, x0, y0, f.hh, f.wh, vec,
+                         threadIdx.y * tit::kRunsX + threadIdx.x);
+  const bool edge = tit::tile_on_edge<T, kV>(x0, y0, f.hh, f.wh);
   const int c0 = threadIdx.x * kV, j0 = x0 + c0;
   if (j0 >= f.wh) return;
   T* outb = out + static_cast<size_t>(b) * 12 * plane;
   T* sampb = samp + static_cast<size_t>(b) * 3 * f.hs * f.ws;
-  for (int rr = threadIdx.y; rr < kTileH; rr += kRowsY) {
+  for (int rr = threadIdx.y; rr < tit::kTileH; rr += tit::kRowsY) {
     const int i = y0 + rr;
     if (i >= f.hh) break;
     if (edge) {
@@ -224,8 +151,9 @@ int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
   // and kV-element stores
   const int vec = wh % Tl::kS == 0 && tit::aligned16(x) &&
                   tit::aligned16(out);
-  const dim3 grid((wh + kTileW - 1) / kTileW, (hh + kTileH - 1) / kTileH, n);
-  const dim3 block(kRunsX, kRowsY);
+  const dim3 grid((wh + Tl::kTileW - 1) / Tl::kTileW,
+                  (hh + tit::kTileH - 1) / tit::kTileH, n);
+  const dim3 block(tit::kRunsX, tit::kRowsY);
   return tit::with_variant(variant, [&](auto v) {
     auto* kernel = stencil_kernel<T, decltype(v)::value>;
     // f32 tiles take 74 KB, above the 48 KB of static shared memory

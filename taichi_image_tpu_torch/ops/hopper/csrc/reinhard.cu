@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(tit::kThreads)
     }
   }
   tit::block_max_finish(lmax, scratch + b, scratch + n + b, mx + b,
-                        gridDim.x * gridDim.y);
+                        gridDim.x * gridDim.y, threadIdx.x);
 }
 
 template <typename T, bool CA, bool kVec>

@@ -1,11 +1,22 @@
-// The demosaic stencil of one half-res pixel, shared by K2 (demosaic.cu)
-// and the front-fused K7 (front_fused.cu) so that both run the same
-// instructions in the same order. It comes in two pieces: a loader that
-// gathers the pixel's 4 x 3 x 3 neighbourhood of phase values (K2 stages
-// a tile in shared memory and slides a window over it; K7 reads device
-// memory through stencil_taps), and stencil_phase / stencil_finish, which
-// turn those 36 taps into an output phase's 3 finished channels or all
-// 12.
+// The demosaic stencil, shared by K2 (demosaic.cu) and the front-fused K7
+// (front_fused.cu) so that both run the same instructions in the same
+// order, from the tile in shared memory to the finished channels. What
+// bounds both on this card is the instruction stream beside the bytes
+// (below): so the loader spends no instruction a pixel can avoid. The
+// pieces, in the order a kernel calls them:
+//   - StencilTile: a block of kRunsX x kRowsY threads takes kTileH rows
+//     of kRunsX * kV half-res pixels of one image (blockIdx = column
+//     tile, row tile, image; no division per pixel);
+//   - stage_tile: the tile's four phase planes with a one-pixel halo,
+//     staged in shared memory by 16-byte cp.async copies all in flight at
+//     once, zero-filled outside the frame (the padding that the border
+//     factors renormalize), or element by element for a frame whose rows
+//     are not whole copies;
+//   - load_window: a thread's 3 x (kV + 2) window of each phase for a
+//     run of kV consecutive pixels of a row, one vector load per row;
+//   - stencil_run_phase: the 3 finished channels of one output phase for
+//     the kV pixels of the run (stencil_phase on each pixel's 36 taps),
+//     with the border factors only where the caller asks (edge tiles).
 //
 // Arithmetic order matches taichi_image_tpu/ops/pallas/demosaic.py
 // _stencil_kernel and the plain twin
@@ -126,29 +137,6 @@ struct Edges {
   bool top, bot, left, right;
 };
 
-// K7's loader: the 4 x 3 x 3 neighbourhood of half-res pixel (i, j) of
-// image xb (4 phase planes of hh x wh), zero outside the image (the zero
-// padding whose dropped taps the border factors renormalize).
-template <typename T>
-__device__ __forceinline__ void stencil_taps(const T* __restrict__ xb, int i,
-                                             int j, int hh, int wh,
-                                             float t[36]) {
-  const int plane = hh * wh;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int u = 0; u < 3; ++u) {
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const int y = i + u - 1, xc = j + v - 1;
-        const bool in = y >= 0 && y < hh && xc >= 0 && xc < wh;
-        t[q * 9 + u * 3 + v] =
-            in ? load_f32(xb[q * plane + y * wh + xc]) : 0.0f;
-      }
-    }
-  }
-}
-
 // The 3 finished channels of output phase ph of one pixel from its 36
 // taps, clipped to [0, 1] and not yet rounded to the working dtype.
 // kBorder = false skips the border factors, which are exactly 1 away from
@@ -196,14 +184,119 @@ __device__ __forceinline__ void stencil_phase(int ph, const float t[36],
   for (int c = 0; c < 3; ++c) out[c] = fminf(fmaxf(out[c], 0.0f), 1.0f);
 }
 
-// All 12 channels of one pixel (K7's order: phase by phase).
-template <int kVariant, bool kBorder>
-__device__ __forceinline__ void stencil_finish(const float t[36], Edges e,
-                                               const StencilParams& p,
-                                               float out[12]) {
+// The tile of K2 and K7: kTileH x kTileW half-res pixels for a block of
+// kRunsX x kRowsY threads, each thread taking runs of kV pixels of a row.
+// Staged in shared memory as four phase planes of kSH rows (a halo row on
+// each side) by kSW columns (a halo copy of kS elements on each side, so
+// every copy is 16-byte aligned in both memories).
+constexpr int kRunsX = 32;   // threads across a tile row: a warp
+constexpr int kRowsY = 8;    // warps of a block
+constexpr int kTileThreads = kRunsX * kRowsY;
+constexpr int kTileH = 32;   // half-res rows of a tile
+
+template <typename T, int kV>
+struct StencilTile {
+  static constexpr int kTileW = kRunsX * kV;   // half-res columns
+  static constexpr int kS = 16 / sizeof(T);    // elements per 16-byte copy
+  static constexpr int kSW = kTileW + 2 * kS;
+  static constexpr int kSH = kTileH + 2;
+  static constexpr int kBytes = 4 * kSH * kSW * static_cast<int>(sizeof(T));
+  static_assert(kTileW % kS == 0, "a tile row is whole 16-byte copies");
+};
+
+// Stage the tile at (y0, x0) of image xb (4 phase planes of hh x wh) and
+// its halo in s, zero outside the frame, then __syncthreads. vec: rows
+// are whole 16-byte copies and xb is 16-byte aligned (cp.async), else
+// element by element. tid is the thread's linear index in the block.
+template <typename T, int kV>
+__device__ __forceinline__ void stage_tile(T* __restrict__ s,
+                                           const T* __restrict__ xb, int x0,
+                                           int y0, int hh, int wh, bool vec,
+                                           int tid) {
+  using Tl = StencilTile<T, kV>;
+  const int plane = hh * wh;
+  if (vec) {
+    constexpr int kCopies = Tl::kSW / Tl::kS;
+#pragma unroll 4
+    for (int k = tid; k < 4 * Tl::kSH * kCopies; k += kTileThreads) {
+      const int row = k / kCopies, cv = k - row * kCopies;  // q * kSH + r
+      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
+      const int y = y0 - 1 + r, xc = x0 - Tl::kS + cv * Tl::kS;
+      const bool in = y >= 0 && y < hh && xc >= 0 && xc < wh;
+      // a copy of 0 source bytes fills the 16 bytes with zeros
+      const unsigned dst = static_cast<unsigned>(
+          __cvta_generic_to_shared(s + row * Tl::kSW + cv * Tl::kS));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst),
+                   "l"(in ? xb + q * plane + y * wh + xc : xb),
+                   "r"(in ? 16 : 0));
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+    constexpr int kCols = Tl::kTileW + 2;
+    const T zero = store_rn<T>(0.0f);
+    for (int k = tid; k < 4 * Tl::kSH * kCols; k += kTileThreads) {
+      const int row = k / kCols, c = k - row * kCols;
+      const int q = row / Tl::kSH, r = row - q * Tl::kSH;
+      const int y = y0 - 1 + r, xc = x0 - 1 + c;
+      const bool in = y >= 0 && y < hh && xc >= 0 && xc < wh;
+      s[row * Tl::kSW + Tl::kS - 1 + c] =
+          in ? xb[q * plane + y * wh + xc] : zero;
+    }
+  }
+  __syncthreads();
+}
+
+// Whether the tile at (y0, x0) touches the frame's edge: only such tiles
+// evaluate the border and corner factors.
+template <typename T, int kV>
+__device__ __forceinline__ bool tile_on_edge(int x0, int y0, int hh,
+                                             int wh) {
+  return y0 == 0 || y0 + kTileH >= hh || x0 == 0 ||
+         x0 + StencilTile<T, kV>::kTileW >= wh;
+}
+
+// A run's window: the 3 x (kV + 2) values of each phase around pixels
+// (rr, c0 .. c0 + kV) of the staged tile (rr, c0 tile-relative), as f32.
+template <typename T, int kV>
+__device__ __forceinline__ void load_window(const T* __restrict__ s, int rr,
+                                            int c0,
+                                            float win[4][3][kV + 2]) {
+  using Tl = StencilTile<T, kV>;
 #pragma unroll
-  for (int ph = 0; ph < 4; ++ph) {
-    stencil_phase<kVariant, kBorder>(ph, t, e, p, out + ph * 3);
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const T* row = s + (q * Tl::kSH + rr + u) * Tl::kSW + Tl::kS + c0;
+      Run<T, kV>::load(row, win[q][u] + 1);
+      win[q][u][0] = load_f32(row[-1]);
+      win[q][u][kV + 1] = load_f32(row[kV]);
+    }
+  }
+}
+
+// Output phase ph's 3 finished channels (clipped, not yet rounded) of the
+// run's kV pixels (i, j0 .. j0 + kV) of an hh x wh frame, from its window.
+template <int kVariant, bool kBorder, int kV>
+__device__ __forceinline__ void stencil_run_phase(
+    const float win[4][3][kV + 2], int ph, int i, int j0, int hh, int wh,
+    const StencilParams& p, float o[3][kV]) {
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    float t[36];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) t[q * 9 + u * 3 + v] = win[q][u][k + v];
+      }
+    }
+    const Edges edges{i == 0, i == hh - 1, j0 + k == 0, j0 + k == wh - 1};
+    float v3[3];
+    stencil_phase<kVariant, kBorder>(ph, t, edges, p, v3);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c][k] = v3[c];
   }
 }
 

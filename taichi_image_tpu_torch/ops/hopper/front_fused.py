@@ -4,10 +4,10 @@ the bf16 instantiation only).
 Replaces ``taichi_image_tpu/ops/pallas/demosaic.py::
 demosaic_reinhard_stencil``: phase planes -> pre-gamma ``p`` and the
 per-image max in one pass, without the x12 round trip through device
-memory. The kernel runs K2's stencil and K3's map device code
-(``csrc/stencil.cuh``, ``csrc/tonemap.cuh``) with the x12 rounded to bf16
-in registers between them, so it is bitwise equal to K2<bf16> -> K3<bf16>;
-its plain twin is those two kernels' twins in a row.
+memory. The kernel runs K2's tile loader and stencil and K3's map device
+code (``csrc/stencil.cuh``, ``csrc/tonemap.cuh``) with the x12 rounded to
+bf16 in shared memory between them, so it is bitwise equal to K2<bf16> ->
+K3<bf16>; its plain twin is those two kernels' twins in a row.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@ is bitwise equal to its plain twin :func:`resize_x12_plain`.
 
 The taps come from ``ops/interpolate._axis_samples`` and are copied to
 the device once per (shape, scale, device) by :func:`resize_taps`, so a
-step makes no host-to-device copy after its first.
+step makes no host-to-device copy after its first. :func:`plan` picks
+the kernel's path: a resize that halves both axes exactly (the resize to
+1920 from 3840) has the half-res grid for taps (``ResizeTaps.aligned``)
+and takes the aligned path where its rows are whole 16-byte runs; any
+other takes the direct one. A block's tile is ``TILE_H`` output rows by
+:func:`tile_w` columns, which the kernel is built with (``-D`` flags).
 """
 
 from __future__ import annotations
@@ -25,7 +30,13 @@ import torch
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.interpolate import _axis_samples
 
-__all__ = ["ResizeTaps", "resize_taps", "resize_x12", "resize_x12_plain"]
+__all__ = ["ResizeTaps", "plan", "resize_taps", "resize_x12",
+           "resize_x12_plain", "tile_w"]
+
+# csrc/resize.cu's tile: TILE_H output rows by RUNS_X runs of
+# 16 // itemsize columns (one 16-byte store per color and row)
+RUNS_X = 32
+TILE_H = 16
 
 _XLA_ROUTE = "taichi_image_tpu/models/camera_isp.py:1315"
 KERNELS = hopper.register_per_dtype(
@@ -33,19 +44,36 @@ KERNELS = hopper.register_per_dtype(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     {torch.bfloat16: "taichi_image_tpu/ops/pallas/resize.py:205",
-     torch.float16: _XLA_ROUTE, torch.float32: _XLA_ROUTE})
+     torch.float16: _XLA_ROUTE, torch.float32: _XLA_ROUTE},
+    defines={"TIT_RESIZE_RUNS_X": RUNS_X, "TIT_RESIZE_TILE_H": TILE_H})
+
+
+def tile_w(itemsize: int) -> int:
+  """Output columns of a K12 tile for a working dtype of ``itemsize``
+  bytes."""
+  return RUNS_X * (16 // itemsize)
+
+
+def _on_half_grid(lo: np.ndarray, hi: np.ndarray, n_half: int) -> bool:
+  """Whether output i's taps along an axis are full-res 2i and 2i + 1 for
+  every i of n_half outputs: half-res position i, both parities."""
+  i = np.arange(n_half)
+  return (len(lo) == n_half and np.array_equal(lo, 2 * i)
+          and np.array_equal(hi, 2 * i + 1))
 
 
 class ResizeTaps(NamedTuple):
   """Device tables of one resize: full-res tap rows/cols (int32, for the
   kernel), their positions in the twin's merged parity axes (int64) and
-  the fractions (f32), for input phase planes hh x wh."""
+  the fractions (f32), for input phase planes hh x wh; and whether the
+  taps are the half-res grid itself."""
   hh: int
   wh: int
   h_out: int
   w_out: int
+  aligned: bool
   r_lo: torch.Tensor
   r_hi: torch.Tensor
   r_f: torch.Tensor
@@ -71,13 +99,25 @@ def resize_taps(hh: int, wh: int, size, scale_yx, device) -> ResizeTaps:
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
   return ResizeTaps(
-      hh, wh, h_out, w_out, dev(r_lo, np.int32), dev(r_hi, np.int32),
+      hh, wh, h_out, w_out,
+      _on_half_grid(r_lo, r_hi, hh) and _on_half_grid(c_lo, c_hi, wh),
+      dev(r_lo, np.int32), dev(r_hi, np.int32),
       dev(r_f, np.float32), dev(c_lo, np.int32), dev(c_hi, np.int32),
       dev(c_f, np.float32),
       dev((r_lo % 2) * hh + r_lo // 2, np.int64),
       dev((r_hi % 2) * hh + r_hi // 2, np.int64),
       dev((c_lo % 2) * wh + c_lo // 2, np.int64),
       dev((c_hi % 2) * wh + c_hi // 2, np.int64))
+
+
+def plan(x12: torch.Tensor, taps: ResizeTaps) -> str:
+  """K12's path for resizing ``x12`` with ``taps``: "aligned" where the
+  taps are the half-res grid and x12's rows (and so the output's) are
+  whole 16-byte runs from an aligned start, else "direct"."""
+  run = 16 // x12.element_size()
+  if taps.aligned and taps.wh % run == 0 and x12.data_ptr() % 16 == 0:
+    return "aligned"
+  return "direct"
 
 
 def resize_x12_plain(x12: torch.Tensor, taps: ResizeTaps,
@@ -117,6 +157,14 @@ def resize_x12(x12: torch.Tensor, taps: ResizeTaps,
   if not hopper.use_kernel(backend, x12):
     return resize_x12_plain(x12, taps)
   hopper.check_tensor("x12", x12, x12.dtype, 4, x12.device)
+  hopper.check_frame_size(taps.hh, taps.wh)
+  hopper.check_int32_extent("the resize's output", 3 * taps.h_out * taps.w_out)
+  return _launch(x12, taps, plan(x12, taps))
+
+
+def _launch(x12: torch.Tensor, taps: ResizeTaps, path: str) -> torch.Tensor:
+  """Launch K12 on ``path`` ("aligned" only where :func:`plan` allows
+  it, "direct" on any resize)."""
   n, _, hh, wh = x12.shape
   out = torch.empty((n, 3, taps.h_out, taps.w_out), dtype=x12.dtype,
                     device=x12.device)
@@ -124,5 +172,5 @@ def resize_x12(x12: torch.Tensor, taps: ResizeTaps,
       hopper.ptr(x12), hopper.ptr(out), n, hh, wh, taps.h_out, taps.w_out,
       hopper.ptr(taps.r_lo), hopper.ptr(taps.r_hi), hopper.ptr(taps.r_f),
       hopper.ptr(taps.c_lo), hopper.ptr(taps.c_hi), hopper.ptr(taps.c_f),
-      hopper.stream_of(x12.device))
+      int(path == "aligned"), hopper.stream_of(x12.device))
   return out

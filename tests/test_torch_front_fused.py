@@ -15,7 +15,9 @@ Contracts:
     twin's from PyTorch's), two with a CCM (XLA's CPU compiler contracts
     the CCM into FMAs, which moves x12 by a bf16 ulp before the map, as
     tests/test_torch_demosaic.py measures for K2), the per-image max
-    within 1e-6 relative.
+    within 1e-6 relative. For every tap-mask variant, p with a CCM is
+    held to 2**-8 absolute instead: the moved x12 can turn a p of 0 into
+    a tiny one, which is many ulps but not more than that.
   * the route vs the JAX step with its front-fused gate forced open (K7
     in interpret mode, as tests/test_pallas.py runs it): as
     tests/test_torch_resize.py's ``compare_step``; vs the port's composed
@@ -26,6 +28,7 @@ Contracts:
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -45,6 +48,7 @@ from taichi_image_tpu.ops.pallas.reinhard import (  # noqa: E402
     reinhard_scal as j_scal)
 from taichi_image_tpu_torch.models import camera_isp as tci  # noqa: E402
 from taichi_image_tpu_torch.ops import bayer as tbayer  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import demosaic as th_dm  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
 from test_torch_resize import (  # noqa: E402
@@ -149,6 +153,102 @@ def test_front_fused_twin_is_composed_twins():
   p_c, mx_c = th_rh.reinhard_map(x12, scal, False)
   assert torch.equal(p.view(torch.int16), p_c.view(torch.int16))
   assert torch.equal(mx, mx_c)
+
+
+@pytest.mark.parametrize("variant", range(8))
+@pytest.mark.parametrize("cc", [None, CCM], ids=["plain", "ccm"])
+@pytest.mark.parametrize("hw", [(33, 136), (48, 256)], ids=str)
+def test_front_fused_twin_vs_pallas_k7_every_variant(hw, cc, variant):
+  """K7's twin, which the card holds K7 to, against the Pallas K7 in
+  interpret mode for every tap-mask variant (the kernel's compile-time
+  variants), on a ragged frame (the Pallas kernel pads it to its tile
+  grid) and on one of whole tiles. Without a CCM, p within one bf16 ulp;
+  with one, XLA's contracted CCM moves x12 by a bf16 ulp, which moves p
+  by at most a bf16 ulp of 1 (2**-8), a p of 0 against a tiny one
+  included, so that case is held to 2**-8 absolute. The per-image max
+  within 1e-6 relative."""
+  pattern, method = th_dm.VARIANTS[variant]
+  hh, wh = hw
+  j, t = _phases(n=2, hh=hh, wh=wh, seed=10 + variant)
+  wj = jbayer._demosaic_tables(jbayer.BayerPattern[pattern.name], method)
+  w = tbayer._demosaic_tables(pattern, method)
+  assert th_dm.tap_variant(w) == variant
+  samp = jbayer.demosaic_samples(j, jbayer.BayerPattern[pattern.name],
+                                 cc=cc, out_dtype=jnp.bfloat16,
+                                 sample_step=4)
+  metrics = jci.metering_update_ca(samp.astype(jnp.float32),
+                                   jnp.zeros(9, jnp.float32),
+                                   jnp.float32(0.0))
+  fin_j = jbayer._stencil_finish_spec(wj, hh, wh, cc, jnp.bfloat16)
+  tiles = pl_dm.tiling_for(hh, wh, in_bf16=True, out_bf16=True,
+                           extra_f32_tmp=pl_dm._TONEMAP_TMPS)
+  p_j, mx_j = pl_dm.demosaic_reinhard_stencil(
+      j, wj, *tiles, j_scal(metrics, 1.0, 1.0), fin_j, interpret=True)
+
+  fin = tbayer._stencil_finish_spec(w, hh, wh, cc, torch.bfloat16)
+  scal = th_rh.reinhard_scal(torch.from_numpy(np.array(metrics)), 1.0, 1.0)
+  p_t, mx_t = th_ff.front_fused(t, w, fin, scal)
+  assert p_t.dtype == torch.bfloat16 and tuple(p_t.shape) == (2, 12, hh, wh)
+  if cc is None:
+    assert _ulps(p_t, _to_torch(p_j)) <= 1
+  else:
+    np.testing.assert_allclose(p_t.float().numpy(),
+                               np.asarray(p_j, np.float32), rtol=0,
+                               atol=2 ** -8)
+  np.testing.assert_allclose(mx_t.numpy().ravel(), np.asarray(mx_j).ravel(),
+                             rtol=1e-6, atol=0)
+
+
+# -------------------------------------------- K7's tile, shared with K2
+
+def _stencil_constants() -> dict:
+  src = (th_ff.hopper.CSRC / "stencil.cuh").read_text()
+  return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                              src).group(1))
+          for name in ("kRunsX", "kRowsY", "kTileH")}
+
+
+def test_k7_and_k2_share_the_stencil_loader():
+  """K7 stages its tile, slides its run window and finishes its phases
+  through the same stencil.cuh functions as K2, on the same 32 x 8 block
+  and 32-row tile; the per-pixel device-memory loader is gone."""
+  assert _stencil_constants() == {"kRunsX": 32, "kRowsY": 8, "kTileH": 32}
+  header = (th_ff.hopper.CSRC / "stencil.cuh").read_text()
+  assert "stencil_taps" not in header
+  for source in ("demosaic.cu", "front_fused.cu"):
+    src = (th_ff.hopper.CSRC / source).read_text()
+    for fn in ("tit::stage_tile<", "tit::load_window<",
+               "tit::stencil_run_phase<", "tit::tile_on_edge<"):
+      assert fn in src, (source, fn)
+  # the per-image max counts the blocks of an image on a 2-D grid
+  assert "gridDim.x * gridDim.y, tid)" in (
+      th_ff.hopper.CSRC / "front_fused.cu").read_text()
+
+
+@pytest.mark.parametrize("kv", [2, 4])
+@pytest.mark.parametrize("hw", [(64, 300), (70, 256), (33, 129)], ids=str)
+def test_interior_tiles_need_no_border_factors(hw, kv):
+  """K2 and K7 skip the border and corner factors on tiles that do not
+  touch the frame's edge (stencil.cuh tile_on_edge): every factor of every
+  channel is exactly 1 on such a tile, and every pixel whose factor is not
+  1 lies on an edge tile."""
+  hh, wh = hw
+  k = _stencil_constants()
+  tile_h, tile_w = k["kTileH"], k["kRunsX"] * kv
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.GRBG, "mhc")
+  fin = tbayer._stencil_finish_spec(w, hh, wh, CCM, torch.bfloat16)
+  factor = torch.stack([th_dm._border_factor(oc, hh, wh, fin, "cpu")
+                        for oc in range(12)])
+  covered = torch.zeros(hh, wh, dtype=torch.bool)
+  for y0 in range(0, hh, tile_h):
+    for x0 in range(0, wh, tile_w):
+      edge = (y0 == 0 or y0 + tile_h >= hh or x0 == 0
+              or x0 + tile_w >= wh)
+      if edge:
+        covered[y0:y0 + tile_h, x0:x0 + tile_w] = True
+      else:
+        assert (factor[:, y0:y0 + tile_h, x0:x0 + tile_w] == 1.0).all()
+  assert covered[(factor != 1.0).any(0)].all()
 
 
 # ------------------------------------------------------------- the route

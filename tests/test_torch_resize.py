@@ -215,6 +215,181 @@ def test_resize_taps_cached_and_checked():
     th_rs.resize_x12(torch.zeros(1, 12, 16, 128), a)
 
 
+# ------------------------------------------------ K12's launch plan
+
+PLAN_SCALES = [0.25, 0.37, 0.5, "128/W", 1.0, 1.5]
+# half-res shapes: rows of whole 16-byte copies in every dtype, and
+# ragged ones (150 is 4 mod 8: f32 rows are whole copies, 16-bit not)
+PLAN_SHAPES = {"even": (48, 256), "ragged": (19, 150)}
+
+
+def _plan(hh, wh, scale, device="cpu"):
+  """(size, taps) of resizing an (hh, wh) half-res frame by ``scale``
+  ("128/W": to 128 wide) as the ISP plans it."""
+  if scale == "128/W":
+    scale = 128 / (2 * wh)
+  size = (max(1, round(2 * wh * scale)), max(1, round(2 * hh * scale)))
+  sy_sx = tci._plan_scales(2 * hh, 2 * wh, size, scale)
+  return size, scale, th_rs.resize_taps(hh, wh, size, sy_sx,
+                                        torch.device(device))
+
+
+def test_k12_tile_constants_match_the_source():
+  """resize.cu is built with resize.py's tile geometry as -D flags, so
+  the wrapper's plan and the kernel read it from one place."""
+  flags = th_rs.hopper.nvcc_flags("resize.cu")
+  assert f"-DTIT_RESIZE_RUNS_X={th_rs.RUNS_X}" in flags
+  assert f"-DTIT_RESIZE_TILE_H={th_rs.TILE_H}" in flags
+  assert not any("TIT_RESIZE" in f
+                 for f in th_rs.hopper.nvcc_flags("demosaic.cu"))
+  assert th_rs.tile_w(2) == 256 and th_rs.tile_w(4) == 128
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("scale", PLAN_SCALES, ids=str)
+def test_k12_path_cut_over(scale, shape):
+  """The aligned path exactly where the taps are the half-res grid and
+  x12's rows are whole 16-byte runs from an aligned start; the direct
+  path elsewhere, an x12 that starts off a 16-byte boundary included."""
+  hh, wh = PLAN_SHAPES[shape]
+  _, _, taps = _plan(hh, wh, scale)
+  for dtype in JDT:
+    x12 = torch.zeros(1, 12, hh, wh, dtype=dtype)
+    run = 16 // x12.element_size()
+    want = "aligned" if taps.aligned and wh % run == 0 else "direct"
+    assert th_rs.plan(x12, taps) == want
+    off = torch.zeros(12 * hh * wh + 1, dtype=dtype)[1:].view(1, 12, hh, wh)
+    assert th_rs.plan(off, taps) == "direct"
+
+
+def test_k12_path_cut_over_at_6x4k():
+  """The paths at 6 x 4K that resize.cu's header and PERF.md name: x0.5
+  (the resize to 1920) aligned, every other scale direct, in every
+  dtype."""
+  paths = {}
+  for scale in (0.25, 0.37, 0.5, 0.75, 0.8, 1.0, 1.5):
+    _, _, taps = _plan(1080, 1920, scale)
+    paths[scale] = {th_rs.plan(torch.empty(1, 12, 1080, 1920, dtype=dtype),
+                               taps) for dtype in JDT}
+  assert paths == {0.25: {"direct"}, 0.37: {"direct"}, 0.5: {"aligned"},
+                   0.75: {"direct"}, 0.8: {"direct"}, 1.0: {"direct"},
+                   1.5: {"direct"}}
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("scale", PLAN_SCALES, ids=str)
+def test_k12_aligned_exactly_when_halving(scale, shape):
+  """The aligned path's taps: output (i, j) reads half-res (i, j) in all
+  four phases, which holds exactly when the resize halves both axes."""
+  hh, wh = PLAN_SHAPES[shape]
+  size, _, taps = _plan(hh, wh, scale)
+  halves = size == (wh, hh)
+  assert taps.aligned == (halves and scale in (0.5, "128/W"))
+  if taps.aligned:
+    i = np.arange(hh)
+    np.testing.assert_array_equal(taps.r_lo.numpy(), 2 * i)
+    np.testing.assert_array_equal(taps.r_hi.numpy(), 2 * i + 1)
+
+
+def _emulate_k12(x12: torch.Tensor, taps) -> torch.Tensor:
+  """csrc/resize.cu's direct path tile by tile in numpy, in its index
+  arithmetic: each run's column taps folded into offsets once, each row's
+  taps uniform across it, runs cut at w'; f32 lerps, one rounding to
+  x12's dtype."""
+  n, _, hh, wh = x12.shape
+  plane = hh * wh
+  kv = 16 // x12.element_size()  # run length
+  tw, th = th_rs.tile_w(x12.element_size()), th_rs.TILE_H
+  r_lo, r_hi, r_f = (taps.r_lo.numpy(), taps.r_hi.numpy(), taps.r_f.numpy())
+  c_lo, c_hi, c_f = (taps.c_lo.numpy(), taps.c_hi.numpy(), taps.c_f.numpy())
+  h_out, w_out = taps.h_out, taps.w_out
+  out = np.full((n, 3, h_out, w_out), np.nan, np.float32)
+  tiles = [(b, oy0, ox0) for b in range(n) for oy0 in range(0, h_out, th)
+           for ox0 in range(0, w_out, tw)]
+  for b, oy0, ox0 in tiles:
+    src = x12[b].to(torch.float32).numpy().ravel()
+    runs = ox0 + np.arange(0, tw, kv)
+    ox = (runs[runs < w_out][:, None] + np.arange(kv)).ravel()
+    o = np.minimum(ox, w_out - 1)
+    lo = (c_lo[o] & 1) * 6 * plane + (c_lo[o] >> 1)
+    hi = (c_hi[o] & 1) * 6 * plane + (c_hi[o] >> 1)
+    oy = np.arange(oy0, min(oy0 + th, h_out))
+    top = ((r_lo[oy] & 1) * 3 * plane + (r_lo[oy] >> 1) * wh)[:, None]
+    bot = ((r_hi[oy] & 1) * 3 * plane + (r_hi[oy] >> 1) * wh)[:, None]
+    fr, g, keep = r_f[oy][:, None], c_f[o], ox < w_out
+    for c in range(3):
+      tl, bl = src[c * plane + top + lo], src[c * plane + bot + lo]
+      tr, br = src[c * plane + top + hi], src[c * plane + bot + hi]
+      with np.errstate(invalid="ignore"):  # inf - inf: NaN, as on the card
+        left = tl + fr * (bl - tl)
+        right = tr + fr * (br - tr)
+        val = left + g * (right - left)
+      out[b, c, oy[:, None], ox[keep][None, :]] = val[:, keep]
+  return torch.from_numpy(out).to(x12.dtype)
+
+
+def _emulate_k12_aligned(x12: torch.Tensor, taps) -> torch.Tensor:
+  """csrc/resize.cu's aligned path in numpy: color c of output (i, j)
+  from half-res (i, j) of channels c, 3 + c, 6 + c, 9 + c."""
+  x = x12.to(torch.float32).numpy()
+  fr = taps.r_f.numpy()[None, :, None]
+  g = taps.c_f.numpy()[None, None, :]
+  out = []
+  with np.errstate(invalid="ignore"):
+    for c in range(3):
+      tl, bl, tr, br = (x[:, q * 3 + c] for q in range(4))
+      left = tl + fr * (bl - tl)
+      right = tr + fr * (br - tr)
+      out.append(left + g * (right - left))
+  return torch.from_numpy(np.stack(out, 1)).to(x12.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(JDT), ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_k12_aligned_path_emulation_bitwise(shape, dtype):
+  hh, wh = PLAN_SHAPES[shape]
+  size, sc, taps = _plan(hh, wh, 0.5)
+  assert taps.aligned
+  x = np.random.default_rng(8).random((2, 12, hh, wh), np.float32)
+  x.ravel()[::97] = -np.inf
+  x.ravel()[::131] = np.nan
+  j = jnp.asarray(x, JDT[dtype])
+  t = _to_torch(j)
+  got = _emulate_k12_aligned(t, taps)
+  assert _same_bits(got, th_rs.resize_x12_plain(t, taps))
+  assert _same_bits(got, _to_torch(jci._resize_from_phases(j, size, sc,
+                                                           JDT[dtype])))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+  """Bitwise equal, NaN payloads aside (a NaN tap's NaN in both)."""
+  nan = torch.isnan(a)
+  return (torch.equal(nan, torch.isnan(b))
+          and torch.equal(a[~nan].view(-1), b[~nan].view(-1))
+          and torch.equal(torch.signbit(a[~nan]), torch.signbit(b[~nan])))
+
+
+@pytest.mark.parametrize("dtype", list(JDT), ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("scale", PLAN_SCALES, ids=str)
+def test_k12_tiled_gather_emulation_bitwise(scale, shape, dtype):
+  """The numpy emulation of K12's tiled gather (the direct path) is
+  bitwise the plain twin and JAX's _resize_from_phases, NaN and inf taps
+  included (all four taps are read even where a fraction is 0)."""
+  hh, wh = PLAN_SHAPES[shape]
+  size, sc, taps = _plan(hh, wh, scale)
+  x = np.random.default_rng(7).random((1, 12, hh, wh), np.float32)
+  x.ravel()[::211] = np.inf
+  x.ravel()[::307] = np.nan
+  j = jnp.asarray(x, JDT[dtype])
+  t = _to_torch(j)
+  got = _emulate_k12(t, taps)
+  assert not torch.isnan(got).all()
+  assert _same_bits(got, th_rs.resize_x12_plain(t, taps))
+  want = _to_torch(jci._resize_from_phases(j, size, sc, JDT[dtype]))
+  assert _same_bits(got, want)
+
+
 # --------------------------------------------------- the resize route
 
 def route_vs_jax(cls, frames, plan=None, stride=8,
