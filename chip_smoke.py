@@ -9,9 +9,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device   CUDA available, capability (9, 0); the card's name and power
             limit as nvidia-smi reports them.
-2. build    nvcc builds the six kernel sources (csrc/*.cu, one process
-            each, in parallel) from this checkout: K1-K4 and K12 for bf16,
-            f16 and f32, and the bf16 front-fused K7 (16 kernels); each
+2. build    nvcc builds the seven kernel sources (csrc/*.cu, one process
+            each, in parallel) from this checkout: K1-K4, K4's I420 mode
+            and K12 for bf16, f16 and f32, the bf16 front-fused K7 and the
+            planar I420 conversion (20 kernels); each
             source's register range and spill bytes from ptxas (every
             source must show 0 spill bytes); the SASS instructions of
             each K1, K3 and K12 instantiation and of K7 (cuobjdump), and
@@ -25,18 +26,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
             shape (520 x 1000: whole vectors, tiles cut on both axes):
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
             methods, with and without a CCM), K4's two modes, each under
-            the 8 transforms, K12 at x0.5 (6x4K -> 1920x1080), x0.37,
-            x1.5 and x0.25 on the path its wrapper plans and, at x0.5,
-            also on the direct path that any resize can take,
-            K3 on the resized planar image, K3 with degenerate scalars
-            (range 0, range < 0, every pixel at m0) and with NaN pixels
-            at the small shapes, K7 against K2 -> K3 on the card; kernel
+            the 8 transforms, and its I420 mode likewise (the bf16 dot or
+            the f32 chains by the dtype), the planar I420 kernel at the
+            shape's full-res frame and at 6 x 1920 x 1080 (6x4K) or a
+            2-pixel-narrower one (ragged), K12 at x0.5 (6x4K ->
+            1920x1080), x0.37, x1.5 and x0.25 on the path its wrapper
+            plans and, at x0.5, also on the direct path that any resize
+            can take, K3 on the resized planar image, K3 with degenerate
+            scalars (range 0, range < 0, every pixel at m0) and with NaN
+            pixels at the small shapes, K7 against K2 -> K3 on the card; kernel
             and twin times from CUDA events around batches of 10 calls,
             K3 in both adapt modes, K4 under every transform that swaps
             the axes, K12's direct path at x0.5 and, in bf16, K12 at x1.5
-            and x0.37, and each time's bound (logical bytes over 3.35
-            TB/s, or f32 operations over 67 TFLOP/s, the larger; a
-            resize counts only the x12 its taps touch) and share of it.
+            and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
+            planar I420 kernel at 6 x 1920 x 1080 and 6x4K, and each
+            time's bound (logical bytes over 3.35 TB/s, or f32
+            operations over 67 TFLOP/s, the larger; a resize counts
+            only the x12 its taps touch) and share of it.
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
             the EMA carried over, compared frame by frame with the
@@ -49,7 +55,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             rotate_90 for each class, scale 0.37, flip_horiz for each
             class, the linear tonemap at gamma 2.2 for each class,
             metering stride 7, and the front-fused route
-            (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only).
+            (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only); then
+            with color_format="yuv420" on 3 frames: the main path and
+            resize_width=1920 with rotate_90 of each class, stride 7 and
+            front-fused, each output (Y, VU) against the plain route's.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -61,7 +70,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
             front-fused bf16 step, each resize->1920 step and the
             front-fused step with its profile (busy share, device
             operations per step) and its host enqueue without the
-            checksum.
+            checksum; the I420 marginal of the 6x4K and resize->1920
+            steps of each class (RGB and I420 steps in turns, RGB, I420,
+            I420, RGB).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,6 +97,7 @@ CUT = (2, 1040, 3000)       # H/2 = 520, W/2 = 1000: whole vectors, cut tiles
 HBM_BPS = 3.35e12           # H100 SXM memory rate (data sheet, 700 W)
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 FRAMES = 5
+YUV_FRAMES = 3              # frames of each I420 route
 K = 10                      # chained steps per timed run
 REPS = 5                    # timed runs (median)
 CLASSES = {"bf16": "CameraBF16", "f16": "Camera16", "f32": "Camera32"}
@@ -149,7 +161,7 @@ def phase_device():
 
 # sources redesigned for the card, which must build without spills
 NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "front_fused.cu",
-             "reinhard.cu", "resize.cu")
+             "reinhard.cu", "resize.cu", "yuv420.cu")
 # K3's and K1's instantiations in a mangled name: the kernel, T, then two
 # bools (K3: color_adapt, vector path; K1: vector path, IDS layout)
 _KERNEL_ARGS = re.compile(r"(map_kernel|decode12_kernel)I(13__nv_bfloat16|"
@@ -405,6 +417,7 @@ def phase_kernels(results):
                                                 _stencil_finish_spec)
   from taichi_image_tpu_torch.ops.hopper import decode, demosaic, finish
   from taichi_image_tpu_torch.ops.hopper import front_fused, reinhard, resize
+  from taichi_image_tpu_torch.ops.hopper import yuv420
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
   swaps = [t for t in ImageTransform if _TRANSFORM_SFF[t][0]]
@@ -490,6 +503,17 @@ def phase_kernels(results):
           _check_bitwise(f"finish {kt} {mode} gamma={gamma} {t.value}", ko,
                          po)
           note(f"finish_{sfx}", ko, po)
+          # K4's I420 mode: Y and VU bitwise
+          ky, kvu = finish.finish_yuv420(src, sc, gamma, mode, t,
+                                         backend="kernel")
+          py, pvu = finish.finish_yuv420(src, sc, gamma, mode, t,
+                                         backend="plain")
+          what = f"finish_yuv420 {kt} {mode} gamma={gamma} {t.value}"
+          _check_bitwise(f"{what} Y", ky, py)
+          _check_bitwise(f"{what} VU", kvu, pvu)
+          note(f"finish_yuv420_{sfx}", ky, py)
+          note(f"finish_yuv420_{sfx}", kvu, pvu)
+          del ko, po, ky, kvu, py, pvu
       # K12: bitwise at x0.5, x0.37 (odd h', w'), x1.5 and x0.25, on the
       # path the wrapper plans and, where that is the aligned one, on the
       # direct one too; K3 on its output
@@ -536,10 +560,31 @@ def phase_kernels(results):
           note("front_fused_bf16", fp, pp)
       log(f"kernels {kt}: decode, demosaic (8 variants), reinhard"
           + (" (and its degenerate cases)" if shape != (N_CAM, H, WB) else "")
-          + ", finish (both modes, each under 8 transforms), resize ("
+          + ", finish and its I420 mode (both modes, each under 8 "
+          "transforms), resize ("
           + ", ".join(paths) + ")"
           + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
+      if dtype == torch.bfloat16:
+        # the planar I420 kernel (u8 only): bitwise at the shape's full-res
+        # frame and at 6 x 1920 x 1080 (6x4K) or 2 pixels narrower, which
+        # no row's 16-pixel runs divide (the byte path)
+        n_img = shape[0]
+        for hw in ((2 * hh, 2 * wh),
+                   (1080, 1920) if shape == (N_CAM, H, WB)
+                   else (2 * hh, 2 * wh - 2)):
+          rgb8 = torch.randint(0, 256, (n_img, 3, *hw), generator=gen,
+                               device=dev, dtype=torch.uint8)
+          ky, kvu = yuv420.yuv420_planar(rgb8, backend="kernel")
+          py, pvu = yuv420.yuv420_planar(rgb8, backend="plain")
+          _check_bitwise(f"yuv420_planar {n_img}x3x{hw[0]}x{hw[1]} Y", ky,
+                         py)
+          _check_bitwise(f"yuv420_planar {n_img}x3x{hw[0]}x{hw[1]} VU", kvu,
+                         pvu)
+          note("yuv420_planar", ky, py)
+          note("yuv420_planar", kvu, pvu)
+        log(f"kernels {tag}: yuv420_planar at 3x{2 * hh}x{2 * wh} and "
+            f"3x{hw[0]}x{hw[1]} agrees with its plain twin")
       if shape != (N_CAM, H, WB):
         continue
       # times at the main path's shapes, each with its inputs and f32
@@ -575,6 +620,28 @@ def phase_kernels(results):
             lambda b, t=t: finish.finish_planar_u8(
                 p_cast, max_out, 1.0, transform=t, backend=b),
             [p_cast, max_out], 4 * 12 * npix)
+      # K4's I420 mode: the map's 4 operations per value, then per
+      # half-res pixel 4 Y of ~10 and the chroma's ~40
+      yuv_ops = (4 * 12 + 80) * npix
+      calls[f"finish_yuv420_{sfx}"] = (lambda b: finish.finish_yuv420(
+          p_cast, max_out, 1.0, backend=b), [p_cast, max_out], yuv_ops)
+      calls[f"finish_yuv420_{sfx} linear"] = (
+          lambda b: finish.finish_yuv420(x12, lin, 1.0, "linear",
+                                         backend=b), [x12, lin],
+          yuv_ops + 3 * 12 * npix)
+      calls[f"finish_yuv420_{sfx} rotate_90"] = (
+          lambda b: finish.finish_yuv420(
+              p_cast, max_out, 1.0, transform=ImageTransform.rotate_90,
+              backend=b), [p_cast, max_out], yuv_ops)
+      if dtype == torch.bfloat16:
+        # the planar I420 kernel at the resize route's 6 x 1920 x 1080 and
+        # the odd-stride route's 6x4K; ~30 operations per pixel
+        for tag_, hw in (("", (1080, 1920)), (" 6x4K", (H, W))):
+          rgb8 = torch.randint(0, 256, (N_CAM, 3, *hw), generator=gen,
+                               device=dev, dtype=torch.uint8)
+          calls[f"yuv420_planar{tag_}"] = (
+              lambda b, rgb8=rgb8: yuv420.yuv420_planar(rgb8, backend=b),
+              [rgb8], 30 * rgb8[:, 0].numel())
       calls[f"reinhard_{sfx} planar1080"] = (
           lambda b: reinhard.reinhard_map(rgb, scal0, False, backend=b),
           [rgb, scal0], 10 * rgb.numel())
@@ -601,6 +668,8 @@ def phase_kernels(results):
             (2 * live + 36 + 30 * 4) * npix)
       for name, (call, inputs, ops) in calls.items():
         note_ = "6x4K"
+        if name == "yuv420_planar":
+          note_ = "6x1920x1080"
         if name.startswith("resize"):
           sc = next((s for s in (1.5, 0.37) if f"x{s}" in name), 0.5)
           note_ = (f"6x4K x{sc} -> {both[sc].w_out}x{both[sc].h_out}")
@@ -625,14 +694,16 @@ def phase_kernels(results):
 
 
 def _step_args(dtype, plan=None, stride=8, transform=None,
-               tonemap="reinhard", gamma=1.0):
+               tonemap="reinhard", gamma=1.0, color_format="rgb"):
   """fused_isp_step's static arguments after prev, t: gamma, intensity,
   light_adapt, color_adapt, fmt, ids_format, work_dtype, pattern, cc,
-  resize_plan, stride, transform, tonemap (the main path's by default)."""
+  resize_plan, stride, transform, tonemap, color_format (the main path's
+  by default)."""
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
   return (gamma, 1.0, 1.0, 0.0, "packed12", False, dtype, BayerPattern.RGGB,
-          None, plan, stride, transform or ImageTransform.none, tonemap)
+          None, plan, stride, transform or ImageTransform.none, tonemap,
+          color_format)
 
 
 class _env:
@@ -655,13 +726,19 @@ class _env:
         os.environ[k] = v
 
 
+def _outputs(out):
+  """A step's u8 outputs: (planar RGB,) or (Y, VU)."""
+  return out if isinstance(out, tuple) else (out,)
+
+
 def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
-                env=None):
+                env=None, extra=()):
   """One route of one class: ``process`` over the frames with the launch
   counts set to 0 just before and read just after, each frame against
-  the all-plain route (metrics within 1e-5, u8 within 1 count). Fails
-  unless exactly the ``expect`` stages of the class's dtype launched.
-  Returns (isp, launch counts)."""
+  the all-plain route (metrics within 1e-5, u8 within 1 count; with
+  ``color_format="yuv420"`` in ``proc_kw``, Y and VU each). Fails unless
+  exactly the ``expect`` stages of the class's dtype and the ``extra``
+  kernels launched. Returns (isp, launch counts)."""
   import torch
   import taichi_image_tpu_torch as ttit
   from taichi_image_tpu_torch import BayerPattern
@@ -682,41 +759,52 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
       metrics.append(isp.metrics.clone())
     torch.cuda.synchronize()
     launches = hopper.launch_counts()
-    own = {f"{st}_{sfx}" for st in expect}
+    own = {f"{st}_{sfx}" for st in expect} | set(extra)
     if (any(launches[n] == 0 for n in own)
         or any(v for n, v in launches.items() if n not in own)):
       raise AssertionError(f"{name} {cls.__name__} did not run through "
                            f"{sorted(own)} alone: {launches}")
     plan = isp._resize_plan(H, W)
+    color_format = proc_kw.get("color_format", "rgb")
     args = _step_args(cls._work_dtype, plan, isp.metering_stride,
                       isp.transform, proc_kw.get("tonemap", "reinhard"),
-                      proc_kw.get("gamma", 1.0))
+                      proc_kw.get("gamma", 1.0), color_format)
     worst = [0.0, 0, 0.0]
     for f, raws in enumerate(frames):
-      out, m = outs[f], metrics[f]
-      if out.dtype != torch.uint8 or out.ndim != 4 or out.shape[:2] != (
-          N_CAM, 3):
-        raise AssertionError(f"{name} frame {f}: output "
-                             f"{tuple(out.shape)} {out.dtype}")
-      if out.max().item() == out.min().item():
-        raise AssertionError(f"{name} frame {f}: constant output")
+      outs_f, m = _outputs(outs[f]), metrics[f]
+      lead = ((N_CAM,), (N_CAM, 2)) if color_format == "yuv420" else (
+          (N_CAM, 3),)
+      for out, head in zip(outs_f, lead, strict=True):
+        if (out.dtype != torch.uint8 or out.ndim != len(head) + 2
+            or out.shape[:len(head)] != head):
+          raise AssertionError(f"{name} frame {f}: output "
+                               f"{tuple(out.shape)} {out.dtype}")
+        if out.max().item() == out.min().item():
+          raise AssertionError(f"{name} frame {f}: constant output")
+      if color_format == "yuv420":
+        y, vu = outs_f
+        if vu.shape[2:] != (y.shape[1] // 2, y.shape[2] // 2):
+          raise AssertionError(f"{name} frame {f}: Y {tuple(y.shape)}, VU "
+                               f"{tuple(vu.shape)}")
       if not torch.isfinite(m).all():
         raise AssertionError(f"{name} frame {f}: non-finite metrics {m}")
       prev = torch.zeros(9, device=dev) if prevs[f] is None else prevs[f]
       t = 0.0 if prevs[f] is None else 1.0 - isp.moving_alpha
       pm, po = fused_isp_step(raws, prev, t, *args, backend="plain")
-      if po.shape != out.shape:
-        raise AssertionError(f"{name} frame {f}: {tuple(out.shape)} vs the "
-                             f"plain route's {tuple(po.shape)}")
       dm = (m - pm).abs().max().item()
-      d = (out.int() - po.int()).abs()
-      if dm > 1e-5 or d.max().item() > 1:
-        raise AssertionError(f"{name} frame {f}: vs plain route metrics "
-                             f"|d| {dm:.3g}, u8 max {d.max().item()}")
-      worst = [max(worst[0], dm), max(worst[1], d.max().item()),
-               max(worst[2], (d != 0).float().mean().item())]
-  log(f"route {name} {cls.__name__}: {FRAMES} frames -> "
-      f"{tuple(outs[0].shape)}, launches "
+      for out, p_out in zip(outs_f, _outputs(po), strict=True):
+        if p_out.shape != out.shape:
+          raise AssertionError(f"{name} frame {f}: {tuple(out.shape)} vs "
+                               f"the plain route's {tuple(p_out.shape)}")
+        d = (out.int() - p_out.int()).abs()
+        if dm > 1e-5 or d.max().item() > 1:
+          raise AssertionError(f"{name} frame {f}: vs plain route metrics "
+                               f"|d| {dm:.3g}, u8 max {d.max().item()}")
+        worst = [max(worst[0], dm), max(worst[1], d.max().item()),
+                 max(worst[2], (d != 0).float().mean().item())]
+  log(f"route {name} {cls.__name__}: {len(frames)} frames -> "
+      f"{' + '.join(str(tuple(o.shape)) for o in _outputs(outs[0]))}, "
+      "launches "
       f"{ {n: launches[n] for n in sorted(own)} }; vs the plain route "
       f"metrics |d| <= {worst[0]:.3g}, u8 max |d| {worst[1]} "
       f"({worst[2]:.2e} of bytes)")
@@ -787,6 +875,30 @@ def phase_routes(frames):
                             env={FRONT_FUSED: "1"})
   for n, v in launches.items():
     total[n] = total.get(n, 0) + v
+  # I420 output on fewer frames: K4's I420 mode on the phase and
+  # front-fused routes, the planar kernel on the resize and odd-stride ones
+  yuv = dict(color_format="yuv420")
+  routes = []
+  for sfx in CLASSES:
+    routes += [
+        ("I420 main", sfx, ("decode", "demosaic", "reinhard",
+                            "finish_yuv420"), {}, yuv, {}, ()),
+        ("I420 resize1920+rotate_90", sfx, resize,
+         dict(resize_width=1920, transform=ImageTransform.rotate_90), yuv,
+         {}, ("yuv420_planar",)),
+    ]
+  routes += [
+      ("I420 stride 7", "bf16", _MAIN, dict(metering_stride=7), yuv, {},
+       ("yuv420_planar",)),
+      ("I420 front-fused", "bf16", ("decode", "front_fused",
+                                    "finish_yuv420"), {}, yuv,
+       {FRONT_FUSED: "1"}, ()),
+  ]
+  for name, sfx, expect, isp_kw, proc_kw, env, extra in routes:
+    _, launches = drive_route(frames[:YUV_FRAMES], name, sfx, expect, isp_kw,
+                              proc_kw, env, extra)
+    for n, v in launches.items():
+      total[n] = total.get(n, 0) + v
   return total
 
 
@@ -810,7 +922,8 @@ def _chain(inputs, args, checksum=True):
   for raws in inputs:
     m, out = ci.fused_isp_step(raws, m, 0.9, *args)
     if checksum:
-      acc += out.sum(dtype=torch.int64)
+      for o in _outputs(out):
+        acc += o.sum(dtype=torch.int64)
   return acc
 
 
@@ -955,9 +1068,10 @@ def phase_timing(card, sfx):
 
 def phase_route_timing(card):
   """The same step method for the other routes: the resize->1920 step of
-  each class, the transform and linear marginals (bf16), and the
-  front-fused bf16 step against the composed one in turns (composed,
-  fused, fused, composed)."""
+  each class, the transform and linear marginals (bf16), the front-fused
+  bf16 step against the composed one in turns (composed, fused, fused,
+  composed), and the I420 marginal of each class's 6x4K and resize->1920
+  steps the same way."""
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
@@ -1012,6 +1126,33 @@ def phase_route_timing(card):
   log(f"timing CameraBF16 front-fused {min(pair['front-fused']):.4f} vs "
       f"composed {min(pair['composed']):.4f} ms/step (lower of two medians "
       f"each, taken in turns); {card}")
+  # the I420 marginal: the RGB and I420 steps in turns (RGB, I420, I420,
+  # RGB), the lower of each side's two medians; with the checksum (which
+  # reads half the bytes of RGB's for I420) and without it
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    for step, kw in (("6x4K", {}), ("resize1920", dict(plan=plan))):
+      runs = {(fmt, ck): [] for fmt in ("rgb", "yuv420")
+              for ck in (True, False)}
+      for fmt in ("rgb", "yuv420", "yuv420", "rgb"):
+        for ck in (True, False):
+          times, _, _ = bench_step(
+              inputs, _step_args(dtype, color_format=fmt, **kw), ck)
+          runs[fmt, ck].append(statistics.median(times))
+      low = {k: min(v) for k, v in runs.items()}
+      r = out[f"{CLASSES[sfx]} {step} I420"] = dict(
+          step_ms=low["yuv420", True], rgb_step_ms=low["rgb", True],
+          marginal_ms=low["yuv420", True] - low["rgb", True],
+          bare_step_ms=low["yuv420", False],
+          rgb_bare_step_ms=low["rgb", False],
+          bare_marginal_ms=low["yuv420", False] - low["rgb", False],
+          runs={f"{f} {'checksum' if c else 'bare'}": v
+                for (f, c), v in runs.items()})
+      log(f"timing {CLASSES[sfx]} {step}: I420 {r['step_ms']:.4f} vs RGB "
+          f"{r['rgb_step_ms']:.4f} ms/step with the checksum (marginal "
+          f"{r['marginal_ms']:+.4f}), {r['bare_step_ms']:.4f} vs "
+          f"{r['rgb_bare_step_ms']:.4f} without it (marginal "
+          f"{r['bare_marginal_ms']:+.4f}); lower of two medians each, in "
+          f"turns; runs {r['runs']}; {card}")
   return out
 
 

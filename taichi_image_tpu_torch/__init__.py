@@ -2,12 +2,15 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``taichi_image_tpu`` (JAX on a TPU), which stays beside it as
-the reference. This package covers the main path of the three ISP
-classes: packed12 decode, MHC/bilinear demosaic for all four Bayer
-patterns with the WB/CCM fold, EMA metering, the Reinhard tonemap and
-planar u8 output, through ``CameraBF16``, ``Camera16`` or
+the reference. This package covers every route of the three ISP
+classes' step: packed12 decode, MHC/bilinear demosaic for all four Bayer
+patterns with the WB/CCM fold, resize, EMA metering, the Reinhard or
+linear tonemap, the 8 output transforms and planar u8 RGB or I420
+output, through ``CameraBF16``, ``Camera16`` or
 ``Camera32(pattern, device="cuda").process(raws)`` (bf16, f16 and f32
-working dtypes). It imports torch and numpy, never jax.
+working dtypes); and the color conversions (``ops.color``) and the
+standalone tonemaps (``ops.tonemap``). It imports torch and numpy, never
+jax.
 """
 
 from taichi_image_tpu_torch import types

@@ -1,9 +1,9 @@
 """Multi-camera ISP step on PyTorch: packed12 RAW -> demosaic (+WB/CCM)
 -> [resize] -> EMA metering -> Reinhard or linear tonemap -> [transform]
--> planar u8.
+-> planar u8 RGB or planar I420.
 
 Counterpart of ``taichi_image_tpu/models/camera_isp.py``: every route of
-``fused_isp_step`` with packed12 raws and RGB output, for all three
+``fused_isp_step`` with packed12 raws, RGB or I420 output, for all three
 classes: CameraBF16 (bf16), Camera16 (f16) and Camera32 (f32). On a CUDA
 device each route is hand-written Hopper kernels, each instantiated for
 the working dtype T, plus the metering reduction in torch. The phase
@@ -29,6 +29,12 @@ Reinhard, color_adapt 0, no resize, even stride, opt-in through
 meters from ``demosaic_samples`` first and then runs K7, the stencil and
 the map in one kernel, before K4.
 
+``color_format="yuv420"`` gives planar I420 ``(Y (N, h', w'), VU (N, 2,
+h'/2, w'/2))`` u8, V then U, as the JAX package computes it: on the phase
+and front-fused routes K4's I420 mode replaces K4 (the u8 RGB is never
+written); the resize and odd-stride routes convert their planar u8 RGB
+with the planar I420 kernel (``ops/hopper/yuv420.py``).
+
 Camera16 has the semantics of the JAX package's strict f16 route, which
 its TPU-only q16 route is held to (tests/test_q16.py): phases, x12 and p
 materialized in f16. The q16 containers are not carried over; they exist
@@ -40,9 +46,9 @@ device tensor, and the resize taps and sample indices are made on the
 device once per configuration. vec9 layout: [bounds.min, bounds.max,
 log_bounds.min, log_bounds.max, log_mean, mean, rgb_mean(3)].
 
-Configurations outside the port (I420 output, raw formats other than
-packed12, frames under 4x4) raise ``NotImplementedError`` naming the
-ROADMAP.md item that will port them; none is approximated.
+Configurations outside the port (raw formats other than packed12, frames
+under 4x4) raise ``NotImplementedError`` naming the ROADMAP.md item that
+will port them; none is approximated.
 """
 
 from __future__ import annotations
@@ -57,13 +63,19 @@ from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
 from taichi_image_tpu_torch.ops import interpolate
 from taichi_image_tpu_torch.ops.bayer import (
-    demosaic_phases, planar_from_phases_transformed,
-    subsample_hw)
+    demosaic_phases, planar_from_phases_transformed, subsample_hw)
+from taichi_image_tpu_torch.ops.bayer import (  # noqa: F401
+    transform_phases as _transform_phases)
 from taichi_image_tpu_torch.ops.hopper import decode as hopper_decode
 from taichi_image_tpu_torch.ops.hopper import finish as hopper_finish
 from taichi_image_tpu_torch.ops.hopper import front_fused as hopper_front
 from taichi_image_tpu_torch.ops.hopper import reinhard as hopper_reinhard
 from taichi_image_tpu_torch.ops.hopper import resize as hopper_resize
+from taichi_image_tpu_torch.ops.hopper import yuv420 as hopper_yuv420
+# the JAX package's names for the I420 math of the phase route
+from taichi_image_tpu_torch.ops.hopper.yuv420 import (  # noqa: F401
+    yuv420_from_phases_u8, yuv420_phases_dot_bf16 as _yuv420_phases_dot_bf16,
+    yuv420_w6 as _yuv420_w6)
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 from taichi_image_tpu_torch.utils import debug as debug_util
 from taichi_image_tpu_torch.utils.bounds import lerp
@@ -72,7 +84,8 @@ __all__ = ["camera_isp", "Camera16", "Camera32", "CameraBF16", "default_cc",
            "fused_isp_step", "load_raw_phases", "metering_update_ca",
            "reinhard_map_ca", "reinhard_map_max_ca", "reinhard_gamma_ca",
            "reinhard_apply_ca", "linear_apply_ca", "demosaic_reinhard_front",
-           "planar_from_phases_transformed", "state_from_jax"]
+           "planar_from_phases_transformed", "state_from_jax",
+           "yuv420_from_phases_u8", "yuv420_from_planar_u8"]
 
 # Default 3x3 color-correction matrix (taichi_image_tpu camera_isp.py:208).
 default_cc = np.array([
@@ -245,32 +258,18 @@ def _resize_planar(images: torch.Tensor, size, scale,
       types.canonical_dtype(work_dtype))
 
 
-# The ImageTransform of a phase-form image: the same geometric op on the
-# half-res planes plus this permutation of the four output phases.
-_PHASE_TRANSFORM_PERM = {
-    ImageTransform.rotate_90: (1, 3, 0, 2),
-    ImageTransform.rotate_180: (3, 2, 1, 0),
-    ImageTransform.rotate_270: (2, 0, 3, 1),
-    ImageTransform.transpose: (0, 2, 1, 3),
-    ImageTransform.flip_horiz: (2, 3, 0, 1),
-    ImageTransform.flip_vert: (1, 0, 3, 2),
-    ImageTransform.transverse: (3, 1, 2, 0),
-}
-
-
-def _transform_phases(x12: torch.Tensor, t: ImageTransform) -> torch.Tensor:
-  """ImageTransform on 12-channel phase form (N, 12, hh, wh)."""
-  if t == ImageTransform.none:
-    return x12
-  perm4 = _PHASE_TRANSFORM_PERM[t]
-  perm12 = [p * 3 + c for p in perm4 for c in range(3)]
-  return _transform_planar(x12, t)[:, perm12]
-
-
 def _transform_planar(images: torch.Tensor,
                       t: ImageTransform) -> torch.Tensor:
   """ImageTransform on planar (N, C, H, W) spatial dims (a view)."""
   return interpolate.transform_axes(images, t, 2, 3)
+
+
+def yuv420_from_planar_u8(out: torch.Tensor, backend: str = "auto"):
+  """Tonemapped planar u8 RGB (N, 3, H, W), H and W even -> planar I420
+  u8 ``(Y (N, H, W), VU (N, 2, H/2, W/2))``: the matrix per pixel on the
+  channel-reversed vector, the 2x2 block mean, ``min(1, x)``, V then U
+  (the planar I420 kernel)."""
+  return hopper_yuv420.yuv420_planar(out, backend=backend)
 
 
 def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
@@ -281,20 +280,35 @@ def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
           and tonemap == "reinhard" and float(color_adapt) == 0.0)
 
 
+def _finish(x12, scal, gamma, mode, transform, color_format, backend):
+  """K4 on phase form: transformed planar u8 RGB, or with
+  ``color_format="yuv420"`` its I420 mode's ``(Y, VU)``."""
+  if color_format == "yuv420":
+    return hopper_finish.finish_yuv420(x12, scal, gamma, mode, transform,
+                                       backend=backend)
+  return hopper_finish.finish_planar_u8(x12, scal, gamma, mode, transform,
+                                        backend=backend)
+
+
 def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                    intensity, light_adapt, color_adapt, fmt, ids_format,
                    work_dtype, pattern, cc, resize_plan, stride, transform,
                    tonemap, color_format: str = "rgb",
                    backend: str = "auto"):
   """One ISP step over a camera batch: ``(new_metrics (9,) f32, planar
-  u8 (N, 3, h', w'))``. Arguments as in the JAX ``fused_isp_step``;
-  ``backend`` ("auto" | "kernel" | "plain") routes every kernel stage."""
-  if color_format != "rgb":
-    if color_format == "yuv420":
-      raise _not_ported(f"color_format {color_format!r}", 8)
+  u8 (N, 3, h', w'))``, or with ``color_format="yuv420"`` ``(new_metrics,
+  (Y (N, h', w'), VU (N, 2, h'/2, w'/2)))``. Arguments as in the JAX
+  ``fused_isp_step``; ``backend`` ("auto" | "kernel" | "plain") routes
+  every kernel stage."""
+  if color_format not in ("rgb", "yuv420"):
     raise ValueError(f"unknown color_format {color_format!r}")
   if tonemap not in ("reinhard", "linear"):
     raise ValueError(f"unknown tonemap {tonemap}")
+  if color_format == "yuv420" and resize_plan is not None:
+    # the only route whose output dims can be odd: refuse before any work
+    w_out, h_out = resize_plan[0]
+    hopper_yuv420.check_even(
+        *interpolate.transformed_size((w_out, h_out), transform)[::-1])
   wd = types.canonical_dtype(work_dtype)
   phases = load_raw_phases(raws, fmt, wd, ids_format, backend=backend)
 
@@ -307,8 +321,8 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     p_cast, max_out = demosaic_reinhard_front(
         phases, new_metrics, intensity, light_adapt, pattern, cc,
         backend=backend)
-    return new_metrics, hopper_finish.finish_planar_u8(
-        p_cast, max_out, gamma, "reinhard", transform, backend=backend)
+    return new_metrics, _finish(p_cast, max_out, gamma, "reinhard",
+                                transform, color_format, backend)
 
   if resize_plan is not None:
     x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
@@ -322,7 +336,10 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                               light_adapt, color_adapt, wd, backend=backend)
     else:
       out = linear_apply_ca(rgb, new_metrics, gamma)
-    return new_metrics, _transform_planar(out, transform).contiguous()
+    out = _transform_planar(out, transform).contiguous()
+    if color_format == "yuv420":
+      return new_metrics, yuv420_from_planar_u8(out, backend=backend)
+    return new_metrics, out
 
   if stride % 2 != 0:
     # the samples of an odd stride fall on every phase: gather them from
@@ -337,16 +354,22 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                                    backend=backend,
                                    sample_step=max(stride // 2, 1))
   new_metrics = metering_update_ca(strided, prev, t)
-  # K3 + K4, or K4's linear mode; the transform lives in K4's stores
+  # K3 + K4, or K4's linear mode; the transform lives in K4's stores. An
+  # odd stride's I420 is the JAX package's planar conversion (the matrix
+  # before the block mean) of the RGB
+  phase_format = color_format if stride % 2 == 0 else "rgb"
   if tonemap == "linear":
-    return new_metrics, hopper_finish.finish_planar_u8(
-        x12, hopper_finish.linear_scal(new_metrics), gamma, "linear",
-        transform, backend=backend)
-  p_cast, max_out = reinhard_map_max_ca(x12, new_metrics, intensity,
-                                        light_adapt, color_adapt, wd,
-                                        backend=backend)
-  return new_metrics, hopper_finish.finish_planar_u8(
-      p_cast, max_out, gamma, "reinhard", transform, backend=backend)
+    out = _finish(x12, hopper_finish.linear_scal(new_metrics), gamma,
+                  "linear", transform, phase_format, backend)
+  else:
+    p_cast, max_out = reinhard_map_max_ca(x12, new_metrics, intensity,
+                                          light_adapt, color_adapt, wd,
+                                          backend=backend)
+    out = _finish(p_cast, max_out, gamma, "reinhard", transform,
+                  phase_format, backend)
+  if phase_format != color_format:
+    return new_metrics, yuv420_from_planar_u8(out, backend=backend)
+  return new_metrics, out
 
 
 def state_from_jax(state: dict) -> dict:
@@ -479,6 +502,8 @@ class _ISPBase:
     ``raws``: (n_cameras, H, W_bytes) uint8, a tensor or numpy array
     (moved to the ISP's device). Returns planar (n, 3, h', w') u8 on the
     device, or with ``layout='hwc'`` a host numpy (n, h', w', 3) array.
+    ``color_format='yuv420'`` returns planar I420 ``(Y, VU)`` u8 on the
+    device instead (``layout`` ignored; even output dims required).
     """
     debug_util.validate_raw(raws, fmt)
     raws = torch.as_tensor(raws).to(self.device)
@@ -495,6 +520,8 @@ class _ISPBase:
         self.bayer_pattern, self._cc_tuple(), plan, self.metering_stride,
         self.transform, tonemap, color_format=color_format)
     self.metrics = new_metrics
+    if color_format != "rgb":
+      return out
     if layout == "hwc":
       return np.moveaxis(out.cpu().numpy(), 1, -1)
     return out

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from taichi_image_tpu_torch import types
-from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
+                                                    transform_axes)
 from taichi_image_tpu_torch.ops.kernel import symmetrical, zip_tuple
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "make_bayer_kernels", "make_bilinear_kernels", "demosaic_phases",
     "demosaic_samples", "edge_renorm_factor_sampled", "phases_to_planar",
     "planar_from_phases_transformed", "planar_subsample", "subsample_hw",
+    "transform_phases",
 ]
 
 
@@ -387,6 +389,30 @@ _TRANSFORM_SFF = {
     ImageTransform.flip_vert:  (False, True,  False),
     ImageTransform.flip_horiz: (False, False, True),
 }
+
+
+# The ImageTransform of a phase-form image: the same geometric op on the
+# half-res planes plus this permutation of the four phases (output phase
+# p comes from input phase perm[p]).
+_PHASE_TRANSFORM_PERM = {
+    ImageTransform.rotate_90: (1, 3, 0, 2),
+    ImageTransform.rotate_180: (3, 2, 1, 0),
+    ImageTransform.rotate_270: (2, 0, 3, 1),
+    ImageTransform.transpose: (0, 2, 1, 3),
+    ImageTransform.flip_horiz: (2, 3, 0, 1),
+    ImageTransform.flip_vert: (1, 0, 3, 2),
+    ImageTransform.transverse: (3, 1, 2, 0),
+}
+
+
+def transform_phases(x12: torch.Tensor, t: ImageTransform) -> torch.Tensor:
+  """ImageTransform on 12-channel phase form (N, 12, hh, wh): equal to
+  the transform of the planar image, kept in phase form."""
+  if t == ImageTransform.none:
+    return x12
+  perm4 = _PHASE_TRANSFORM_PERM[t]
+  perm12 = [p * 3 + c for p in perm4 for c in range(3)]
+  return transform_axes(x12, t, 2, 3)[:, perm12]
 
 
 def planar_from_phases_transformed(out12: torch.Tensor, t: ImageTransform,

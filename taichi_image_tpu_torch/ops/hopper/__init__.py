@@ -7,7 +7,8 @@ that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``. Each instantiation is a registered
 :class:`Kernel` named ``<stage>_<suffix>`` (``decode_f16``,
 ``demosaic_f32``, ...); the front-fused stencil exists for bf16 only
-(``front_fused_bf16``, registered with :func:`register`). A source's
+(``front_fused_bf16``) and the planar I420 conversion for u8 only
+(``yuv420_planar``), each registered with :func:`register`. A source's
 library, holding all its instantiations, is compiled with ``nvcc`` on
 first use into ``_build/``
 (keyed by a hash of the sources, the flags and ``nvcc --version``) and
@@ -192,7 +193,7 @@ def build_all() -> dict[str, Path]:
 
 def _import_kernel_modules():
   from taichi_image_tpu_torch.ops.hopper import (  # noqa: F401
-      decode, demosaic, finish, front_fused, reinhard, resize)
+      decode, demosaic, finish, front_fused, reinhard, resize, yuv420)
 
 
 def launch_counts() -> dict[str, int]:

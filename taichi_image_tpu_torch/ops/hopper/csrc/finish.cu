@@ -1,6 +1,7 @@
 // K4<T>: tonemap finish, (N, 12, hh, wh) p or x12 of T (bf16, f16 or
 // f32) -> planar u8 (N, 3, 2hh, 2wh), or (N, 3, 2wh, 2hh) under a
-// transform that swaps the axes. Two modes:
+// transform that swaps the axes; or, in its I420 mode (below, after the
+// RGB kernels), planar I420. Two tonemap modes:
 //   reinhard: o = p / max(1e-6, max_out[n]), exp2(log2(o) * inv_gamma)
 //             when gamma != 1, trunc(clip(255 o, 0, 255));
 //   linear:   y = max((x - m0) * inv_range, 0), the same gamma,
@@ -49,6 +50,8 @@
 // The division is a true IEEE division and the u8 convert truncates
 // toward zero (XLA's f32->u8 convert, camera_isp.py:1106); fmaxf maps a
 // NaN (log2 of a negative p at gamma != 1) to 0.
+#include <cstring>
+
 #include "common.cuh"
 
 namespace {
@@ -92,6 +95,59 @@ __device__ __forceinline__ unsigned tone_u8(float xv, const Scal& sc,
   return __float2uint_rz(s);
 }
 
+// One plane's run of kV values of T as loaded (their bits, in 32-bit
+// words), so that a thread can have all its loads in flight before it
+// tones the first: the compiler moves no load above tone_u8's division,
+// which branches.
+template <typename T>
+struct RawRun {
+  static constexpr int kWords = kV * static_cast<int>(sizeof(T)) / 4;
+  unsigned w[kWords];
+};
+
+// The run at p: with `vec` in 16-byte vectors, else element by element up
+// to n elements (the rest 0, the bits of +0 in every T).
+template <typename T>
+__device__ __forceinline__ void load_run(const T* p, bool vec, int n,
+                                         RawRun<T>& r) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int h = 0; h < kV / kPer; ++h) {
+      tit::Run<T, kPer>::load_words(p + h * kPer, r.w + 4 * h);
+    }
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      r.w[k] = k < n ? reinterpret_cast<const unsigned*>(p)[k] : 0u;
+    }
+  } else {
+    const auto* h16 = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int m = 0; m < RawRun<T>::kWords; ++m) {
+      r.w[m] = (2 * m < n ? h16[2 * m] : 0u) |
+               (2 * m + 1 < n ? static_cast<unsigned>(h16[2 * m + 1]) << 16
+                              : 0u);
+    }
+  }
+}
+
+// tone_u8 of each value of a loaded run.
+template <typename T, bool kLinear>
+__device__ __forceinline__ void tone_run(const RawRun<T>& r, const Scal& sc,
+                                         const Finish& f, unsigned q[kV]) {
+  constexpr int kPer = 16 / sizeof(T);
+  float v[kV];
+#pragma unroll
+  for (int h = 0; h < kV / kPer; ++h) {
+    tit::Run<T, kPer>::unpack(r.w + 4 * h, v + h * kPer);
+  }
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    q[k] = tone_u8<kLinear>(v[k], sc, f);
+  }
+}
+
 // The bytes q[pr][pc][k] of one run of kV pixels; src[pr * 2 + pc] is the
 // run's first element in the plane of input phase (pr, pc). With `vec`
 // each plane is read in 16-byte vectors, else element by element up to n
@@ -101,28 +157,13 @@ __device__ __forceinline__ void finish_run(const T* const src[4], bool vec,
                                            int n, const Scal& sc,
                                            const Finish& f,
                                            unsigned q[2][2][kV]) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte vector
 #pragma unroll
   for (int pr = 0; pr < 2; ++pr) {
 #pragma unroll
     for (int pc = 0; pc < 2; ++pc) {
-      const T* p = src[pr * 2 + pc];
-      float v[kV];
-      if (vec) {
-#pragma unroll
-        for (int h = 0; h < kV / kPer; ++h) {
-          tit::Run<T, kPer>::load(p + h * kPer, v + h * kPer);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kV; ++k) {
-          v[k] = k < n ? tit::load_f32(p[k]) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kV; ++k) {
-        q[pr][pc][k] = tone_u8<kLinear>(v[k], sc, f);
-      }
+      RawRun<T> r;
+      load_run<T>(src[pr * 2 + pc], vec, n, r);
+      tone_run<T, kLinear>(r, sc, f, q[pr][pc]);
     }
   }
 }
@@ -328,6 +369,310 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
              : launch_mode<T, false>(xin, s, o, n, f, swap, stream));
 }
 
+// ---------------------------------------------------------------------------
+// K4's I420 mode: the same u8 RGB, from the same loads and tone_u8, turned
+// into planar I420 without being written: Y u8 (N, H', W') at each pixel's
+// transformed address and VU u8 (N, 2, H'/2, W'/2) at each 2x2 block's
+// transformed position, V then U. It replaces the JAX phase route's XLA
+// tail, reinhard_gamma_ca or linear_apply_ca, _transform_phases and
+// yuv420_from_phases_u8 (taichi_image_tpu/models/camera_isp.py:1485-1532,
+// :1774-1784). A thread takes the run of kV half-res pixels of one row in
+// all 12 planes; the planes are read in the order of the OUTPUT's phases
+// (the input phase that the transform puts on each output parity), since
+// the chroma sums over them in that order:
+//   - f32 chains (f16 and f32 input; the cv rows apply to (b, g, r) of
+//     x = u8 / 255, from a per-block table of k / 255 divided in IEEE):
+//     Y = min(1, ((y0 b + y1 g) + y2 r) + off_y); the chroma of the means
+//     (((x_p0 + x_p1) + x_p2) + x_p3) * 0.25 of b, g and r;
+//   - the bf16 dot (bf16 input; the rows are the bf16-rounded (r, g, b)
+//     coefficients of _yuv420_w6, the chroma ones / 4): Y = (y0 r + y1 g) +
+//     y2 b, V and U summed over the 12 channels in ascending order (the
+//     output's phases, (r, g, b) within each); then / 255 + offset;
+// each then trunc(clip(min(1, .) * 255, 0, 255)). ops/hopper/yuv420.py's
+// twins sum in the same orders.
+//
+// Bound: memory, the 12 * sizeof(T) bytes read per half-res pixel and 6
+// bytes written (4 of Y, 2 of VU): 373.2 MB at 6 x 4K bf16, 0.1114 ms at
+// 3.35 TB/s. Without an axis swap the block is K4's (16, 16) over (runs,
+// rows): each Y row of a run leaves as one 16-byte store and each chroma
+// run as one 8-byte store (flip_x reverses the byte pairs, or the bytes,
+// in registers). With a swap it is (32, 8) with a lane per row, so that a
+// warp's Y stores of one output row are 32 adjacent byte pairs and its
+// chroma stores 32 adjacent bytes; the loads are then a lane per row.
+// A thread issues the loads of all four output phases (two in f32, for
+// registers) before it tones the first: loaded phase by phase, each
+// phase's loads waited behind the previous phase's toning, which was
+// slower (PERF.md §6).
+
+// The rows of the conversion (ops/hopper/yuv420.py coefficients).
+struct Yuv {
+  float y[3], u[3], v[3];
+  float off_y, off_u, off_v;
+};
+
+// s / 255 rounded to nearest even, bitwise the quotient of div.rn.f32 for
+// the sums the dot produces (up to the sign of a zero), from f32
+// multiplies and fused multiply-adds only (div.rn.f32 calls a subroutine,
+// whose calls made these kernels spill): q0 = s y with y = RN(1/255), the
+// residual s - 255 q0 exact in one FMA, then q0 + r y.
+// tests/test_torch_yuv420.py holds it to the division on every 97th f32
+// of [2^-20, 1024), both signs, where the dot's sums lie.
+__device__ __forceinline__ float div255(float s) {
+  constexpr float y = 1.0f / 255.0f;
+  const float q0 = s * y;
+  const float r = __fmaf_rn(-q0, 255.0f, s);
+  return __fmaf_rn(r, y, q0);
+}
+
+// trunc(clip(min(1, v) * 255, 0, 255))
+__device__ __forceinline__ unsigned yuv_u8(float v) {
+  return __float2uint_rz(fminf(fmaxf(fminf(v, 1.0f) * 255.0f, 0.0f), 255.0f));
+}
+
+__device__ __forceinline__ uint4 reverse_pairs(uint4 v) {
+  return make_uint4(__byte_perm(v.w, 0, 0x1032), __byte_perm(v.z, 0, 0x1032),
+                    __byte_perm(v.y, 0, 0x1032), __byte_perm(v.x, 0, 0x1032));
+}
+
+// Byte k of a run packed four to a word.
+__device__ __forceinline__ unsigned byte_of(const unsigned (&w)[kV / 4],
+                                            int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+}
+
+// One chroma plane's bytes of a run (cw, four to a word), in the row crow
+// of bw bytes (no axis swap): an 8-byte store with `vec`, flip_x reversing
+// the bytes.
+__device__ __forceinline__ void store_chroma_run(uint8_t* crow,
+                                                 const unsigned (&cw)[kV / 4],
+                                                 const Finish& f, int bw,
+                                                 int j0, int n) {
+  if (f.vec) {
+    const unsigned w0 = cw[0], w1 = cw[1];
+    if (f.flip_x) {
+      *reinterpret_cast<uint2*>(crow + bw - j0 - kV) = make_uint2(
+          __byte_perm(w1, 0, 0x0123), __byte_perm(w0, 0, 0x0123));
+    } else {
+      *reinterpret_cast<uint2*>(crow + j0) = make_uint2(w0, w1);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      if (k >= n) break;
+      crow[f.flip_x ? bw - 1 - (j0 + k) : j0 + k] =
+          static_cast<uint8_t>(byte_of(cw, k));
+    }
+  }
+}
+
+// The runs of output phase pp (parity (pp & 1, pp >> 1)) in its 3 colors:
+// those of the input phase (pr, pc) that the transform puts on that
+// parity, channel pc * 6 + pr * 3 + c.
+template <typename T, bool kSwap>
+__device__ __forceinline__ void load_phase(const T* xb, int plane, int pp,
+                                           const Finish& f, int n,
+                                           RawRun<T> (&r)[3]) {
+  const int opr = pp & 1, opc = pp >> 1;
+  const int ipr = (kSwap ? opc : opr) ^ f.flip_y;
+  const int ipc = (kSwap ? opr : opc) ^ f.flip_x;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    load_run<T>(xb + (ipc * 6 + ipr * 3 + c) * plane, f.vec, n, r[c]);
+  }
+}
+
+template <typename T, bool kLinear, bool kSwap>
+__global__ void __launch_bounds__(256)
+    finish_yuv420_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scal,
+                         uint8_t* __restrict__ yp, uint8_t* __restrict__ vu,
+                         Finish f, Yuv cv) {
+  constexpr bool kDot = std::is_same_v<T, __nv_bfloat16>;
+  __shared__ float inv255[256];  // k / 255 (the f32 chains)
+  if constexpr (!kDot) {
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    inv255[tid] = __fdiv_rn(static_cast<float>(tid), 255.0f);
+    __syncthreads();
+  }
+  const int b = blockIdx.z;
+  const int i = kSwap ? blockIdx.y * kSwapRows + threadIdx.x
+                      : blockIdx.y * blockDim.y + threadIdx.y;
+  const int j0 = (kSwap ? blockIdx.x * kSwapRuns + threadIdx.y
+                        : blockIdx.x * blockDim.x + threadIdx.x) * kV;
+  if (i >= f.hh || j0 >= f.wh) return;
+  const int n = f.wh - j0;
+  const Scal sc = load_scal<kLinear>(scal, b);
+  const int plane = f.hh * f.wh;
+  const T* xb = x + static_cast<size_t>(b) * 12 * plane + i * f.wh + j0;
+  // Y bytes by output row parity, as that row's 16 bytes: (k, col parity)
+  // at byte 2 k + col parity
+  unsigned yw[2][kV / 2] = {};
+  float acc[3][kV];  // chains: b, g, r over the phases; dot: V, U
+  // the runs of the next kRing output phases are in flight: all four for
+  // 16-bit T, two for f32 (48 registers of loads either way)
+  constexpr int kRing = sizeof(T) == 4 ? 2 : 4;
+  RawRun<T> raw[kRing][3];
+#pragma unroll
+  for (int pp = 0; pp < kRing; ++pp) {
+    load_phase<T, kSwap>(xb, plane, pp, f, n, raw[pp]);
+  }
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp) {  // output phase pp: parity (pp & 1, pp >> 1)
+    const int opr = pp & 1, opc = pp >> 1;
+    unsigned q[3][kV];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      tone_run<T, kLinear>(raw[pp % kRing][c], sc, f, q[c]);
+    }
+    if (pp + kRing < 4) {
+      load_phase<T, kSwap>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
+    }
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      if constexpr (kDot) {
+        const float r = static_cast<float>(q[0][k]);
+        const float g = static_cast<float>(q[1][k]);
+        const float bl = static_cast<float>(q[2][k]);
+        const float s = (r * cv.y[0] + g * cv.y[1]) + bl * cv.y[2];
+        yw[opr][k >> 1] |= yuv_u8(div255(s) + cv.off_y)
+                           << (8 * (2 * (k & 1) + opc));
+        float av = pp ? acc[0][k] + r * cv.v[0] : r * cv.v[0];
+        av = av + g * cv.v[1];
+        acc[0][k] = av + bl * cv.v[2];
+        float au = pp ? acc[1][k] + r * cv.u[0] : r * cv.u[0];
+        au = au + g * cv.u[1];
+        acc[1][k] = au + bl * cv.u[2];
+      } else {
+        const float xbl = inv255[q[2][k]], xg = inv255[q[1][k]];
+        const float xr = inv255[q[0][k]];
+        yw[opr][k >> 1] |=
+            yuv_u8(((cv.y[0] * xbl + cv.y[1] * xg) + cv.y[2] * xr) + cv.off_y)
+            << (8 * (2 * (k & 1) + opc));
+        acc[0][k] = pp ? acc[0][k] + xbl : xbl;
+        acc[1][k] = pp ? acc[1][k] + xg : xg;
+        acc[2][k] = pp ? acc[2][k] + xr : xr;
+      }
+    }
+  }
+  unsigned vw[kV / 4] = {}, uw[kV / 4] = {};  // V and U bytes
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    float v, u;
+    if constexpr (kDot) {
+      v = div255(acc[0][k]) + cv.off_v;
+      u = div255(acc[1][k]) + cv.off_u;
+    } else {
+      const float mb = acc[0][k] * 0.25f, mg = acc[1][k] * 0.25f;
+      const float mr = acc[2][k] * 0.25f;
+      v = ((cv.v[0] * mb + cv.v[1] * mg) + cv.v[2] * mr) + cv.off_v;
+      u = ((cv.u[0] * mb + cv.u[1] * mg) + cv.u[2] * mr) + cv.off_u;
+    }
+    vw[k >> 2] |= yuv_u8(v) << (8 * (k & 3));
+    uw[k >> 2] |= yuv_u8(u) << (8 * (k & 3));
+  }
+  // the output's 2x2 blocks: bh x bw; Y is 2 bh x 2 bw
+  const int bh = kSwap ? f.wh : f.hh, bw = kSwap ? f.hh : f.wh;
+  uint8_t* yb = yp + static_cast<size_t>(b) * 4 * bh * bw;
+  uint8_t* vb = vu + static_cast<size_t>(b) * 2 * bh * bw;  // U at + bh bw
+  if constexpr (!kSwap) {
+    const int io = f.flip_y ? f.hh - 1 - i : i;  // the output block row
+#pragma unroll
+    for (int opr = 0; opr < 2; ++opr) {
+      uint8_t* row = yb + (2 * io + opr) * 2 * bw;
+      if (f.vec) {
+        // bytes x = 2 j0 .. 2 j0 + 16 in order; flip_x reverses the pairs,
+        // not the bytes in them
+        const uint4 v =
+            make_uint4(yw[opr][0], yw[opr][1], yw[opr][2], yw[opr][3]);
+        if (f.flip_x) {
+          *reinterpret_cast<uint4*>(row + 2 * (bw - j0 - kV)) =
+              reverse_pairs(v);
+        } else {
+          *reinterpret_cast<uint4*>(row + 2 * j0) = v;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kV; ++k) {
+          if (k >= n) break;
+          const int jo = f.flip_x ? bw - 1 - (j0 + k) : j0 + k;
+          const unsigned pair = yw[opr][k >> 1] >> (16 * (k & 1));
+          row[2 * jo] = static_cast<uint8_t>(pair);
+          row[2 * jo + 1] = static_cast<uint8_t>(pair >> 8);
+        }
+      }
+    }
+    uint8_t* crow = vb + io * bw;
+    store_chroma_run(crow, vw, f, bw, j0, n);
+    store_chroma_run(crow + bh * bw, uw, f, bw, j0, n);
+  } else {
+    // block (i, j) lands on output block (io, jo) = (j or wh - 1 - j,
+    // i or hh - 1 - i); a warp's lanes write adjacent jo
+    const int jo = f.flip_y ? f.hh - 1 - i : i;
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      if (k >= n) break;
+      const int io = f.flip_x ? bh - 1 - (j0 + k) : j0 + k;
+#pragma unroll
+      for (int opr = 0; opr < 2; ++opr) {
+        *reinterpret_cast<uint16_t*>(yb + (2 * io + opr) * 2 * bw + 2 * jo) =
+            static_cast<uint16_t>(yw[opr][k >> 1] >> (16 * (k & 1)));
+      }
+      vb[io * bw + jo] = static_cast<uint8_t>(byte_of(vw, k));
+      vb[bh * bw + io * bw + jo] = static_cast<uint8_t>(byte_of(uw, k));
+    }
+  }
+}
+
+template <typename T, bool kLinear>
+cudaError_t launch_yuv420_mode(const T* x, const float* scal, uint8_t* y,
+                               uint8_t* vu, int n, const Finish& f,
+                               const Yuv& cv, int swap, cudaStream_t stream) {
+  if (swap) {
+    const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
+                    (f.hh + kSwapRows - 1) / kSwapRows, n);
+    finish_yuv420_kernel<T, kLinear, true>
+        <<<grid, dim3(kSwapRows, kSwapRuns), 0, stream>>>(x, scal, y, vu, f,
+                                                          cv);
+  } else {
+    const dim3 block(16, 16);
+    const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
+                    (f.hh + block.y - 1) / block.y, n);
+    finish_yuv420_kernel<T, kLinear, false>
+        <<<grid, block, 0, stream>>>(x, scal, y, vu, f, cv);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
+                  int hh, int wh, int linear, int apply_gamma,
+                  float inv_gamma, int swap, int flip_y, int flip_x,
+                  const float* coef, cudaStream_t stream) {
+  if (static_cast<long long>(n) * hh * wh == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (!tit::image_fits_int32(hh, wh) || n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // vectors: whole runs along each row (the swapped stores are byte pairs
+  // and bytes at any alignment)
+  const int vec = wh % kV == 0 && tit::aligned16(x) && tit::aligned16(y) &&
+                  tit::aligned16(vu);
+  const Finish f{hh, wh, apply_gamma, flip_y, flip_x, vec, inv_gamma};
+  Yuv cv;
+  static_assert(sizeof(Yuv) == 12 * sizeof(float), "Yuv is 12 floats");
+  memcpy(&cv, coef, sizeof(cv));
+  const auto* xin = static_cast<const T*>(x);
+  const auto* s = static_cast<const float*>(scal);
+  auto* yo = static_cast<uint8_t*>(y);
+  auto* vo = static_cast<uint8_t*>(vu);
+  return static_cast<int>(
+      linear ? launch_yuv420_mode<T, true>(xin, s, yo, vo, n, f, cv, swap,
+                                           stream)
+             : launch_yuv420_mode<T, false>(xin, s, yo, vo, n, f, cv, swap,
+                                            stream));
+}
+
 }  // namespace
 
 #define TIT_FINISH_LAUNCHER(suffix, T)                                        \
@@ -339,3 +684,13 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
                      swap, flip_y, flip_x, stream);                           \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
+
+#define TIT_FINISH_YUV420_LAUNCHER(suffix, T)                               \
+  extern "C" int tit_finish_yuv420_##suffix(                                \
+      const void* x, const void* scal, void* y, void* vu, int n, int hh,    \
+      int wh, int linear, int apply_gamma, float inv_gamma, int swap,       \
+      int flip_y, int flip_x, const float* coef, cudaStream_t stream) {     \
+    return launch_yuv420<T>(x, scal, y, vu, n, hh, wh, linear, apply_gamma, \
+                            inv_gamma, swap, flip_y, flip_x, coef, stream); \
+  }
+TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)

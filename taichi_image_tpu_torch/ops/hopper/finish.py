@@ -1,6 +1,8 @@
 """K4: the tonemap finish — the Reinhard gamma or the linear tonemap, u8
 truncation, the 2x2 phase->planar interleave and the output transform
-(``csrc/finish.cu``, one instantiation per working dtype of the input).
+(``csrc/finish.cu``, one instantiation per working dtype of the input),
+and its I420 mode (:func:`finish_yuv420`), which turns the same u8 RGB
+into planar I420 without writing it.
 
 Replaces ``taichi_image_tpu/ops/pallas/finish.py::finish_planar_u8``, both
 its modes. In JAX this step is the XLA tail of the phase route
@@ -8,7 +10,9 @@ its modes. In JAX this step is the XLA tail of the phase route
 ``planar_from_phases_transformed``); the Pallas form is opt-in there
 only because Mosaic cannot store u8. Hopper writes u8 directly, so here
 it is the phase route's tail, with the transform folded into the store
-addresses.
+addresses. The I420 mode replaces the JAX phase route's XLA I420 tail
+(``taichi_image_tpu/models/camera_isp.py:1774-1784``: the gamma or linear
+u8, the phase transform, ``yuv420_from_phases_u8``).
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ import torch
 
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.bayer import (_TRANSFORM_SFF,
-                                              planar_from_phases_transformed)
+                                              planar_from_phases_transformed,
+                                              transform_phases)
+from taichi_image_tpu_torch.ops.hopper import yuv420
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
-__all__ = ["finish_planar_u8", "finish_planar_u8_plain", "gamma_u8",
-           "linear_scal", "linear_u8"]
+__all__ = ["finish_planar_u8", "finish_planar_u8_plain", "finish_yuv420",
+           "finish_yuv420_plain", "gamma_u8", "linear_scal", "linear_u8"]
 
 MODES = ("reinhard", "linear")
 
@@ -35,6 +41,14 @@ KERNELS = hopper.register_per_dtype(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX, _REPLACES))
+YUV420_KERNELS = hopper.register_per_dtype(
+    "finish_yuv420", "finish.cu", "tit_finish_yuv420",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p],
+    dict.fromkeys(hopper.DTYPE_SUFFIX,
+                  "taichi_image_tpu/models/camera_isp.py:1485"))
 
 
 def _inv_gamma(gamma: float):
@@ -82,15 +96,51 @@ def linear_u8(x: torch.Tensor, lin: torch.Tensor,
   return torch.nan_to_num(v, nan=0.0).to(torch.uint8)
 
 
+def _tone_u8(x12, scal, gamma, mode):
+  return (gamma_u8(x12, scal, gamma) if mode == "reinhard"
+          else linear_u8(x12, scal, gamma))
+
+
 def finish_planar_u8_plain(x12: torch.Tensor, scal: torch.Tensor,
                            gamma: float, mode: str = "reinhard",
                            transform: ImageTransform = ImageTransform.none
                            ) -> torch.Tensor:
   """Plain PyTorch twin of K4: the mode's u8 in phase layout, then
   :func:`planar_from_phases_transformed`."""
-  u8 = (gamma_u8(x12, scal, gamma) if mode == "reinhard"
-        else linear_u8(x12, scal, gamma))
-  return planar_from_phases_transformed(u8, transform)
+  return planar_from_phases_transformed(_tone_u8(x12, scal, gamma, mode),
+                                        transform)
+
+
+def finish_yuv420_plain(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
+                        mode: str = "reinhard",
+                        transform: ImageTransform = ImageTransform.none):
+  """Plain PyTorch twin of K4's I420 mode: the mode's u8 in phase layout,
+  the phase transform, then ``yuv420_from_phases_u8`` (the bf16 dot for a
+  bf16 input, the f32 chains otherwise)."""
+  u8 = transform_phases(_tone_u8(x12, scal, gamma, mode), transform)
+  return yuv420.yuv420_from_phases_u8(u8, mxu=x12.dtype == torch.bfloat16)
+
+
+def _check_finish(x12: torch.Tensor, scal: torch.Tensor, mode: str) -> None:
+  if x12.ndim != 4 or x12.shape[1] != 12:
+    raise ValueError(f"finish input must be (N, 12, hh, wh), got "
+                     f"{tuple(x12.shape)}")
+  if mode not in MODES:
+    raise ValueError(f"unknown finish mode {mode!r}; expected one of {MODES}")
+  hopper.check_dtype("the finish's input", x12.dtype)
+  n = x12.shape[0]
+  if mode == "reinhard" and scal.numel() != n:
+    raise ValueError(f"max_out must hold one value per image ({n}), got "
+                     f"shape {tuple(scal.shape)}")
+  if mode == "linear" and scal.shape != (2,):
+    raise ValueError(f"the linear finish takes [m0, inv_range] (2,), got "
+                     f"shape {tuple(scal.shape)}")
+
+
+def _check_launch(x12: torch.Tensor, scal: torch.Tensor) -> None:
+  hopper.check_tensor("x12", x12, x12.dtype, 4, x12.device)
+  hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x12.device)
+  hopper.check_frame_size(*x12.shape[2:])
 
 
 def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
@@ -103,24 +153,11 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   ``mode="reinhard"``: the input is the pre-gamma p and ``scal`` its
   per-image f32 max (N, 1, 1, 1). ``mode="linear"``: the input is x12 and
   ``scal`` is :func:`linear_scal` of the metrics."""
-  if x12.ndim != 4 or x12.shape[1] != 12:
-    raise ValueError(f"finish input must be (N, 12, hh, wh), got "
-                     f"{tuple(x12.shape)}")
-  if mode not in MODES:
-    raise ValueError(f"unknown finish mode {mode!r}; expected one of {MODES}")
-  hopper.check_dtype("the finish's input", x12.dtype)
-  n, _, hh, wh = x12.shape
-  if mode == "reinhard" and scal.numel() != n:
-    raise ValueError(f"max_out must hold one value per image ({n}), got "
-                     f"shape {tuple(scal.shape)}")
-  if mode == "linear" and scal.shape != (2,):
-    raise ValueError(f"the linear finish takes [m0, inv_range] (2,), got "
-                     f"shape {tuple(scal.shape)}")
+  _check_finish(x12, scal, mode)
   if not hopper.use_kernel(backend, x12):
     return finish_planar_u8_plain(x12, scal, gamma, mode, transform)
-  hopper.check_tensor("x12", x12, x12.dtype, 4, x12.device)
-  hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x12.device)
-  hopper.check_frame_size(hh, wh)
+  _check_launch(x12, scal)
+  n, _, hh, wh = x12.shape
   swap, fy, fx = _TRANSFORM_SFF[transform]
   shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
   out = torch.empty(shape, dtype=torch.uint8, device=x12.device)
@@ -132,3 +169,32 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
                             int(swap), int(fy), int(fx),
                             hopper.stream_of(x12.device))
   return out
+
+
+def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
+                  mode: str = "reinhard",
+                  transform: ImageTransform = ImageTransform.none,
+                  backend: str = "auto"):
+  """K4's I420 mode: the input and ``scal`` as :func:`finish_planar_u8`
+  takes them -> planar I420 u8 ``(Y (N, h', w'), VU (N, 2, h'/2, w'/2))``
+  of the transformed image, V then U; bitwise equal to the plain twin.
+  A bf16 input takes the bf16 pipeline's dot formulation, f16 and f32
+  the f32 chains (as JAX picks them by the working dtype)."""
+  _check_finish(x12, scal, mode)
+  if not hopper.use_kernel(backend, x12):
+    return finish_yuv420_plain(x12, scal, gamma, mode, transform)
+  _check_launch(x12, scal)
+  n, _, hh, wh = x12.shape
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  bh, bw = (wh, hh) if swap else (hh, wh)  # the output's 2x2 blocks
+  dev = x12.device
+  y = torch.empty((n, 2 * bh, 2 * bw), dtype=torch.uint8, device=dev)
+  vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
+  inv_gamma = _inv_gamma(gamma)
+  coef = yuv420.coefficients(x12.dtype == torch.bfloat16)
+  YUV420_KERNELS[x12.dtype].launch(
+      hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n,
+      hh, wh, int(mode == "linear"), int(inv_gamma is not None),
+      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
+      coef.ctypes.data_as(ctypes.c_void_p), hopper.stream_of(dev))
+  return y, vu

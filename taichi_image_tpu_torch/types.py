@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["scale_factor", "canonical_dtype", "dtype_of", "scale_of",
-           "u8", "u16", "i16", "f16", "bf16", "f32"]
+           "to_float", "from_float", "u8", "u16", "i16", "f16", "bf16",
+           "f32"]
 
 u8 = torch.uint8
 u16 = torch.uint16
@@ -70,3 +71,26 @@ def dtype_of(arr) -> torch.dtype:
 def scale_of(dtype: DTypeLike) -> float:
   """Full-scale value for a dtype."""
   return scale_factor[canonical_dtype(dtype)]
+
+
+def to_float(x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+  """A tensor as normalized float in [0, 1] by the scale convention."""
+  s = scale_of(dtype_of(x))
+  x = x.to(canonical_dtype(compute_dtype))
+  if s != 1.0:
+    x = x / s
+  return x
+
+
+def from_float(x: torch.Tensor, dtype: DTypeLike,
+               clip: bool = True) -> torch.Tensor:
+  """A normalized float tensor rescaled to ``dtype``. Integer casts
+  truncate toward zero; ``clip`` keeps integer results in [0, scale]
+  instead of wrapping."""
+  dt = canonical_dtype(dtype)
+  s = scale_of(dt)
+  if s != 1.0:
+    x = x * s
+  if clip and not dt.is_floating_point:
+    x = torch.clamp(x, 0, s)
+  return x.to(dt)

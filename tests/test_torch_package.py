@@ -44,6 +44,9 @@ def test_import_pulls_in_no_jax():
       import taichi_image_tpu_torch.ops.hopper.finish
       import taichi_image_tpu_torch.ops.hopper.resize
       import taichi_image_tpu_torch.ops.hopper.front_fused
+      import taichi_image_tpu_torch.ops.hopper.yuv420
+      import taichi_image_tpu_torch.ops.color
+      import taichi_image_tpu_torch.ops.tonemap
       import taichi_image_tpu_torch.ops.interpolate
       import taichi_image_tpu_torch.models.camera_isp
       bad = sorted(m for m in sys.modules
@@ -57,22 +60,26 @@ def test_import_pulls_in_no_jax():
   assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
-STAGES = ["decode", "demosaic", "reinhard", "finish", "resize"]
+STAGES = ["decode", "demosaic", "reinhard", "finish", "resize",
+          "finish_yuv420"]
+# one instantiation each, no X-macro
+_SINGLE = {"front_fused_bf16", "yuv420_planar"}
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 # XLA routes of the JAX package that a kernel instantiation replaces
 _XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
-               "resize_f32": "1315"}
+               "resize_f32": "1315", "yuv420_planar": "1406",
+               **{f"finish_yuv420_{sfx}": "1485"
+                  for sfx in ("bf16", "f16", "f32")}}
 
 
 def test_kernels_registered_with_sources():
   counts = hopper.launch_counts()
   assert set(counts) == {f"{st}_{sfx}" for st in STAGES
-                         for sfx in ("bf16", "f16", "f32")} | {
-                             "front_fused_bf16"}
+                         for sfx in ("bf16", "f16", "f32")} | _SINGLE
   for k in hopper.KERNELS.values():
     assert (hopper.CSRC / k.source).is_file(), k.source
     src = (hopper.CSRC / k.source).read_text()
-    if k.name == "front_fused_bf16":  # one instantiation, no X-macro
+    if k.name in _SINGLE:
       assert f'extern "C" int {k.symbol}(' in src
     else:
       # the launcher tit_<name>_<suffix> comes from the source's X-macro
@@ -105,6 +112,8 @@ def _kernel_calls(dtype):
                                              backend="kernel"),
       "finish": lambda: th_fin.finish_planar_u8(x12, torch.ones(1, 1, 1, 1),
                                                 1.0, backend="kernel"),
+      "finish_yuv420": lambda: th_fin.finish_yuv420(
+          x12, torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
       "resize": lambda: th_rs.resize_x12(
           x12, th_rs.resize_taps(4, 6, (6, 4), (0.5, 0.5),
                                  torch.device("cpu")), backend="kernel"),
@@ -194,9 +203,7 @@ def test_auto_backend_on_cpu_is_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("kw,isp_kw,match", [
     ({"fmt": "packed16"}, {}, "item 13"),
-    ({"color_format": "yuv420"}, {}, "item 8"),
-    ({"color_format": "yuv420"}, {"resize_width": 32}, "item 8"),
-], ids=["kw0-item 13", "kw2-item 8", "resize_width-yuv420-item 8"])
+], ids=["kw0-item 13"])
 def test_out_of_slice_process_args_raise(kw, isp_kw, match):
   isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
   raws = _raws(2, 16, 64) if kw.get("fmt") == "packed16" else _raws()
@@ -204,8 +211,8 @@ def test_out_of_slice_process_args_raise(kw, isp_kw, match):
     isp.process(raws, **kw)
 
 
-# configurations that raised until the resize, transform, linear and
-# odd-stride routes were ported: (ISP keywords, process keywords,
+# configurations that raised until the resize, transform, linear,
+# odd-stride and I420 routes were ported: (ISP keywords, process keywords,
 # output (h, w) for 16 x 64-pixel raws)
 @pytest.mark.parametrize("isp_kw,kw,hw", [
     ({"resize_width": 32}, {}, (8, 32)),
@@ -213,12 +220,21 @@ def test_out_of_slice_process_args_raise(kw, isp_kw, match):
     ({"transform": ttit.ImageTransform.rotate_90}, {}, (64, 16)),
     ({"metering_stride": 7}, {}, (16, 64)),
     ({}, {"tonemap": "linear"}, (16, 64)),
-], ids=["resize_width", "scale", "rotate_90", "stride7", "linear"])
+    ({}, {"color_format": "yuv420"}, (16, 64)),
+    ({"resize_width": 32}, {"color_format": "yuv420"}, (8, 32)),
+], ids=["resize_width", "scale", "rotate_90", "stride7", "linear", "yuv420",
+        "resize_width-yuv420"])
 def test_ported_configs_run(isp_kw, kw, hw):
   isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
   for _ in range(2):
     out = isp.process(_raws(), **kw)
-    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 3, *hw)
+    if kw.get("color_format") == "yuv420":
+      y, vu = out
+      assert y.dtype == vu.dtype == torch.uint8
+      assert tuple(y.shape) == (2, *hw)
+      assert tuple(vu.shape) == (2, 2, hw[0] // 2, hw[1] // 2)
+    else:
+      assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 3, *hw)
     assert isp.metrics.shape == (9,) and torch.isfinite(isp.metrics).all()
 
 
