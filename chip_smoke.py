@@ -10,11 +10,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
 1. device   CUDA available, capability (9, 0); the card's name and power
             limit as nvidia-smi reports them.
 2. build    nvcc builds the seven kernel sources (csrc/*.cu, one process
-            each, in parallel) from this checkout: K1-K4, K4's I420 mode
-            and K12 for bf16, f16 and f32, the bf16 front-fused K7 and the
-            planar I420 conversion (20 kernels); each
-            source's register range and spill bytes from ptxas (every
-            source must show 0 spill bytes); the SASS instructions of
+            each, in parallel) from this checkout: K1-K4, K4's I420 mode,
+            K12 and the planar I420 tonemap form for bf16, f16 and f32, the
+            bf16 front-fused K7 and the u8 planar I420 conversion (23
+            kernels); each source's register range and spill bytes from
+            ptxas (every source must show 0 spill bytes), and the registers
+            of each I420 kernel instantiation; the SASS instructions of
             each K1, K3 and K12 instantiation and of K7 (cuobjdump), and
             of their loops per pixel (K3), column pair (K1), output (K12)
             or half-res pixel (K7, with its map loop).
@@ -29,7 +30,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             the 8 transforms, and its I420 mode likewise (the bf16 dot or
             the f32 chains by the dtype), the planar I420 kernel at the
             shape's full-res frame and at 6 x 1920 x 1080 (6x4K) or a
-            2-pixel-narrower one (ragged), K12 at x0.5 (6x4K ->
+            2-pixel-narrower one (ragged), its tonemap form (both modes,
+            gamma 1 and 2.2, the 8 transforms) on K3's map of the x0.5
+            resize (6 x 1920 x 1080) or of a planar frame of the shape's
+            full-res size, K12 at x0.5 (6x4K ->
             1920x1080), x0.37, x1.5 and x0.25 on the path its wrapper
             plans and, at x0.5, also on the direct path that any resize
             can take, K3 on the resized planar image, K3 with degenerate
@@ -39,7 +43,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
             K3 in both adapt modes, K4 under every transform that swaps
             the axes, K12's direct path at x0.5 and, in bf16, K12 at x1.5
             and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
-            planar I420 kernel at 6 x 1920 x 1080 and 6x4K, and each
+            planar I420 kernel at 6 x 1920 x 1080 and 6x4K, its tonemap
+            form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), and each
             time's bound (logical bytes over 3.35 TB/s, or f32
             operations over 67 TFLOP/s, the larger; a resize counts
             only the x12 its taps touch) and share of it.
@@ -57,8 +62,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             metering stride 7, and the front-fused route
             (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only); then
             with color_format="yuv420" on 3 frames: the main path and
-            resize_width=1920 with rotate_90 of each class, stride 7 and
-            front-fused, each output (Y, VU) against the plain route's.
+            resize_width=1920 with rotate_90 of each class (the tonemap
+            form once a step, no u8 conversion), resize_width=1920 with
+            the linear tonemap at gamma 2.2, stride 7 and front-fused, each
+            output (Y, VU) against the plain route's.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -72,7 +79,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
             operations per step) and its host enqueue without the
             checksum; the I420 marginal of the 6x4K and resize->1920
             steps of each class (RGB and I420 steps in turns, RGB, I420,
-            I420, RGB).
+            I420, RGB), and the profile of each I420 step (busy share,
+            device operations per step).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -173,6 +181,14 @@ _RESIZE_ARGS = re.compile(r"resize_kernelI(13__nv_bfloat16|6__half|f)"
                           r"Lb([01])E")
 _RESIZE_PATHS = ("direct", "aligned")  # csrc/resize.cu's kAligned
 _FRONT_ARGS = re.compile(r"front_fused_kernelILi(\d)E")
+# the I420 kernels' instantiations: K4's I420 mode without a swap (T, the
+# linear tonemap) and the I420 tile kernel (T, the sum, the linear tonemap,
+# the swap, flip_y, flip_x)
+_I420_ROWS = re.compile(r"finish_yuv420_kernelI(13__nv_bfloat16|6__half|f)"
+                        r"Lb([01])E")
+_I420_TILE = re.compile(r"i420_tile_kernelI(13__nv_bfloat16|6__half|f)"
+                        r"L\w*?I420E(\d)E((?:Lb[01]E){4})")
+_I420_KINDS = ("dot", "chains", "planar")
 # elements per pass of K3's and K1's vector loops, one 16-byte run of T:
 # K3 maps that many pixels, K1 unpacks that many column pairs
 PER_PASS = {"bf16": 8, "f16": 8, "f32": 4}
@@ -232,6 +248,30 @@ def phase_build():
           r"bytes spill stores, (\d+) bytes spill loads", text)
                if int(st) + int(ld)]
       raise AssertionError(f"{source} spills {spills} bytes in {which}")
+    i420 = {}  # registers of the I420 kernels' instantiations
+    fn = None
+    for line in text.splitlines():
+      m = re.search(r"Compiling entry function '(\S+)'", line)
+      fn = m.group(1) if m else fn
+      m = re.search(r"Used (\d+) registers", line)
+      if not (m and fn):
+        continue
+      a, t = _I420_ROWS.search(fn), _I420_TILE.search(fn)
+      if a:
+        key = f"finish_yuv420_{_T_NAMES[a.group(1)]} linear={a.group(2)}"
+      elif t:  # the 8 flips and 2 modes of one sum and swap, as a range
+        swap = re.findall(r"[01]", t.group(3))[1]
+        key = (f"tile {_I420_KINDS[int(t.group(2))]}_{_T_NAMES[t.group(1)]}"
+               f" swap={swap}")
+      else:
+        continue
+      lo, hi = i420.get(key, (999, 0))
+      i420[key] = (min(lo, int(m.group(1))), max(hi, int(m.group(1))))
+    if i420:
+      sources[source]["i420_registers"] = i420
+      log(f"  {source} I420 kernels, registers: " + ", ".join(
+          f"{k} {lo}-{hi}" if lo != hi else f"{k} {lo}"
+          for k, (lo, hi) in sorted(i420.items())))
   # SASS of K3 and K1: the vector loop's instructions (static: the
   # branches around the slow paths included) per pixel or column pair
   for source in ("reinhard.cu", "decode.cu"):
@@ -558,10 +598,35 @@ def phase_kernels(results):
                                            backend="plain")
           _check_map(f"front_fused {kv} vs twin", fp, fm, pp, pm)
           note("front_fused_bf16", fp, pp)
+      # the planar I420 tonemap form: bitwise, both modes, gamma 1 and
+      # 2.2 under the 8 transforms, on K3's map of the x0.5 resize (6x4K)
+      # or of a planar frame of the shape's full-res size (RAGGED: rows not
+      # whole copies, odd block counts; CUT: tiles cut on both axes)
+      if shape == (N_CAM, H, WB):
+        img = plans[0.5][1]
+      else:
+        img = (torch.rand((shape[0], 3, 2 * hh, 2 * wh), generator=gen,
+                          device=dev) * 1.2).to(dtype)
+        img.view(-1)[::13] = 0.0
+      tp, tmx = reinhard.reinhard_map(img, scal0, False)
+      for mode, src, sc in (("reinhard", tp, tmx), ("linear", img, lin)):
+        for gamma, t in [(1.0, ImageTransform.none),
+                         *((2.2, t) for t in ImageTransform)]:
+          ky, kvu = yuv420.yuv420_planar_tone(src, sc, gamma, mode, t,
+                                              backend="kernel")
+          py, pvu = yuv420.yuv420_planar_tone(src, sc, gamma, mode, t,
+                                              backend="plain")
+          what = (f"yuv420_planar_tone {kt} {tuple(src.shape)} {mode} "
+                  f"gamma={gamma} {t.value}")
+          _check_bitwise(f"{what} Y", ky, py)
+          _check_bitwise(f"{what} VU", kvu, pvu)
+          note(f"yuv420_planar_tone_{sfx}", ky, py)
+          note(f"yuv420_planar_tone_{sfx}", kvu, pvu)
+      del img, tp, tmx, ky, kvu, py, pvu
       log(f"kernels {kt}: decode, demosaic (8 variants), reinhard"
           + (" (and its degenerate cases)" if shape != (N_CAM, H, WB) else "")
           + ", finish and its I420 mode (both modes, each under 8 "
-          "transforms), resize ("
+          "transforms), the planar I420 tonemap form (the same), resize ("
           + ", ".join(paths) + ")"
           + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
@@ -642,6 +707,21 @@ def phase_kernels(results):
           calls[f"yuv420_planar{tag_}"] = (
               lambda b, rgb8=rgb8: yuv420.yuv420_planar(rgb8, backend=b),
               [rgb8], 30 * rgb8[:, 0].numel())
+      # the planar I420 tonemap form at the resize route's 6 x 1920 x 1080:
+      # the tone's ~4 operations per value, the conversion's ~30 per pixel
+      rp, rmx = reinhard.reinhard_map(rgb, scal0, False)
+      tone_ops = (3 * 4 + 30) * rgb[:, 0].numel()
+      calls[f"yuv420_planar_tone_{sfx}"] = (
+          lambda b: yuv420.yuv420_planar_tone(rp, rmx, 1.0, backend=b),
+          [rp, rmx], tone_ops)
+      calls[f"yuv420_planar_tone_{sfx} linear"] = (
+          lambda b: yuv420.yuv420_planar_tone(rgb, lin, 1.0, "linear",
+                                              backend=b),
+          [rgb, lin], tone_ops + 3 * 3 * rgb[:, 0].numel())
+      calls[f"yuv420_planar_tone_{sfx} rotate_90"] = (
+          lambda b: yuv420.yuv420_planar_tone(
+              rp, rmx, 1.0, transform=ImageTransform.rotate_90, backend=b),
+          [rp, rmx], tone_ops)
       calls[f"reinhard_{sfx} planar1080"] = (
           lambda b: reinhard.reinhard_map(rgb, scal0, False, backend=b),
           [rgb, scal0], 10 * rgb.numel())
@@ -668,7 +748,7 @@ def phase_kernels(results):
             (2 * live + 36 + 30 * 4) * npix)
       for name, (call, inputs, ops) in calls.items():
         note_ = "6x4K"
-        if name == "yuv420_planar":
+        if name == "yuv420_planar" or name.startswith("yuv420_planar_tone"):
           note_ = "6x1920x1080"
         if name.startswith("resize"):
           sc = next((s for s in (1.5, 0.37) if f"x{s}" in name), 0.5)
@@ -883,11 +963,15 @@ def phase_routes(frames):
     routes += [
         ("I420 main", sfx, ("decode", "demosaic", "reinhard",
                             "finish_yuv420"), {}, yuv, {}, ()),
-        ("I420 resize1920+rotate_90", sfx, resize,
+        ("I420 resize1920+rotate_90", sfx, (*resize, "yuv420_planar_tone"),
          dict(resize_width=1920, transform=ImageTransform.rotate_90), yuv,
-         {}, ("yuv420_planar",)),
+         {}, ()),
     ]
   routes += [
+      ("I420 resize1920 linear gamma 2.2", "bf16",
+       ("decode", "demosaic", "resize", "yuv420_planar_tone"),
+       dict(resize_width=1920), dict(yuv, tonemap="linear", gamma=2.2), {},
+       ()),
       ("I420 stride 7", "bf16", _MAIN, dict(metering_stride=7), yuv, {},
        ("yuv420_planar",)),
       ("I420 front-fused", "bf16", ("decode", "front_fused",
@@ -897,6 +981,10 @@ def phase_routes(frames):
   for name, sfx, expect, isp_kw, proc_kw, env, extra in routes:
     _, launches = drive_route(frames[:YUV_FRAMES], name, sfx, expect, isp_kw,
                               proc_kw, env, extra)
+    tone = f"yuv420_planar_tone_{sfx}"
+    if tone in launches and launches[tone] != YUV_FRAMES:
+      raise AssertionError(f"{name}: {tone} launched {launches[tone]} times "
+                           f"in {YUV_FRAMES} steps")
     for n, v in launches.items():
       total[n] = total.get(n, 0) + v
   return total
@@ -1147,6 +1235,9 @@ def phase_route_timing(card):
           bare_marginal_ms=low["yuv420", False] - low["rgb", False],
           runs={f"{f} {'checksum' if c else 'bare'}": v
                 for (f, c), v in runs.items()})
+      r["busy_share"], r["ops_per_step"] = profile_step(
+          f"{CLASSES[sfx]} {step} I420", inputs,
+          _step_args(dtype, color_format="yuv420", **kw))
       log(f"timing {CLASSES[sfx]} {step}: I420 {r['step_ms']:.4f} vs RGB "
           f"{r['rgb_step_ms']:.4f} ms/step with the checksum (marginal "
           f"{r['marginal_ms']:+.4f}), {r['bare_step_ms']:.4f} vs "

@@ -23,17 +23,20 @@ image's pixels from x12 through a cached index (``planar_subsample``).
 The resize route runs K2 without the sample, K12<T> to planar
 (N, 3, h', w'), metering on its stride grid, K3<T> on the planar image,
 then the gamma (or the linear tonemap) and the transform in torch, as
-the JAX package leaves them to XLA. The front-fused route (bf16,
-Reinhard, color_adapt 0, no resize, even stride, opt-in through
-``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, the variable the JAX package reads)
-meters from ``demosaic_samples`` first and then runs K7, the stencil and
-the map in one kernel, before K4.
+the JAX package leaves them to XLA; with I420 output one kernel does
+that tail and the conversion (``yuv420_planar_tone``). The front-fused
+route (bf16, Reinhard, color_adapt 0, no resize, even stride, opt-in
+through ``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, the variable the JAX package
+reads) meters from ``demosaic_samples`` first and then runs K7, the
+stencil and the map in one kernel, before K4.
 
 ``color_format="yuv420"`` gives planar I420 ``(Y (N, h', w'), VU (N, 2,
 h'/2, w'/2))`` u8, V then U, as the JAX package computes it: on the phase
 and front-fused routes K4's I420 mode replaces K4 (the u8 RGB is never
-written); the resize and odd-stride routes convert their planar u8 RGB
-with the planar I420 kernel (``ops/hopper/yuv420.py``).
+written); the resize route tones, transforms and converts K3's planar p
+(or the resized image) in one kernel, the planar I420 tonemap form, and
+the odd-stride route converts K4's planar u8 RGB with the planar I420
+kernel (both in ``ops/hopper/yuv420.py``).
 
 Camera16 has the semantics of the JAX package's strict f16 route, which
 its TPU-only q16 route is held to (tests/test_q16.py): phases, x12 and p
@@ -331,15 +334,22 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     rgb = _resize_x12(x12, size, scale, wd, backend=backend)
     new_metrics = metering_update_ca(subsample_hw(rgb, stride, stride),
                                      prev, t)
+    if color_format == "yuv420":
+      # the tonemap, the transform and I420 in one kernel
+      if tonemap == "reinhard":
+        src, scal = reinhard_map_max_ca(rgb, new_metrics, intensity,
+                                        light_adapt, color_adapt, wd,
+                                        backend=backend)
+      else:
+        src, scal = rgb, hopper_finish.linear_scal(new_metrics)
+      return new_metrics, hopper_yuv420.yuv420_planar_tone(
+          src, scal, gamma, tonemap, transform, backend=backend)
     if tonemap == "reinhard":
       out = reinhard_apply_ca(rgb, new_metrics, gamma, intensity,
                               light_adapt, color_adapt, wd, backend=backend)
     else:
       out = linear_apply_ca(rgb, new_metrics, gamma)
-    out = _transform_planar(out, transform).contiguous()
-    if color_format == "yuv420":
-      return new_metrics, yuv420_from_planar_u8(out, backend=backend)
-    return new_metrics, out
+    return new_metrics, _transform_planar(out, transform).contiguous()
 
   if stride % 2 != 0:
     # the samples of an odd stride fall on every phase: gather them from

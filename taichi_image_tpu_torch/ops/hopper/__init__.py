@@ -207,6 +207,11 @@ def reset_launches() -> None:
     k.launches = 0
 
 
+@functools.cache
+def _capability(device: torch.device) -> tuple[int, int]:
+  return torch.cuda.get_device_capability(device)
+
+
 def use_kernel(backend: str, x: torch.Tensor) -> bool:
   """Pick the route for tensor ``x``: the kernel for a CUDA tensor under
   ``backend="auto"``, the plain twin for a CPU tensor. ``"kernel"`` on a
@@ -226,7 +231,7 @@ def use_kernel(backend: str, x: torch.Tensor) -> bool:
         "the kernels launch on CUDA device 0 only; placement on other "
         "devices comes with the multi-GPU work (ROADMAP.md queue 1, "
         "item 11)")
-  major_minor = torch.cuda.get_device_capability(x.device)
+  major_minor = _capability(x.device)
   if major_minor != (9, 0):
     raise RuntimeError(
         f"the Hopper kernels are built for sm_90a; {x.device} has "

@@ -21,10 +21,9 @@
 //
 // Bound: memory, 12 * sizeof(T) bytes read and 12 bytes written per
 // half-res pixel (0.134 ms for 6 x 4K bf16 at 3.35 TB/s), as long as the
-// per-element work stays small: a Reinhard division that leaves its fast
-// path (a zero dividend does, and dark or clipped frames are full of
-// zeros) costs a subroutine call, so a zero divides 1 instead and is kept
-// as it is. Each thread takes kV = 8 consecutive half-res pixels of one
+// per-element work stays small: the Reinhard quotient comes from the
+// per-image reciprocal and two FMAs (finish.cuh tone_u8), with no division
+// and no branch. Each thread takes kV = 8 consecutive half-res pixels of one
 // row of one colour: one or two 16-byte loads from each of its 4 phase
 // planes, the per-image scalar read once, 4 x kV bytes out. Input
 // (y, x) = (2i + pr, 2j + pc) comes from channel pc*6 + pr*3 + c. The grid
@@ -47,106 +46,18 @@
 // the element-by-element loads and byte stores of the same kernel (the
 // launcher picks `vec` from the sizes and pointers).
 //
-// The division is a true IEEE division and the u8 convert truncates
-// toward zero (XLA's f32->u8 convert, camera_isp.py:1106); fmaxf maps a
-// NaN (log2 of a negative p at gamma != 1) to 0.
-#include <cstring>
-
-#include "common.cuh"
+// The quotient is the IEEE one and the u8 convert truncates toward zero
+// (XLA's f32->u8 convert, camera_isp.py:1106); fmaxf maps a NaN (log2 of a
+// negative p at gamma != 1) to 0.
+#include "finish.cuh"
 
 namespace {
 
-constexpr int kV = 8;          // half-res pixels per thread
+using namespace tit;
+
+constexpr int kV = kRun;       // half-res pixels per thread
 constexpr int kSwapRows = 32;  // half-res rows of a swapped tile (a warp)
 constexpr int kSwapRuns = 8;   // column runs of a swapped tile (warps)
-
-struct Finish {
-  int hh, wh, apply_gamma, flip_y, flip_x, vec;
-  float inv_gamma;
-};
-
-// The per-image scalars a run needs: max(1e-6, max_out[b]), or [m0,
-// inv_range].
-struct Scal {
-  float mx, m0, inv_range;
-};
-
-template <bool kLinear>
-__device__ __forceinline__ Scal load_scal(const float* __restrict__ scal,
-                                          int b) {
-  return kLinear ? Scal{0.0f, scal[0], scal[1]}
-                 : Scal{fmaxf(1e-6f, scal[b]), 0.0f, 0.0f};
-}
-
-template <bool kLinear>
-__device__ __forceinline__ unsigned tone_u8(float xv, const Scal& sc,
-                                            const Finish& f) {
-  float s;
-  if (kLinear) {
-    float y = fmaxf((xv - sc.m0) * sc.inv_range, 0.0f);
-    if (f.apply_gamma) y = exp2f(log2f(y) * f.inv_gamma);
-    s = fminf(fmaxf(fminf(fmaxf(y, 0.0f), 1.0f) * 255.0f, 0.0f), 255.0f);
-  } else {
-    // mx >= 1e-6, so a zero p keeps off the division's slow path
-    float o = tit::div_rn_keep_zero(xv, sc.mx);
-    if (f.apply_gamma) o = exp2f(log2f(o) * f.inv_gamma);
-    s = fminf(fmaxf(255.0f * o, 0.0f), 255.0f);
-  }
-  return __float2uint_rz(s);
-}
-
-// One plane's run of kV values of T as loaded (their bits, in 32-bit
-// words), so that a thread can have all its loads in flight before it
-// tones the first: the compiler moves no load above tone_u8's division,
-// which branches.
-template <typename T>
-struct RawRun {
-  static constexpr int kWords = kV * static_cast<int>(sizeof(T)) / 4;
-  unsigned w[kWords];
-};
-
-// The run at p: with `vec` in 16-byte vectors, else element by element up
-// to n elements (the rest 0, the bits of +0 in every T).
-template <typename T>
-__device__ __forceinline__ void load_run(const T* p, bool vec, int n,
-                                         RawRun<T>& r) {
-  constexpr int kPer = 16 / sizeof(T);
-  if (vec) {
-#pragma unroll
-    for (int h = 0; h < kV / kPer; ++h) {
-      tit::Run<T, kPer>::load_words(p + h * kPer, r.w + 4 * h);
-    }
-  } else if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int k = 0; k < kV; ++k) {
-      r.w[k] = k < n ? reinterpret_cast<const unsigned*>(p)[k] : 0u;
-    }
-  } else {
-    const auto* h16 = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-    for (int m = 0; m < RawRun<T>::kWords; ++m) {
-      r.w[m] = (2 * m < n ? h16[2 * m] : 0u) |
-               (2 * m + 1 < n ? static_cast<unsigned>(h16[2 * m + 1]) << 16
-                              : 0u);
-    }
-  }
-}
-
-// tone_u8 of each value of a loaded run.
-template <typename T, bool kLinear>
-__device__ __forceinline__ void tone_run(const RawRun<T>& r, const Scal& sc,
-                                         const Finish& f, unsigned q[kV]) {
-  constexpr int kPer = 16 / sizeof(T);
-  float v[kV];
-#pragma unroll
-  for (int h = 0; h < kV / kPer; ++h) {
-    tit::Run<T, kPer>::unpack(r.w + 4 * h, v + h * kPer);
-  }
-#pragma unroll
-  for (int k = 0; k < kV; ++k) {
-    q[k] = tone_u8<kLinear>(v[k], sc, f);
-  }
-}
 
 // The bytes q[pr][pc][k] of one run of kV pixels; src[pr * 2 + pc] is the
 // run's first element in the plane of input phase (pr, pc). With `vec`
@@ -247,8 +158,10 @@ __global__ void __launch_bounds__(256)
 // shared memory with coalesced 16-byte loads (rows padded by 16 bytes, so
 // the lanes' reads of 32 rows fall in distinct banks); the output tile of
 // 2 * 8 * kV rows x' by 2 * 32 bytes y goes through shared memory too.
+// Five blocks per SM for the 16-bit T (their tone and tile then fit in 48
+// registers); f32 needs more, and spilled when held there.
 template <typename T, bool kLinear>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, sizeof(T) == 2 ? 5 : 1)
     finish_swap_kernel(const T* __restrict__ x,
                        const float* __restrict__ scal,
                        uint8_t* __restrict__ out, Finish f) {
@@ -381,7 +294,7 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
 // (the input phase that the transform puts on each output parity), since
 // the chroma sums over them in that order:
 //   - f32 chains (f16 and f32 input; the cv rows apply to (b, g, r) of
-//     x = u8 / 255, from a per-block table of k / 255 divided in IEEE):
+//     x = u8 / 255, from the wrapper's per-device table of k / 255):
 //     Y = min(1, ((y0 b + y1 g) + y2 r) + off_y); the chroma of the means
 //     (((x_p0 + x_p1) + x_p2) + x_p3) * 0.25 of b, g and r;
 //   - the bf16 dot (bf16 input; the rows are the bf16-rounded (r, g, b)
@@ -393,41 +306,21 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
 //
 // Bound: memory, the 12 * sizeof(T) bytes read per half-res pixel and 6
 // bytes written (4 of Y, 2 of VU): 373.2 MB at 6 x 4K bf16, 0.1114 ms at
-// 3.35 TB/s. Without an axis swap the block is K4's (16, 16) over (runs,
-// rows): each Y row of a run leaves as one 16-byte store and each chroma
+// 3.35 TB/s. Its arithmetic, not those bytes, bounds it (PERF.md section 6:
+// an earlier form reading a tile that stays in L2 took 94% of its time),
+// so the tone takes no division at gamma 1 (finish.cuh tone_u8) and the
+// conversion's bytes no u8 <-> f32 convert. Without an axis swap the block
+// is K4's (16, 16) over (runs, rows): a thread issues the loads of all four
+// output phases of its run (two in f32, for registers) before it tones the
+// first, each Y row of a run leaves as one 16-byte store and each chroma
 // run as one 8-byte store (flip_x reverses the byte pairs, or the bytes,
-// in registers). With a swap it is (32, 8) with a lane per row, so that a
-// warp's Y stores of one output row are 32 adjacent byte pairs and its
-// chroma stores 32 adjacent bytes; the loads are then a lane per row.
-// A thread issues the loads of all four output phases (two in f32, for
-// registers) before it tones the first: loaded phase by phase, each
-// phase's loads waited behind the previous phase's toning, which was
-// slower (PERF.md §6).
-
-// The rows of the conversion (ops/hopper/yuv420.py coefficients).
-struct Yuv {
-  float y[3], u[3], v[3];
-  float off_y, off_u, off_v;
-};
-
-// s / 255 rounded to nearest even, bitwise the quotient of div.rn.f32 for
-// the sums the dot produces (up to the sign of a zero), from f32
-// multiplies and fused multiply-adds only (div.rn.f32 calls a subroutine,
-// whose calls made these kernels spill): q0 = s y with y = RN(1/255), the
-// residual s - 255 q0 exact in one FMA, then q0 + r y.
-// tests/test_torch_yuv420.py holds it to the division on every 97th f32
-// of [2^-20, 1024), both signs, where the dot's sums lie.
-__device__ __forceinline__ float div255(float s) {
-  constexpr float y = 1.0f / 255.0f;
-  const float q0 = s * y;
-  const float r = __fmaf_rn(-q0, 255.0f, s);
-  return __fmaf_rn(r, y, q0);
-}
-
-// trunc(clip(min(1, v) * 255, 0, 255))
-__device__ __forceinline__ unsigned yuv_u8(float v) {
-  return __float2uint_rz(fminf(fmaxf(fminf(v, 1.0f) * 255.0f, 0.0f), 255.0f));
-}
+// in registers). Under an axis swap the launcher runs finish.cuh's I420 tile
+// kernel instead (kDot for bf16, kChains for f16 and f32): its loads are
+// coalesced, where a lane per row of this kernel read half a 32-byte
+// sector per load, and its tile turns the transpose into 4-byte stores.
+// That tile kernel without a swap was slower than this one (PERF.md
+// section 6): the bytes' round trip through shared memory adds to the
+// arithmetic.
 
 __device__ __forceinline__ uint4 reverse_pairs(uint4 v) {
   return make_uint4(__byte_perm(v.w, 0, 0x1032), __byte_perm(v.z, 0, 0x1032),
@@ -468,40 +361,31 @@ __device__ __forceinline__ void store_chroma_run(uint8_t* crow,
 // The runs of output phase pp (parity (pp & 1, pp >> 1)) in its 3 colors:
 // those of the input phase (pr, pc) that the transform puts on that
 // parity, channel pc * 6 + pr * 3 + c.
-template <typename T, bool kSwap>
+template <typename T>
 __device__ __forceinline__ void load_phase(const T* xb, int plane, int pp,
                                            const Finish& f, int n,
                                            RawRun<T> (&r)[3]) {
-  const int opr = pp & 1, opc = pp >> 1;
-  const int ipr = (kSwap ? opc : opr) ^ f.flip_y;
-  const int ipc = (kSwap ? opr : opc) ^ f.flip_x;
+  const int ipr = (pp & 1) ^ f.flip_y, ipc = (pp >> 1) ^ f.flip_x;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     load_run<T>(xb + (ipc * 6 + ipr * 3 + c) * plane, f.vec, n, r[c]);
   }
 }
 
-template <typename T, bool kLinear, bool kSwap>
+template <typename T, bool kLinear>
 __global__ void __launch_bounds__(256)
     finish_yuv420_kernel(const T* __restrict__ x,
                          const float* __restrict__ scal,
+                         const float* __restrict__ inv255g,
                          uint8_t* __restrict__ yp, uint8_t* __restrict__ vu,
                          Finish f, Yuv cv) {
   constexpr bool kDot = std::is_same_v<T, __nv_bfloat16>;
   __shared__ float inv255[256];  // k / 255 (the f32 chains)
-  if constexpr (!kDot) {
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    inv255[tid] = __fdiv_rn(static_cast<float>(tid), 255.0f);
-    __syncthreads();
-  }
   const int b = blockIdx.z;
-  const int i = kSwap ? blockIdx.y * kSwapRows + threadIdx.x
-                      : blockIdx.y * blockDim.y + threadIdx.y;
-  const int j0 = (kSwap ? blockIdx.x * kSwapRuns + threadIdx.y
-                        : blockIdx.x * blockDim.x + threadIdx.x) * kV;
-  if (i >= f.hh || j0 >= f.wh) return;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kV;
+  const bool live = i < f.hh && j0 < f.wh;
   const int n = f.wh - j0;
-  const Scal sc = load_scal<kLinear>(scal, b);
   const int plane = f.hh * f.wh;
   const T* xb = x + static_cast<size_t>(b) * 12 * plane + i * f.wh + j0;
   // Y bytes by output row parity, as that row's 16 bytes: (k, col parity)
@@ -512,10 +396,19 @@ __global__ void __launch_bounds__(256)
   // 16-bit T, two for f32 (48 registers of loads either way)
   constexpr int kRing = sizeof(T) == 4 ? 2 : 4;
   RawRun<T> raw[kRing][3];
+  if (live) {
 #pragma unroll
-  for (int pp = 0; pp < kRing; ++pp) {
-    load_phase<T, kSwap>(xb, plane, pp, f, n, raw[pp]);
+    for (int pp = 0; pp < kRing; ++pp) {
+      load_phase<T>(xb, plane, pp, f, n, raw[pp]);
+    }
   }
+  if constexpr (!kDot) {  // the table arrives while the loads are in flight
+    inv255[threadIdx.y * blockDim.x + threadIdx.x] =
+        inv255g[threadIdx.y * blockDim.x + threadIdx.x];
+    __syncthreads();
+  }
+  if (!live) return;
+  const Scal sc = load_scal<kLinear>(scal, b);
 #pragma unroll
   for (int pp = 0; pp < 4; ++pp) {  // output phase pp: parity (pp & 1, pp >> 1)
     const int opr = pp & 1, opc = pp >> 1;
@@ -525,14 +418,14 @@ __global__ void __launch_bounds__(256)
       tone_run<T, kLinear>(raw[pp % kRing][c], sc, f, q[c]);
     }
     if (pp + kRing < 4) {
-      load_phase<T, kSwap>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
+      load_phase<T>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
     }
 #pragma unroll
     for (int k = 0; k < kV; ++k) {
       if constexpr (kDot) {
-        const float r = static_cast<float>(q[0][k]);
-        const float g = static_cast<float>(q[1][k]);
-        const float bl = static_cast<float>(q[2][k]);
+        const float r = float_small(q[0][k]);
+        const float g = float_small(q[1][k]);
+        const float bl = float_small(q[2][k]);
         const float s = (r * cv.y[0] + g * cv.y[1]) + bl * cv.y[2];
         yw[opr][k >> 1] |= yuv_u8(div255(s) + cv.off_y)
                            << (8 * (2 * (k & 1) + opc));
@@ -570,76 +463,51 @@ __global__ void __launch_bounds__(256)
     vw[k >> 2] |= yuv_u8(v) << (8 * (k & 3));
     uw[k >> 2] |= yuv_u8(u) << (8 * (k & 3));
   }
-  // the output's 2x2 blocks: bh x bw; Y is 2 bh x 2 bw
-  const int bh = kSwap ? f.wh : f.hh, bw = kSwap ? f.hh : f.wh;
+  // the output's 2x2 blocks: hh x wh; Y is 2 hh x 2 wh
+  const int bh = f.hh, bw = f.wh;
   uint8_t* yb = yp + static_cast<size_t>(b) * 4 * bh * bw;
   uint8_t* vb = vu + static_cast<size_t>(b) * 2 * bh * bw;  // U at + bh bw
-  if constexpr (!kSwap) {
-    const int io = f.flip_y ? f.hh - 1 - i : i;  // the output block row
+  const int io = f.flip_y ? f.hh - 1 - i : i;  // the output block row
 #pragma unroll
-    for (int opr = 0; opr < 2; ++opr) {
-      uint8_t* row = yb + (2 * io + opr) * 2 * bw;
-      if (f.vec) {
-        // bytes x = 2 j0 .. 2 j0 + 16 in order; flip_x reverses the pairs,
-        // not the bytes in them
-        const uint4 v =
-            make_uint4(yw[opr][0], yw[opr][1], yw[opr][2], yw[opr][3]);
-        if (f.flip_x) {
-          *reinterpret_cast<uint4*>(row + 2 * (bw - j0 - kV)) =
-              reverse_pairs(v);
-        } else {
-          *reinterpret_cast<uint4*>(row + 2 * j0) = v;
-        }
+  for (int opr = 0; opr < 2; ++opr) {
+    uint8_t* row = yb + (2 * io + opr) * 2 * bw;
+    if (f.vec) {
+      // bytes x = 2 j0 .. 2 j0 + 16 in order; flip_x reverses the pairs,
+      // not the bytes in them
+      const uint4 v =
+          make_uint4(yw[opr][0], yw[opr][1], yw[opr][2], yw[opr][3]);
+      if (f.flip_x) {
+        *reinterpret_cast<uint4*>(row + 2 * (bw - j0 - kV)) =
+            reverse_pairs(v);
       } else {
-#pragma unroll
-        for (int k = 0; k < kV; ++k) {
-          if (k >= n) break;
-          const int jo = f.flip_x ? bw - 1 - (j0 + k) : j0 + k;
-          const unsigned pair = yw[opr][k >> 1] >> (16 * (k & 1));
-          row[2 * jo] = static_cast<uint8_t>(pair);
-          row[2 * jo + 1] = static_cast<uint8_t>(pair >> 8);
-        }
+        *reinterpret_cast<uint4*>(row + 2 * j0) = v;
       }
-    }
-    uint8_t* crow = vb + io * bw;
-    store_chroma_run(crow, vw, f, bw, j0, n);
-    store_chroma_run(crow + bh * bw, uw, f, bw, j0, n);
-  } else {
-    // block (i, j) lands on output block (io, jo) = (j or wh - 1 - j,
-    // i or hh - 1 - i); a warp's lanes write adjacent jo
-    const int jo = f.flip_y ? f.hh - 1 - i : i;
+    } else {
 #pragma unroll
-    for (int k = 0; k < kV; ++k) {
-      if (k >= n) break;
-      const int io = f.flip_x ? bh - 1 - (j0 + k) : j0 + k;
-#pragma unroll
-      for (int opr = 0; opr < 2; ++opr) {
-        *reinterpret_cast<uint16_t*>(yb + (2 * io + opr) * 2 * bw + 2 * jo) =
-            static_cast<uint16_t>(yw[opr][k >> 1] >> (16 * (k & 1)));
+      for (int k = 0; k < kV; ++k) {
+        if (k >= n) break;
+        const int jo = f.flip_x ? bw - 1 - (j0 + k) : j0 + k;
+        const unsigned pair = yw[opr][k >> 1] >> (16 * (k & 1));
+        row[2 * jo] = static_cast<uint8_t>(pair);
+        row[2 * jo + 1] = static_cast<uint8_t>(pair >> 8);
       }
-      vb[io * bw + jo] = static_cast<uint8_t>(byte_of(vw, k));
-      vb[bh * bw + io * bw + jo] = static_cast<uint8_t>(byte_of(uw, k));
     }
   }
+  uint8_t* crow = vb + io * bw;
+  store_chroma_run(crow, vw, f, bw, j0, n);
+  store_chroma_run(crow + bh * bw, uw, f, bw, j0, n);
 }
 
 template <typename T, bool kLinear>
-cudaError_t launch_yuv420_mode(const T* x, const float* scal, uint8_t* y,
-                               uint8_t* vu, int n, const Finish& f,
-                               const Yuv& cv, int swap, cudaStream_t stream) {
-  if (swap) {
-    const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
-                    (f.hh + kSwapRows - 1) / kSwapRows, n);
-    finish_yuv420_kernel<T, kLinear, true>
-        <<<grid, dim3(kSwapRows, kSwapRuns), 0, stream>>>(x, scal, y, vu, f,
-                                                          cv);
-  } else {
-    const dim3 block(16, 16);
-    const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
-                    (f.hh + block.y - 1) / block.y, n);
-    finish_yuv420_kernel<T, kLinear, false>
-        <<<grid, block, 0, stream>>>(x, scal, y, vu, f, cv);
-  }
+cudaError_t launch_yuv420_mode(const T* x, const float* scal,
+                               const float* inv255, uint8_t* y, uint8_t* vu,
+                               int n, const Finish& f, const Yuv& cv,
+                               cudaStream_t stream) {
+  const dim3 block(16, 16);
+  const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
+                  (f.hh + block.y - 1) / block.y, n);
+  finish_yuv420_kernel<T, kLinear>
+      <<<grid, block, 0, stream>>>(x, scal, inv255, y, vu, f, cv);
   return cudaGetLastError();
 }
 
@@ -647,15 +515,16 @@ template <typename T>
 int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
                   int hh, int wh, int linear, int apply_gamma,
                   float inv_gamma, int swap, int flip_y, int flip_x,
-                  const float* coef, cudaStream_t stream) {
+                  const float* coef, const void* inv255,
+                  cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (!tit::image_fits_int32(hh, wh) || n > 65535) {
+  if (!tit::image_fits_int32(hh, wh) || n > 65535 ||
+      (hh + 15) / 16 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // vectors: whole runs along each row (the swapped stores are byte pairs
-  // and bytes at any alignment)
+  // vectors: whole runs along each row
   const int vec = wh % kV == 0 && tit::aligned16(x) && tit::aligned16(y) &&
                   tit::aligned16(vu);
   const Finish f{hh, wh, apply_gamma, flip_y, flip_x, vec, inv_gamma};
@@ -666,10 +535,17 @@ int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
   const auto* s = static_cast<const float*>(scal);
   auto* yo = static_cast<uint8_t*>(y);
   auto* vo = static_cast<uint8_t*>(vu);
+  const auto* tab = static_cast<const float*>(inv255);
+  if (swap) {  // the tile kernel: coalesced loads, the transpose in its tile
+    constexpr I420 kKind = std::is_same_v<T, __nv_bfloat16> ? I420::kDot
+                                                            : I420::kChains;
+    return static_cast<int>(launch_i420_tiles<T, kKind, true>(
+        xin, s, tab, yo, vo, n, f, linear, cv, stream));
+  }
   return static_cast<int>(
-      linear ? launch_yuv420_mode<T, true>(xin, s, yo, vo, n, f, cv, swap,
+      linear ? launch_yuv420_mode<T, true>(xin, s, tab, yo, vo, n, f, cv,
                                            stream)
-             : launch_yuv420_mode<T, false>(xin, s, yo, vo, n, f, cv, swap,
+             : launch_yuv420_mode<T, false>(xin, s, tab, yo, vo, n, f, cv,
                                             stream));
 }
 
@@ -689,8 +565,10 @@ TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
   extern "C" int tit_finish_yuv420_##suffix(                                \
       const void* x, const void* scal, void* y, void* vu, int n, int hh,    \
       int wh, int linear, int apply_gamma, float inv_gamma, int swap,       \
-      int flip_y, int flip_x, const float* coef, cudaStream_t stream) {     \
+      int flip_y, int flip_x, const float* coef, const void* inv255,        \
+      cudaStream_t stream) {                                                \
     return launch_yuv420<T>(x, scal, y, vu, n, hh, wh, linear, apply_gamma, \
-                            inv_gamma, swap, flip_y, flip_x, coef, stream); \
+                            inv_gamma, swap, flip_y, flip_x, coef, inv255,  \
+                            stream);                                        \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)

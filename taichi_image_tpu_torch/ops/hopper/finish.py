@@ -46,7 +46,7 @@ YUV420_KERNELS = hopper.register_per_dtype(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/models/camera_isp.py:1485"))
 
@@ -121,9 +121,14 @@ def finish_yuv420_plain(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   return yuv420.yuv420_from_phases_u8(u8, mxu=x12.dtype == torch.bfloat16)
 
 
-def _check_finish(x12: torch.Tensor, scal: torch.Tensor, mode: str) -> None:
-  if x12.ndim != 4 or x12.shape[1] != 12:
-    raise ValueError(f"finish input must be (N, 12, hh, wh), got "
+def _check_finish(x12: torch.Tensor, scal: torch.Tensor, mode: str,
+                  channels: int = 12) -> None:
+  """The finish's guards on both routes: ``x12``'s layout (12 phase
+  channels, or 3 planar ones), the mode, the dtype and ``scal``'s
+  shape."""
+  if x12.ndim != 4 or x12.shape[1] != channels:
+    layout = "(N, 12, hh, wh)" if channels == 12 else "(N, 3, h, w)"
+    raise ValueError(f"finish input must be {layout}, got "
                      f"{tuple(x12.shape)}")
   if mode not in MODES:
     raise ValueError(f"unknown finish mode {mode!r}; expected one of {MODES}")
@@ -191,10 +196,10 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   y = torch.empty((n, 2 * bh, 2 * bw), dtype=torch.uint8, device=dev)
   vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
   inv_gamma = _inv_gamma(gamma)
-  coef = yuv420.coefficients(x12.dtype == torch.bfloat16)
   YUV420_KERNELS[x12.dtype].launch(
       hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n,
       hh, wh, int(mode == "linear"), int(inv_gamma is not None),
       1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
-      coef.ctypes.data_as(ctypes.c_void_p), hopper.stream_of(dev))
+      yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
+      hopper.ptr(yuv420.inv255_table(dev)), hopper.stream_of(dev))
   return y, vu

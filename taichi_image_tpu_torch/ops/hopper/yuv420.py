@@ -4,8 +4,12 @@ JAX package's two conversions, and the planar kernel (``csrc/yuv420.cu``).
 The JAX package converts in XLA (taichi_image_tpu/models/camera_isp.py):
 
   * ``yuv420_from_planar_u8`` (:1406): planar u8 (N, 3, H, W) -> Y, VU,
-    the matrix per pixel and then the 2x2 block mean. Its kernel is
-    :func:`yuv420_planar`, on the resize and odd-stride routes.
+    the matrix per pixel and then the 2x2 block mean. Its kernels are
+    :func:`yuv420_planar` (u8 in, the odd-stride route) and
+    :func:`yuv420_planar_tone`, which also takes in the resize route's
+    tonemap and transform before it (``reinhard_apply_ca`` or
+    ``linear_apply_ca``, ``_transform_planar``: :1721-1727, :1790-1792) and
+    never writes the u8 RGB.
   * ``yuv420_from_phases_u8`` (:1485): u8 phase-RGB (N, 12, hh, wh) -> Y,
     VU. The block mean is the mean over the four phases, taken before the
     matrix; the bf16 pipeline computes the whole conversion as one bf16
@@ -22,7 +26,8 @@ The sums run in one fixed order that the kernels share, every product and
 sum rounded in f32 (the kernels are built with ``--fmad=false``):
 
   * a matrix row on (b, g, r): ``(m0 b + m1 g) + m2 r``, + the offset;
-  * planar block mean: ``((tl + tr) + bl) + br``, then * 0.25;
+  * planar block mean: ``((tl + tr) + bl) + br`` of the output's block,
+    after the transform, then * 0.25;
   * phase mean (f32 chains): the four phases in the output's phase order
     (after the transform's permutation), sequentially, then * 0.25;
   * the bf16 dot: the channels in ascending order, (r, g, b) within a
@@ -32,7 +37,8 @@ sum rounded in f32 (the kernels are built with ``--fmad=false``):
 
 ``u8 / 255`` and ``sum / 255`` are true divisions on both sides: on a CUDA
 tensor, torch divides by a Python scalar as a multiplication by its
-reciprocal, so the twins divide by a 0-d tensor on the device.
+reciprocal, so the twins divide by a 0-d tensor on the device. The
+kernels read ``u8 / 255`` from :func:`inv255_table`, made once per device.
 """
 
 from __future__ import annotations
@@ -43,18 +49,32 @@ import functools
 import numpy as np
 import torch
 
-from taichi_image_tpu_torch.ops import hopper
+from taichi_image_tpu_torch.ops import hopper, interpolate
+from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
 from taichi_image_tpu_torch.ops.color import _YUV_M, _YUV_OFFSET
+# finish imports this module too; only its functions are used, at call time
+from taichi_image_tpu_torch.ops.hopper import finish
+from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
 __all__ = ["yuv420_w6", "yuv420_from_phases_u8", "yuv420_phases_dot_bf16",
-           "yuv420_planar", "yuv420_planar_plain", "check_even",
-           "coefficients"]
+           "yuv420_planar", "yuv420_planar_plain", "yuv420_planar_tone",
+           "yuv420_planar_tone_plain", "check_even", "coefficients",
+           "coefficients_ptr", "inv255_table"]
 
 KERNEL = hopper.register(
     "yuv420_planar", "yuv420.cu", "tit_yuv420_planar",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p],
     "taichi_image_tpu/models/camera_isp.py:1406")
+TONE_KERNELS = hopper.register_per_dtype(
+    "yuv420_planar_tone", "yuv420.cu", "tit_yuv420_planar_tone",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    dict.fromkeys(hopper.DTYPE_SUFFIX,
+                  "taichi_image_tpu/models/camera_isp.py:1721"))
 
 
 def yuv420_w6() -> np.ndarray:
@@ -95,6 +115,23 @@ def coefficients(dot: bool) -> np.ndarray:
     rows = [_YUV_M[0], _YUV_M[1], _YUV_M[2]]
   return np.ascontiguousarray(np.concatenate([*rows, _YUV_OFFSET]),
                               np.float32)
+
+
+@functools.cache
+def coefficients_ptr(dot: bool) -> ctypes.c_void_p:
+  """:func:`coefficients` as the launchers' pointer, made once (numpy's
+  ``ctypes`` view costs tens of microseconds a call, as long as the
+  planar kernels themselves); the cached array stays alive."""
+  return coefficients(dot).ctypes.data_as(ctypes.c_void_p)
+
+
+@functools.cache
+def inv255_table(device: torch.device) -> torch.Tensor:
+  """(256,) f32 k / 255 on ``device``, each the IEEE quotient: the table
+  the I420 kernels read ``u8 / 255`` from (one per device, so no block
+  divides before its first load)."""
+  return torch.from_numpy(np.arange(256, dtype=np.float32)
+                          / np.float32(255)).to(device)
 
 
 def _div255(x: torch.Tensor) -> torch.Tensor:
@@ -211,6 +248,52 @@ def yuv420_planar(rgb: torch.Tensor, backend: str = "auto"):
   vu = torch.empty((n, 2, h // 2, w // 2), dtype=torch.uint8,
                    device=rgb.device)
   KERNEL.launch(hopper.ptr(rgb), hopper.ptr(y), hopper.ptr(vu), n, h, w,
-                coefficients(False).ctypes.data_as(ctypes.c_void_p),
+                coefficients_ptr(False),
+                hopper.ptr(inv255_table(rgb.device)),
                 hopper.stream_of(rgb.device))
+  return y, vu
+
+
+def yuv420_planar_tone_plain(x: torch.Tensor, scal: torch.Tensor,
+                             gamma: float, mode: str = "reinhard",
+                             transform: ImageTransform = ImageTransform.none):
+  """Plain PyTorch twin of the tonemap form: the finish's u8 of the
+  planar ``x``, the transform, then :func:`yuv420_planar_plain`."""
+  u8 = interpolate.transform_axes(finish._tone_u8(x, scal, gamma, mode),
+                                  transform, 2, 3)
+  return yuv420_planar_plain(u8.contiguous())
+
+
+def yuv420_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
+                       mode: str = "reinhard",
+                       transform: ImageTransform = ImageTransform.none,
+                       backend: str = "auto"):
+  """The resize route's I420 tail in one pass: untransformed planar
+  (N, 3, h, w) of the working dtype (bf16, f16 or f32), h and w even ->
+  planar I420 u8 ``(Y (N, h', w'), VU (N, 2, h'/2, w'/2))`` of the
+  transformed image, V then U; bitwise equal to the plain twin.
+
+  ``mode="reinhard"``: ``x`` is K3's p and ``scal`` its per-image f32 max
+  (N, 1, 1, 1). ``mode="linear"``: ``x`` is the image and ``scal`` is
+  ``finish.linear_scal`` of the metrics."""
+  finish._check_finish(x, scal, mode, channels=3)
+  n, _, h, w = x.shape
+  check_even(h, w)
+  if not hopper.use_kernel(backend, x):
+    return yuv420_planar_tone_plain(x, scal, gamma, mode, transform)
+  hopper.check_tensor("x", x, x.dtype, 4, x.device)
+  hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x.device)
+  hopper.check_int32_extent(f"a {h}x{w} planar image", 3 * h * w)
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  ho, wo = (w, h) if swap else (h, w)
+  dev = x.device
+  y = torch.empty((n, ho, wo), dtype=torch.uint8, device=dev)
+  vu = torch.empty((n, 2, ho // 2, wo // 2), dtype=torch.uint8, device=dev)
+  inv_gamma = finish._inv_gamma(gamma)
+  TONE_KERNELS[x.dtype].launch(
+      hopper.ptr(x), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n, h,
+      w, int(mode == "linear"), int(inv_gamma is not None),
+      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
+      coefficients_ptr(False),
+      hopper.ptr(inv255_table(dev)), hopper.stream_of(dev))
   return y, vu

@@ -9,6 +9,8 @@ crosses a u8 truncation boundary the outputs differ by one count
 <0.01% of pixels. On the card the kernel and its twin use the same
 CUDA log2f/exp2f and are held bitwise at every gamma."""
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -107,3 +109,75 @@ def test_interleave_is_exact_movement():
       for pc in range(2):
         want = np.uint8(255.0 * ((pc * 6 + pr * 3 + c) + 1) / 16.0)
         assert (got[0, c, pr::2, pc::2] == want).all(), (c, pr, pc)
+
+
+
+
+def _tone_quotient(p, mx):
+  """csrc/finish.cuh tone_u8's Reinhard quotient at gamma 1 in numpy:
+  q0 = p RN(1/mx), r = fma(-q0, mx, p), o = fma(r, RN(1/mx), q0), or q0
+  itself where it is infinite or NaN. Returns (o, whether the claim of
+  exactness covers it: 2^-64 <= |q0| <= FLT_MAX). The FMAs are emulated
+  exactly: r's product and sum are exact in f64 there, and the last sum is
+  rounded from a long double, or from its exact value where the long
+  double lands on an f32 midpoint."""
+  f32 = np.float32
+  rmx = f32(1) / mx
+  with np.errstate(all="ignore"):
+    q0 = p * rmx
+    exact = (np.abs(q0) >= f32(2.0 ** -64)) & (np.abs(q0)
+                                              <= np.finfo(f32).max)
+    r = (p.astype(np.float64) - q0.astype(np.float64) * np.float64(mx)).astype(
+        f32)
+    s = q0.astype(np.longdouble) + (r.astype(np.longdouble)
+                                    * np.longdouble(rmx))
+    o = s.astype(f32)
+    for i in np.nonzero(exact)[0]:
+      lo, hi = sorted((o[i], np.nextafter(o[i], f32(np.inf) if s[i] > o[i]
+                                          else f32(-np.inf))))
+      if s[i] == (np.longdouble(lo) + np.longdouble(hi)) / 2:
+        ex = Fraction(float(q0[i])) + Fraction(float(r[i])) * Fraction(
+            float(rmx))
+        mid = (Fraction(float(lo)) + Fraction(float(hi))) / 2
+        o[i] = lo if ex < mid or (ex == mid and not lo.view(
+            np.uint32) & 1) else hi
+    finite = np.abs(q0) <= np.finfo(f32).max
+    return np.where(finite, o, q0), exact
+
+
+def _u8(o):
+  with np.errstate(all="ignore"):
+    s = np.clip(np.float32(255) * o, 0, 255)
+  return np.nan_to_num(s, nan=0.0).astype(np.uint8)
+
+
+@pytest.mark.parametrize("mx", [1e-6, 0.37, 0.999, 1.0, 1.13, 3.0, 97.5])
+def test_tone_quotient_is_the_division(mx):
+  """The kernel's Reinhard tone at gamma 1 takes no division: its
+  quotient is the IEEE one bit for bit wherever 2^-64 <= |q0|, and its
+  byte is the division's everywhere: p at random in [0, 1.3 mx) and over
+  10^-45 .. 10^38, on every truncation boundary k mx / 255 and 16 ulps
+  either side of it, zeros of both signs, subnormals, negatives, inf and
+  NaN."""
+  f32 = np.float32
+  mx = f32(mx)
+  rng = np.random.default_rng(7)
+  rand = (rng.random(100_000) * 1.3 * mx).astype(f32)
+  wide = (10.0 ** rng.uniform(-45, 38, 50_000)).astype(f32)
+  edge = (np.arange(256, dtype=f32) * mx / f32(255)).astype(f32)
+  near = [edge]
+  for d in (np.inf, -np.inf):
+    v = edge
+    for _ in range(16):
+      v = np.nextafter(v, f32(d))
+      near.append(v)
+  special = np.array([0.0, -0.0, 1e-45, 1e-40, -1e-40, 1e-30, -0.5, -3.0,
+                      1e30, 3e38, np.inf, -np.inf, np.nan], f32)
+  p = np.concatenate([rand, wide, -wide[:1000], *near, special]).astype(f32)
+  got, exact = _tone_quotient(p, mx)
+  with np.errstate(all="ignore"):
+    want = p / mx
+  np.testing.assert_array_equal(got[exact].view(np.uint32),
+                                want[exact].view(np.uint32))
+  assert exact[:rand.size].mean() > 0.99
+  np.testing.assert_array_equal(_u8(got), _u8(want))

@@ -24,6 +24,7 @@ from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import resize as th_rs  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import yuv420 as th_yuv  # noqa: E402
 from taichi_image_tpu_torch.utils.debug import validate_raw  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -61,7 +62,7 @@ def test_import_pulls_in_no_jax():
 
 
 STAGES = ["decode", "demosaic", "reinhard", "finish", "resize",
-          "finish_yuv420"]
+          "finish_yuv420", "yuv420_planar_tone"]
 # one instantiation each, no X-macro
 _SINGLE = {"front_fused_bf16", "yuv420_planar"}
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
@@ -69,6 +70,8 @@ DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 _XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
                "resize_f32": "1315", "yuv420_planar": "1406",
                **{f"finish_yuv420_{sfx}": "1485"
+                  for sfx in ("bf16", "f16", "f32")},
+               **{f"yuv420_planar_tone_{sfx}": "1721"
                   for sfx in ("bf16", "f16", "f32")}}
 
 
@@ -114,6 +117,8 @@ def _kernel_calls(dtype):
                                                 1.0, backend="kernel"),
       "finish_yuv420": lambda: th_fin.finish_yuv420(
           x12, torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
+      "yuv420_planar_tone": lambda: th_yuv.yuv420_planar_tone(
+          x12[:, :3], torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
       "resize": lambda: th_rs.resize_x12(
           x12, th_rs.resize_taps(4, 6, (6, 4), (0.5, 0.5),
                                  torch.device("cpu")), backend="kernel"),

@@ -292,6 +292,123 @@ def test_planar_emulation_bitwise(hw):
   np.testing.assert_array_equal(vut.numpy(), vue)
 
 
+# ---------------------------------- the planar I420 tonemap form's twin
+
+def _planar(dtype, seed, h=12, w=22, hi=1.2):
+  """Planar (2, 3, h, w) of ``dtype`` (JAX, torch) with zeros, and metrics
+  of it (the port's metering, which the route tests hold to JAX's)."""
+  x = np.random.default_rng(seed).random((2, 3, h, w), np.float32) * hi
+  x.ravel()[::13] = 0.0
+  j = jnp.asarray(x, JDT[dtype])
+  t = _to_torch(j)
+  m = tci.metering_update_ca(t, torch.zeros(9), 0.0)
+  return j, t, m
+
+
+@pytest.mark.parametrize("t", TRANSFORMS, ids=T_IDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_planar_tone_twin_matches_jax(dtype, t):
+  """The tonemap form's twin (after the port's map for Reinhard) against
+  JAX's resize-route tail: reinhard_apply_ca or linear_apply_ca,
+  _transform_planar, yuv420_from_planar_u8."""
+  wd = DTYPES[dtype]
+  j, x, m = _planar(wd, 40)
+  jt = jtit.ImageTransform(t.value)
+  mj = jnp.asarray(m.numpy())
+  for mode in ("reinhard", "linear"):
+    for gamma in (1.0, 2.2):
+      if mode == "reinhard":
+        u8 = jci.reinhard_apply_ca(j, mj, gamma, 1.0, 1.0, 0.0, JDT[wd])
+        src, scal = tci.reinhard_map_max_ca(x, m, 1.0, 1.0, 0.0, wd)
+      else:
+        u8 = jci.linear_apply_ca(j, mj, gamma)
+        src, scal = x, th_fin.linear_scal(m)
+      yj, vuj = jci.yuv420_from_planar_u8(jci._transform_planar(u8, jt))
+      yt, vut = th_yuv.yuv420_planar_tone(src, scal, gamma, mode, t)
+      _within_one(yt.numpy(), yj)
+      _within_one(vut.numpy(), vuj)
+
+
+def _emulate_planar_tone(x, scal, gamma, mode, t):
+  """csrc/finish.cuh's kPlanar tile in numpy: K4's tone (held bitwise to
+  K4 by tests/test_torch_finish.py) of the untransformed image; for each
+  input 2x2 block, the output block (io, jo) the transform puts it on and,
+  for each output pixel tl, tr, bl, br in that order, the input parity the
+  kernel reads; per pixel the rows of ``coefficients`` on x from the table
+  of k / 255, the block's U and V summed ((tl + tr) + bl) + br."""
+  u8 = th_fin._tone_u8(x, scal, gamma, mode).numpy()
+  n, _, h, w = u8.shape
+  hh, wh = h // 2, w // 2
+  swap, fy, fx = _TRANSFORM_SFF[t]
+  c = th_yuv.coefficients(False)
+  bh, bw = (wh, hh) if swap else (hh, wh)
+  y_img = np.full((n, 2 * bh, 2 * bw), 7, np.uint8)
+  vu_img = np.full((n, 2, bh, bw), 7, np.uint8)
+  i = np.arange(hh)[:, None] + np.zeros((1, wh), int)
+  j = np.arange(wh)[None, :] + np.zeros((hh, 1), int)
+  ib = hh - 1 - i if fy else i
+  jb = wh - 1 - j if fx else j
+  io, jo = (jb, ib) if swap else (ib, jb)
+
+  def row(m, off, xb, xg, xr):
+    return ((m[0] * xb + m[1] * xg) + m[2] * xr) + off
+
+  sv = su = None
+  for pp in range(4):
+    opr, opc = pp >> 1, pp & 1
+    ipr = (opc if swap else opr) ^ int(fy)
+    ipc = (opr if swap else opc) ^ int(fx)
+    xr, xg, xb = (INV255[u8[:, k, 2 * i + ipr, 2 * j + ipc]]
+                  for k in range(3))
+    y_img[:, 2 * io + opr, 2 * jo + opc] = _u8_of(row(c[0:3], c[9], xb, xg,
+                                                      xr))
+    v = row(c[6:9], c[11], xb, xg, xr)
+    u = row(c[3:6], c[10], xb, xg, xr)
+    sv = v if pp == 0 else sv + v
+    su = u if pp == 0 else su + u
+  vu_img[:, 0, io, jo] = _u8_of(sv * np.float32(0.25))
+  vu_img[:, 1, io, jo] = _u8_of(su * np.float32(0.25))
+  return y_img, vu_img
+
+
+@pytest.mark.parametrize("t", TRANSFORMS, ids=T_IDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_planar_tone_emulation_bitwise(dtype, t):
+  wd = DTYPES[dtype]
+  for h, w in ((10, 22), (8, 32)):  # odd and even block counts
+    _, x, m = _planar(wd, h, h, w, hi=1.6)
+    for mode, scal in (("reinhard", torch.from_numpy(_scal("reinhard"))),
+                       ("linear", th_fin.linear_scal(m))):
+      for gamma in (1.0, 2.2):
+        ye, vue = _emulate_planar_tone(x, scal, gamma, mode, t)
+        yt, vut = th_yuv.yuv420_planar_tone_plain(x, scal, gamma, mode, t)
+        np.testing.assert_array_equal(yt.numpy(), ye)
+        np.testing.assert_array_equal(vut.numpy(), vue)
+
+
+def test_planar_tone_wrapper_refuses_bad_input():
+  x = torch.zeros(1, 3, 4, 6)
+  one = torch.ones(1, 1, 1, 1)
+  with pytest.raises(ValueError, match=r"\(N, 3, h, w\)"):
+    th_yuv.yuv420_planar_tone(torch.zeros(1, 12, 4, 6), one, 1.0)
+  with pytest.raises(ValueError, match="even output dims"):
+    th_yuv.yuv420_planar_tone(torch.zeros(1, 3, 4, 5), one, 1.0)
+  with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+    th_yuv.yuv420_planar_tone(x.double(), one, 1.0)
+  with pytest.raises(ValueError, match=r"\[m0, inv_range\]"):
+    th_yuv.yuv420_planar_tone(x, one, 1.0, "linear")
+  with pytest.raises(ValueError, match="CUDA"):
+    th_yuv.yuv420_planar_tone(x, one, 1.0, backend="kernel")
+
+
+def test_inv255_table_is_the_ieee_quotient():
+  tab = th_yuv.inv255_table(torch.device("cpu"))
+  assert tab.dtype == torch.float32 and tuple(tab.shape) == (256,)
+  np.testing.assert_array_equal(tab.numpy().view(np.uint32),
+                                INV255.view(np.uint32))
+  assert th_yuv.inv255_table(torch.device("cpu")) is tab
+
+
 def test_coefficients_are_the_matrices():
   chains = th_yuv.coefficients(False)
   np.testing.assert_array_equal(chains[:9].reshape(3, 3), jcolor._YUV_M)
@@ -342,6 +459,9 @@ ROUTES = {
     "resize_width": dict(plan=((64, 16), 0.5)),
     "stride7": dict(stride=7),
     "linear": dict(tonemap="linear", gamma=2.2),
+    "resize_rotate_90": dict(plan=((64, 16), 0.5),
+                             transform=ImageTransform.rotate_90),
+    "resize_linear": dict(plan=((64, 16), 0.5), tonemap="linear", gamma=2.2),
 }
 
 
@@ -356,6 +476,28 @@ def test_yuv420_routes_match_jax(cls, route):
   y, vu = outs[0]
   assert tuple(y.shape) == (N_CAM, h, w)
   assert tuple(vu.shape) == (N_CAM, 2, h // 2, w // 2)
+
+
+@pytest.mark.parametrize("tonemap", ["reinhard", "linear"])
+@pytest.mark.parametrize("cls", CLASSES)
+def test_resize_yuv420_route_runs_the_tone_form(cls, tonemap, monkeypatch):
+  """The resize route's I420 output is one call of the tonemap form on
+  K3's p (or the resized image): no gamma or linear u8, no transform copy
+  and no u8 conversion before it."""
+  calls = []
+  real = th_yuv.yuv420_planar_tone
+  monkeypatch.setattr(th_yuv, "yuv420_planar_tone",
+                      lambda *a, **k: calls.append(a[3]) or real(*a, **k))
+  for name in ("reinhard_apply_ca", "linear_apply_ca", "_transform_planar",
+               "yuv420_from_planar_u8"):
+    monkeypatch.setattr(tci, name, lambda *a, name=name, **k: pytest.fail(
+        f"{name} ran on the resize I420 route"))
+  isp = CLASSES[cls][1](ttit.BayerPattern.RGGB, resize_width=64,
+                        transform=ImageTransform.rotate_270, device="cpu")
+  y, vu = isp.process(_raws(440), tonemap=tonemap, color_format="yuv420")
+  assert calls == [tonemap]
+  assert tuple(y.shape) == (N_CAM, 64, 16)
+  assert tuple(vu.shape) == (N_CAM, 2, 32, 8)
 
 
 def test_yuv420_front_fused_route_matches_jax(monkeypatch):
