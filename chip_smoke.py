@@ -9,10 +9,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device   CUDA available, capability (9, 0); the card's name and power
             limit as nvidia-smi reports them.
-2. build    nvcc builds the seven kernel sources (csrc/*.cu, one process
+2. build    nvcc builds the eight kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4, K4's I420 mode,
-            K12 and the planar I420 tonemap form for bf16, f16 and f32, the
-            bf16 front-fused K7 and the u8 planar I420 conversion (23
+            K12 and the planar I420 tonemap form for bf16, f16 and f32,
+            the CFA split from u16, f16, f32 and packed16 bytes (K1's
+            packed16 mode) to each,
+            the bf16 front-fused K7 and the u8 planar I420 conversion (35
             kernels); each source's register range and spill bytes from
             ptxas (every source must show 0 spill bytes), and the registers
             of each I420 kernel instantiation; the SASS instructions of
@@ -47,7 +49,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
             form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), and each
             time's bound (logical bytes over 3.35 TB/s, or f32
             operations over 67 TFLOP/s, the larger; a resize counts
-            only the x12 its taps touch) and share of it.
+            only the x12 its taps touch) and share of it. Then K1's
+            packed16 mode and the CFA split (each instantiation) against
+            their twins, bitwise, at the same four frames (packed16 also
+            from an odd address), and timed at 6x4K against their bounds;
+            the f16 and f32 splits beside one torch copy_ of the
+            phase-ordered view (their library call).
 4. slice    for each class, CameraBF16, Camera16 and Camera32
             (RGGB, device="cuda").process over 5 frames of 6 x 4K with
             the EMA carried over, compared frame by frame with the
@@ -65,7 +72,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
             resize_width=1920 with rotate_90 of each class (the tonemap
             form once a step, no u8 conversion), resize_width=1920 with
             the linear tonemap at gamma 2.2, stride 7 and front-fused, each
-            output (Y, VU) against the plain route's.
+            output (Y, VU) against the plain route's. Then the raw
+            formats and the per-image API: each class with packed16, u16,
+            f16 and f32 raws (5 frames at 6x4K) and with a tiny 2 x 6-pixel
+            frame (the demosaic's denominator route in torch, K1, K3 and K4
+            on one-row planes) against the all-plain route; the lazy list
+            path (6 x load_packed12 -> tonemap_reinhard) of each class
+            bitwise process on a fresh ISP; a mixed staged list (load_16u,
+            one handle forced, update_metering, tonemap_linear) against
+            the plain route's two steps; process_stream bitwise process
+            frame by frame; resize_image of a loaded image bitwise the
+            plain stages; on CameraBF16, f32 (H, W, 3) images through
+            tonemap_reinhard and tonemap_only (K3<f32>, then one cast)
+            against the plain map, and a Camera32 phase handle through
+            resize_image (K12<f32>, then one cast) bitwise the plain
+            resize.
+   host     the module-level entry points given numpy arrays run on the
+            card by default: bayer_to_rgb of a 4K CFA launches K2<f32>
+            (within 1 count of the CPU's plain route on a crop);
+            rgb_to_bayer, kernel.conv, the packed codecs and PackedMono12
+            bitwise their CPU results.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -80,7 +106,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             checksum; the I420 marginal of the 6x4K and resize->1920
             steps of each class (RGB and I420 steps in turns, RGB, I420,
             I420, RGB), and the profile of each I420 step (busy share,
-            device operations per step).
+            device operations per step). Then each class's 6x4K step with
+            packed16, u16 and f32 raws beside packed12, and the lazy list
+            path's step against process (CameraBF16, in turns), both
+            under the sync-debug "error" mode.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -169,7 +198,7 @@ def phase_device():
 
 # sources redesigned for the card, which must build without spills
 NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "front_fused.cu",
-             "reinhard.cu", "resize.cu", "yuv420.cu")
+             "reinhard.cu", "resize.cu", "split.cu", "yuv420.cu")
 # K3's and K1's instantiations in a mangled name: the kernel, T, then two
 # bools (K3: color_adapt, vector path; K1: vector path, IDS layout)
 _KERNEL_ARGS = re.compile(r"(map_kernel|decode12_kernel)I(13__nv_bfloat16|"
@@ -398,25 +427,34 @@ def _nbytes(*tensors) -> int:
   return total
 
 
-def _time(results, name, call, inputs, ops=0, shape_note="6x4K"):
-  """Kernel and twin times, in turns plain, kernel, kernel, plain; the
-  lower median of each side. The bound is the larger of the logical
-  bytes (``inputs`` read once, the kernel's outputs written once) over
-  the memory rate and ``ops`` f32 operations over the f32 rate."""
+def _time(results, name, call, inputs, ops=0, shape_note="6x4K",
+          library=None):
+  """Kernel and twin times, in turns plain, kernel, kernel, plain (with
+  ``library``, one PyTorch call computing the same function: plain,
+  kernel, library, library, kernel, plain); the lower median of each
+  side. The bound is the larger of the logical bytes (``inputs`` read
+  once, the kernel's outputs written once) over the memory rate and
+  ``ops`` f32 operations over the f32 rate."""
   nbytes = _nbytes(inputs, call("kernel"))
-  t = [median_ms(lambda: call(b)) for b in
-       ("plain", "kernel", "kernel", "plain")]
+  order = (("plain", "kernel", "library", "library", "kernel", "plain")
+           if library else ("plain", "kernel", "kernel", "plain"))
+  t = {}
+  for b in order:
+    fn = library if b == "library" else (lambda b=b: call(b))
+    t.setdefault(b, []).append(median_ms(fn))
   by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
   r = results[name] = dict(
-      ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]), bytes=nbytes, ops=ops,
+      ms=min(t["kernel"]), plain_ms=min(t["plain"]), bytes=nbytes, ops=ops,
       bound_ms=max(by_bytes, by_ops),
       bound_by="bytes" if by_bytes >= by_ops else "operations",
-      library_ms=None)
+      library_ms=min(t["library"]) if library else None)
   r["share"] = r["bound_ms"] / r["ms"]
-  log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
-      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, "
-      f"{ops} f32 ops), {r['share']:.1%} of it ({shape_note}, median of 7 "
-      "batches of 10)")
+  lib = ("" if library is None
+         else f", library call {r['library_ms']:.4f} ms")
+  log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+      f"{lib}; bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} "
+      f"bytes, {ops} f32 ops), {r['share']:.1%} of it ({shape_note}, median "
+      "of 7 batches of 10)")
 
 
 RESIZE_SCALES = (0.5, 0.37, 1.5, 0.25)
@@ -466,7 +504,8 @@ def phase_kernels(results):
   ccm = tuple((default_cc * [1.8, 1.0, 2.1]).astype("float32").ravel()
               .tolist())
   weights = _demosaic_tables(BayerPattern.RGGB, "mhc")
-  err = {name: 0.0 for name in hopper.KERNELS}
+  err = {name: 0.0 for name in hopper.KERNELS
+         if name not in format_kernels()}
 
   def note(name, a, b):
     err[name] = max(err[name], (a.float() - b.float()).abs().max().item())
@@ -773,15 +812,135 @@ def phase_kernels(results):
   torch.cuda.synchronize()
 
 
+def format_kernels():
+  """{name: (format, source dtype or None, T)} of the decodes of the raw
+  formats other than packed12: K1's packed16 mode and the CFA split."""
+  from taichi_image_tpu_torch.ops.hopper import decode
+  out = {k.name: ("packed16", None, t)
+         for t, k in decode.DECODE16_KERNELS.items()}
+  for (src, t), k in decode.SPLIT_KERNELS.items():
+    out[k.name] = (decode.SPLIT_SOURCES[src], src, t)
+  return out
+
+
+def format_raws(fmt, shape, gen, wide=True):
+  """A raw batch of ``fmt`` holding the frame of a packed12 batch shape
+  (N, H, 1.5W): packed16 bytes (N, H, 2W), or a u16, f16 or f32 CFA
+  (N, H, W). u16 spans every code (every 11th a zero); the floats take,
+  with ``wide`` (the kernel checks), random signs and exponents from
+  2^-30 (f16 subnormals and zeros) to 2^17 (past f16's range, so its
+  casts overflow to inf), else (the routes) values in [0, 1)."""
+  import torch
+  dev = torch.device("cuda")
+  b, h, wb = shape
+  w = wb * 2 // 3
+  if fmt == "packed16":
+    return torch.randint(0, 256, (b, h, 2 * w), generator=gen, device=dev,
+                         dtype=torch.uint8)
+  if fmt == "u16":
+    x = torch.randint(-32768, 32768, (b, h, w), generator=gen, device=dev,
+                      dtype=torch.int16)
+    x.view(-1)[::11] = 0
+    return x.view(torch.uint16)
+  if wide:
+    x = torch.randn((b, h, w), generator=gen, device=dev) * torch.exp2(
+        torch.randint(-30, 18, (b, h, w), generator=gen,
+                      device=dev).float())
+  else:
+    x = torch.rand((b, h, w), generator=gen, device=dev)
+  return x.to(torch.float16 if fmt == "f16" else torch.float32)
+
+
+def _split_copy(cfa, dtype):
+  """One torch call for the split of a float CFA: ``copy_`` of the
+  (N, row parity, column parity, H/2, W/2) view into T, with its cast."""
+  import torch
+  n, h, w = cfa.shape
+  out = torch.empty((n, 2, 2, h // 2, w // 2), dtype=dtype, device=cfa.device)
+  out.copy_(cfa.view(n, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3))
+  return out.view(n, 4, h // 2, w // 2)
+
+
+def _same_bits(k, p) -> bool:
+  """Bitwise, on the integer view (-0 and +0, and every NaN, apart)."""
+  import torch
+  it = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[k.element_size()]
+  return k.shape == p.shape and torch.equal(k.view(it), p.view(it))
+
+
+def _check_bits(what, k, p):
+  if not _same_bits(k, p):
+    raise AssertionError(f"{what}: not bitwise")
+
+
+def phase_format_kernels(results):
+  """K1's packed16 mode and the CFA split against their plain twins on
+  the card, bitwise, at the 6x4K frame and the ODD, RAGGED and CUT
+  frames (the same pixels as phase_kernels' packed12 shapes), each
+  instantiation; timed at 6x4K against its bound, the float splits
+  beside their library call (one ``copy_``). packed16 bytes that start on
+  an odd address (the wrapper's aligned copy) at the ODD frame. Fills
+  ``results``."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import decode
+
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  kernels = format_kernels()
+  err = dict.fromkeys(kernels, 0.0)
+  lib_same = {}
+  for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
+    tag = "x".join(map(str, shape))
+    raws = {fmt: format_raws(fmt, shape, gen)
+            for fmt in ("packed16", "u16", "f16", "f32")}
+    for name, (fmt, src, t) in kernels.items():
+      def call(b, fmt=fmt, t=t):
+        if fmt == "packed16":
+          return decode.decode16_phases(raws[fmt], t, backend=b)
+        return decode.split_phases(raws[fmt], t, backend=b)
+      k, p = call("kernel"), call("plain")
+      _check_bits(f"{name} {tag}", k, p)
+      d = (k.float() - p.float()).abs()
+      err[name] = max(err[name], d.nan_to_num(0.0).max().item())
+      # a float CFA's split is one strided copy with a cast: torch's copy_
+      # of the phase-ordered view computes the same function
+      library = (None if fmt in ("packed16", "u16") else
+                 lambda fmt=fmt, t=t: _split_copy(raws[fmt], t))
+      if library is not None:
+        lib_same[name] = (lib_same.get(name, True)
+                          and _same_bits(library(), k))
+      if shape == (N_CAM, H, WB):
+        # per half-res pixel: 4 conversions (and the u16's division) and,
+        # for packed16, 4 assemblies
+        ops = (8 if fmt == "packed16" else 4) * N_CAM * (H // 2) * (W // 2)
+        _time(results, name, call, [raws[fmt]], ops, library=library)
+    if shape == ODD:
+      src = raws["packed16"]
+      odd = torch.empty(src.numel() + 1, dtype=torch.uint8,
+                        device=src.device)[1:].view(src.shape)
+      odd.copy_(src)
+      for t in decode.DECODE16_KERNELS:
+        _check_bits(f"decode16 {t} odd address",
+                    decode.decode16_phases(odd, t, backend="kernel"),
+                    decode.decode16_phases(odd, t, backend="plain"))
+    log(f"kernels {tag}: decode16 (3 dtypes) and split (9 instantiations) "
+        f"agree bitwise with their plain twins")
+  log(f"kernels: the float splits' library call (copy_) bitwise the "
+      f"kernel at every frame: {lib_same}")
+  for name in kernels:
+    results[name]["max_abs_err"] = err[name]
+  torch.cuda.synchronize()
+
+
 def _step_args(dtype, plan=None, stride=8, transform=None,
-               tonemap="reinhard", gamma=1.0, color_format="rgb"):
+               tonemap="reinhard", gamma=1.0, color_format="rgb",
+               fmt="packed12"):
   """fused_isp_step's static arguments after prev, t: gamma, intensity,
   light_adapt, color_adapt, fmt, ids_format, work_dtype, pattern, cc,
   resize_plan, stride, transform, tonemap, color_format (the main path's
   by default)."""
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
-  return (gamma, 1.0, 1.0, 0.0, "packed12", False, dtype, BayerPattern.RGGB,
+  return (gamma, 1.0, 1.0, 0.0, fmt, False, dtype, BayerPattern.RGGB,
           None, plan, stride, transform or ImageTransform.none, tonemap,
           color_format)
 
@@ -822,11 +981,14 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
   import torch
   import taichi_image_tpu_torch as ttit
   from taichi_image_tpu_torch import BayerPattern
-  from taichi_image_tpu_torch.models.camera_isp import fused_isp_step
+  from taichi_image_tpu_torch.models.camera_isp import (decoded_width,
+                                                        fused_isp_step)
   from taichi_image_tpu_torch.ops import hopper
 
   isp_kw, proc_kw = isp_kw or {}, proc_kw or {}
   cls = getattr(ttit, CLASSES[sfx])
+  fmt = proc_kw.get("fmt", "packed12")
+  n, h, w_raw = frames[0].shape
   dev = torch.device("cuda")
   isp = cls(BayerPattern.RGGB, device="cuda", **isp_kw)
   with _env(env):
@@ -844,16 +1006,15 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
         or any(v for n, v in launches.items() if n not in own)):
       raise AssertionError(f"{name} {cls.__name__} did not run through "
                            f"{sorted(own)} alone: {launches}")
-    plan = isp._resize_plan(H, W)
+    plan = isp._resize_plan(h, decoded_width(fmt, w_raw))
     color_format = proc_kw.get("color_format", "rgb")
     args = _step_args(cls._work_dtype, plan, isp.metering_stride,
                       isp.transform, proc_kw.get("tonemap", "reinhard"),
-                      proc_kw.get("gamma", 1.0), color_format)
+                      proc_kw.get("gamma", 1.0), color_format, fmt)
     worst = [0.0, 0, 0.0]
     for f, raws in enumerate(frames):
       outs_f, m = _outputs(outs[f]), metrics[f]
-      lead = ((N_CAM,), (N_CAM, 2)) if color_format == "yuv420" else (
-          (N_CAM, 3),)
+      lead = ((n,), (n, 2)) if color_format == "yuv420" else ((n, 3),)
       for out, head in zip(outs_f, lead, strict=True):
         if (out.dtype != torch.uint8 or out.ndim != len(head) + 2
             or out.shape[:len(head)] != head):
@@ -990,14 +1151,264 @@ def phase_routes(frames):
   return total
 
 
-def _inputs():
-  """K raw batches at 6x4K, a distinct XOR byte per chained step, made
-  before the clock starts."""
+_DECODE_STAGE = {"packed16": "decode16", "u16": "split_u16",
+                 "f16": "split_f16", "f32": "split_f32"}
+
+
+def _add(total, launches):
+  for n, v in launches.items():
+    total[n] = total.get(n, 0) + v
+
+
+def phase_format_routes(frames):
+  """The raw formats and the per-image API on the card, each against the
+  all-plain route (or, for the lazy list path and process_stream,
+  ``process`` on a fresh ISP, bitwise), with the launch counts set to 0
+  just before and read just after each; returns their launch counts."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import BayerPattern
+  from taichi_image_tpu_torch.models import camera_isp as ci
+  from taichi_image_tpu_torch.ops import hopper
+
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  total = {}
+  # each class x each format through process, 5 frames at 6x4K
+  for fmt, stage in _DECODE_STAGE.items():
+    fframes = [format_raws(fmt, (N_CAM, H, WB), gen, wide=False)
+               for _ in range(FRAMES)]
+    for sfx in CLASSES:
+      _, launches = drive_route(fframes, f"format {fmt}", sfx,
+                                (stage, "demosaic", "reinhard", "finish"),
+                                proc_kw=dict(fmt=fmt))
+      _add(total, launches)
+    del fframes
+  # a tiny frame (2 x 6 pixels, phase planes 1 x 3): the demosaic's
+  # denominator route in torch, K1, K3 and K4 on one-row planes
+  tiny = [torch.randint(0, 256, (N_CAM, 2, 9), generator=gen, device="cuda",
+                        dtype=torch.uint8) for _ in range(FRAMES)]
+  for sfx in CLASSES:
+    _, launches = drive_route(tiny, "tiny 2x6", sfx,
+                              ("decode", "reinhard", "finish"))
+    _add(total, launches)
+
+  def reset():
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+
+  def counts(name, want):
+    torch.cuda.synchronize()
+    got = {n: v for n, v in hopper.launch_counts().items() if v}
+    if got != want:
+      raise AssertionError(f"{name}: launches {got}, expected {want}")
+    _add(total, got)
+    return got
+
+  # the lazy list path: 6 x load_packed12 -> tonemap_reinhard, bitwise
+  # process on a fresh ISP, one launch of each stage per step
+  for sfx, name in CLASSES.items():
+    cls = getattr(ttit, name)
+    lazy = cls(BayerPattern.RGGB, device="cuda")
+    fresh = cls(BayerPattern.RGGB, device="cuda")
+    reset()
+    outs = []
+    for raws in frames:
+      handles = lazy.tonemap_reinhard([lazy.load_packed12(r) for r in raws])
+      outs.append((torch.stack([h.planar for h in handles]),
+                   lazy.metrics.clone()))
+    got = counts(f"lazy list {name}", {f"{st}_{sfx}": FRAMES
+                                       for st in _MAIN})
+    for f, raws in enumerate(frames):
+      want = fresh.process(raws)
+      if not (torch.equal(outs[f][0], want)
+              and torch.equal(outs[f][1], fresh.metrics)):
+        raise AssertionError(f"lazy list {name} frame {f}: not bitwise "
+                             "process")
+    log(f"route lazy list {name}: {FRAMES} steps of {N_CAM} x load_packed12 "
+        f"-> tonemap_reinhard bitwise process on a fresh ISP; launches "
+        f"{got}")
+
+  # a mixed staged list: load_16u of each camera, one handle forced,
+  # update_metering, tonemap_linear (two EMA updates) against the plain
+  # route's two steps
+  u16 = format_raws("u16", (N_CAM, H, WB), gen)
+  for sfx, name in CLASSES.items():
+    cls = getattr(ttit, name)
+    isp = cls(BayerPattern.RGGB, device="cuda")
+    reset()
+    handles = [isp.load_16u(r) for r in u16]
+    handles[2]._force()
+    isp.update_metering(handles)
+    outs = isp.tonemap_linear(handles, gamma=1.2)
+    got = counts(f"staged u16 {name}", {
+        f"split_u16_{sfx}": N_CAM, f"demosaic_{sfx}": N_CAM,
+        f"finish_{sfx}": 1})
+    args = _step_args(cls._work_dtype, tonemap="linear", gamma=1.2,
+                      fmt="u16")
+    m1, _ = ci.fused_isp_step(u16, torch.zeros(9, device="cuda"), 0.0,
+                              *args, backend="plain")
+    m2, po = ci.fused_isp_step(u16, m1, 1.0 - isp.moving_alpha, *args,
+                               backend="plain")
+    out = torch.stack([h.planar for h in outs])
+    dm = (isp.metrics - m2).abs().max().item()
+    d = (out.int() - po.int()).abs().max().item()
+    if dm > 1e-5 or d > 1:
+      raise AssertionError(f"staged u16 {name}: vs plain metrics |d| "
+                           f"{dm:.3g}, u8 max {d}")
+    log(f"route staged u16 list {name}: load_16u x {N_CAM} (one forced) -> "
+        f"update_metering -> tonemap_linear vs the plain route: metrics "
+        f"|d| {dm:.3g}, u8 max |d| {d}; launches {got}")
+
+  # process_stream: bitwise process frame by frame
+  stream = ttit.CameraBF16(BayerPattern.RGGB, device="cuda")
+  ref = ttit.CameraBF16(BayerPattern.RGGB, device="cuda")
+  reset()
+  outs = list(stream.process_stream(iter(frames)))
+  got = counts("process_stream", {f"{st}_bf16": FRAMES for st in _MAIN})
+  for f, raws in enumerate(frames):
+    if not torch.equal(outs[f], ref.process(raws)):
+      raise AssertionError(f"process_stream frame {f}: not bitwise process")
+  log(f"route process_stream CameraBF16: {FRAMES} frames bitwise process; "
+      f"launches {got}")
+
+  # resize_image of a loaded image: K1, K2, K12 bitwise the plain stages
+  for sfx, name in CLASSES.items():
+    cls = getattr(ttit, name)
+    isp = cls(BayerPattern.RGGB, resize_width=1920, device="cuda")
+    raw = frames[0][0]
+    reset()
+    img = isp.resize_image(isp.load_packed12(raw))
+    got = counts(f"resize_image {name}", {f"decode_{sfx}": 1,
+                                          f"demosaic_{sfx}": 1,
+                                          f"resize_{sfx}": 1})
+    wd = cls._work_dtype
+    ph = ci.load_raw_phases(raw[None], "packed12", wd, backend="plain")
+    x12 = ci.demosaic_phases(ph, BayerPattern.RGGB, out_dtype=wd,
+                             backend="plain")
+    want = ci._resize_x12(x12, *isp._resize_plan(H, W), wd,
+                          backend="plain")[0]
+    _check_bits(f"resize_image {name}", img.planar, want)
+    log(f"route resize_image {name}: load_packed12 -> resize_image "
+        f"{tuple(img.planar.shape)} bitwise the plain stages; launches {got}")
+
+  # images not of the class's working dtype, on CameraBF16: f32 (H, W, 3)
+  # images through tonemap_reinhard (a planar batch) and tonemap_only
+  # (one strided view) run K3<f32> and one cast; a Camera32 phase handle
+  # through resize_image runs K12<f32> and one cast
+  from taichi_image_tpu_torch.ops.hopper import finish as hfin
+  from taichi_image_tpu_torch.ops.hopper import reinhard as hrh
+  bf = ttit.CameraBF16(BayerPattern.RGGB, device="cuda")
+  imgs = [torch.rand((H, W, 3), generator=gen, device="cuda")
+          for _ in range(N_CAM)]
+  reset()
+  outs = bf.tonemap_reinhard(imgs)
+  one = bf.tonemap_only(imgs[1], bf.metrics, 1.0, 1.0, 1.0, 0.0)
+  got = counts("f32 images on CameraBF16", {"reinhard_f32": 2})
+  batch = torch.stack([im.movedim(-1, 0) for im in imgs])
+  m = ci._jit_metering_planar(batch, torch.zeros(9, device="cuda"), 0.0,
+                              bf.metering_stride)
+  scal, ca_mode = ci._map_scal(m, 1.0, 1.0, 0.0)
+  p, mx = hrh.reinhard_map_plain(batch, scal, ca_mode, torch.bfloat16)
+  want = hfin.gamma_u8(p, mx, 1.0)
+  p1, mx1 = hrh.reinhard_map_plain(batch[1:2], scal, ca_mode, torch.bfloat16)
+  want1 = hfin.gamma_u8(p1, mx1, 1.0)[0]
+  out = torch.stack([h.planar for h in outs])
+  dm = (bf.metrics - m).abs().max().item()
+  d = max((out.int() - want.int()).abs().max().item(),
+          (one.planar.int() - want1.int()).abs().max().item())
+  if dm > 1e-5 or d > 1:
+    raise AssertionError(f"f32 images on CameraBF16: vs plain metrics |d| "
+                         f"{dm:.3g}, u8 max {d}")
+  log(f"route f32 images on CameraBF16: tonemap_reinhard of {N_CAM} and "
+      f"tonemap_only of one (H, W, 3) f32 image vs the plain map: metrics "
+      f"|d| {dm:.3g}, u8 max |d| {d}; launches {got}")
+  c32 = ttit.Camera32(BayerPattern.RGGB, device="cuda")
+  handle = c32.load_packed12(frames[0][0])
+  handle._force()
+  bfr = ttit.CameraBF16(BayerPattern.RGGB, resize_width=1920, device="cuda")
+  reset()
+  img = bfr.resize_image(handle)
+  got = counts("resize_image of a Camera32 handle on CameraBF16",
+               {"resize_f32": 1})
+  want = ci._resize_from_phases(handle._phases[None],
+                                *bfr._resize_plan(H, W), torch.bfloat16)[0]
+  _check_bits("resize_image of a Camera32 handle on CameraBF16", img.planar,
+              want)
+  log(f"route resize_image of a Camera32 handle on CameraBF16: "
+      f"{tuple(img.planar.shape)} bf16 bitwise the plain resize; launches "
+      f"{got}")
+  return total
+
+
+def phase_host_api():
+  """The module-level entry points given host (numpy) arrays run on the
+  card by default: bayer_to_rgb (K2<f32>, its launches counted and
+  within 1 count of the CPU's plain route), rgb_to_bayer, kernel.conv,
+  the packed codecs and PackedMono12, each bitwise its CPU result."""
+  import numpy as np
+  import torch
+  from taichi_image_tpu_torch.ops import bayer, hopper, packed
+  from taichi_image_tpu_torch.ops import kernel as tkernel
+
+  rng = np.random.default_rng(5)
+  cfa = rng.integers(0, 65536, (H, W), dtype=np.uint16)
+  torch.cuda.synchronize()
+  hopper.reset_launches()
+  rgb = bayer.bayer_to_rgb(cfa, dtype=np.uint8)
+  torch.cuda.synchronize()
+  got = {n: v for n, v in hopper.launch_counts().items() if v}
+  if not rgb.is_cuda or got != {"demosaic_f32": 1}:
+    raise AssertionError(f"bayer_to_rgb of a host array: on {rgb.device}, "
+                         f"launches {got}")
+  small = cfa[:64, :96]
+  d = (bayer.bayer_to_rgb(small, dtype=np.uint8).cpu().int()
+       - bayer.bayer_to_rgb(small, dtype=np.uint8, device="cpu").int())
+  if d.abs().max().item() > 1:
+    raise AssertionError(f"bayer_to_rgb card vs CPU: {d.abs().max()}")
+  img = rng.random((64, 96, 3), np.float32)
+  u8 = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+  codes = rng.integers(0, 4096, (64, 96), dtype=np.uint16)
+  p12 = packed.encode12(codes, device="cpu").numpy()
+  taps = tkernel.kernel_square([1, 2, 1, 2, 4, 2, 1, 2, 1], 3)
+  checks = {
+      "rgb_to_bayer": lambda dev: bayer.rgb_to_bayer(img, device=dev),
+      "conv": lambda dev: tkernel.conv(u8, taps, device=dev),
+      "encode12": lambda dev: packed.encode12(codes, device=dev),
+      "decode12": lambda dev: packed.decode12(p12, device=dev),
+      "decode12 f32": lambda dev: packed.decode12(p12, np.float32, True,
+                                                  device=dev),
+      "encode16": lambda dev: packed.encode16(img, True, device=dev),
+      "decode16": lambda dev: packed.decode16(u8.reshape(64, -1),
+                                              device=dev),
+      "PackedMono12": lambda dev: packed.PackedMono12(p12, device=dev)[
+          np.arange(10), np.arange(10) * 7],
+  }
+  for what, fn in checks.items():
+    k, c = fn("cuda"), fn("cpu")
+    if not k.is_cuda:
+      raise AssertionError(f"{what}: ran on {k.device}")
+    if k.dtype == torch.uint16:  # copied to the host as its int16 bits
+      k, c = k.view(torch.int16), c.view(torch.int16)
+    _check_bits(f"{what} card vs CPU", k.cpu(), c)
+  log(f"host API: bayer_to_rgb of a {H}x{W} host CFA on the card (launches "
+      f"{got}), within 1 count of the CPU; {', '.join(checks)} on the card "
+      "bitwise the CPU")
+
+
+def _inputs(fmt="packed12"):
+  """K raw batches at 6x4K of ``fmt``, a distinct XOR byte (of the bits,
+  below a float's exponent) per chained step, made before the clock
+  starts."""
   import torch
   gen = torch.Generator(device="cuda").manual_seed(0)
-  base = torch.randint(0, 256, (N_CAM, H, WB), generator=gen, device="cuda",
-                       dtype=torch.uint8)
-  return [base ^ i for i in range(K)]
+  if fmt == "packed12":
+    base = torch.randint(0, 256, (N_CAM, H, WB), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    return [base ^ i for i in range(K)]
+  base = format_raws(fmt, (N_CAM, H, WB), gen, wide=False)
+  it = {torch.uint8: torch.uint8, torch.uint16: torch.int16,
+        torch.float16: torch.int16, torch.float32: torch.int32}[base.dtype]
+  return [(base.view(it) ^ i).view(base.dtype) for i in range(K)]
 
 
 def _chain(inputs, args, checksum=True):
@@ -1015,13 +1426,35 @@ def _chain(inputs, args, checksum=True):
   return acc
 
 
-def bench_step(inputs, args, checksum=True, env=None):
-  """bench.py's method with CUDA events: :func:`_chain` REPS times under
-  torch's sync-debug "error" mode, the scalar read at the end. Returns
-  (device ms/step per rep, host enqueue ms/step per rep, checksum)."""
+def _chain_api(inputs, name, lazy):
+  """K chained steps through a fresh ISP of class ``name``: ``process``,
+  or (``lazy``) each camera's ``load_packed12`` then one
+  ``tonemap_reinhard``; every output summed into one device scalar."""
   import torch
+  import taichi_image_tpu_torch as ttit
+  isp = getattr(ttit, name)(ttit.BayerPattern.RGGB, device="cuda")
+  acc = torch.zeros((), dtype=torch.int64, device="cuda")
+  for raws in inputs:
+    if lazy:
+      handles = isp.tonemap_reinhard([isp.load_packed12(r) for r in raws])
+      out = handles[0]._batch[1]  # the step's output batch they share
+    else:
+      out = isp.process(raws)
+    acc += out.sum(dtype=torch.int64)
+  return acc
+
+
+def bench_step(inputs, args, checksum=True, env=None, chain=None):
+  """bench.py's method with CUDA events: :func:`_chain` (or ``chain``
+  of the inputs) REPS times under torch's sync-debug "error" mode, the
+  scalar read at the end. Returns (device ms/step per rep, host enqueue
+  ms/step per rep, checksum)."""
+  import torch
+  if chain is None:
+    def chain(inputs):
+      return _chain(inputs, args, checksum)
   with _env(env):
-    _chain(inputs, args, checksum)
+    chain(inputs)
     torch.cuda.synchronize()
     times, host = [], []
     torch.cuda.set_sync_debug_mode("error")  # the step must not sync
@@ -1031,7 +1464,7 @@ def bench_step(inputs, args, checksum=True, env=None):
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         t0 = time.perf_counter()
-        acc = _chain(inputs, args, checksum)
+        acc = chain(inputs)
         host.append((time.perf_counter() - t0) * 1e3 / K)
         b.record()
         torch.cuda.set_sync_debug_mode(0)
@@ -1247,6 +1680,40 @@ def phase_route_timing(card):
   return out
 
 
+def phase_format_timing(card):
+  """The 6x4K step of each class with packed16, u16 and f32 raws beside
+  packed12 (bench.py's method), and the lazy list path's step against
+  ``process`` (CameraBF16, in turns process, lazy, lazy, process)."""
+  from taichi_image_tpu_torch.ops import hopper
+  out = {}
+  for fmt in ("packed12", "packed16", "u16", "f32"):
+    inputs = _inputs(fmt)
+    for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+      times, host, checksum = bench_step(inputs, _step_args(dtype, fmt=fmt))
+      r = out[f"{CLASSES[sfx]} {fmt}"] = dict(
+          step_ms=statistics.median(times), times=times, host_ms=host)
+      log(f"timing {CLASSES[sfx]} {fmt}: {r['step_ms']:.4f} ms/step (median "
+          f"of {REPS} x {K} chained steps, incl. the u8 checksum); host "
+          f"enqueue {statistics.median(host):.4f} ms/step; checksum "
+          f"{checksum}; {card}")
+    del inputs
+  inputs = _inputs()
+  runs = {"process": [], "lazy": []}
+  for which in ("process", "lazy", "lazy", "process"):
+    times, host, _ = bench_step(inputs, None, chain=lambda i, w=which:
+                                _chain_api(i, "CameraBF16", w == "lazy"))
+    runs[which].append((statistics.median(times), statistics.median(host)))
+  for which, rs in runs.items():
+    out[f"CameraBF16 {which} API"] = dict(step_ms=min(r[0] for r in rs),
+                                          runs=rs)
+  log(f"timing CameraBF16 lazy list path (6 x load_packed12 -> "
+      f"tonemap_reinhard) {out['CameraBF16 lazy API']['step_ms']:.4f} vs "
+      f"process {out['CameraBF16 process API']['step_ms']:.4f} ms/step "
+      f"(lower of two medians each, in turns; (device, host enqueue) "
+      f"medians {runs}); {card}")
+  return out
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--out", help="also write every measurement to this JSON")
@@ -1258,6 +1725,7 @@ def main(argv=None):
   build = phase_build()
   results = {}
   phase_kernels(results)
+  phase_format_kernels(results)
   gen = torch.Generator(device="cuda").manual_seed(1)
   frames = [torch.randint(0, 256, (N_CAM, H, WB), generator=gen,
                           device="cuda", dtype=torch.uint8)
@@ -1268,11 +1736,15 @@ def main(argv=None):
       launches[n] += v
   for n, v in phase_routes(frames).items():
     launches[n] += v
+  for n, v in phase_format_routes(frames).items():
+    launches[n] += v
+  phase_host_api()
   never = sorted(n for n, v in launches.items() if v == 0)
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
   timing["routes"] = phase_route_timing(card)
+  timing["formats"] = phase_format_timing(card)
 
   kernels = []
   for name, k in hopper.KERNELS.items():

@@ -1,15 +1,17 @@
-"""Multi-camera ISP step on PyTorch: packed12 RAW -> demosaic (+WB/CCM)
--> [resize] -> EMA metering -> Reinhard or linear tonemap -> [transform]
--> planar u8 RGB or planar I420.
+"""Multi-camera ISP step on PyTorch: RAW -> demosaic (+WB/CCM) ->
+[resize] -> EMA metering -> Reinhard or linear tonemap -> [transform] ->
+planar u8 RGB or planar I420, and the reference's per-image API over it.
 
 Counterpart of ``taichi_image_tpu/models/camera_isp.py``: every route of
-``fused_isp_step`` with packed12 raws, RGB or I420 output, for all three
-classes: CameraBF16 (bf16), Camera16 (f16) and Camera32 (f32). On a CUDA
-device each route is hand-written Hopper kernels, each instantiated for
-the working dtype T, plus the metering reduction in torch. The phase
-route (no resize):
+``fused_isp_step`` with any raw format (packed12, packed16, u16, f16,
+f32), RGB or I420 output, for all three classes: CameraBF16 (bf16),
+Camera16 (f16) and Camera32 (f32). On a CUDA device each route is
+hand-written Hopper kernels, each instantiated for the working dtype T,
+plus the metering reduction in torch. The phase route (no resize):
 
   K1<T> decode   (N, H, 1.5W) u8     -> phases (N, 4, H/2, W/2) T
+                 (packed16: K1's packed16 mode; u16/f16/f32 CFAs: the
+                 CFA split, ops/hopper/decode.py)
   K2<T> stencil  phases              -> x12 (N, 12, H/2, W/2) T
                                         + metering sample (N, 3, ., .) T
   metering       sample, prev vec9   -> new vec9 (torch, f32, on device)
@@ -44,20 +46,30 @@ materialized in f16. The q16 containers are not carried over; they exist
 because the TPU's Mosaic toolchain cannot load or store f16
 (taichi_image_tpu/ops/pallas/q16.py:7-13), and Hopper can.
 
+Frames under 4x4 pixels demosaic through the JAX package's own route
+for them (``ops/bayer._demosaic_denominator``, torch on the device); the
+kernels after it take phase planes one row or one column wide.
+
 No step syncs with the host: the metering vector feeds the kernels as a
 device tensor, and the resize taps and sample indices are made on the
 device once per configuration. vec9 layout: [bounds.min, bounds.max,
-log_bounds.min, log_bounds.max, log_mean, mean, rgb_mean(3)].
+log_bounds.min, log_bounds.max, log_mean, mean, rgb_mean(3)]. Under
+``TAICHI_IMAGE_TPU_DEBUG`` the step checks its decoded values and metrics
+(``utils/debug.py``), which reads them on the host.
 
-Configurations outside the port (raw formats other than packed12, frames
-under 4x4) raise ``NotImplementedError`` naming the ROADMAP.md item that
-will port them; none is approximated.
+The per-image API (``load_*`` -> ``update_metering`` -> ``tonemap_*``,
+``resize_image``, ``process_stream``) hands out :class:`PlanarImage`
+handles. The loaders are lazy: a list of unforced handles of one
+configuration runs as one ``fused_isp_step`` (bitwise ``process`` on the
+concatenated raws); a mixed list takes the staged path, whose phase-form
+batches run K3 and K4 as the step does.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from collections import deque
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -66,7 +78,9 @@ from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
 from taichi_image_tpu_torch.ops import interpolate
 from taichi_image_tpu_torch.ops.bayer import (
-    demosaic_phases, planar_from_phases_transformed, subsample_hw)
+    demosaic_phases, phases_to_planar, planar_from_phases_transformed,
+    subsample_hw)
+from taichi_image_tpu_torch.ops.color import rgb_gray
 from taichi_image_tpu_torch.ops.bayer import (  # noqa: F401
     transform_phases as _transform_phases)
 from taichi_image_tpu_torch.ops.hopper import decode as hopper_decode
@@ -84,6 +98,8 @@ from taichi_image_tpu_torch.utils import debug as debug_util
 from taichi_image_tpu_torch.utils.bounds import lerp
 
 __all__ = ["camera_isp", "Camera16", "Camera32", "CameraBF16", "default_cc",
+           "PlanarImage", "moving_average", "metering_update",
+           "reinhard_apply", "linear_apply",
            "fused_isp_step", "load_raw_phases", "metering_update_ca",
            "reinhard_map_ca", "reinhard_map_max_ca", "reinhard_gamma_ca",
            "reinhard_apply_ca", "linear_apply_ca", "demosaic_reinhard_front",
@@ -100,10 +116,251 @@ default_cc = np.array([
 _DEFAULT_WB = np.array([1.8, 1.0, 2.1])
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-  return NotImplementedError(
-      f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, "
-      f"item {item})")
+# --------------------------------------------------------------------------
+# The per-image API's image handle and module functions.
+# --------------------------------------------------------------------------
+
+class PlanarImage:
+  """Image handle of the per-image (reference) API.
+
+  The reference's loaders hand out interleaved (H, W, 3) images; this
+  handle keeps the image on the ISP's device in the step's own forms and
+  presents the reference's layout only at the host boundary
+  (``np.asarray(img)``, the one conversion to host):
+
+  - phase form: the 12-channel phase-RGB ``(12, H/2, W/2)`` of the
+    working dtype, what the loaders make without a resize;
+  - planar form: ``(C, H, W)``, what a resize or a tonemap makes;
+  - lazy: the captured raw ``(1, H, W_raw)`` and the loader's
+    configuration, decoded on first use; a batch consumer
+    (``update_metering``, ``tonemap_*``) decodes every unforced handle of
+    one configuration in one batch, and forcing one handle decodes just
+    that image, to the same values;
+  - a slice of a batch that a consumer made (``_batch``: form, the
+    (N, ...) tensor, the index), sliced out only when forced.
+
+  ``.planar`` gives the device tensor (C, H, W). A bf16 image comes to
+  the host as float32 (numpy has no bfloat16).
+  """
+
+  __slots__ = ("_planar", "_phases", "_lazy", "_batch")
+
+  def __init__(self, planar=None, phases=None, lazy=None, batch=None):
+    if sum(x is not None for x in (planar, phases, lazy, batch)) != 1:
+      raise ValueError("exactly one of planar/phases/lazy/batch")
+    self._planar = planar
+    self._phases = phases
+    self._lazy = lazy      # (raws1, fmt, ids_format, work_dtype,
+    #                         pattern, cc, resize_plan)
+    self._batch = batch    # (form, (N, ...) tensor, index)
+
+  def _force(self):
+    """Materialize device storage into _planar/_phases (idempotent)."""
+    if self._planar is None and self._phases is None:
+      if self._batch is not None:
+        form, arr, i = self._batch
+        if form == "phases":
+          self._phases = arr[i]
+        else:
+          self._planar = arr[i]
+        self._batch = None
+      else:
+        raws1, fmt, ids, wd, pattern, cc, plan = self._lazy
+        out = _jit_load_planar(raws1, fmt, ids, wd, pattern, cc, plan)
+        if plan is None:
+          self._phases = out[0]
+        else:
+          self._planar = out[0]
+        self._lazy = None
+    return self
+
+  @property
+  def shape(self):
+    """(H, W, C), known without forcing."""
+    if self._lazy is not None:
+      raws1, fmt, _, _, _, _, plan = self._lazy
+      if plan is not None:
+        (w_out, h_out), _ = plan
+        return (h_out, w_out, 3)
+      return (raws1.shape[-2], decoded_width(fmt, raws1.shape[-1]), 3)
+    if self._batch is not None:
+      form, arr, _ = self._batch
+      if form == "phases":
+        _, _, hh, wh = arr.shape
+        return (2 * hh, 2 * wh, 3)
+      _, c, h, w = arr.shape
+      return (h, w, c)
+    if self._planar is not None:
+      c, h, w = self._planar.shape
+      return (h, w, c)
+    _, hh, wh = self._phases.shape
+    return (2 * hh, 2 * wh, 3)
+
+  @property
+  def dtype(self) -> torch.dtype:
+    if self._lazy is not None:
+      return types.canonical_dtype(self._lazy[3])
+    if self._batch is not None:
+      return self._batch[1].dtype
+    a = self._planar if self._planar is not None else self._phases
+    return a.dtype
+
+  @property
+  def planar(self) -> torch.Tensor:
+    """The device planar (C, H, W) image (a phase-form handle is
+    interleaved on the device)."""
+    self._force()
+    if self._planar is None:
+      return phases_to_planar(self._phases[None])[0]
+    return self._planar
+
+  def __array__(self, dtype=None, copy=None):
+    self._force()
+    t = self._planar if self._planar is not None else self._phases
+    if t.dtype == torch.bfloat16:
+      t = t.to(torch.float32)
+    x = t.cpu().numpy()
+    if self._planar is not None:
+      a = np.moveaxis(x, 0, -1)
+    else:
+      # the host interleave: (pc, pr, c, hh, wh) -> (hh, pr, wh, pc, c)
+      _, hh, wh = x.shape
+      a = (x.reshape(2, 2, 3, hh, wh).transpose(3, 1, 4, 0, 2)
+           .reshape(2 * hh, 2 * wh, 3))
+    if dtype is not None:
+      a = a.astype(dtype, copy=False)
+    return np.array(a, copy=True) if copy else a
+
+  def block_until_ready(self):
+    """Force the handle and wait for the device to finish it."""
+    self._force()
+    t = self._planar if self._planar is not None else self._phases
+    if t.is_cuda:
+      torch.cuda.current_stream(t.device).synchronize()
+    return self
+
+  def __repr__(self):
+    if self._lazy is not None:
+      form = "lazy"
+    elif self._batch is not None:
+      form = f"batch[{self._batch[2]}]/{self._batch[0]}"
+    else:
+      form = "planar" if self._planar is not None else "phases"
+    return (f"PlanarImage(hwc_shape={self.shape}, dtype={self.dtype}, "
+            f"form={form})")
+
+
+def _to_planar(im, device=None) -> torch.Tensor:
+  """Image handle, tensor or array (H, W, C) -> planar (C, H, W) tensor
+  (on ``device`` when given)."""
+  if isinstance(im, PlanarImage):
+    return im.planar
+  x = _as_tensor(im)
+  if device is not None:
+    x = x.to(device)
+  if x.ndim == 3 and x.shape[-1] in (1, 3, 4):
+    return x.movedim(-1, 0)
+  raise ValueError(f"expected an (H, W, C) image or PlanarImage, got "
+                   f"shape {tuple(x.shape)}")
+
+
+def _as_tensor(x) -> torch.Tensor:
+  """:func:`types.as_tensor`, float64 arrays as float32 (as
+  ``jnp.asarray`` takes them)."""
+  if not isinstance(x, torch.Tensor) and np.asarray(x).dtype == np.float64:
+    x = np.asarray(x, np.float32)
+  return types.as_tensor(x)
+
+
+def _on_device(x, device: torch.device) -> torch.Tensor:
+  """:func:`_as_tensor` of ``x`` on ``device``; a tensor already there is
+  returned as it is, without a call into torch (the lazy loaders run once
+  per camera and step)."""
+  x = _as_tensor(x)
+  if x.device.type == device.type and device.index in (None,
+                                                       x.device.index):
+    return x
+  return types.to_device(x, device)
+
+
+def moving_average(old, new, alpha):
+  """Host EMA helper."""
+  if old is None:
+    return new
+  return (1 - alpha) * old + alpha * new
+
+
+def metering_update(images: torch.Tensor, prev: torch.Tensor, t,
+                    n_total: Optional[int] = None) -> torch.Tensor:
+  """One EMA metering update from a batch of strided RGB crops, channels
+  last (N, h, w, 3): global bounds -> blend with prev -> normalized stats
+  over the blended bounds -> blend the whole vec9 with prev."""
+  x = images.to(torch.float32)
+  b = lerp(t, torch.stack([x.amin(), x.amax()]), prev[:2])
+  scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
+  gray = rgb_gray(scaled)
+  log_gray = torch.log(torch.clamp_min(gray, 1e-4))
+  sums = torch.stack([log_gray.sum(), gray.sum(),
+                      *[scaled[..., c].sum() for c in range(3)]])
+  if n_total is None:
+    n_total = images.shape[0] * images.shape[1] * images.shape[2]
+  stats = torch.cat([b, torch.stack([log_gray.amin(), log_gray.amax()]),
+                     sums / n_total])
+  return lerp(t, stats, prev)
+
+
+def _static_one(v) -> bool:
+  """Whether ``v`` is the Python float 1.0 (the specialisation the JAX
+  package takes for a static gamma of 1)."""
+  return isinstance(v, float) and v == 1.0
+
+
+def _gamma_pow(x: torch.Tensor, gamma: float) -> torch.Tensor:
+  """``x ** (1 / gamma)`` as exp2(log2(x) * f32(1 / gamma))."""
+  return torch.exp2(torch.log2(x) * float(np.float32(1.0 / gamma)))
+
+
+def reinhard_apply(image: torch.Tensor, metrics: torch.Tensor, gamma,
+                   intensity, light_adapt, color_adapt,
+                   work_dtype) -> torch.Tensor:
+  """The ISP's Reinhard on a channels-last image (..., H, W, 3):
+  normalize by the EMA image bounds, the Reinhard map, then the gamma
+  over the image's own max, to u8 (leading dims are images)."""
+  m = metrics.to(torch.float32)
+  key = (m[3] - m[4]) / (m[3] - m[2])
+  map_key = 0.3 + 0.7 * torch.pow(key, 1.4)
+  x = image.to(torch.float32)
+  scaled = (x - m[0]) / (m[1] - m[0])
+  gray = rgb_gray(scaled)[..., None]
+  eni = torch.exp(torch.tensor(-float(intensity), dtype=torch.float32,
+                               device=x.device))
+  if isinstance(color_adapt, float) and color_adapt == 0.0:
+    adapt_mean = lerp(light_adapt, m[5], gray)
+  else:
+    mean = lerp(color_adapt, m[5], m[6:9])
+    adapt_mean = lerp(light_adapt, mean, lerp(color_adapt, gray, scaled))
+  adapt = torch.pow(eni * adapt_mean, map_key)
+  p = scaled * (1.0 / (adapt + scaled))
+  p = torch.where(torch.isnan(p), 0.0, p)
+  p_cast = p.to(types.canonical_dtype(work_dtype))
+  max_out = torch.clamp_min(p.amax(dim=(-3, -2, -1), keepdim=True), 1e-6)
+  out = p_cast.to(torch.float32) / max_out
+  if not _static_one(gamma):
+    out = _gamma_pow(out, gamma)
+  return torch.clamp(255.0 * out, 0, 255).to(torch.uint8)
+
+
+def linear_apply(image: torch.Tensor, metrics: torch.Tensor,
+                 gamma) -> torch.Tensor:
+  """The ISP's linear tonemap, elementwise on any layout, to u8."""
+  x = image.to(torch.float32)
+  m = metrics.to(torch.float32)
+  inv_range = 1.0 / (m[1] - m[0])
+  y = torch.clamp_min((x - m[0]) * inv_range, 0.0)
+  if not _static_one(gamma):
+    y = _gamma_pow(y, gamma)
+  return torch.clamp(torch.clamp(y, 0.0, 1.0) * 255.0, 0,
+                     255).to(torch.uint8)
 
 
 # --------------------------------------------------------------------------
@@ -117,16 +374,50 @@ def decoded_width(fmt: str, w_raw: int) -> int:
                                                                   w_raw)
 
 
+# the unpacked formats and the CFA dtypes each takes
+_CFA_DTYPES = {"u16": (torch.uint16,),
+               "f16": (torch.float16, torch.float32),
+               "f32": (torch.float16, torch.float32)}
+
+
 def load_raw_phases(raws: torch.Tensor, fmt: str, work_dtype,
                     ids_format: bool = False,
                     backend: str = "auto") -> torch.Tensor:
   """Decode a raw batch to normalized CFA phase planes (N, 4, H/2, W/2)
-  in the working dtype (K1 for packed12)."""
-  if fmt != "packed12":
-    raise _not_ported(f"raw format {fmt!r}", 13)
-  return hopper_decode.decode12_phases(raws, ids_format,
-                                       types.canonical_dtype(work_dtype),
-                                       backend=backend)
+  in the working dtype: K1 for packed12, K1's packed16 mode for packed16
+  (little-endian u16 bytes), the CFA split for an unpacked u16 (over
+  65535), f16 or f32 CFA (cast). ``ids_format`` concerns packed12 only."""
+  wd = types.canonical_dtype(work_dtype)
+  if fmt == "packed12":
+    return hopper_decode.decode12_phases(raws, ids_format, wd,
+                                         backend=backend)
+  if fmt == "packed16":
+    return hopper_decode.decode16_phases(raws, wd, backend=backend)
+  if fmt in _CFA_DTYPES:
+    if raws.dtype not in _CFA_DTYPES[fmt]:
+      raise ValueError(f"{fmt} raws must be of "
+                       f"{' or '.join(map(str, _CFA_DTYPES[fmt]))}, got "
+                       f"{raws.dtype}")
+    return hopper_decode.split_phases(raws, wd, backend=backend)
+  raise ValueError(f"unknown raw format {fmt}")
+
+
+def _decode_checked(raws, fmt, wd, ids_format, backend):
+  """:func:`load_raw_phases`, and under TAICHI_IMAGE_TPU_DEBUG the check
+  that the packed and u16 formats decoded into [0, 1]."""
+  phases = load_raw_phases(raws, fmt, wd, ids_format, backend=backend)
+  if debug_util.debug_enabled() and fmt in ("packed12", "packed16", "u16"):
+    debug_util.check_decoded(phases)
+  return phases
+
+
+def _meter(strided: torch.Tensor, prev: torch.Tensor, t) -> torch.Tensor:
+  """:func:`metering_update_ca`, and under TAICHI_IMAGE_TPU_DEBUG the
+  check that the new metrics are finite."""
+  m = metering_update_ca(strided, prev, t)
+  if debug_util.debug_enabled():
+    debug_util.check_metrics(m)
+  return m
 
 
 def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t):
@@ -251,6 +542,19 @@ def _resize_x12(x12: torch.Tensor, size, scale, work_dtype,
   return hopper_resize.resize_x12(x12, taps, backend=backend)
 
 
+def _resize_any(x12: torch.Tensor, size, scale,
+                work_dtype) -> torch.Tensor:
+  """K12 on phases of any dtype: the working dtype's instantiation, else
+  (phases another class made) K12<f32> on their exact f32 values and one
+  cast, as the JAX package's gather route computes in f32 and casts
+  once."""
+  wd = types.canonical_dtype(work_dtype)
+  if x12.dtype == wd:
+    return _resize_x12(x12, size, scale, wd)
+  return _resize_x12(x12.to(torch.float32), size, scale,
+                     torch.float32).to(wd)
+
+
 def _resize_planar(images: torch.Tensor, size, scale,
                    work_dtype) -> torch.Tensor:
   """Bilinear resize on planar (N, 3, H, W) with the reference's
@@ -275,12 +579,15 @@ def yuv420_from_planar_u8(out: torch.Tensor, backend: str = "auto"):
   return hopper_yuv420.yuv420_planar(out, backend=backend)
 
 
-def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
+def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt,
+                       phases):
   """The JAX package's gate of the front-fused route (off unless
-  TAICHI_IMAGE_TPU_FRONT_FUSED=1)."""
+  TAICHI_IMAGE_TPU_FRONT_FUSED=1; frames under 4x4 pixels have no
+  front-fused tiling there and take the composed route)."""
   return (os.environ.get("TAICHI_IMAGE_TPU_FRONT_FUSED", "") == "1"
           and wd == types.bf16 and resize_plan is None and stride % 2 == 0
-          and tonemap == "reinhard" and float(color_adapt) == 0.0)
+          and tonemap == "reinhard" and float(color_adapt) == 0.0
+          and min(phases.shape[-2:]) >= 2)
 
 
 def _finish(x12, scal, gamma, mode, transform, color_format, backend):
@@ -313,12 +620,13 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     hopper_yuv420.check_even(
         *interpolate.transformed_size((w_out, h_out), transform)[::-1])
   wd = types.canonical_dtype(work_dtype)
-  phases = load_raw_phases(raws, fmt, wd, ids_format, backend=backend)
+  phases = _decode_checked(raws, fmt, wd, ids_format, backend)
 
-  if _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt):
+  if _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt,
+                        phases):
     # metering first, from the sample pre-pass; then stencil + map as one
     # kernel (K7) and the finish
-    new_metrics = metering_update_ca(bayer_ops.demosaic_samples(
+    new_metrics = _meter(bayer_ops.demosaic_samples(
         phases, pattern, cc=cc, out_dtype=wd,
         sample_step=max(stride // 2, 1)), prev, t)
     p_cast, max_out = demosaic_reinhard_front(
@@ -332,8 +640,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                           backend=backend)
     size, scale = resize_plan
     rgb = _resize_x12(x12, size, scale, wd, backend=backend)
-    new_metrics = metering_update_ca(subsample_hw(rgb, stride, stride),
-                                     prev, t)
+    new_metrics = _meter(subsample_hw(rgb, stride, stride), prev, t)
     if color_format == "yuv420":
       # the tonemap, the transform and I420 in one kernel
       if tonemap == "reinhard":
@@ -363,7 +670,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                                    backend=backend,
                                    sample_step=max(stride // 2, 1))
-  new_metrics = metering_update_ca(strided, prev, t)
+  new_metrics = _meter(strided, prev, t)
   # K3 + K4, or K4's linear mode; the transform lives in K4's stores. An
   # odd stride's I420 is the JAX package's planar conversion (the matrix
   # before the block mean) of the RGB
@@ -480,6 +787,176 @@ class _ISPBase:
       return (round(w * self.scale), round(h * self.scale)), self.scale
     return None
 
+  def _resize_plan_key(self, raws, fmt: str):
+    """The resize plan of a raw (batch) of ``fmt``."""
+    return self._resize_plan(raws.shape[-2],
+                             decoded_width(fmt, raws.shape[-1]))
+
+  def _prev_t(self):
+    """(prev, t) of the next EMA update: zeros and 0 before the first."""
+    if self.metrics is None:
+      return torch.zeros(9, dtype=torch.float32, device=self.device), 0.0
+    return self.metrics, 1.0 - self.moving_alpha
+
+  # -- the per-image API: images, batches, loaders ------------------------
+
+  def resize_image(self, image) -> PlanarImage:
+    """The rig's resize policy on one RGB image (a :class:`PlanarImage`
+    or an (H, W, C) array); returns a :class:`PlanarImage`."""
+    plan = self._resize_plan(image.shape[0], image.shape[1])
+    if plan is None:
+      return (image if isinstance(image, PlanarImage)
+              else PlanarImage(_to_planar(image, self.device)))
+    size, scale = plan
+    if isinstance(image, PlanarImage):
+      image._force()
+    if isinstance(image, PlanarImage) and image._phases is not None:
+      return PlanarImage(_resize_any(image._phases[None], size, scale,
+                                     self._work_dtype)[0])
+    return PlanarImage(_resize_planar(
+        _to_planar(image, self.device)[None], size, scale,
+        self._work_dtype)[0])
+
+  def metering_images(self, images: List, t: float, prev,
+                      stride: int = 8) -> torch.Tensor:
+    """One metering update over strided crops of the images; returns the
+    new vec9 and leaves ``prev`` and the ISP's state as they were."""
+    form, batch = self._batch_of(images, stride)
+    prev = (prev.to(self.device, torch.float32).clone()
+            if torch.is_tensor(prev) else torch.tensor(
+                np.asarray(prev, np.float32), device=self.device))
+    fn = (_jit_metering_phases if form == "phases"
+          else _jit_metering_planar)
+    return fn(batch, prev, float(t), stride)
+
+  @staticmethod
+  def _lazy_key(images):
+    """The shared loader arguments when every image is an unforced lazy
+    handle of one raw shape and configuration, else None."""
+    if not images or not all(
+        isinstance(im, PlanarImage) and im._lazy is not None
+        for im in images):
+      return None
+    key = images[0]._lazy[1:]
+    shape = images[0]._lazy[0].shape
+    if all(im._lazy[1:] == key and im._lazy[0].shape == shape
+           for im in images):
+      return key
+    return None
+
+  @staticmethod
+  def _shared_batch(images):
+    """(form, batch) when the handles are exactly the slices of one batch
+    tensor in order (a batch consumer's output), else None: that batch is
+    used as it is, not stacked again."""
+    if not images or not all(
+        isinstance(im, PlanarImage) and im._batch is not None
+        for im in images):
+      return None
+    form, arr, _ = images[0]._batch
+    if arr.shape[0] == len(images) and all(
+        im._batch[1] is arr and im._batch[0] == form
+        and im._batch[2] == i for i, im in enumerate(images)):
+      return form, arr
+    return None
+
+  def _batch_of(self, images: List, stride: int):
+    """A device batch of the images: ('phases', (N, 12, hh, wh)) where
+    the phase form serves (an even metering stride), else ('planar',
+    (N, C, H, W)). Unforced lazy handles of one configuration decode as
+    one batch (and become its slices); the slices of one batch are used
+    as they are."""
+    key = self._lazy_key(images)
+    if key is not None:
+      raws = torch.cat([im._lazy[0] for im in images])
+      out = _jit_load_planar(raws, *key)
+      form = "phases" if key[-1] is None else "planar"
+      for i, im in enumerate(images):
+        im._batch = (form, out, i)
+        im._lazy = None
+    else:
+      shared = self._shared_batch(images)
+      if shared is not None:
+        form, out = shared
+      else:
+        for im in images:
+          if isinstance(im, PlanarImage):
+            im._force()
+        if (images and all(isinstance(im, PlanarImage)
+                           and im._phases is not None for im in images)):
+          form, out = "phases", torch.stack([im._phases for im in images])
+        else:
+          form, out = "planar", torch.stack(
+              [_to_planar(im, self.device) for im in images])
+    if form == "phases" and stride % 2 != 0:
+      # an odd stride's samples fall on every phase: interleave once
+      return "planar", phases_to_planar(out)
+    return form, out
+
+  def _stack_batch(self, images):
+    """:meth:`_batch_of` at the ISP's metering stride."""
+    return self._batch_of(images, self.metering_stride)
+
+  def _load_one(self, raws1: torch.Tensor, fmt: str,
+                ids_format: bool = False) -> PlanarImage:
+    """A lazy handle: the raw and the loader's configuration as it is now
+    (a later ``set`` does not change an image already loaded)."""
+    return PlanarImage(lazy=(raws1, fmt, bool(ids_format), self._work_dtype,
+                             self.bayer_pattern, self._cc_tuple(),
+                             self._resize_plan_key(raws1, fmt)))
+
+  def _load(self, image, fmt: str, ids_format: bool = False):
+    image = _on_device(image, self.device)
+    debug_util.validate_raw(image, fmt, batch=False)
+    return self._load_one(image[None], fmt, ids_format)
+
+  def load_packed12(self, image_data, ids_format: bool = False):
+    """A packed 12-bit plane (H, 1.5W) u8 -> an image of the working
+    dtype (lazy)."""
+    return self._load(image_data, "packed12", ids_format)
+
+  def load_packed16(self, image_data):
+    """A packed 16-bit plane (H, 2W) u8, little-endian -> an image."""
+    return self._load(image_data, "packed16")
+
+  def load_16u(self, image):
+    """A u16 CFA (H, W) -> an image (values over 65535)."""
+    return self._load(image, "u16")
+
+  def load_16f(self, image):
+    """An f16 CFA (H, W) -> an image (values as they are)."""
+    return self._load(image, "f16")
+
+  def load_32f(self, image):
+    """An f32 CFA (H, W) -> an image (values as they are)."""
+    return self._load(image, "f32")
+
+  # -- white balance, metering, tonemaps ------------------------------------
+
+  def auto_white_balance(self, strength: float = 1.0,
+                         max_gain: float = 8.0) -> np.ndarray:
+    """Gray-world auto white balance from the EMA metering state: the
+    gains that bring the bounds-scaled channel means (vec9[6:9]) to the
+    green mean are multiplied into ``white_balance`` (green stays 1),
+    damped by ``strength`` (gains**strength), clamped to [1/max_gain,
+    max_gain] and quantized to 1/256. A feedback loop: the means are
+    measured after the WB/CCM fold, which applies with
+    ``correct_colors=True``. One host read of the metrics. Returns the
+    new white_balance; raises before any frame was metered."""
+    if self.metrics is None:
+      raise ValueError("auto_white_balance needs metering state — "
+                       "process at least one frame set first")
+    means = self.metrics[6:9].cpu().numpy().astype(np.float64)
+    if not np.isfinite(means).all() or (means <= 1e-6).any():
+      raise ValueError(f"degenerate channel means {means} — scene too "
+                       "dark or metering not seeded")
+    gains = (means[1] / means) ** float(strength)
+    wb = self.white_balance * gains
+    wb = wb / wb[1]  # G == 1 first, then the clamp
+    wb = np.clip(wb, 1.0 / max_gain, max_gain)
+    self.white_balance = np.round(wb * 256.0) / 256.0
+    return self.white_balance
+
   def state_dict(self):
     """Serializable state (numpy): the vec9 EMA metering vector and the
     white-balance gains — the same keys as the JAX ISP's."""
@@ -500,6 +977,93 @@ class _ISPBase:
       self.white_balance = np.asarray(
           wb.cpu().numpy() if torch.is_tensor(wb) else wb, np.float64)
 
+  def update_metering(self, images: List):
+    """The EMA metering update over strided crops of all cameras' images
+    (the first call seeds it with t = 0)."""
+    form, batch = self._stack_batch(images)
+    self._update_metering_batch(form, batch)
+
+  def _update_metering_batch(self, form: str, batch: torch.Tensor):
+    prev, t = self._prev_t()
+    fn = (_jit_metering_phases if form == "phases"
+          else _jit_metering_planar)
+    self.metrics = fn(batch, prev, t, self.metering_stride)
+
+  def _metrics_tensor(self, metrics) -> torch.Tensor:
+    if torch.is_tensor(metrics):
+      return metrics.to(self.device, torch.float32)
+    return torch.tensor(np.asarray(metrics, np.float32), device=self.device)
+
+  def tonemap_only(self, image, metrics, gamma, intensity, light_adapt,
+                   color_adapt) -> PlanarImage:
+    """Tonemap one image with the given metrics (Reinhard, the rig's
+    transform), no metering update."""
+    metrics = self._metrics_tensor(metrics)
+    args = (float(gamma), float(intensity), float(light_adapt),
+            float(color_adapt), self._work_dtype, self.transform)
+    if isinstance(image, PlanarImage):
+      image._force()
+    if isinstance(image, PlanarImage) and image._phases is not None:
+      out = _jit_reinhard_phases(image._phases[None], metrics, *args)
+    else:
+      out = _jit_reinhard_planar(_to_planar(image, self.device)[None],
+                                 metrics, *args)
+    return PlanarImage(out[0])
+
+  def tonemap_reinhard(self, images: List, gamma: float = 1.0,
+                       intensity: float = 1.0, light_adapt: float = 1.0,
+                       color_adapt: float = 0.0) -> List[PlanarImage]:
+    """The metering update over all images, then each one's Reinhard and
+    the rig's transform; u8 planar handles."""
+    out = self._tonemap_fused_lazy(images, "reinhard", float(gamma),
+                                   float(intensity), float(light_adapt),
+                                   float(color_adapt))
+    if out is not None:
+      return out
+    form, batch = self._stack_batch(images)
+    self._update_metering_batch(form, batch)
+    fn = (_jit_reinhard_phases if form == "phases"
+          else _jit_reinhard_planar)
+    out = fn(batch, self.metrics, float(gamma), float(intensity),
+             float(light_adapt), float(color_adapt), self._work_dtype,
+             self.transform)
+    return [PlanarImage(o) for o in out]
+
+  def tonemap_linear(self, images: List,
+                     gamma: float = 1.0) -> List[PlanarImage]:
+    """The metering update, then each image's linear tonemap and the
+    rig's transform."""
+    out = self._tonemap_fused_lazy(images, "linear", float(gamma))
+    if out is not None:
+      return out
+    form, batch = self._stack_batch(images)
+    self._update_metering_batch(form, batch)
+    fn = (_jit_linear_phases if form == "phases"
+          else _jit_linear_planar)
+    out = fn(batch, self.metrics, float(gamma), self.transform)
+    return [PlanarImage(o) for o in out]
+
+  def _tonemap_fused_lazy(self, images, tonemap, gamma, intensity=1.0,
+                          light_adapt=1.0, color_adapt=0.0):
+    """The reference's call pattern (load every camera, then one tonemap
+    over the list) as one step: when every image is an unforced lazy
+    handle of one configuration, their raws concatenated run through
+    :func:`fused_isp_step` with the loaders' captured arguments, bitwise
+    ``process`` on the same raws. None for a mixed list (the staged path
+    takes it). The inputs stay lazy."""
+    key = self._lazy_key(images)
+    if key is None:
+      return None
+    fmt, ids, wd, pattern, cc, plan = key
+    raws = torch.cat([im._lazy[0] for im in images])
+    prev, t = self._prev_t()
+    self.metrics, out = fused_isp_step(
+        raws, prev, t, gamma, intensity, light_adapt, color_adapt, fmt,
+        ids, wd, pattern, cc, plan, self.metering_stride, self.transform,
+        tonemap)
+    return [PlanarImage(batch=("planar", out, i))
+            for i in range(len(images))]
+
   def process(self, raws, fmt: str = "packed12", ids_format: bool = False,
               gamma: float = 1.0, intensity: float = 1.0,
               light_adapt: float = 1.0, color_adapt: float = 0.0,
@@ -515,15 +1079,10 @@ class _ISPBase:
     ``color_format='yuv420'`` returns planar I420 ``(Y, VU)`` u8 on the
     device instead (``layout`` ignored; even output dims required).
     """
+    raws = _on_device(raws, self.device)
     debug_util.validate_raw(raws, fmt)
-    raws = torch.as_tensor(raws).to(self.device)
-    if self.metrics is None:
-      prev = torch.zeros(9, dtype=torch.float32, device=self.device)
-      t = 0.0
-    else:
-      prev = self.metrics
-      t = 1.0 - self.moving_alpha
-    plan = self._resize_plan(raws.shape[1], decoded_width(fmt, raws.shape[2]))
+    prev, t = self._prev_t()
+    plan = self._resize_plan_key(raws, fmt)
     new_metrics, out = fused_isp_step(
         raws, prev, t, float(gamma), float(intensity), float(light_adapt),
         float(color_adapt), fmt, ids_format, self._work_dtype,
@@ -536,13 +1095,111 @@ class _ISPBase:
       return np.moveaxis(out.cpu().numpy(), 1, -1)
     return out
 
+  def process_stream(self, raw_iter, prefetch: int = 2, **kwargs):
+    """Iterate raw frame batches through :meth:`process`, yielding the
+    outputs in order with ``prefetch`` steps in flight: CUDA's launch
+    queue runs ahead of the host as JAX's asynchronous dispatch does, and
+    nothing syncs but a ``layout="hwc"`` conversion, which happens when
+    its frame is yielded. ``kwargs`` go to :meth:`process`."""
+    layout = kwargs.pop("layout", "planar")
+    to_host = layout == "hwc" and kwargs.get("color_format", "rgb") == "rgb"
+
+    def finish(out):
+      return np.moveaxis(out.cpu().numpy(), 1, -1) if to_host else out
+
+    pending = deque()
+    for raws in raw_iter:
+      pending.append(self.process(raws, layout="planar", **kwargs))
+      if len(pending) > prefetch:
+        yield finish(pending.popleft())
+    while pending:
+      yield finish(pending.popleft())
+
+
+# --------------------------------------------------------------------------
+# The per-image API's batch stages (the JAX package's jitted helpers).
+# --------------------------------------------------------------------------
+
+def _jit_load_planar(raws, fmt, ids_format, work_dtype, pattern, cc,
+                     resize_plan) -> torch.Tensor:
+  """The loaders' batch: decode -> demosaic (+CCM) -> the resize: phase
+  form x12 (N, 12, hh, wh) without a resize, else the resized planar
+  (N, 3, h', w')."""
+  wd = types.canonical_dtype(work_dtype)
+  phases = _decode_checked(raws, fmt, wd, ids_format, "auto")
+  x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd)
+  if resize_plan is not None:
+    size, scale = resize_plan
+    return _resize_x12(x12, size, scale, wd)
+  return x12
+
+
+def _jit_metering_planar(batch, prev, t, stride) -> torch.Tensor:
+  return _meter(subsample_hw(batch, stride, stride), prev, t)
+
+
+def _jit_metering_phases(x12, prev, t, stride) -> torch.Tensor:
+  # full-res stride-s pixels are phase (0, 0)'s at half-res stride s / 2:
+  # the stencil's own metering sample
+  s = stride // 2
+  return _meter(subsample_hw(x12[:, 0:3], s, s), prev, t)
+
+
+def _map_max_any(x, metrics, intensity, light_adapt, color_adapt, wd):
+  """K3's stage, ``(p of the working dtype, per-image max)``: the working
+  dtype's instantiation, else (an image the caller made, of any dtype)
+  K3<f32> on x's f32 values and one cast of p, as the JAX package maps in
+  f32 and casts once."""
+  x = x.contiguous()
+  if x.dtype == wd:
+    return reinhard_map_max_ca(x, metrics, intensity, light_adapt,
+                               color_adapt, wd)
+  p, max_out = reinhard_map_max_ca(x.to(torch.float32), metrics, intensity,
+                                   light_adapt, color_adapt, torch.float32)
+  return p.to(wd), max_out
+
+
+def _jit_reinhard_planar(batch, metrics, gamma, intensity, light_adapt,
+                         color_adapt, work_dtype, transform):
+  wd = types.canonical_dtype(work_dtype)
+  p_cast, max_out = _map_max_any(batch, metrics, intensity, light_adapt,
+                                 color_adapt, wd)
+  return _transform_planar(reinhard_gamma_ca(p_cast, max_out, gamma),
+                           transform).contiguous()
+
+
+def _jit_linear_planar(batch, metrics, gamma, transform):
+  return _transform_planar(linear_apply_ca(batch, metrics, gamma),
+                           transform).contiguous()
+
+
+def _jit_reinhard_phases(x12, metrics, gamma, intensity, light_adapt,
+                         color_adapt, work_dtype, transform):
+  """The step's phase tail on a phase-form batch: K3, then K4 (the gamma,
+  u8, the interleave and the transform in its stores)."""
+  wd = types.canonical_dtype(work_dtype)
+  p_cast, max_out = _map_max_any(x12, metrics, intensity, light_adapt,
+                                 color_adapt, wd)
+  return _finish(p_cast, max_out, gamma, "reinhard", transform, "rgb",
+                 "auto")
+
+
+def _jit_linear_phases(x12, metrics, gamma, transform):
+  """K4's linear mode on a phase-form batch."""
+  return _finish(x12, hopper_finish.linear_scal(metrics), gamma, "linear",
+                 transform, "rgb", "auto")
+
 
 def camera_isp(name: str, dtype=types.f32):
-  """Class factory closing over a working dtype."""
+  """Class factory closing over a working dtype; the classes expose the
+  channels-last tonemaps as ``reinhard_kernel`` and ``linear_kernel``,
+  as the reference does."""
   cls = type(name, (_ISPBase,),
              {"_work_dtype": types.canonical_dtype(dtype)})
   cls.__qualname__ = name
   cls.__module__ = __name__
+  cls.reinhard_kernel = staticmethod(reinhard_apply)
+  cls.linear_kernel = staticmethod(linear_apply)
   return cls
 
 

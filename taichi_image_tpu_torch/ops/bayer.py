@@ -1,5 +1,5 @@
 """Bayer demosaic on phase planes (counterpart of
-``taichi_image_tpu/ops/bayer.py:45-347, 387-487, 616-623``).
+``taichi_image_tpu/ops/bayer.py``).
 
 The CFA is split into its four half-resolution phase planes; every tap
 of the full-resolution 13-tap diamond stencils then lands on one phase
@@ -13,28 +13,42 @@ The tables here are built in numpy and equal the JAX package's values
 exactly; ``demosaic_phases`` runs the K2 stencil (``ops/hopper/demosaic``)
 with the finish (renorm, optional CCM, clip, cast) fused in, and
 ``demosaic_samples`` evaluates the same arithmetic on the metering grid
-only (the front-fused route's metering pre-pass).
+only (the front-fused route's metering pre-pass). Frames under 4x4
+pixels (a phase plane one row or one column wide) take the JAX package's
+own route for them, the dropped taps' weights divided out per pixel
+(``_demosaic_denominator``), in torch on either device.
+
+The HWC API of the reference (``bayer_to_rgb``, ``bayer_to_rgb_batch``,
+``rgb_to_bayer``) runs on the same core, on the card by default (a host
+array is moved to ``device``, a tensor taken on its own device), so
+``bayer_to_rgb`` launches K2.
 """
 
 from __future__ import annotations
 
 import enum
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from taichi_image_tpu_torch import types
+from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
                                                     transform_axes)
 from taichi_image_tpu_torch.ops.kernel import symmetrical, zip_tuple
 
 __all__ = [
     "BayerPattern", "pixel_orders", "kernel_patterns", "diamond_kernel",
-    "make_bayer_kernels", "make_bilinear_kernels", "demosaic_phases",
-    "demosaic_samples", "edge_renorm_factor_sampled", "phases_to_planar",
+    "make_bayer_kernels", "make_bilinear_kernels", "scale_kernel",
+    "cfa_phases", "demosaic_phases", "demosaic_samples",
+    "edge_renorm_factor", "edge_renorm_factor_sampled", "phases_to_plane",
+    "phases_to_planar", "phases_to_planar_stack", "planar_to_phases",
     "planar_from_phases_transformed", "planar_subsample", "subsample_hw",
-    "transform_phases",
+    "transform_phases", "bayer_to_rgb", "bayer_to_rgb_batch",
+    "rgb_to_bayer",
 ]
 
 
@@ -86,6 +100,13 @@ def make_bilinear_kernels():
       zip_tuple(diag, cross, ident),
   ]
   return tuple(diamond_kernel(w) for w in vec_weights)
+
+
+def scale_kernel(kernel, scale):
+  """Scale a kernel's vec3 weights, keeping its offsets."""
+  return tuple(
+      (offset, tuple(w * s for w, s in zip(weight, scale)))
+      for offset, weight in kernel)
 
 
 bayer_kernels = make_bayer_kernels()
@@ -236,12 +257,18 @@ def demosaic_phases(phases: torch.Tensor, pattern: BayerPattern, cc=None,
   if method not in ("mhc", "bilinear"):
     raise ValueError(f"unknown demosaic method {method!r}")
   _, _, hh, wh = phases.shape
-  if hh < 2 or wh < 2:
-    raise NotImplementedError(
-        f"frames under 4x4 pixels (phase planes {hh}x{wh}) need the "
-        "denominator route of the JAX demosaic, not ported yet "
-        "(ROADMAP.md queue 1, item 13)")
   weights = _demosaic_tables(pattern, method)
+  if hh < 2 or wh < 2:
+    # the JAX package's route for frames under 4x4 (its own routing, on
+    # either backend): no border strips to renormalise, so the surviving
+    # taps' weights are divided out per pixel
+    if backend not in hopper.BACKENDS:
+      raise ValueError(f"unknown backend {backend!r}")
+    out = _demosaic_denominator(phases, weights, cc,
+                                types.canonical_dtype(out_dtype))
+    if not sample_step:
+      return out
+    return out, out[:, 0:3, ::sample_step, ::sample_step]
   fin = _finish_spec_for(pattern, method, hh, wh,
                          None if cc is None else tuple(cc),
                          types.canonical_dtype(out_dtype))
@@ -250,6 +277,64 @@ def demosaic_phases(phases: torch.Tensor, pattern: BayerPattern, cc=None,
   if not sample_step:
     return out
   return out, samp
+
+
+def _shifted_sums(xp: torch.Tensor, weights: np.ndarray, oc: int, hh: int,
+                  wh: int, step: int = 1) -> torch.Tensor:
+  """Channel ``oc``'s weighted taps over the zero-padded f32 phase planes
+  ``xp`` (N, 4, hh + 2, wh + 2), each tap a multiply and the taps added
+  in (q, u, v) order (K2's order), at every ``step``-th pixel."""
+  a = None
+  for q in range(4):
+    for u in range(3):
+      for v in range(3):
+        w = float(weights[oc, q, u, v])
+        if w == 0.0:
+          continue
+        t = xp[:, q, u:u + hh:step, v:v + wh:step] * w
+        a = t if a is None else a + t
+  return a
+
+
+def _demosaic_denominator(phases: torch.Tensor, weights: np.ndarray, cc,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+  """The demosaic of frames under 4x4 pixels: per channel the weighted
+  sum of the in-frame taps over the sum of their weights (the JAX
+  package's num / denom, ``ops/bayer.py:472-482``), then the optional CCM
+  as v0*c0 + v1*c1 + v2*c2, the clip and one cast. Explicit shifted sums
+  in f32, not a convolution, whose summation order (and, in cuDNN, TF32)
+  would be the library's."""
+  n, _, hh, wh = phases.shape
+  xp = F.pad(phases.to(torch.float32), (1, 1, 1, 1))
+  ones = F.pad(torch.ones((1, 4, hh, wh), dtype=torch.float32,
+                          device=phases.device), (1, 1, 1, 1))
+  vals = [_shifted_sums(xp, weights, oc, hh, wh)
+          / _shifted_sums(ones, weights, oc, hh, wh) for oc in range(12)]
+  if cc is not None:
+    ccm = np.array(cc, np.float32).reshape(3, 3)
+    vals = [vals[3 * p] * float(ccm[d, 0]) + vals[3 * p + 1]
+            * float(ccm[d, 1]) + vals[3 * p + 2] * float(ccm[d, 2])
+            for p in range(4) for d in range(3)]
+  return torch.clamp(torch.stack(vals, dim=1), 0.0, 1.0).to(out_dtype)
+
+
+def cfa_phases(cfa: torch.Tensor) -> torch.Tensor:
+  """(N, H, W) CFA -> (N, 4, H/2, W/2) phase planes of its dtype, in-phase
+  order (row % 2) * 2 + col % 2 (pure data movement)."""
+  n, h, w = cfa.shape
+  b = cfa.reshape(n, h, w // 2, 2)
+  even, odd = b[..., 0], b[..., 1]
+  return torch.stack([even[:, 0::2], odd[:, 0::2],
+                      even[:, 1::2], odd[:, 1::2]], dim=1)
+
+
+def phases_to_plane(x4: torch.Tensor, dtype=None) -> torch.Tensor:
+  """(N, 4, hh, wh) single-channel phases -> full-res (N, H, W) plane
+  (pure data movement)."""
+  n, _, hh, wh = x4.shape
+  x = x4.reshape(n, 2, 2, hh, wh)        # (n, pc, pr, hh, wh)
+  t = x.permute(0, 3, 2, 4, 1)           # (n, hh, pr, wh, pc)
+  return t.reshape(n, 2 * hh, 2 * wh).to(dtype or x4.dtype)
 
 
 def phases_to_planar(x12: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -261,14 +346,40 @@ def phases_to_planar(x12: torch.Tensor, dtype=None) -> torch.Tensor:
   return t.reshape(n, 3, 2 * hh, 2 * wh).to(dtype or x12.dtype)
 
 
+# The JAX package keeps a second, stack-interleave form of
+# phases_to_planar because XLA on the TPU compiles the two at different
+# speeds; in torch they are one function.
+phases_to_planar_stack = phases_to_planar
+
+
+def planar_to_phases(planar: torch.Tensor) -> torch.Tensor:
+  """(N, 3, H, W) planar -> (N, 12, hh, wh) phase-RGB (the inverse of
+  :func:`phases_to_planar`)."""
+  return torch.cat([planar[:, :, dy::2, dx::2] for dy, dx in _PHASE_PARITY],
+                   dim=1)
+
+
 def subsample_hw(x: torch.Tensor, sr: int, sc: int) -> torch.Tensor:
   """``x[..., ::sr, ::sc]`` (a view; the JAX package's reshape-select form
   of it exists for the TPU's strided-slice lowering)."""
   return x[..., ::sr, ::sc]
 
 
+def edge_renorm_factor(weights: np.ndarray, hh: int, wh: int,
+                       is_top: bool = True,
+                       is_bot: bool = True) -> torch.Tensor:
+  """The elementwise border-renormalization factor, (1, 12, hh, wh) f32:
+  per-row times per-column factors, with the four corners corrected to
+  exactly full / corner. ``is_top`` / ``is_bot`` say whether the frame's
+  first / last row is an image edge (a row band's is not). Bitwise the
+  JAX package's values."""
+  return torch.from_numpy(edge_renorm_factor_sampled(
+      weights, hh, wh, 1, is_top=is_top, is_bot=is_bot))
+
+
 def edge_renorm_factor_sampled(weights: np.ndarray, hh: int, wh: int,
-                               step: int) -> np.ndarray:
+                               step: int, is_top: bool = True,
+                               is_bot: bool = True) -> np.ndarray:
   """The border-renormalization factor evaluated on the (::step, ::step)
   sample grid, (1, 12, hs, ws) float32 in numpy, with the stencil's f32
   arithmetic (rvf * cvv, then the corner multiplies): bitwise the K2
@@ -282,8 +393,8 @@ def edge_renorm_factor_sampled(weights: np.ndarray, hh: int, wh: int,
   hs, ws = -(-hh // step), -(-wh // step)
   rows = np.arange(hs) * step
   cols = np.arange(ws) * step
-  on_top = rows == 0
-  on_bot = rows == hh - 1
+  on_top = (rows == 0) & bool(is_top)
+  on_bot = (rows == hh - 1) & bool(is_bot)
   one = np.float32(1.0)
   rvf = (np.where(on_top[None, :], (full / t_mid)[:, None], one)
          * np.where(on_bot[None, :], (full / b_mid)[:, None], one))
@@ -332,19 +443,9 @@ def demosaic_samples(phases: torch.Tensor, pattern: BayerPattern, cc=None,
   weights = _demosaic_tables(pattern, method)
   inv_full = _inv_full(weights)
   factor = _sample_factor(pattern, method, hh, wh, s, phases.device)
-  xp = torch.nn.functional.pad(phases.to(torch.float32), (1, 1, 1, 1))
-  vals = []
-  for oc in range(3):
-    a = None
-    for q in range(4):
-      for u in range(3):
-        for v in range(3):
-          w = float(weights[oc, q, u, v])
-          if w == 0.0:
-            continue
-          t = xp[:, q, u:u + hh:s, v:v + wh:s] * w
-          a = t if a is None else a + t
-    vals.append(a * float(inv_full[oc]) * factor[oc])
+  xp = F.pad(phases.to(torch.float32), (1, 1, 1, 1))
+  vals = [_shifted_sums(xp, weights, oc, hh, wh, s) * float(inv_full[oc])
+          * factor[oc] for oc in range(3)]
   if cc is not None:
     ccm = np.array(cc, np.float32).reshape(3, 3)
     vals = [vals[0] * float(ccm[d, 0]) + vals[1] * float(ccm[d, 1])
@@ -439,3 +540,84 @@ def planar_from_phases_transformed(out12: torch.Tensor, t: ImageTransform,
   if fx:
     z = z.flip(xsl)
   return z.reshape(n, 3, ho, wo).to(out_dtype or out12.dtype)
+
+
+def _bayer_to_rgb(cfa: torch.Tensor, pattern: BayerPattern, cc, in_dtype,
+                  out_dtype, method: str) -> torch.Tensor:
+  """(N, H, W) CFAs -> (N, H, W, 3) RGB through the phase-plane core:
+  normalised f32 phases, the demosaic in f32 (K2 on a CUDA tensor), the
+  interleave, then the rescale and cast of ``out_dtype``."""
+  phases = cfa_phases(cfa)
+  if phases.dtype == torch.uint16:  # few torch ops take uint16
+    phases = phases.view(torch.int16).to(torch.int32) & 0xFFFF
+  phases = phases.to(torch.float32)
+  in_scale = types.scale_of(in_dtype)
+  if in_scale != 1.0:
+    # a 0-d tensor: on CUDA torch turns a division by a Python scalar
+    # into a multiply by its reciprocal
+    phases = phases / torch.tensor(in_scale, dtype=torch.float32,
+                                   device=phases.device)
+  x12 = demosaic_phases(phases, pattern, cc=cc, method=method,
+                        out_dtype=torch.float32)
+  rgb = phases_to_planar(x12, torch.float32).permute(0, 2, 3, 1)
+  return types.from_float(rgb, out_dtype)
+
+
+def _cc_tuple(correct_colors):
+  if correct_colors is None:
+    return None
+  return tuple(np.asarray(correct_colors, np.float32).flatten().tolist())
+
+
+def bayer_to_rgb(bayer, pattern: BayerPattern = BayerPattern.RGGB,
+                 correct_colors: Optional[np.ndarray] = None, dtype=None,
+                 method: str = "mhc", device="cuda") -> torch.Tensor:
+  """Demosaic a 2-D CFA image to (H, W, 3) RGB: the 13-tap stencils
+  ("mhc", the reference's, or "bilinear") with border renormalization,
+  the optional 3x3 color correction (``cc @ rgb``), clamp to [0, 1] and
+  the rescale and cast to ``dtype`` (the input's by default). A host
+  array is moved to ``device`` (the card by default: K2 runs there); a
+  tensor is taken on its own device."""
+  bayer = types.as_tensor(bayer, device)
+  if bayer.ndim != 2:
+    raise ValueError(
+        f"image must be mono bayer, got shape {tuple(bayer.shape)}")
+  if bayer.shape[0] % 2 or bayer.shape[1] % 2:
+    raise ValueError(f"image must be even size, got {tuple(bayer.shape)}")
+  in_dtype = types.dtype_of(bayer)
+  out_dtype = in_dtype if dtype is None else types.canonical_dtype(dtype)
+  return _bayer_to_rgb(bayer[None], pattern, _cc_tuple(correct_colors),
+                       in_dtype, out_dtype, method)[0]
+
+
+def bayer_to_rgb_batch(bayer, pattern: BayerPattern = BayerPattern.RGGB,
+                       correct_colors=None, dtype=None,
+                       method: str = "mhc", device="cuda") -> torch.Tensor:
+  """Batched demosaic: (N, H, W) -> (N, H, W, 3), on ``device`` as
+  :func:`bayer_to_rgb`."""
+  bayer = types.as_tensor(bayer, device)
+  if bayer.ndim != 3:
+    raise ValueError(f"expected batch of mono bayer images, got shape "
+                     f"{tuple(bayer.shape)}")
+  in_dtype = types.dtype_of(bayer)
+  out_dtype = in_dtype if dtype is None else types.canonical_dtype(dtype)
+  return _bayer_to_rgb(bayer, pattern, _cc_tuple(correct_colors), in_dtype,
+                       out_dtype, method)
+
+
+def rgb_to_bayer(image, pattern: BayerPattern = BayerPattern.RGGB,
+                 device="cuda") -> torch.Tensor:
+  """Mosaic an RGB image (H, W, 3) to a single-channel CFA by 2x2 phase
+  sampling (a host array on ``device``, a tensor on its own)."""
+  image = types.as_tensor(image, device)
+  if image.ndim != 3 or image.shape[2] != 3:
+    raise ValueError(f"image must be RGB (H, W, 3), got "
+                     f"{tuple(image.shape)}")
+  h, w = image.shape[:2]
+  p1, p2, p3, p4 = pattern.pixel_order
+  x = image.reshape(h // 2, 2, w // 2, 2, 3)
+  quad = torch.stack([
+      torch.stack([x[:, 0, :, 0, p1], x[:, 0, :, 1, p2]], dim=-1),
+      torch.stack([x[:, 1, :, 0, p3], x[:, 1, :, 1, p4]], dim=-1),
+  ], dim=1)  # (hh, 2, wh, 2)
+  return quad.reshape(h, w)

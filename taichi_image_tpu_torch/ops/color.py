@@ -2,7 +2,8 @@
 
 Counterpart of ``taichi_image_tpu/ops/color.py``, in plain torch on the
 tensor's device (the JAX package leaves this math to XLA). Images are
-channels-last (..., 3) tensors; numpy arrays are accepted and converted.
+channels-last (..., 3) tensors; a host array is moved to ``device`` (the
+card by default), a tensor is taken on its own device.
 
 The reference's quirks are kept:
   * the conversion matrix is applied to the channel-reversed vector
@@ -46,10 +47,6 @@ _XYZ_M = np.array([
 ], np.float32)
 
 
-def _tensor(x) -> torch.Tensor:
-  return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-
-
 def _mat3(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
   """(..., 3) -> (..., 3): row d is (x0 m[d, 0] + x1 m[d, 1]) + x2 m[d, 2]
   in f32."""
@@ -63,53 +60,53 @@ def _offset(like: torch.Tensor) -> torch.Tensor:
   return torch.from_numpy(_YUV_OFFSET).to(like.device)
 
 
-def bgr_YCrCb(bgr):
+def bgr_YCrCb(bgr, device="cuda"):
   """(..., 3) BGR in [0, 1] -> full-range YCrCb with the +0.5 chroma
   offset."""
-  bgr = _tensor(bgr)
+  bgr = types.as_tensor(bgr, device)
   return _mat3(bgr, _YUV_M) + _offset(bgr)
 
 
-def rgb_YCrCb(rgb):
+def rgb_YCrCb(rgb, device="cuda"):
   """(..., 3) RGB -> YCrCb: the matrix applies to the channel-reversed
   vector."""
-  return bgr_YCrCb(_tensor(rgb).flip(-1))
+  return bgr_YCrCb(types.as_tensor(rgb, device).flip(-1))
 
 
-def YCrCb_bgr(ycrcb):
+def YCrCb_bgr(ycrcb, device="cuda"):
   """Inverse of :func:`bgr_YCrCb` (the inverse matrix is computed in
   float64 at import, then rounded to f32)."""
-  ycrcb = _tensor(ycrcb).to(torch.float32)
+  ycrcb = types.as_tensor(ycrcb, device).to(torch.float32)
   return _mat3(ycrcb - _offset(ycrcb), _YUV_M_INV)
 
 
-def YCrCb_rgb(ycrcb):
-  return YCrCb_bgr(ycrcb).flip(-1)
+def YCrCb_rgb(ycrcb, device="cuda"):
+  return YCrCb_bgr(ycrcb, device).flip(-1)
 
 
-def rgb_gray(rgb):
+def rgb_gray(rgb, device="cuda"):
   """Rec.601 luma: 0.299 R + 0.587 G + 0.114 B."""
-  rgb = _tensor(rgb)
+  rgb = types.as_tensor(rgb, device)
   return (rgb[..., 0] * float(_GRAY[0]) + rgb[..., 1] * float(_GRAY[1])
           + rgb[..., 2] * float(_GRAY[2]))
 
 
-def bgr_gray(bgr):
-  bgr = _tensor(bgr)
+def bgr_gray(bgr, device="cuda"):
+  bgr = types.as_tensor(bgr, device)
   return (bgr[..., 0] * float(_GRAY[2]) + bgr[..., 1] * float(_GRAY[1])
           + bgr[..., 2] * float(_GRAY[0]))
 
 
-def rgb_linear(rgb):
+def rgb_linear(rgb, device="cuda"):
   """sRGB EOTF linearization."""
-  rgb = _tensor(rgb)
+  rgb = types.as_tensor(rgb, device)
   return torch.where(rgb <= 0.04045, rgb / 12.92,
                      torch.pow((rgb + 0.055) / 1.055, 2.4))
 
 
-def rgb_ciexyz(rgb):
+def rgb_ciexyz(rgb, device="cuda"):
   """sRGB -> CIEXYZ."""
-  return _mat3(rgb_linear(rgb), _XYZ_M)
+  return _mat3(rgb_linear(rgb, device), _XYZ_M)
 
 
 def _cast(v: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -151,17 +148,18 @@ def _out_dtype(in_dtype, dtype):
   return in_dtype if dtype is None else types.canonical_dtype(dtype)
 
 
-def rgb_yuv420(src, dtype=None):
+def rgb_yuv420(src, dtype=None, device="cuda"):
   """(H, W, 3) RGB -> (Y (H, W), chroma (2, H/2, W/2)): per 2x2 block,
   4 Y samples and the mean of the 4 chroma samples, V then U."""
-  src = _tensor(src)
+  src = types.as_tensor(src, device)
   in_dtype = types.dtype_of(src)
   return _rgb_yuv420(src, in_dtype, _out_dtype(in_dtype, dtype))
 
 
-def yuv420_rgb(y_img, uv_img, dtype=None):
+def yuv420_rgb(y_img, uv_img, dtype=None, device="cuda"):
   """(Y, UV planes) -> (H, W, 3) RGB."""
-  y_img, uv_img = _tensor(y_img), _tensor(uv_img)
+  y_img = types.as_tensor(y_img, device)
+  uv_img = types.as_tensor(uv_img, device)
   in_dtype = types.dtype_of(y_img)
   return _yuv420_rgb(y_img, uv_img, in_dtype, _out_dtype(in_dtype, dtype))
 
@@ -175,15 +173,15 @@ def split_yuv_420(yuv):
   return y, uv, (width, height)
 
 
-def rgb_yuv420_image(src, dtype=None):
+def rgb_yuv420_image(src, dtype=None, device="cuda"):
   """(H, W, 3) RGB -> one (3H/2, W) planar I420 buffer."""
-  src = _tensor(src)
+  src = types.as_tensor(src, device)
   y, uv = rgb_yuv420(src, dtype)
   h, w = src.shape[:2]
   return torch.cat([y, uv.reshape(h // 2, w)], dim=0)
 
 
-def yuv420_rgb_image(yuv, dtype=None):
+def yuv420_rgb_image(yuv, dtype=None, device="cuda"):
   """(3H/2, W) planar I420 buffer -> (H, W, 3) RGB."""
-  y, uv, _ = split_yuv_420(_tensor(yuv))
+  y, uv, _ = split_yuv_420(types.as_tensor(yuv, device))
   return yuv420_rgb(y, uv, dtype)

@@ -8,7 +8,9 @@ that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
 :class:`Kernel` named ``<stage>_<suffix>`` (``decode_f16``,
 ``demosaic_f32``, ...); the front-fused stencil exists for bf16 only
 (``front_fused_bf16``) and the planar I420 conversion for u8 only
-(``yuv420_planar``), each registered with :func:`register`. A source's
+(``yuv420_planar``), each registered with :func:`register`, as is each
+instantiation of the CFA split, a template over its source type too
+(``split_<source>_<suffix>``: ``split_u16_bf16``, ...). A source's
 library, holding all its instantiations, is compiled with ``nvcc`` on
 first use into ``_build/``
 (keyed by a hash of the sources, the flags and ``nvcc --version``) and

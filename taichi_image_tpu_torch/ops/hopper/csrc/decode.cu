@@ -39,6 +39,9 @@
 // rounded once to T (round to nearest even): bitwise equal to the JAX
 // decode, which multiplies in f32 and casts (camera_isp.py:971-972,
 // decode.py:143).
+//
+// K1's packed16 mode, decode16<T>, is a source mode of the CFA split
+// (csrc/split.cu): packed16 bytes are little-endian u16 pixels.
 #include "common.cuh"
 
 namespace {

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.bayer import (_PHASE_PARITY, BayerPattern,
                                               _demosaic_tables,
-                                              diamond_kernel)
+                                              _shifted_sums, diamond_kernel)
 
 __all__ = ["demosaic_stencil", "demosaic_stencil_plain", "stencil_params",
            "tap_variant"]
@@ -166,16 +166,7 @@ def demosaic_stencil_plain(phases: torch.Tensor, weights: np.ndarray,
     vals = []
     for c in range(3):
       oc = ph * 3 + c
-      a = None
-      for q in range(4):
-        for u in range(3):
-          for v in range(3):
-            w = float(weights[oc, q, u, v])
-            if w == 0.0:
-              continue
-            s = xp[:, q, u:u + hh, v:v + wh] * w
-            a = s if a is None else a + s
-      val = a * float(inv_full[oc])
+      val = _shifted_sums(xp, weights, oc, hh, wh) * float(inv_full[oc])
       vals.append(val * _border_factor(oc, hh, wh, finish, phases.device))
     if ccm is not None:
       vals = [vals[0] * float(ccm[d, 0]) + vals[1] * float(ccm[d, 1])

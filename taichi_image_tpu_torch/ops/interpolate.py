@@ -5,8 +5,8 @@ Images are HWC (the public API's layout). The sample positions come
 from :func:`_axis_samples`, built in numpy and bitwise the same as the
 JAX package's; the bilinear gather is separable (rows, then columns),
 each a gather plus ``lo + f * (hi - lo)`` in f32. The ISP's resize runs
-on phase planes instead (``models/camera_isp._resize_from_phases`` and
-the K12 kernel) with the same taps.
+on phase planes instead (the K12 kernel, ``ops/hopper/resize.py``) with
+the same taps.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ Reinhard with log-luminance metering.
 
 Counterpart of ``taichi_image_tpu/ops/tonemap.py``, in plain torch on the
 tensor's device (the JAX package leaves this math to XLA). Images are
-channels-last (H, W, 3) tensors; numpy arrays are accepted and converted.
+channels-last (H, W, 3) tensors; a host array is moved to ``device`` (the
+card by default), a tensor is taken on its own device.
 Scalars (gamma, intensity, adapt weights) are taken as f32, as the JAX
 functions take them.
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from taichi_image_tpu_torch import types
-from taichi_image_tpu_torch.ops.color import _tensor, rgb_gray
+from taichi_image_tpu_torch.ops.color import rgb_gray
 from taichi_image_tpu_torch.utils.bounds import Bounds, lerp
 
 __all__ = [
@@ -58,10 +59,11 @@ def _f32(v, device) -> torch.Tensor:
   return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def linear_map(image, bounds_min, bounds_max, gamma, out_dtype):
+def linear_map(image, bounds_min, bounds_max, gamma, out_dtype,
+               device="cuda"):
   """Normalize by bounds, apply the 1/gamma power, clamp to [0, 1],
   rescale and cast."""
-  image = _tensor(image)
+  image = types.as_tensor(image, device)
   lo, hi = _f32(bounds_min, image.device), _f32(bounds_max, image.device)
   inv_range = 1.0 / (hi - lo)
   inv_gamma = 1.0 / _f32(gamma, image.device)
@@ -69,10 +71,10 @@ def linear_map(image, bounds_min, bounds_max, gamma, out_dtype):
   return types.from_float(torch.clamp(x, 0.0, 1.0), out_dtype)
 
 
-def metering(image):
+def metering(image, device="cuda"):
   """Log-luminance statistics of a normalized f32 (H, W, 3) image over
   Bounds(0, 1): a (7,) vec with the negated log-max."""
-  image = _tensor(image)
+  image = types.as_tensor(image, device)
   gray = rgb_gray(image)
   log_gray = torch.log(torch.clamp_min(gray, 1e-4))
   n = image.shape[0] * image.shape[1]
@@ -85,10 +87,11 @@ def metering(image):
   ])
 
 
-def reinhard_map(image, stats, intensity, light_adapt, color_adapt):
+def reinhard_map(image, stats, intensity, light_adapt, color_adapt,
+                 device="cuda"):
   """Global Reinhard operator on a normalized f32 image, ``stats`` a vec7
   as :func:`metering` gives it."""
-  image = _tensor(image)
+  image = types.as_tensor(image, device)
   dev = image.device
   intensity, light_adapt, color_adapt = (
       _f32(v, dev) for v in (intensity, light_adapt, color_adapt))
@@ -107,17 +110,17 @@ def reinhard_map(image, stats, intensity, light_adapt, color_adapt):
   return image * (1.0 / (adapt + image))
 
 
-def tonemap_linear(src, gamma=1.0, dtype=types.u8):
+def tonemap_linear(src, gamma=1.0, dtype=types.u8, device="cuda"):
   """Bounds reduction + linear map."""
-  x = _tensor(src).to(torch.float32)
+  x = types.as_tensor(src, device).to(torch.float32)
   return linear_map(x, x.min(), x.max(), gamma, types.canonical_dtype(dtype))
 
 
 def tonemap_reinhard(src, gamma=1.0, intensity=1.0, light_adapt=1.0,
-                     color_adapt=0.0, dtype=types.u8):
+                     color_adapt=0.0, dtype=types.u8, device="cuda"):
   """The five-stage Reinhard tonemap: bounds-normalize to [0, 1],
   metering, the map, re-bounds, then gamma and the cast."""
-  x = _tensor(src).to(torch.float32)
+  x = types.as_tensor(src, device).to(torch.float32)
   lo, hi = x.min(), x.max()
   temp = torch.clamp((x - lo) / (hi - lo), 0.0, 1.0)
   stats = metering(temp)
@@ -126,9 +129,9 @@ def tonemap_reinhard(src, gamma=1.0, intensity=1.0, light_adapt=1.0,
                     types.canonical_dtype(dtype))
 
 
-def tonemap_gamma(src, gamma=1.0, dtype=types.u8):
+def tonemap_gamma(src, gamma=1.0, dtype=types.u8, device="cuda"):
   """Gamma-only map."""
-  x = _tensor(src).to(torch.float32)
+  x = types.as_tensor(src, device).to(torch.float32)
   x = torch.pow(x, 1.0 / _f32(gamma, x.device))
   return types.from_float(torch.clamp(x, 0.0, 1.0),
                           types.canonical_dtype(dtype))

@@ -13,9 +13,10 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-__all__ = ["scale_factor", "canonical_dtype", "dtype_of", "scale_of",
-           "to_float", "from_float", "u8", "u16", "i16", "f16", "bf16",
-           "f32"]
+__all__ = ["scale_factor", "canonical_dtype", "dtype_of", "is_float_dtype",
+           "as_tensor", "to_device",
+           "scale_of", "to_float", "from_float", "empty_like", "zeros_like",
+           "u8", "u16", "i16", "f16", "bf16", "f32"]
 
 u8 = torch.uint8
 u16 = torch.uint16
@@ -63,9 +64,33 @@ def canonical_dtype(dtype: DTypeLike) -> torch.dtype:
   return _names[name]
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+  """``t`` on ``device``; a uint16 tensor moves as its int16 bits (torch
+  copies few uint16 tensors between devices)."""
+  if t.dtype == torch.uint16:
+    return t.view(torch.int16).to(device).view(torch.uint16)
+  return t.to(device)
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+  """``x`` as a tensor: a tensor as it is, on its own device; anything
+  else through numpy (sharing a writable array's memory, copying a
+  read-only one, such as a JAX array's) on the CPU, or on ``device`` when
+  given."""
+  if isinstance(x, torch.Tensor):
+    return x
+  a = np.asarray(x)
+  t = torch.from_numpy(a if a.flags.writeable else a.copy())
+  return t if device is None else to_device(t, device)
+
+
 def dtype_of(arr) -> torch.dtype:
   """The canonical dtype of a tensor or numpy array."""
   return canonical_dtype(arr.dtype)
+
+
+def is_float_dtype(dtype: DTypeLike) -> bool:
+  return canonical_dtype(dtype) in (f16, bf16, f32)
 
 
 def scale_of(dtype: DTypeLike) -> float:
@@ -94,3 +119,24 @@ def from_float(x: torch.Tensor, dtype: DTypeLike,
   if clip and not dt.is_floating_point:
     x = torch.clamp(x, 0, s)
   return x.to(dt)
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+  if dtype == bf16:
+    raise ValueError("numpy has no bfloat16")
+  return np.dtype(str(dtype).removeprefix("torch."))
+
+
+def empty_like(in_arr, shape=None, dtype=None) -> np.ndarray:
+  """An uninitialized numpy array like ``in_arr`` (API compatibility:
+  the ops allocate their own outputs)."""
+  shape = in_arr.shape if shape is None else shape
+  dt = dtype_of(in_arr) if dtype is None else canonical_dtype(dtype)
+  return np.empty(tuple(shape), _numpy_dtype(dt))
+
+
+def zeros_like(in_arr, shape=None, dtype=None) -> np.ndarray:
+  """A zeroed numpy array like ``in_arr``."""
+  shape = in_arr.shape if shape is None else shape
+  dt = dtype_of(in_arr) if dtype is None else canonical_dtype(dtype)
+  return np.zeros(tuple(shape), _numpy_dtype(dt))

@@ -1,10 +1,17 @@
-"""Bounds primitives (counterpart of ``taichi_image_tpu/utils/bounds.py``)."""
+"""Bounds primitives (counterpart of ``taichi_image_tpu/utils/bounds.py``):
+a host-side {min, max} pair, and the whole-image min/max as a (2,) f32
+tensor on the image's device (a reduction, no host read)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import numpy as np
+import torch
+
+__all__ = ["Bounds", "union_bounds", "bounds_to_np", "bounds_from_np",
+           "image_bounds", "lerp"]
 
 
 @dataclasses.dataclass
@@ -26,6 +33,28 @@ class Bounds:
 
   def to_vec(self):
     return np.array([self.min, self.max], np.float32)
+
+
+def union_bounds(bounds: Iterable[Bounds]) -> Bounds:
+  """The union of some bounds (empty: [inf, -inf])."""
+  result = Bounds(np.inf, -np.inf)
+  for b in bounds:
+    result = result.union(b)
+  return result
+
+
+def bounds_to_np(b: Bounds) -> np.ndarray:
+  return np.array([b.min, b.max], np.float32)
+
+
+def bounds_from_np(b) -> Bounds:
+  return Bounds(float(b[0]), float(b[1]))
+
+
+def image_bounds(image: torch.Tensor) -> torch.Tensor:
+  """Whole-image min and max over every element, a (2,) f32 tensor."""
+  x = image.to(torch.float32)
+  return torch.stack([x.amin(), x.amax()])
 
 
 def lerp(t, a, b):

@@ -55,8 +55,8 @@ def test_point_functions_match_jax(fn):
   x = np.random.default_rng(3).random((5, 7, 3), np.float32)
   want = getattr(jcolor, fn)(jnp.asarray(x))
   _assert_close(getattr(tcolor, fn)(torch.from_numpy(x)), want)
-  # numpy input is accepted too
-  _assert_close(getattr(tcolor, fn)(x), want)
+  # numpy input is accepted too, moved to the device asked for
+  _assert_close(getattr(tcolor, fn)(x, device="cpu"), want)
 
 
 @pytest.mark.parametrize("out", [None, "u8", "u16", "f32"])

@@ -1,7 +1,7 @@
 """Package-level contracts of the PyTorch port: it imports no JAX, the
-kernel route never falls back to the CPU, configurations outside the
-port raise NotImplementedError while the ones ported since run, and bad
-raw buffers raise ValueError before any kernel launch."""
+kernel route never falls back to the CPU, the configurations ported
+since the first slice run, and bad raw buffers raise ValueError before
+any kernel launch."""
 
 import subprocess
 import sys
@@ -49,7 +49,11 @@ def test_import_pulls_in_no_jax():
       import taichi_image_tpu_torch.ops.color
       import taichi_image_tpu_torch.ops.tonemap
       import taichi_image_tpu_torch.ops.interpolate
+      import taichi_image_tpu_torch.ops.kernel
+      import taichi_image_tpu_torch.ops.packed
       import taichi_image_tpu_torch.models.camera_isp
+      import taichi_image_tpu_torch.utils.cache
+      import taichi_image_tpu_torch.utils.debug
       bad = sorted(m for m in sys.modules
                    if m == "jax" or m.startswith(("jax.", "taichi_image_tpu.")))
       assert not bad, bad
@@ -62,7 +66,8 @@ def test_import_pulls_in_no_jax():
 
 
 STAGES = ["decode", "demosaic", "reinhard", "finish", "resize",
-          "finish_yuv420", "yuv420_planar_tone"]
+          "finish_yuv420", "yuv420_planar_tone", "decode16", "split_u16",
+          "split_f16", "split_f32"]
 # one instantiation each, no X-macro
 _SINGLE = {"front_fused_bf16", "yuv420_planar"}
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
@@ -72,6 +77,10 @@ _XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
                **{f"finish_yuv420_{sfx}": "1485"
                   for sfx in ("bf16", "f16", "f32")},
                **{f"yuv420_planar_tone_{sfx}": "1721"
+                  for sfx in ("bf16", "f16", "f32")},
+               **{f"decode16_{sfx}": "973-986"
+                  for sfx in ("bf16", "f16", "f32")},
+               **{f"split_{s}_{sfx}": "987-991" for s in ("u16", "f16", "f32")
                   for sfx in ("bf16", "f16", "f32")}}
 
 
@@ -106,7 +115,14 @@ def _kernel_calls(dtype):
   fin = _stencil_finish_spec(w, 4, 6, None, dtype)
   x12 = torch.zeros(1, 12, 4, 6, dtype=dtype)
   scal = torch.zeros(6)
+  cfa = {"u16": torch.zeros(1, 4, 6, dtype=torch.uint16),
+         "f16": torch.zeros(1, 4, 6, dtype=torch.float16),
+         "f32": torch.zeros(1, 4, 6)}
   return {
+      "decode16": lambda: th_decode.decode16_phases(
+          torch.from_numpy(_raws(1, 8, 24)), dtype, backend="kernel"),
+      **{f"split_{src}": (lambda c=c: th_decode.split_phases(
+          c, dtype, backend="kernel")) for src, c in cfa.items()},
       "decode": lambda: th_decode.decode12_phases(
           torch.from_numpy(_raws(1, 8, 18)), False, dtype, backend="kernel"),
       "demosaic": lambda: th_dm.demosaic_stencil(x4, w, fin, 4,
@@ -206,46 +222,35 @@ def test_auto_backend_on_cpu_is_plain_and_counts_nothing():
   assert all(v == 0 for v in hopper.launch_counts().values())
 
 
-@pytest.mark.parametrize("kw,isp_kw,match", [
-    ({"fmt": "packed16"}, {}, "item 13"),
-], ids=["kw0-item 13"])
-def test_out_of_slice_process_args_raise(kw, isp_kw, match):
-  isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
-  raws = _raws(2, 16, 64) if kw.get("fmt") == "packed16" else _raws()
-  with pytest.raises(NotImplementedError, match=match):
-    isp.process(raws, **kw)
-
-
 # configurations that raised until the resize, transform, linear,
-# odd-stride and I420 routes were ported: (ISP keywords, process keywords,
-# output (h, w) for 16 x 64-pixel raws)
-@pytest.mark.parametrize("isp_kw,kw,hw", [
-    ({"resize_width": 32}, {}, (8, 32)),
-    ({"scale": 0.5}, {}, (8, 32)),
-    ({"transform": ttit.ImageTransform.rotate_90}, {}, (64, 16)),
-    ({"metering_stride": 7}, {}, (16, 64)),
-    ({}, {"tonemap": "linear"}, (16, 64)),
-    ({}, {"color_format": "yuv420"}, (16, 64)),
-    ({"resize_width": 32}, {"color_format": "yuv420"}, (8, 32)),
+# odd-stride, I420, packed16 and small-frame routes were ported: (ISP
+# keywords, process keywords, output (h, w), the raws' (n, h, w_raw):
+# 16 x 64 pixels, but for the 2 x 4-pixel frame)
+@pytest.mark.parametrize("isp_kw,kw,hw,raw_shape", [
+    ({"resize_width": 32}, {}, (8, 32), (2, 16, 96)),
+    ({"scale": 0.5}, {}, (8, 32), (2, 16, 96)),
+    ({"transform": ttit.ImageTransform.rotate_90}, {}, (64, 16), (2, 16, 96)),
+    ({"metering_stride": 7}, {}, (16, 64), (2, 16, 96)),
+    ({}, {"tonemap": "linear"}, (16, 64), (2, 16, 96)),
+    ({}, {"color_format": "yuv420"}, (16, 64), (2, 16, 96)),
+    ({"resize_width": 32}, {"color_format": "yuv420"}, (8, 32), (2, 16, 96)),
+    ({}, {"fmt": "packed16"}, (16, 64), (2, 16, 128)),
+    ({}, {}, (2, 4), (1, 2, 6)),
 ], ids=["resize_width", "scale", "rotate_90", "stride7", "linear", "yuv420",
-        "resize_width-yuv420"])
-def test_ported_configs_run(isp_kw, kw, hw):
+        "resize_width-yuv420", "packed16", "tiny-2x4"])
+def test_ported_configs_run(isp_kw, kw, hw, raw_shape):
   isp = ttit.CameraBF16(BayerPattern.RGGB, device="cpu", **isp_kw)
+  n = raw_shape[0]
   for _ in range(2):
-    out = isp.process(_raws(), **kw)
+    out = isp.process(_raws(*raw_shape), **kw)
     if kw.get("color_format") == "yuv420":
       y, vu = out
       assert y.dtype == vu.dtype == torch.uint8
-      assert tuple(y.shape) == (2, *hw)
-      assert tuple(vu.shape) == (2, 2, hw[0] // 2, hw[1] // 2)
+      assert tuple(y.shape) == (n, *hw)
+      assert tuple(vu.shape) == (n, 2, hw[0] // 2, hw[1] // 2)
     else:
-      assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 3, *hw)
+      assert out.dtype == torch.uint8 and tuple(out.shape) == (n, 3, *hw)
     assert isp.metrics.shape == (9,) and torch.isfinite(isp.metrics).all()
-
-
-def test_tiny_frames_raise_not_implemented():
-  with pytest.raises(NotImplementedError, match="item 13"):
-    ttit.CameraBF16(BayerPattern.RGGB, device="cpu").process(_raws(1, 2, 6))
 
 
 @pytest.mark.parametrize("shape,dtype,fmt,match", [
