@@ -40,13 +40,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
             plans and, at x0.5, also on the direct path that any resize
             can take, K3 on the resized planar image, K3 with degenerate
             scalars (range 0, range < 0, every pixel at m0) and with NaN
-            pixels at the small shapes, K7 against K2 -> K3 on the card; kernel
+            pixels at the small shapes, K7 against K2 -> K3 on the card;
+            K2's banded mode (a band with a zero-padded halo row each
+            side, the finish spec's gates at the image's edges, its own
+            rows stored) for each band kind (first, interior, last, the
+            frame as one band with both gates) at ODD (all 8 variants,
+            with and without a CCM) and RAGGED in each dtype, the bands
+            joined bitwise the whole-frame kernel, K7 on each band bitwise
+            K2 -> K3 and within K3's contract of its twin, and each band
+            kind at the 6x8K band (6 x 4 x 274 x 3840) with and without a
+            CCM within K2's contract of its twin, K7 there in bf16 bitwise
+            K2 -> K3 and within K3's contract of its twin; kernel
             and twin times from CUDA events around batches of 10 calls,
             K3 in both adapt modes, K4 under every transform that swaps
             the axes, K12's direct path at x0.5 and, in bf16, K12 at x1.5
             and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
             planar I420 kernel at 6 x 1920 x 1080 and 6x4K, its tonemap
-            form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), and each
+            form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), K2's
+            banded mode on an interior 6x8K band in each dtype, and each
             time's bound (logical bytes over 3.35 TB/s, or f32
             operations over 67 TFLOP/s, the larger; a resize counts
             only the x12 its taps touch) and share of it. Then K1's
@@ -92,6 +103,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
             (within 1 count of the CPU's plain route on a crop);
             rgb_to_bayer, kernel.conv, the packed codecs and PackedMono12
             bitwise their CPU results.
+5b. large   process_large at 6x8K (raws 6 x 4320 x 11520): each class
+            over 2 frames with the EMA carried, with driver "auto",
+            "flat", "loop" and "scan", each bitwise process on the same
+            frames (the band drivers launching the stencil once a band);
+            CameraBF16's first frame against the all-plain route; then in
+            CameraBF16 resize_width=3840 with rotate_90, I420, the linear
+            tonemap at gamma 2.2 and packed16 raws, through "auto" and
+            "loop", bitwise process.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -109,7 +128,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             device operations per step). Then each class's 6x4K step with
             packed16, u16 and f32 raws beside packed12, and the lazy list
             path's step against process (CameraBF16, in turns), both
-            under the sync-debug "error" mode.
+            under the sync-debug "error" mode. Then each class's 6x8K
+            step through process_large with the whole-frame driver and
+            with the band loop (in turns, with and without the checksum),
+            each one's profile and its peak of device memory in one step.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -480,6 +502,84 @@ def _resize_x12_bytes(x12, taps):
                 * sum(r * c for r in rows for c in cols))
 
 
+BAND_8K = (N_CAM, 272, 3840)  # a 6x8K band: hb half-res rows, wh wide
+
+
+def _band_kinds(hh, b):
+  """(r0, r1, top_row, bot_row) of each band of at most b rows of an
+  hh-row frame (gates as models/large.py sets them), then the frame as
+  one band with both gates."""
+  kinds = [(r0, min(r0 + b, hh), 1 if r0 == 0 else -1,
+            min(r0 + b, hh) - r0 if r0 + b >= hh else -1)
+           for r0 in range(0, hh, b)]
+  return kinds + [(0, hh, 1, hh)]
+
+
+def _check_banded(kt, phases, dtype, variants, ccm, scal, note):
+  """K2's banded mode (and K7's gates, in bf16) against the twins on the
+  card, for each band kind of ``phases`` (first, interior, last, and the
+  whole frame as one band with both gates): a band of the frame with a
+  zero-padded halo row on each side, its own rows stored. K2 bitwise
+  without a CCM, <= 1 ulp of T with one, its sample the stored rows'
+  (x12[:, :3, ::4, ::4]); the bands joined bitwise the whole-frame
+  kernel (the same arithmetic per pixel, with a CCM too). K7 on each
+  band: bitwise K2 (every row read) -> K3 on the card, K3's contract
+  against its twin. Returns the band kinds' count."""
+  import torch
+  import torch.nn.functional as F
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import (_demosaic_tables,
+                                                _stencil_finish_spec)
+  from taichi_image_tpu_torch.ops.hopper import demosaic, front_fused
+  from taichi_image_tpu_torch.ops.hopper import reinhard
+  hh, wh = phases.shape[-2:]
+  pad = F.pad(phases, (0, 0, 1, 1))
+  kinds = _band_kinds(hh, 4 * -(-hh // 12))  # 3 bands on the sample grid
+  for (pattern, method), cc in itertools.product(variants, (None, ccm)):
+    w = _demosaic_tables(pattern, method)
+    kv = f"{kt} {pattern.name} {method} cc={cc is not None}"
+    whole, whole_s = demosaic.demosaic_stencil(
+        phases, w, _stencil_finish_spec(w, hh, wh, cc, dtype), 4,
+        backend="kernel")
+    joined, joined_s = [], []
+    for i, (r0, r1, top, bot) in enumerate(kinds):
+      hb = r1 - r0
+      band = pad[:, :, r0:r1 + 2].contiguous()
+      fin = _stencil_finish_spec(w, hb + 2, wh, cc, dtype, top_row=top,
+                                 bot_row=bot)
+      what = f"demosaic banded {kv} rows {r0}:{r1} gates ({top}, {bot})"
+      kx, ks = demosaic.demosaic_stencil(band, w, fin, 4, backend="kernel",
+                                         rows=(1, hb + 1))
+      px, ps = demosaic.demosaic_stencil(band, w, fin, 4, backend="plain",
+                                         rows=(1, hb + 1))
+      ux, us = ulps(kx, px), ulps(ks, ps)
+      if (cc is None and (ux or us)) or max(ux, us) > 1:
+        raise AssertionError(f"{what}: {ux}, {us} ulps from the twin")
+      _check_bitwise(f"{what} sample", ks, kx[:, 0:3, ::4, ::4])
+      note(f"demosaic_{hopper.DTYPE_SUFFIX[dtype]}", kx, px)
+      if i < len(kinds) - 1:  # the bands, not the frame as one band
+        joined.append(kx)
+        joined_s.append(ks)
+      if dtype == torch.bfloat16:
+        fx, _ = demosaic.demosaic_stencil(band, w, fin, backend="kernel")
+        cp, cm = reinhard.reinhard_map(fx, scal, False, backend="kernel")
+        fp, fm = front_fused.front_fused(band, w, fin, scal,
+                                         backend="kernel")
+        _check_bitwise(f"front_fused banded {kv} rows {r0}:{r1} p", fp, cp)
+        _check_bitwise(f"front_fused banded {kv} rows {r0}:{r1} max", fm,
+                       cm)
+        pp, pm = front_fused.front_fused(band, w, fin, scal,
+                                         backend="plain")
+        _check_map(f"front_fused banded {kv} rows {r0}:{r1} vs twin", fp,
+                   fm, pp, pm)
+        note("front_fused_bf16", fp, pp)
+    _check_bitwise(f"demosaic banded {kv}: bands joined vs whole frame",
+                   torch.cat(joined, 2), whole)
+    _check_bitwise(f"demosaic banded {kv}: samples joined vs whole frame",
+                   torch.cat(joined_s, 2), whole_s)
+  return len(kinds)
+
+
 def phase_kernels(results):
   """Each kernel against its plain twin on the card; fills ``results``
   {name: {ms, plain_ms, max_abs_err}} (kernel names, plus extra timed
@@ -549,6 +649,17 @@ def phase_kernels(results):
       x12, samp = demosaic.demosaic_stencil(phases, weights, fin, 4,
                                             backend="kernel")
       metrics = metering_update_ca(samp, torch.zeros(9, device=dev), 0.0)
+      if shape in (ODD, RAGGED):
+        # K2's banded mode (and K7's gates): every variant at ODD, the
+        # main one at RAGGED
+        n_kinds = _check_banded(
+            kt, phases, dtype,
+            demosaic.VARIANTS if shape == ODD else demosaic.VARIANTS[:1],
+            ccm, reinhard.reinhard_scal(metrics, 1.0, 1.0), note)
+        log(f"kernels {kt}: demosaic banded ({n_kinds} band kinds"
+            + (", 8 variants" if shape == ODD else "")
+            + (", and front_fused's gates" if dtype == torch.bfloat16
+               else "") + ") agrees with its twin and the whole frame")
       # K3: p <= 1 ulp of T, max within 1e-6 relative, both adapt modes
       for ca in (0.0, 0.5):
         scal = (reinhard.reinhard_scal_ca(metrics, 1.0, 1.0, ca) if ca
@@ -807,6 +918,67 @@ def phase_kernels(results):
         results["demosaic_bf16+reinhard_bf16"] = dict(ms=ms)
         log(f"  demosaic_bf16 -> reinhard_bf16 (what front_fused_bf16 "
             f"replaces): {ms:.4f} ms (6x4K)")
+  # K2's banded mode at the 6x8K band (272 of 2160 half-res rows, 3840
+  # wide, a halo row each side): each band kind against the twin (bitwise
+  # without a CCM, <= 1 ulp with one), K7's gates in bf16 (bitwise K2 ->
+  # K3, K3's contract against its twin), and K2 timed on an interior band
+  # with the sample, against its bound
+  n8, hb, wh8 = BAND_8K
+  zeros9 = torch.zeros(9, device=dev)
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    band = torch.rand((n8, 4, hb + 2, wh8), generator=gen,
+                      device=dev).to(dtype)
+    gates = ((1, -1), (-1, -1), (-1, hb), (1, hb))
+    for (top, bot), cc in itertools.product(gates, (None, ccm)):
+      fin8 = _stencil_finish_spec(weights, hb + 2, wh8, cc, dtype,
+                                  top_row=top, bot_row=bot)
+      what = (f"demosaic banded 6x8K band {sfx} cc={cc is not None} gates "
+              f"({top}, {bot})")
+      kx, ks = demosaic.demosaic_stencil(band, weights, fin8, 4,
+                                         backend="kernel", rows=(1, hb + 1))
+      px, ps = demosaic.demosaic_stencil(band, weights, fin8, 4,
+                                         backend="plain", rows=(1, hb + 1))
+      ux, us = ulps(kx, px), ulps(ks, ps)
+      if (cc is None and (ux or us)) or max(ux, us) > 1:
+        raise AssertionError(f"{what}: {ux}, {us} ulps from the twin")
+      _check_bitwise(f"{what} sample", ks, kx[:, 0:3, ::4, ::4])
+      note(f"demosaic_{sfx}", kx, px)
+      if dtype == torch.bfloat16:
+        scal8 = reinhard.reinhard_scal(metering_update_ca(ks, zeros9, 0.0),
+                                       1.0, 1.0)
+        del kx, ks, px, ps
+        fx, _ = demosaic.demosaic_stencil(band, weights, fin8,
+                                          backend="kernel")
+        cp, cm = reinhard.reinhard_map(fx, scal8, False, backend="kernel")
+        del fx
+        fp, fm = front_fused.front_fused(band, weights, fin8, scal8,
+                                         backend="kernel")
+        what = what.replace("demosaic", "front_fused")
+        _check_bitwise(f"{what} p", fp, cp)
+        _check_bitwise(f"{what} max", fm, cm)
+        del cp, cm
+        pp, pm = front_fused.front_fused(band, weights, fin8, scal8,
+                                         backend="plain")
+        _check_map(f"{what} vs twin", fp, fm, pp, pm)
+        note("front_fused_bf16", fp, pp)
+        del fp, fm, pp, pm
+      else:
+        del kx, ks, px, ps
+    log(f"kernels {n8}x4x{hb + 2}x{wh8} {sfx}: demosaic banded (first, "
+        "interior, last, single band; with and without a CCM) within its "
+        "contract of the twin"
+        + (", front_fused's gates bitwise K2 -> K3 and within K3's "
+           "contract of its twin" if dtype == torch.bfloat16 else ""))
+    fin8 = _stencil_finish_spec(weights, hb + 2, wh8, None, dtype,
+                                top_row=-1, bot_row=-1)
+    live = sum(bin(m).count("1") for m in demosaic.TAP_MASKS[
+        demosaic.tap_variant(weights)])
+    _time(results, f"demosaic_{sfx} banded", lambda b: (
+        demosaic.demosaic_stencil(band, weights, fin8, 4, backend=b,
+                                  rows=(1, hb + 1))), [band],
+          (2 * live + 12 + 24) * n8 * hb * wh8,
+          f"6x8K band: {hb} of 2160 half-res rows x {wh8}, halo read")
+    del band
   for name in err:
     results[name]["max_abs_err"] = err[name]
   torch.cuda.synchronize()
@@ -1340,6 +1512,194 @@ def phase_format_routes(frames):
   return total
 
 
+H8, W8 = 4320, 7680          # 8K frames: raws (6, 4320, 11520) u8
+WB8 = W8 * 3 // 2
+LARGE_FRAMES = 2
+LARGE_DRIVERS = ("auto", "flat", "loop", "scan")
+
+
+def _frames_8k(fmt="packed12", n=LARGE_FRAMES, seed=3):
+  """``n`` random 6x8K raw batches of ``fmt`` (packed12 or packed16)."""
+  import torch
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  wb = WB8 if fmt == "packed12" else 2 * W8
+  return [torch.randint(0, 256, (N_CAM, H8, wb), generator=gen,
+                        device="cuda", dtype=torch.uint8) for _ in range(n)]
+
+
+def _large_vs_process(name, sfx, frames, drivers, isp_kw=None, proc_kw=None):
+  """``process_large`` of each driver (a fresh ISP each, the EMA carried
+  over the frames) bitwise ``process`` of a fresh ISP on the same frames,
+  metrics and every output; the launch counts set to 0 just before each
+  driver's run and read just after. The band drivers must launch the
+  stencil more than once a frame, the whole-frame ones once. Returns
+  (the launch counts summed over the drivers, process's outputs and
+  metrics per frame)."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import BayerPattern
+  from taichi_image_tpu_torch.ops import hopper
+
+  isp_kw, proc_kw = isp_kw or {}, proc_kw or {}
+  cls = getattr(ttit, CLASSES[sfx])
+  ref = cls(BayerPattern.RGGB, device="cuda", **isp_kw)
+  want = []
+  for raws in frames:
+    out = ref.process(raws, **proc_kw)
+    want.append((_outputs(out), ref.metrics.clone()))
+  total, stencil = {}, {}
+  for driver in drivers:
+    isp = cls(BayerPattern.RGGB, device="cuda", **isp_kw)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    got = []
+    for raws in frames:
+      out = isp.process_large(raws, driver=driver, **proc_kw)
+      got.append((_outputs(out), isp.metrics.clone()))
+    torch.cuda.synchronize()
+    launches = hopper.launch_counts()
+    for f, ((g, gm), (w, wm)) in enumerate(zip(got, want, strict=True)):
+      for k, (go, wo) in enumerate(zip(g, w, strict=True)):
+        _check_bitwise(f"large {name} {CLASSES[sfx]} {driver} frame {f} "
+                       f"output {k} vs process", go, wo)
+      _check_bitwise(f"large {name} {CLASSES[sfx]} {driver} frame {f} "
+                     "metrics vs process", gm, wm)
+    stencil[driver] = launches[f"demosaic_{sfx}"]
+    banded = driver in ("loop", "scan")
+    if (stencil[driver] <= len(frames)) if banded else (
+        stencil[driver] != len(frames)):
+      raise AssertionError(f"large {name} {driver}: the stencil launched "
+                           f"{stencil[driver]} times in {len(frames)} "
+                           "frames")
+    _add(total, {n: v for n, v in launches.items() if v})
+  log(f"large {name} {CLASSES[sfx]}: {len(frames)} frames of "
+      f"{tuple(frames[0].shape)} -> "
+      f"{' + '.join(str(tuple(o.shape)) for o in want[0][0])}; drivers "
+      f"{', '.join(drivers)} bitwise process (metrics and output); "
+      f"stencil launches {stencil}")
+  return total, want
+
+
+def phase_large():
+  """process_large at 6x8K: each class over 2 frames with every driver,
+  bitwise process; CameraBF16's first frame against the all-plain route;
+  then in CameraBF16 resize_width=3840 with rotate_90, I420, the linear
+  tonemap and packed16 raws, each through the loop and the whole-frame
+  driver. Returns the launch counts summed over the phase."""
+  import torch
+  from taichi_image_tpu_torch.models.camera_isp import fused_isp_step
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+
+  frames = _frames_8k()
+  total = {}
+  for sfx in CLASSES:
+    launches, want = _large_vs_process("8K", sfx, frames, LARGE_DRIVERS)
+    _add(total, launches)
+    if sfx == "bf16":
+      # what comes out is right: the first frame against the all-plain
+      # route (metrics within 1e-5, u8 within 1 count)
+      (out,), m = want[0]
+      pm, po = fused_isp_step(frames[0], torch.zeros(9, device="cuda"), 0.0,
+                              *_step_args(torch.bfloat16), backend="plain")
+      dm = (m - pm).abs().max().item()
+      d = (out.int() - po.int()).abs()
+      if dm > 1e-5 or d.max().item() > 1 or not torch.isfinite(m).all():
+        raise AssertionError(f"large 8K CameraBF16 vs the plain route: "
+                             f"metrics |d| {dm:.3g}, u8 {d.max().item()}")
+      log(f"large 8K CameraBF16 frame 0 vs the all-plain route: metrics "
+          f"|d| {dm:.3g}, u8 max |d| {d.max().item()} "
+          f"({(d != 0).float().mean().item():.2e} of bytes)")
+      del po, d
+  both = ("auto", "loop")
+  for name, isp_kw, proc_kw in (
+      ("8K resize3840+rotate_90",
+       dict(resize_width=3840, transform=ImageTransform.rotate_90), {}),
+      ("8K I420", {}, dict(color_format="yuv420")),
+      ("8K linear gamma 2.2", {}, dict(tonemap="linear", gamma=2.2))):
+    launches, _ = _large_vs_process(name, "bf16", frames, both, isp_kw,
+                                    proc_kw)
+    _add(total, launches)
+  del frames
+  launches, _ = _large_vs_process("8K packed16", "bf16",
+                                  _frames_8k("packed16"), both,
+                                  proc_kw=dict(fmt="packed16"))
+  _add(total, launches)
+  torch.cuda.synchronize()
+  return total
+
+
+def _chain_large(inputs, dtype, driver, checksum):
+  """K chained 6x8K steps of the working dtype through ``process_banded``
+  with ``driver``, the EMA carried over; with ``checksum`` every output
+  summed into one device scalar."""
+  import torch
+  from taichi_image_tpu_torch import BayerPattern
+  from taichi_image_tpu_torch.models import large
+  m = torch.zeros(9, device="cuda")
+  acc = torch.zeros((), dtype=torch.int64, device="cuda")
+  for raws in inputs:
+    m, out = large.process_banded(raws, m, 0.9, n_bands=4, work_dtype=dtype,
+                                  pattern=BayerPattern.RGGB, driver=driver)
+    if checksum:
+      acc += out.sum(dtype=torch.int64)
+  return acc
+
+
+def phase_large_timing(card):
+  """The 6x8K step of each class through process_banded with the
+  whole-frame driver and with the band loop, by bench.py's method (K
+  chained steps, a distinct XOR byte each, median of 5, CUDA events,
+  sync-debug "error"), with and without the checksum, in turns (auto,
+  loop, loop, auto); and each one's profile (device operations per step,
+  busy share) and its peak of device memory in one step."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  base = torch.randint(0, 256, (N_CAM, H8, WB8), generator=gen,
+                       device="cuda", dtype=torch.uint8)
+  inputs = [base ^ i for i in range(K)]
+  del base
+  out = {}
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    name = f"{CLASSES[sfx]} 6x8K"
+    for ck in (True, False):
+      runs = {"auto": [], "loop": []}
+      for driver in ("auto", "loop", "loop", "auto"):
+        times, host, _ = bench_step(
+            inputs, None, chain=lambda i, d=driver, c=ck: _chain_large(
+                i, dtype, d, c))
+        runs[driver].append((statistics.median(times),
+                             statistics.median(host)))
+      for driver, rs in runs.items():
+        out[f"{name} {driver}" + ("" if ck else " bare")] = dict(
+            step_ms=min(r[0] for r in rs), runs=rs)
+      tag = "incl. the u8 checksum" if ck else "without the checksum"
+      log(f"timing {name} process_large {tag}: auto "
+          f"{min(r[0] for r in runs['auto']):.4f}, loop "
+          f"{min(r[0] for r in runs['loop']):.4f} ms/step (lower of two "
+          f"medians of {REPS} x {K} chained steps each, in turns; (device, "
+          f"host enqueue) medians {runs}); {card}")
+    for driver in ("auto", "loop"):
+      busy, ops = profile_step(f"{name} {driver}", inputs, None,
+                               chain=lambda i, d=driver: _chain_large(
+                                   i, dtype, d, False))
+      # the step's peak of device memory above what was allocated before
+      # it (the inputs), one step, without the checksum
+      torch.cuda.synchronize()
+      before = torch.cuda.memory_allocated()
+      torch.cuda.reset_peak_memory_stats()
+      _chain_large(inputs[:1], dtype, driver, False)
+      torch.cuda.synchronize()
+      peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+      out[f"{name} {driver} bare"].update(busy_share=busy, ops_per_step=ops,
+                                          peak_gib=peak)
+      log(f"memory {name} {driver}: peak {peak:.3f} GiB above the inputs "
+          f"in one step; {card}")
+  del inputs
+  torch.cuda.synchronize()
+  return out
+
+
 def phase_host_api():
   """The module-level entry points given host (numpy) arrays run on the
   card by default: bayer_to_rgb (K2<f32>, its launches counted and
@@ -1476,23 +1836,27 @@ def bench_step(inputs, args, checksum=True, env=None, chain=None):
   return times, host, acc.item()
 
 
-def profile_step(name, inputs, args, env=None):
-  """Device busy share of K chained steps (no checksum) from a profiler
-  trace, the sum of kernel times on the one stream over the window, and
-  the device operations (kernels and memsets) per step; logs the
-  kernels by device time. Returns (busy share or None, operations)."""
+def profile_step(name, inputs, args, env=None, chain=None):
+  """Device busy share of K chained steps (no checksum; or ``chain`` of
+  the inputs) from a profiler trace, the sum of kernel times on the one
+  stream over the window, and the device operations (kernels and
+  memsets) per step; logs the kernels by device time. Returns (busy
+  share or None, operations)."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
+  if chain is None:
+    def chain(inputs):
+      return _chain(inputs, args, checksum=False)
   with _env(env):
-    _chain(inputs, args, checksum=False)
+    chain(inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
       a = torch.cuda.Event(enable_timing=True)
       b = torch.cuda.Event(enable_timing=True)
       a.record()
-      _chain(inputs, args, checksum=False)
+      chain(inputs)
       b.record()
       b.synchronize()
   window_us = a.elapsed_time(b) * 1e3
@@ -1739,12 +2103,15 @@ def main(argv=None):
   for n, v in phase_format_routes(frames).items():
     launches[n] += v
   phase_host_api()
+  for n, v in phase_large().items():
+    launches[n] += v
   never = sorted(n for n, v in launches.items() if v == 0)
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
   timing["routes"] = phase_route_timing(card)
   timing["formats"] = phase_format_timing(card)
+  timing["large"] = phase_large_timing(card)
 
   kernels = []
   for name, k in hopper.KERNELS.items():

@@ -1089,11 +1089,33 @@ class _ISPBase:
         self.bayer_pattern, self._cc_tuple(), plan, self.metering_stride,
         self.transform, tonemap, color_format=color_format)
     self.metrics = new_metrics
-    if color_format != "rgb":
-      return out
-    if layout == "hwc":
-      return np.moveaxis(out.cpu().numpy(), 1, -1)
-    return out
+    return _layout(out, color_format, layout)
+
+  def process_large(self, raws, n_bands: int = 4, fmt: str = "packed12",
+                    ids_format: bool = False, gamma: float = 1.0,
+                    intensity: float = 1.0, light_adapt: float = 1.0,
+                    color_adapt: float = 0.0, tonemap: str = "reinhard",
+                    layout: str = "planar", color_format: str = "rgb",
+                    driver: str = "auto"):
+    """:meth:`process` for large frames (8K and up), with the rig's resize
+    and transform and the same results: ``driver="auto"`` or ``"flat"``
+    runs the whole-frame step, ``"loop"`` and ``"scan"`` the band loop
+    over at least ``n_bands`` row bands (models/large.py)."""
+    from taichi_image_tpu_torch.models import large
+    raws = _on_device(raws, self.device)
+    debug_util.validate_raw(raws, fmt)
+    prev, t = self._prev_t()
+    new_metrics, out = large.process_banded(
+        raws, prev, t, n_bands=n_bands, fmt=fmt, ids_format=ids_format,
+        work_dtype=self._work_dtype, pattern=self.bayer_pattern,
+        cc=self._cc_tuple(), stride=self.metering_stride, gamma=float(gamma),
+        intensity=float(intensity), light_adapt=float(light_adapt),
+        color_adapt=float(color_adapt), tonemap=tonemap,
+        color_format=color_format,
+        resize_plan=self._resize_plan_key(raws, fmt),
+        transform=self.transform, driver=driver)
+    self.metrics = new_metrics
+    return _layout(out, color_format, layout)
 
   def process_stream(self, raw_iter, prefetch: int = 2, **kwargs):
     """Iterate raw frame batches through :meth:`process`, yielding the
@@ -1114,6 +1136,15 @@ class _ISPBase:
         yield finish(pending.popleft())
     while pending:
       yield finish(pending.popleft())
+
+
+def _layout(out, color_format: str, layout: str):
+  """A step's output as ``process`` returns it: the I420 pair as it is,
+  planar RGB on the device, or with ``layout="hwc"`` a host (n, h, w, 3)
+  array."""
+  if color_format == "rgb" and layout == "hwc":
+    return np.moveaxis(out.cpu().numpy(), 1, -1)
+  return out
 
 
 # --------------------------------------------------------------------------

@@ -230,12 +230,14 @@ def _stencil_finish_spec(weights, hh, wh, cc, out_dtype, top_row=0,
 
 
 @functools.lru_cache(maxsize=64)
-def _finish_spec_for(pattern, method, hh, wh, cc, out_dtype):
-  """:func:`_stencil_finish_spec` per configuration and frame size, built
-  once instead of on every step (the strip sums are host work the step
-  would otherwise pay each frame). Shared between calls: never mutated."""
+def _finish_spec_for(pattern, method, hh, wh, cc, out_dtype, top_row=0,
+                     bot_row=None):
+  """:func:`_stencil_finish_spec` per configuration, frame size and edge
+  rows, built once instead of on every step (the strip sums are host
+  work the step would otherwise pay each frame). Shared between calls:
+  never mutated."""
   return _stencil_finish_spec(_demosaic_tables(pattern, method), hh, wh, cc,
-                              out_dtype)
+                              out_dtype, top_row, bot_row)
 
 
 def demosaic_phases(phases: torch.Tensor, pattern: BayerPattern, cc=None,

@@ -42,6 +42,20 @@
 // instead (the launcher picks `vec` from the sizes and pointers); the
 // arithmetic is the same. Each channel is rounded once to T, and the
 // sample is that T value.
+//
+// Banded mode (the large-frame band loop, models/large.py): the input is
+// a row band with one halo row on each side, the top and bottom factors
+// apply at the finish spec's gated rows (stencil.cuh RowGates), and the
+// kernel stores only rows r0 .. r0 + ho of the hh it reads, as an
+// (N, 12, ho, wh) output whose sample is taken from the stored rows. The
+// grid covers the stored rows only, so a band's halo rows cost their
+// reads and nothing else, and no slice of the output is copied. A whole
+// frame is r0 = 0, ho = hh with the gates at rows 0 and hh - 1. The
+// kernel counts rows in the stored frame (the launcher moves the gates
+// there), and only the staging adds r0. The frame's nine ints are a
+// __grid_constant__ parameter, read where they are used: passed as a
+// plain parameter, the f16 MHC instantiations spilled 40 bytes each at
+// the 128 registers of __launch_bounds__(256, 2).
 #include "stencil.cuh"
 
 namespace {
@@ -50,12 +64,15 @@ constexpr int kV = 4;  // pixels per thread
 template <typename T>
 using Tile = tit::StencilTile<T, kV>;
 
+// hh x wh read, rows r0 .. r0 + ho stored (and sampled from), the top and
+// bottom factors at stored rows g
 struct Frame {
-  int hh, wh, step, hs, ws;
+  int hh, wh, step, hs, ws, r0, ho;
+  tit::RowGates g;
 };
 
-// One thread's run: pixels (i, j0 .. j0 + kV) from the staged tile, pixel
-// j0 at tile row rr, column c0.
+// One thread's run: pixels (i, j0 .. j0 + kV) of the stored rows from the
+// staged tile, pixel j0 at tile row rr, column c0.
 template <typename T, int kVariant, bool kBorder>
 __device__ __forceinline__ void stencil_run(
     const T* __restrict__ s, int rr, int c0, int i, int j0, const Frame& f,
@@ -63,13 +80,14 @@ __device__ __forceinline__ void stencil_run(
     T* __restrict__ sampb) {
   float win[4][3][kV + 2];  // the 3 x (kV + 2) window of each phase
   tit::load_window<T, kV>(s, rr, c0, win);
-  const int plane = f.hh * f.wh;
+  const int plane = f.ho * f.wh;
   const int at = i * f.wh + j0;
+  const bool top = i == f.g.top, bot = i == f.g.bot;
 #pragma unroll
   for (int ph = 0; ph < 4; ++ph) {
     float o[3][kV];
-    tit::stencil_run_phase<kVariant, kBorder, kV>(win, ph, i, j0, f.hh,
-                                                  f.wh, p, o);
+    tit::stencil_run_phase<kVariant, kBorder, kV>(win, ph, top, bot, j0, f.wh,
+                                                  p, o);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       T* dst = outb + (ph * 3 + c) * plane + at;
@@ -105,24 +123,25 @@ __device__ __forceinline__ void stencil_run(
 template <typename T, int kVariant>
 __global__ void __launch_bounds__(tit::kTileThreads, 2)
     stencil_kernel(const T* __restrict__ x, T* __restrict__ out,
-                   T* __restrict__ samp, Frame f, int vec,
+                   T* __restrict__ samp, const __grid_constant__ Frame f,
+                   int vec,
                    const __grid_constant__ tit::StencilParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s = reinterpret_cast<T*>(smem);
-  const int x0 = blockIdx.x * Tile<T>::kTileW, y0 = blockIdx.y * tit::kTileH;
+  const int x0 = blockIdx.x * Tile<T>::kTileW;
+  const int y0 = blockIdx.y * tit::kTileH;  // a stored row
   const int b = blockIdx.z;
-  const int plane = f.hh * f.wh;
-  const T* xb = x + static_cast<size_t>(b) * 4 * plane;
-  tit::stage_tile<T, kV>(s, xb, x0, y0, f.hh, f.wh, vec,
+  const T* xb = x + static_cast<size_t>(b) * 4 * f.hh * f.wh;
+  tit::stage_tile<T, kV>(s, xb, x0, y0 + f.r0, f.hh, f.wh, vec,
                          threadIdx.y * tit::kRunsX + threadIdx.x);
-  const bool edge = tit::tile_on_edge<T, kV>(x0, y0, f.hh, f.wh);
+  const bool edge = tit::tile_on_edge<T, kV>(x0, y0, f.g, f.wh);
   const int c0 = threadIdx.x * kV, j0 = x0 + c0;
   if (j0 >= f.wh) return;
-  T* outb = out + static_cast<size_t>(b) * 12 * plane;
+  T* outb = out + static_cast<size_t>(b) * 12 * f.ho * f.wh;
   T* sampb = samp + static_cast<size_t>(b) * 3 * f.hs * f.ws;
   for (int rr = threadIdx.y; rr < tit::kTileH; rr += tit::kRowsY) {
     const int i = y0 + rr;
-    if (i >= f.hh) break;
+    if (i >= f.ho) break;
     if (edge) {
       stencil_run<T, kVariant, true>(s, rr, c0, i, j0, f, vec, p, outb,
                                      sampb);
@@ -136,23 +155,28 @@ __global__ void __launch_bounds__(tit::kTileThreads, 2)
 template <typename T>
 int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
            int step, const float* params, int has_ccm, int variant,
-           cudaStream_t stream) {
+           int top_row, int bot_row, int r0, int ho, cudaStream_t stream) {
   using Tl = Tile<T>;
-  if (static_cast<long long>(n) * hh * wh == 0) {
+  if (static_cast<long long>(n) * ho * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (!tit::image_fits_int32(hh, wh) || n > 65535) {
+  if (!tit::image_fits_int32(hh, wh) || n > 65535 || r0 < 0 || ho < 0 ||
+      r0 + ho > hh) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const tit::StencilParams p = tit::stencil_params_from(params, has_ccm);
-  Frame f{hh, wh, step, step > 0 ? (hh + step - 1) / step : 0,
-          step > 0 ? (wh + step - 1) / step : 0};
+  Frame f{hh, wh, step, step > 0 ? (ho + step - 1) / step : 0,
+          step > 0 ? (wh + step - 1) / step : 0, r0, ho,
+          // in stored rows; a gate below 0 (none, or on a halo row) is
+          // -1, which no stored row matches
+          tit::RowGates{top_row >= r0 ? top_row - r0 : -1,
+                        bot_row >= r0 ? bot_row - r0 : -1}};
   // 16-byte copies of whole rows (so every plane and row starts aligned)
   // and kV-element stores
   const int vec = wh % Tl::kS == 0 && tit::aligned16(x) &&
                   tit::aligned16(out);
   const dim3 grid((wh + Tl::kTileW - 1) / Tl::kTileW,
-                  (hh + tit::kTileH - 1) / tit::kTileH, n);
+                  (ho + tit::kTileH - 1) / tit::kTileH, n);
   const dim3 block(tit::kRunsX, tit::kRowsY);
   return tit::with_variant(variant, [&](auto v) {
     auto* kernel = stencil_kernel<T, decltype(v)::value>;
@@ -172,8 +196,9 @@ int launch(const void* x, void* out, void* samp, int n, int hh, int wh,
 #define TIT_STENCIL_LAUNCHER(suffix, T)                                      \
   extern "C" int tit_demosaic_stencil_##suffix(                              \
       const void* x, void* out, void* samp, int n, int hh, int wh, int step, \
-      const float* params, int has_ccm, int variant, cudaStream_t stream) {  \
+      const float* params, int has_ccm, int variant, int top_row,            \
+      int bot_row, int r0, int ho, cudaStream_t stream) {                    \
     return launch<T>(x, out, samp, n, hh, wh, step, params, has_ccm,         \
-                     variant, stream);                                       \
+                     variant, top_row, bot_row, r0, ho, stream);             \
   }
 TIT_FOR_EACH_DTYPE(TIT_STENCIL_LAUNCHER)

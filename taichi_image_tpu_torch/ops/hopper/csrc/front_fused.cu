@@ -42,7 +42,9 @@
 // A frame whose rows are not whole 16-byte copies, or an unaligned
 // tensor, stages and stores element by element (the launcher picks `vec`);
 // the arithmetic is the same. The metering that sets the map's scalars
-// must run before this kernel, from ops/bayer.demosaic_samples.
+// must run before this kernel, from ops/bayer.demosaic_samples. The top
+// and bottom factors apply at the finish spec's gated rows, as in K2
+// (stencil.cuh RowGates); K7 stores every row it reads.
 #include "stencil.cuh"
 #include "tonemap.cuh"
 
@@ -68,8 +70,9 @@ struct Slots {
 template <int kVariant, bool kBorder>
 __device__ __forceinline__ void fused_run(
     const T* __restrict__ s, int rr, int c0, int i, int j0, int hh, int wh,
-    bool vec, const tit::StencilParams& sp, const tit::MapScalars& ms,
-    T* __restrict__ slot, T* __restrict__ pb, float& lmax) {
+    tit::RowGates g, bool vec, const tit::StencilParams& sp,
+    const tit::MapScalars& ms, T* __restrict__ slot, T* __restrict__ pb,
+    float& lmax) {
   using R = tit::Run<T, kV>;
   constexpr int kPitch = Slots::kPitch;
   {
@@ -77,11 +80,12 @@ __device__ __forceinline__ void fused_run(
     // slot: the x12 run that K2 stores
     float win[4][3][kV + 2];
     tit::load_window<T, kV>(s, rr, c0, win);
+    const bool top = i == g.top, bot = i == g.bot;
 #pragma unroll
     for (int ph = 0; ph < 4; ++ph) {
       float o[3][kV];
-      tit::stencil_run_phase<kVariant, kBorder, kV>(win, ph, i, j0, hh, wh,
-                                                    sp, o);
+      tit::stencil_run_phase<kVariant, kBorder, kV>(win, ph, top, bot, j0,
+                                                    wh, sp, o);
 #pragma unroll
       for (int c = 0; c < 3; ++c) R::store(slot + (ph * 3 + c) * kPitch, o[c]);
     }
@@ -129,7 +133,7 @@ template <int kVariant>
 __global__ void __launch_bounds__(tit::kTileThreads, kMinBlocks)
     front_fused_kernel(const T* __restrict__ x, T* __restrict__ p,
                        unsigned* __restrict__ scratch, float* __restrict__ mx,
-                       int hh, int wh, int vec,
+                       int hh, int wh, tit::RowGates g, int vec,
                        const __grid_constant__ tit::StencilParams sp,
                        const float* __restrict__ scal) {
   using Tl = tit::StencilTile<T, kV>;
@@ -144,7 +148,7 @@ __global__ void __launch_bounds__(tit::kTileThreads, kMinBlocks)
   T* slot = reinterpret_cast<T*>(smem + Tl::kBytes) + tid * kV;
   tit::stage_tile<T, kV>(s, xb, x0, y0, hh, wh, vec, tid);
   const tit::MapScalars ms = tit::load_map_scalars<false>(scal);
-  const bool edge = tit::tile_on_edge<T, kV>(x0, y0, hh, wh);
+  const bool edge = tit::tile_on_edge<T, kV>(x0, y0, g, wh);
   const int c0 = threadIdx.x * kV, j0 = x0 + c0;
   T* pb = p + static_cast<size_t>(b) * 12 * plane;
   float lmax = -INFINITY;
@@ -153,11 +157,11 @@ __global__ void __launch_bounds__(tit::kTileThreads, kMinBlocks)
       const int i = y0 + rr;
       if (i >= hh) break;
       if (edge) {
-        fused_run<kVariant, true>(s, rr, c0, i, j0, hh, wh, vec, sp, ms,
-                                      slot, pb, lmax);
+        fused_run<kVariant, true>(s, rr, c0, i, j0, hh, wh, g, vec, sp, ms,
+                                  slot, pb, lmax);
       } else {
-        fused_run<kVariant, false>(s, rr, c0, i, j0, hh, wh, vec, sp, ms,
-                                       slot, pb, lmax);
+        fused_run<kVariant, false>(s, rr, c0, i, j0, hh, wh, g, vec, sp, ms,
+                                   slot, pb, lmax);
       }
     }
   }
@@ -171,8 +175,8 @@ __global__ void __launch_bounds__(tit::kTileThreads, kMinBlocks)
 extern "C" int tit_front_fused_bf16(const void* x, void* p, void* scratch,
                                     void* mx, int n, int hh, int wh,
                                     const float* params, int has_ccm,
-                                    int variant, const void* scal,
-                                    cudaStream_t stream) {
+                                    int variant, int top_row, int bot_row,
+                                    const void* scal, cudaStream_t stream) {
   using Tl = tit::StencilTile<T, kV>;
   constexpr int kBytes = Tl::kBytes + Slots::kBytes;
   static_assert(Tl::kBytes % 16 == 0, "the slots start 16-byte aligned");
@@ -196,8 +200,9 @@ extern "C" int tit_front_fused_bf16(const void* x, void* p, void* scratch,
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, block, kBytes, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(p),
-        static_cast<unsigned*>(scratch), static_cast<float*>(mx), hh, wh, vec,
-        sp, static_cast<const float*>(scal));
+        static_cast<unsigned*>(scratch), static_cast<float*>(mx), hh, wh,
+        tit::RowGates{top_row, bot_row}, vec, sp,
+        static_cast<const float*>(scal));
     return static_cast<int>(cudaGetLastError());
   });
 }

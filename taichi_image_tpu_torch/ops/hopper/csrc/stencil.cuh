@@ -17,6 +17,13 @@
 //   - stencil_run_phase: the 3 finished channels of one output phase for
 //     the kV pixels of the run (stencil_phase on each pixel's 36 taps),
 //     with the border factors only where the caller asks (edge tiles).
+// The rows where the top and bottom factors apply are the finish spec's
+// top_row and bot_row (RowGates): 0 and hh - 1 for a whole frame; in a
+// row band read with one halo row on each side (models/large.py), the
+// image's first row is row 1 of the first band and its last row is row hb
+// of the last band, and a band edge that is another band's row has the
+// gate -1, which no row matches. Columns always end at the frame's edge,
+// since a band spans the image's full width.
 //
 // Arithmetic order matches taichi_image_tpu/ops/pallas/demosaic.py
 // _stencil_kernel and the plain twin
@@ -137,6 +144,12 @@ struct Edges {
   bool top, bot, left, right;
 };
 
+// The rows of the frame that take the top and the bottom factors; -1
+// for an edge that lies in another band.
+struct RowGates {
+  int top, bot;
+};
+
 // The 3 finished channels of output phase ph of one pixel from its 36
 // taps, clipped to [0, 1] and not yet rounded to the working dtype.
 // kBorder = false skips the border factors, which are exactly 1 away from
@@ -247,12 +260,14 @@ __device__ __forceinline__ void stage_tile(T* __restrict__ s,
   __syncthreads();
 }
 
-// Whether the tile at (y0, x0) touches the frame's edge: only such tiles
+// Whether the tile of rows y0 .. y0 + kTileH from column x0 holds a
+// gated row or the frame's first or last column: only such tiles
 // evaluate the border and corner factors.
 template <typename T, int kV>
-__device__ __forceinline__ bool tile_on_edge(int x0, int y0, int hh,
+__device__ __forceinline__ bool tile_on_edge(int x0, int y0, RowGates g,
                                              int wh) {
-  return y0 == 0 || y0 + kTileH >= hh || x0 == 0 ||
+  const auto in_tile = [y0](int r) { return r >= y0 && r < y0 + kTileH; };
+  return in_tile(g.top) || in_tile(g.bot) || x0 == 0 ||
          x0 + StencilTile<T, kV>::kTileW >= wh;
 }
 
@@ -276,11 +291,13 @@ __device__ __forceinline__ void load_window(const T* __restrict__ s, int rr,
 }
 
 // Output phase ph's 3 finished channels (clipped, not yet rounded) of the
-// run's kV pixels (i, j0 .. j0 + kV) of an hh x wh frame, from its window.
+// run's kV pixels (j0 .. j0 + kV of a row of a frame wh wide), from its
+// window; top and bot: whether the row is a gated row (RowGates), which
+// the caller finds once per row.
 template <int kVariant, bool kBorder, int kV>
 __device__ __forceinline__ void stencil_run_phase(
-    const float win[4][3][kV + 2], int ph, int i, int j0, int hh, int wh,
-    const StencilParams& p, float o[3][kV]) {
+    const float win[4][3][kV + 2], int ph, bool top, bool bot, int j0,
+    int wh, const StencilParams& p, float o[3][kV]) {
 #pragma unroll
   for (int k = 0; k < kV; ++k) {
     float t[36];
@@ -292,7 +309,7 @@ __device__ __forceinline__ void stencil_run_phase(
         for (int v = 0; v < 3; ++v) t[q * 9 + u * 3 + v] = win[q][u][k + v];
       }
     }
-    const Edges edges{i == 0, i == hh - 1, j0 + k == 0, j0 + k == wh - 1};
+    const Edges edges{top, bot, j0 + k == 0, j0 + k == wh - 1};
     float v3[3];
     stencil_phase<kVariant, kBorder>(ph, t, edges, p, v3);
 #pragma unroll

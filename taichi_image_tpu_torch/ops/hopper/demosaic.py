@@ -8,7 +8,10 @@ the f16 instantiation, its ``q16_io`` branch (the Camera16 route, whose
 The weights, ``inv_full``, border factors, corner corrections and CCM
 travel as one f32 block in the kernel's parameters; which of the 13
 diamond taps of each channel are summed is fixed at compile time, one
-kernel per (pattern, method) variant (:func:`tap_variant`).
+kernel per (pattern, method) variant (:func:`tap_variant`). The rows that
+take the top and bottom factors are the finish spec's ``top_row`` and
+``bot_row``, so a row band read with a halo row on each side gates its
+factors at the image's own edges; ``rows`` stores only the band's rows.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ KERNELS = hopper.register_per_dtype(
     "demosaic", "demosaic.cu", "tit_demosaic_stencil",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p],
     # one pallas_call serves the bf16 and f32 finishes and the q16 branch
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/ops/pallas/demosaic.py:377"))
@@ -153,10 +157,11 @@ def _border_factor(oc: int, hh: int, wh: int, finish: dict, device):
 
 
 def demosaic_stencil_plain(phases: torch.Tensor, weights: np.ndarray,
-                           finish: dict, sample_step: int = 0):
+                           finish: dict, sample_step: int = 0, rows=None):
   """Plain PyTorch twin of K2, in the kernel's arithmetic order: returns
-  ``(x12 (N, 12, hh, wh) finish["out_dtype"], sample (N, 3, hs, ws) or
-  None)``."""
+  ``(x12 (N, 12, ho, wh) finish["out_dtype"], sample (N, 3, hs, ws) or
+  None)``, rows ``rows`` = (r0, r1) of the frame (all of them for
+  None) and the sample taken from those rows."""
   n, _, hh, wh = phases.shape
   xp = F.pad(phases.to(torch.float32), (1, 1, 1, 1))
   inv_full = _inv_full(weights)
@@ -173,6 +178,8 @@ def demosaic_stencil_plain(phases: torch.Tensor, weights: np.ndarray,
               + vals[2] * float(ccm[d, 2]) for d in range(3)]
     outs += [torch.clamp(v, 0.0, 1.0).to(finish["out_dtype"]) for v in vals]
   x12 = torch.stack(outs, dim=1)
+  if rows is not None:
+    x12 = x12[:, :, rows[0]:rows[1]].contiguous()
   samp = None
   if sample_step:
     s = sample_step
@@ -182,13 +189,17 @@ def demosaic_stencil_plain(phases: torch.Tensor, weights: np.ndarray,
 
 def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
                      finish: dict, sample_step: int = 0,
-                     backend: str = "auto"):
+                     backend: str = "auto", rows=None):
   """(N, 4, hh, wh) phase planes -> ``(x12 (N, 12, hh, wh), sample)``:
   the finished stencil (border renorm, optional CCM, clip, cast) and,
   with ``sample_step`` > 0, ``x12[:, 0:3, ::s, ::s]`` (else None).
 
   Phases, x12 and sample share one working dtype (bf16, f16 or f32),
-  ``finish["out_dtype"]``.
+  ``finish["out_dtype"]``. The top and bottom factors apply at rows
+  ``finish["top_row"]`` and ``finish["bot_row"]`` (-1: none). ``rows`` =
+  (r0, r1) stores rows r0 .. r1 - 1 only, as (N, 12, r1 - r0, wh) with
+  the sample taken from them: a band read with a halo row on each side
+  stores its own rows with (1, hh - 1).
   """
   if phases.ndim != 4 or phases.shape[1] != 4:
     raise ValueError(f"phases must be (N, 4, hh, wh), got "
@@ -199,29 +210,31 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
   if (finish["hh"], finish["wh"]) != (hh, wh):
     raise ValueError(f"finish spec is for {finish['hh']}x{finish['wh']}, "
                      f"phases are {hh}x{wh}")
+  r0, r1 = (0, hh) if rows is None else rows
+  if not 0 <= r0 <= r1 <= hh:
+    raise ValueError(f"rows {rows} fall outside the frame's {hh} rows")
   dtype = finish["out_dtype"]
   hopper.check_dtype("the stencil's output dtype", dtype)
   if phases.dtype != dtype:
     raise ValueError(f"phases are {phases.dtype} but the stencil writes "
                      f"{dtype}: the kernels take one working dtype")
   if not hopper.use_kernel(backend, phases):
-    return demosaic_stencil_plain(phases, weights, finish, sample_step)
-  if (finish["top_row"], finish["bot_row"]) != (0, hh - 1):
-    raise NotImplementedError(
-        "the stencil kernel covers whole frames; banded stencils are "
-        "ROADMAP.md queue 1, item 10")
+    return demosaic_stencil_plain(phases, weights, finish, sample_step,
+                                  rows)
   hopper.check_tensor("phases", phases, dtype, 4, phases.device)
   hopper.check_frame_size(hh, wh)
   variant = tap_variant(weights)
   dev = phases.device
-  x12 = torch.empty((n, 12, hh, wh), dtype=dtype, device=dev)
+  ho = r1 - r0
+  x12 = torch.empty((n, 12, ho, wh), dtype=dtype, device=dev)
   s = sample_step
-  samp = (torch.empty((n, 3, -(-hh // s), -(-wh // s)), dtype=dtype,
+  samp = (torch.empty((n, 3, -(-ho // s), -(-wh // s)), dtype=dtype,
                       device=dev) if s else None)
   params = stencil_params(weights, finish)
   KERNELS[dtype].launch(hopper.ptr(phases), hopper.ptr(x12),
                         hopper.ptr(samp) if s else None, n, hh, wh, s,
                         params.ctypes.data_as(ctypes.c_void_p),
                         int(finish["cc"] is not None), variant,
+                        finish["top_row"], finish["bot_row"], r0, ho,
                         hopper.stream_of(dev))
   return x12, samp

@@ -28,7 +28,8 @@ KERNEL = hopper.register(
     "front_fused_bf16", "front_fused.cu", "tit_front_fused_bf16",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p],
     "taichi_image_tpu/ops/pallas/demosaic.py:466")
 
 
@@ -45,8 +46,9 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
   """(N, 4, hh, wh) bf16 phase planes -> ``(p (N, 12, hh, wh) bf16,
   per-image max of the f32 p (N, 1, 1, 1))``: the finished stencil
   (``finish`` from ``ops/bayer._stencil_finish_spec`` with a bf16
-  out_dtype) and the color_adapt == 0 map with the (6,) ``scal`` of
-  ``reinhard_scal``."""
+  out_dtype, whose ``top_row``/``bot_row`` gate the top and bottom
+  factors as in K2) and the color_adapt == 0 map with the (6,) ``scal``
+  of ``reinhard_scal``."""
   if phases.ndim != 4 or phases.shape[1] != 4:
     raise ValueError(f"phases must be (N, 4, hh, wh), got "
                      f"{tuple(phases.shape)}")
@@ -61,10 +63,6 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
     raise ValueError(f"scal must be (6,), got {tuple(scal.shape)}")
   if not hopper.use_kernel(backend, phases):
     return front_fused_plain(phases, weights, finish, scal)
-  if (finish["top_row"], finish["bot_row"]) != (0, hh - 1):
-    raise NotImplementedError(
-        "the front-fused kernel covers whole frames; banded stencils are "
-        "ROADMAP.md queue 1, item 10")
   hopper.check_tensor("phases", phases, torch.bfloat16, 4, phases.device)
   hopper.check_tensor("scal", scal, torch.float32, 1, phases.device)
   hopper.check_frame_size(hh, wh)
@@ -78,6 +76,7 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
   KERNEL.launch(hopper.ptr(phases), hopper.ptr(p), hopper.ptr(scratch),
                 hopper.ptr(mx), n, hh, wh,
                 params.ctypes.data_as(ctypes.c_void_p),
-                int(finish["cc"] is not None), variant, hopper.ptr(scal),
+                int(finish["cc"] is not None), variant, finish["top_row"],
+                finish["bot_row"], hopper.ptr(scal),
                 hopper.stream_of(dev))
   return p, mx

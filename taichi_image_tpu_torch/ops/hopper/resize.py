@@ -30,7 +30,7 @@ import torch
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.interpolate import _axis_samples
 
-__all__ = ["ResizeTaps", "plan", "resize_taps", "resize_x12",
+__all__ = ["ResizeTaps", "band_taps", "plan", "resize_taps", "resize_x12",
            "resize_x12_plain", "tile_w"]
 
 # csrc/resize.cu's tile: TILE_H output rows by RUNS_X runs of
@@ -92,8 +92,36 @@ def resize_taps(hh: int, wh: int, size, scale_yx, device) -> ResizeTaps:
   per-axis ``scale_yx`` = (sy, sx), on ``device``; cached."""
   w_out, h_out = size
   sy, sx = scale_yx
+  return _device_taps(hh, wh, _axis_samples(h_out, 2 * hh, sy),
+                      _axis_samples(w_out, 2 * wh, sx), device)
+
+
+@functools.lru_cache(maxsize=64)
+def band_taps(hh: int, wh: int, size, scale_yx, out_rows, in_rows,
+              device) -> ResizeTaps:
+  """The taps of output rows ``out_rows`` = (o0, o1) of
+  ``resize_taps(hh, wh, size, scale_yx)`` for an x12 band that holds only
+  the half-res rows ``in_rows`` = (p0, p1) of the frame: the same
+  positions and fractions, the rows counted from the band's first
+  (a row band of the large-frame loop, models/large.py); cached."""
+  w_out, h_out = size
+  sy, sx = scale_yx
+  (o0, o1), (p0, p1) = out_rows, in_rows
   r_lo, r_hi, r_f = _axis_samples(h_out, 2 * hh, sy)
-  c_lo, c_hi, c_f = _axis_samples(w_out, 2 * wh, sx)
+  r_lo, r_hi = r_lo[o0:o1] - 2 * p0, r_hi[o0:o1] - 2 * p0
+  if o1 > o0 and (r_lo.min() < 0 or r_hi.max() >= 2 * (p1 - p0)):
+    raise ValueError(f"output rows {out_rows} tap input rows outside the "
+                     f"band's half-res rows {in_rows}")
+  return _device_taps(p1 - p0, wh, (r_lo, r_hi, r_f[o0:o1]),
+                      _axis_samples(w_out, 2 * wh, sx), device)
+
+
+def _device_taps(hh: int, wh: int, rows, cols, device) -> ResizeTaps:
+  """:class:`ResizeTaps` on ``device`` from the (lo, hi, frac) full-res
+  samples of the rows and the columns, for phase planes hh x wh."""
+  r_lo, r_hi, r_f = rows
+  c_lo, c_hi, c_f = cols
+  h_out, w_out = len(r_lo), len(c_lo)
 
   def dev(a, dtype):
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)

@@ -291,3 +291,152 @@ def test_params_refuse_weights_off_the_diamond():
     th_dm.stencil_params(w, fin)
   with pytest.raises(ValueError, match="outside the diamond"):
     th_dm.tap_variant(w)
+
+
+# ------------------------------------------ banded mode (the large frames)
+#
+# The large-frame band loop reads a row band with one halo row on each
+# side and gates the top and bottom factors at the image's own edges
+# (top_row = 1 on the first band, bot_row = hb on the last, -1 elsewhere),
+# as the JAX package's banded drivers do (tests/test_pallas.py:400). K7
+# takes the same finish spec.
+
+BAND_CC = tuple(np.array([[1.2, -0.1, 0.0], [-0.05, 1.1, -0.05],
+                          [0.0, -0.1, 1.3]], np.float32).ravel().tolist())
+
+
+def _band_kinds(hh, b):
+  """(r0, top_row, bot_row) of each band of b rows of an hh-row frame."""
+  return [(r0, 1 if r0 == 0 else -1, b if r0 + b == hh else -1)
+          for r0 in range(0, hh, b)]
+
+
+@pytest.mark.parametrize("cc", [None, BAND_CC], ids=["nocc", "ccm"])
+@pytest.mark.parametrize("n_bands", [1, 2, 3])
+def test_banded_twin_matches_pallas_interpret(n_bands, cc):
+  """K2's twin in banded mode (a halo'd band in, its own rows out, with
+  their sample) against the Pallas stencil in interpret mode on the same
+  band with the same finish spec, its halo rows' outputs dropped: bitwise
+  without a CCM, the K2 contract with one. One band carries both gates."""
+  hh, wh, b = 8 * n_bands, 256, 8
+  jp, tp = _phases((1, 4, hh, wh), seed=20 + n_bands)
+  jw = jbayer._demosaic_tables(jbayer.BayerPattern.RGGB, "mhc")
+  tw = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc")
+  jpad = jnp.pad(jp, ((0, 0), (0, 0), (1, 1), (0, 0)))
+  tpad = torch.nn.functional.pad(tp, (0, 0, 1, 1))
+  tiles = pl_dm.tiling_for(b + 2, wh, in_bf16=True, out_bf16=True)
+  bands, samples = [], []
+  for r0, top, bot in _band_kinds(hh, b):
+    fin_j = jbayer._stencil_finish_spec(jw, b + 2, wh, cc, jnp.bfloat16,
+                                        top_row=top, bot_row=bot)
+    want = pl_dm.demosaic_stencil(jpad[:, :, r0:r0 + b + 2], jw, *tiles,
+                                  finish=fin_j, interpret=True)[:, :, 1:b + 1]
+    fin_t = tbayer._stencil_finish_spec(tw, b + 2, wh, cc, torch.bfloat16,
+                                        top_row=top, bot_row=bot)
+    got, samp = th_dm.demosaic_stencil(tpad[:, :, r0:r0 + b + 2], tw, fin_t,
+                                       4, rows=(1, b + 1))
+    assert tuple(got.shape) == (1, 12, b, wh) and got.is_contiguous()
+    _assert_contract(got, want, cc, f"band {r0}")
+    np.testing.assert_array_equal(_bits(samp), _bits(got[:, 0:3, ::4, ::4]))
+    bands.append(got)
+    samples.append(samp)
+  # the bands joined are the whole frame's stencil, bit for bit (the CCM
+  # too: the twin's arithmetic is the same per pixel), and so are their
+  # samples (band starts on the sample grid)
+  whole, whole_s = tbayer.demosaic_phases(tp, tbayer.BayerPattern.RGGB, cc=cc,
+                                          out_dtype=torch.bfloat16,
+                                          sample_step=4)
+  np.testing.assert_array_equal(_bits(torch.cat(bands, 2)), _bits(whole))
+  np.testing.assert_array_equal(_bits(torch.cat(samples, 2)), _bits(whole_s))
+
+
+@pytest.mark.parametrize("cc", [None, BAND_CC], ids=["nocc", "ccm"])
+@pytest.mark.parametrize("n_bands", [2, 3])
+def test_banded_front_fused_twin_matches_pallas_interpret(n_bands, cc):
+  """K7's twin with the banded finish spec against the Pallas K7 in
+  interpret mode on each band: p of the band's rows within one bf16 ulp
+  (two with a CCM; tests/test_torch_front_fused.py says why), the max
+  over the rows read within 1e-6 relative."""
+  from taichi_image_tpu.models import camera_isp as jci
+  from taichi_image_tpu.ops.pallas.reinhard import reinhard_scal as j_scal
+  from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff
+  from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh
+  hh, wh, b = 8 * n_bands, 256, 8
+  jp, tp = _phases((2, 4, hh, wh), seed=30 + n_bands)
+  samp = jbayer.demosaic_samples(jp, jbayer.BayerPattern.RGGB, cc=cc,
+                                 out_dtype=jnp.bfloat16, sample_step=4)
+  metrics = jci.metering_update_ca(samp.astype(jnp.float32),
+                                   jnp.zeros(9, jnp.float32),
+                                   jnp.float32(0.0))
+  scal_t = th_rh.reinhard_scal(torch.from_numpy(np.array(metrics)), 1.0, 1.0)
+  jw = jbayer._demosaic_tables(jbayer.BayerPattern.RGGB, "mhc")
+  tw = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc")
+  jpad = jnp.pad(jp, ((0, 0), (0, 0), (1, 1), (0, 0)))
+  tpad = torch.nn.functional.pad(tp, (0, 0, 1, 1))
+  tiles = pl_dm.tiling_for(b + 2, wh, in_bf16=True, out_bf16=True,
+                           extra_f32_tmp=pl_dm._TONEMAP_TMPS)
+  for r0, top, bot in _band_kinds(hh, b):
+    fin_j = jbayer._stencil_finish_spec(jw, b + 2, wh, cc, jnp.bfloat16,
+                                        top_row=top, bot_row=bot)
+    p_j, mx_j = pl_dm.demosaic_reinhard_stencil(
+        jpad[:, :, r0:r0 + b + 2], jw, *tiles, j_scal(metrics, 1.0, 1.0),
+        fin_j, interpret=True)
+    fin_t = tbayer._stencil_finish_spec(tw, b + 2, wh, cc, torch.bfloat16,
+                                        top_row=top, bot_row=bot)
+    p_t, mx_t = th_ff.front_fused(tpad[:, :, r0:r0 + b + 2], tw, fin_t,
+                                  scal_t)
+    d = np.abs(_bits(p_t[:, :, 1:b + 1]).astype(np.int64)
+               - _bits(p_j[:, :, 1:b + 1]).astype(np.int64))
+    assert d.max() <= (1 if cc is None else 2), (r0, d.max())
+    np.testing.assert_allclose(mx_t.numpy().ravel(),
+                               np.asarray(mx_j).ravel(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["first", "interior", "last", "single"])
+@pytest.mark.parametrize("hb", [30, 33, 64, 272])
+@pytest.mark.parametrize("crop", [True, False], ids=["k2", "k7"])
+def test_banded_edge_tiles_hold_the_gates(crop, hb, kind):
+  """The kernels evaluate the border factors only on tiles that hold a
+  gated row or an edge column (stencil.cuh tile_on_edge): on a halo'd
+  band of hb + 2 rows, with K2's tiles starting at the first stored row
+  (row 1) and K7's at row 0, every factor of every other tile's rows is
+  exactly 1, and every pixel whose factor is not 1 lies on an edge
+  tile."""
+  import re
+  src = (th_dm.hopper.CSRC / "stencil.cuh").read_text()
+  tile_h = int(re.search(r"constexpr int kTileH = (\d+);", src).group(1))
+  tile_w = int(re.search(r"constexpr int kRunsX = (\d+);", src).group(1)) * 4
+  hh, wh = hb + 2, 300
+  top = 1 if kind in ("first", "single") else -1
+  bot = hb if kind in ("last", "single") else -1
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.GRBG, "mhc")
+  fin = tbayer._stencil_finish_spec(w, hh, wh, CCM, torch.bfloat16,
+                                    top_row=top, bot_row=bot)
+  factor = torch.stack([th_dm._border_factor(oc, hh, wh, fin, "cpu")
+                        for oc in range(12)])
+  r0, end = (1, hb + 1) if crop else (0, hh)
+  covered = torch.zeros(hh, wh, dtype=torch.bool)
+  for y0 in range(r0, end, tile_h):
+    for x0 in range(0, wh, tile_w):
+      rows = range(y0, min(y0 + tile_h, end))
+      if top in rows or bot in rows or x0 == 0 or x0 + tile_w >= wh:
+        covered[y0:rows.stop, x0:x0 + tile_w] = True
+      else:
+        assert (factor[:, y0:rows.stop, x0:x0 + tile_w] == 1.0).all()
+  stored = (factor != 1.0).any(0)
+  stored[:r0] = stored[end:] = False
+  assert covered[stored].all()
+  # a gated row is the only row with the top or bottom factor
+  rows_off = (factor[:, :, 1:-1] != 1.0).any(0).any(1)
+  assert set(torch.nonzero(rows_off).ravel().tolist()) == (
+      {top, bot} - {-1})
+
+
+def test_banded_rows_refused_outside_the_frame():
+  _, tp = _phases((1, 4, 10, 64))
+  w = tbayer._demosaic_tables(tbayer.BayerPattern.RGGB, "mhc")
+  fin = tbayer._stencil_finish_spec(w, 10, 64, None, torch.bfloat16,
+                                    top_row=1, bot_row=-1)
+  for rows in ((1, 11), (-1, 5), (6, 5)):
+    with pytest.raises(ValueError, match="outside the frame"):
+      th_dm.demosaic_stencil(tp, w, fin, rows=rows)
