@@ -111,6 +111,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
             CameraBF16 resize_width=3840 with rotate_90, I420, the linear
             tonemap at gamma 2.2 and packed16 raws, through "auto" and
             "loop", bitwise process.
+5c. parallel the parallel package: (a) CameraBF16(device="cuda:0")
+            process and the per-image API bitwise device="cuda" over 2
+            frames, and use_kernel on a cuda:0 tensor; (b) in this process
+            a one-rank NCCL group (file:// rendezvous in a temporary
+            directory): the camera step, the row step (one shard, both
+            edge gates on) and the 1 x 1 grid step of each class at 6x4K
+            over 2 frames, and of CameraBF16 with I420 output and with
+            resize_width=1920 and rotate_90, each bitwise the unsharded
+            step (metrics and output) and launching the kernels it
+            launches, as many times; the NCCL camera step timed beside
+            process (CameraBF16, in turns) under sync-debug "error"; the
+            group destroyed; (c) two processes on cuda:0 in a gloo group:
+            the camera step (3 + 3 cameras) and the row step (2 x 1080
+            rows) of CameraBF16 with RGB, I420 and resize->1920 with
+            rotate_90 (metering stride 4), of Camera16 and of Camera32,
+            each rank against the unsharded step it runs itself (metrics
+            within 1e-5, u8 within 1 count, 2 in bf16 on < 0.1% of
+            bytes), the worst over the ranks all_reduced and printed; (d)
+            four processes: the 2 x 2 grid of CameraBF16 the same way.
+            The launches of every sharded step add to the kernel table's.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -1628,6 +1648,233 @@ def phase_large():
   return total
 
 
+PARALLEL_TIMEOUT = 600       # seconds for each multi-process run
+
+
+def _explicit_device(frames):
+  """(a): CameraBF16 on device="cuda:0" bitwise device="cuda" through
+  process (2 frames, the EMA carried) and the per-image API (6 x
+  load_packed12 -> tonemap_reinhard); use_kernel takes a cuda:0 tensor.
+  Returns the launch counts of the cuda:0 runs."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch.ops import hopper
+
+  if not hopper.use_kernel("auto", torch.empty(1, device="cuda:0")):
+    raise AssertionError("use_kernel refused a cuda:0 tensor")
+  isps = {dev: ttit.CameraBF16(ttit.BayerPattern.RGGB, device=dev)
+          for dev in ("cuda", "cuda:0")}
+  apis = {dev: ttit.CameraBF16(ttit.BayerPattern.RGGB, device=dev)
+          for dev in ("cuda", "cuda:0")}
+  total = {}
+  for f, raws in enumerate(frames):
+    got = {}
+    for dev in ("cuda", "cuda:0"):
+      torch.cuda.synchronize()
+      hopper.reset_launches()
+      out = isps[dev].process(raws)
+      handles = apis[dev].tonemap_reinhard(
+          [apis[dev].load_packed12(r) for r in raws])
+      api = torch.stack([h.planar for h in handles])
+      torch.cuda.synchronize()
+      if dev == "cuda:0":
+        _add(total, {n: v for n, v in hopper.launch_counts().items() if v})
+      got[dev] = (out, isps[dev].metrics, api, apis[dev].metrics)
+    for what, a, b in zip(("process", "metrics", "per-image API",
+                           "API metrics"), got["cuda:0"], got["cuda"]):
+      _check_bitwise(f"device='cuda:0' {what} frame {f} vs 'cuda'", a, b)
+  log(f"explicit device: CameraBF16(device='cuda:0') process and the "
+      f"per-image API over {len(frames)} frames of "
+      f"{tuple(frames[0].shape)} bitwise device='cuda'; use_kernel takes "
+      f"cuda:0; launches {total}")
+  return total
+
+
+def _one_rank_cases():
+  """(b)'s steps: (class suffix, name, ISP keywords, step keywords)."""
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  cases = [(sfx, "plain", {}, {}) for sfx in CLASSES]
+  cases += [("bf16", "I420", {}, dict(color_format="yuv420")),
+            ("bf16", "resize1920+rotate_90",
+             dict(resize_width=1920, transform=ImageTransform.rotate_90), {})]
+  return cases
+
+
+def _one_rank_steps(frames):
+  """(b): the camera, row and 1 x 1 grid steps on a one-rank NCCL group
+  (in this process), each over 2 frames with the EMA carried, bitwise
+  the unsharded step (a fresh ISP's process): metrics and output. Returns
+  (launch counts, the camera step of CameraBF16)."""
+  import torch
+  from torch.distributed.device_mesh import init_device_mesh
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import parallel
+  from taichi_image_tpu_torch.ops import hopper
+
+  meshes = {
+      "camera": init_device_mesh("cuda", (1,), mesh_dim_names=("cam",)),
+      "rows": init_device_mesh("cuda", (1,), mesh_dim_names=("rows",)),
+      "grid": init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("cam", "rows"))}
+  total, camera_step = {}, None
+  for sfx, name, isp_kw, step_kw in _one_rank_cases():
+    cls = getattr(ttit, CLASSES[sfx])
+    for kind, mesh in meshes.items():
+      isp = cls(ttit.BayerPattern.RGGB, device="cuda", **isp_kw)
+      ref = cls(ttit.BayerPattern.RGGB, device="cuda", **isp_kw)
+      n, h, wb = frames[0].shape
+      if kind == "camera":
+        step = parallel.sharded_step_for_isp(isp, mesh, frames[0].shape,
+                                             **step_kw)
+      else:
+        factory = (parallel.make_spatial_isp_step if kind == "rows"
+                   else parallel.make_grid_isp_step)
+        step = factory(mesh, work_dtype=isp._work_dtype,
+                       pattern=isp.bayer_pattern, cc=isp._cc_tuple(),
+                       stride=isp.metering_stride, n_cameras=n,
+                       image_hw=(h, wb * 2 // 3),
+                       resize_plan=isp._resize_plan(h, wb * 2 // 3),
+                       transform=isp.transform, **step_kw)
+      m = torch.zeros(9, device="cuda")
+      for f, raws in enumerate(frames):
+        t = 0.0 if f == 0 else 1.0 - isp.moving_alpha
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        m, out = step(raws, m, t, 1.0, 1.0, 1.0, 0.0)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in hopper.launch_counts().items() if v}
+        _add(total, launches)
+        hopper.reset_launches()
+        want = ref.process(raws, **step_kw)
+        torch.cuda.synchronize()
+        unsharded = {k: v for k, v in hopper.launch_counts().items() if v}
+        what = f"one-rank NCCL {kind} step {CLASSES[sfx]} {name} frame {f}"
+        _check_bitwise(f"{what} metrics", m, ref.metrics)
+        for k, (a, b) in enumerate(zip(_outputs(out), _outputs(want),
+                                       strict=True)):
+          _check_bitwise(f"{what} output {k}", a, b)
+        # the same kernels, as many times, as the unsharded step
+        if launches != unsharded:
+          raise AssertionError(f"{what}: launched {launches}, the "
+                               f"unsharded step {unsharded}")
+      log(f"{what.rsplit(' frame', 1)[0]}: {len(frames)} frames bitwise "
+          f"the unsharded step (metrics and output); launches per step "
+          f"{launches}")
+      if kind == "camera" and sfx == "bf16" and name == "plain":
+        camera_step = step
+  return total, camera_step
+
+
+def _chain_step(inputs, step):
+  """K chained steps of a sharded step, every output summed into one
+  device scalar."""
+  import torch
+  m = torch.zeros(9, device="cuda")
+  acc = torch.zeros((), dtype=torch.int64, device="cuda")
+  for raws in inputs:
+    m, out = step(raws, m, 0.9, 1.0, 1.0, 1.0, 0.0)
+    acc += out.sum(dtype=torch.int64)
+  return acc
+
+
+def _multi_rank(n, variants, u8_max):
+  """(c)/(d): ``variants`` on ``n`` processes sharing cuda:0 in a gloo
+  group, each rank against the unsharded step it runs itself; returns
+  the launch counts summed over the ranks."""
+  from taichi_image_tpu_torch import parallel
+  from taichi_image_tpu_torch.parallel import dryrun
+  t0 = time.perf_counter()
+  per_rank = parallel.run_ranks(dryrun.run_variants, n, variants, "cuda:0",
+                                device="cuda:0", backend="gloo",
+                                timeout=PARALLEL_TIMEOUT)
+  total = {}
+  for results in per_rank:
+    for r in results:
+      _add(total, r["launches"])
+  for r in per_rank[0]:
+    dryrun.check(r, u8_max[r["name"]])
+    log(f"{n} processes on cuda:0 (gloo), {r['name']}: worst over the "
+        f"ranks against the unsharded step metrics |d| {r['metrics_d']:.3g}"
+        f", u8 |d| {r['u8_d']} ({r['share']:.2e} of bytes differ, "
+        f"{r['share2']:.2e} by more than 1); metrics spread over the ranks "
+        f"{r['spread']:.3g}")
+  log(f"{n} processes: {len(variants)} variants in "
+      f"{time.perf_counter() - t0:.1f} s; launches {total}")
+  return total
+
+
+def _multi_rank_variants():
+  """(c) on 2 ranks and (d) on 4: the camera step (3 + 3 cameras), the row
+  step (2 x 1080 rows) of CameraBF16 with RGB, I420 and resize->1920 with
+  rotate_90, and of Camera16 and Camera32; the 2 x 2 grid of CameraBF16;
+  6 x 4K random raws. The resize variant meters at stride 4: its 1080
+  output rows split into 540 a rank, which stride 8 does not divide."""
+  raws = dict(shape=(N_CAM, H, WB), seed=7)
+  two = [
+      dict(name="camera CameraBF16", kind="camera", cls="CameraBF16",
+           raws=raws, steps=2),
+      dict(name="rows CameraBF16", kind="rows", cls="CameraBF16", raws=raws,
+           steps=2),
+      dict(name="rows CameraBF16 I420", kind="rows", cls="CameraBF16",
+           raws=raws, color_format="yuv420"),
+      dict(name="rows CameraBF16 resize1920+rotate_90 stride 4",
+           kind="rows", cls="CameraBF16", raws=raws,
+           isp_kw=dict(resize_width=1920, transform="rotate_90",
+                       metering_stride=4)),
+      dict(name="rows Camera16", kind="rows", cls="Camera16", raws=raws),
+      dict(name="rows Camera32", kind="rows", cls="Camera32", raws=raws),
+  ]
+  four = [dict(name="grid 2x2 CameraBF16", kind="grid", grid=(2, 2),
+               cls="CameraBF16", raws=raws, steps=2)]
+  return two, four
+
+
+def phase_parallel(card, frames):
+  """The parallel package on the card: (a) the explicit device, (b) the
+  camera, row and grid steps on a one-rank NCCL group bitwise the
+  unsharded step, and the NCCL camera step timed beside process under
+  the sync-debug "error" mode, (c) 2 and (d) 4 processes sharing cuda:0
+  in a gloo group within the contract. Returns (launch counts, timing)."""
+  import tempfile
+  import torch
+  import torch.distributed as dist
+
+  total = {}
+  _add(total, _explicit_device(frames[:2]))
+  torch.cuda.set_device(0)
+  with tempfile.TemporaryDirectory(prefix="chip-smoke-nccl-") as tmp:
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+      launches, camera_step = _one_rank_steps(frames[:2])
+      _add(total, launches)
+      inputs = _inputs()
+      runs = {"process": [], "camera step": []}
+      for which in ("process", "camera step", "camera step", "process"):
+        chain = ((lambda i: _chain_api(i, "CameraBF16", False))
+                 if which == "process"
+                 else (lambda i: _chain_step(i, camera_step)))
+        times, host, _ = bench_step(inputs, None, chain=chain)
+        runs[which].append((statistics.median(times),
+                            statistics.median(host)))
+      del inputs
+    finally:
+      dist.destroy_process_group()
+  timing = {k: dict(step_ms=min(r[0] for r in rs), runs=rs)
+            for k, rs in runs.items()}
+  log(f"timing CameraBF16 6x4K one-rank NCCL camera step "
+      f"{timing['camera step']['step_ms']:.4f} vs process "
+      f"{timing['process']['step_ms']:.4f} ms/step (lower of two medians "
+      f"of {REPS} x {K} chained steps each, incl. the u8 checksum, in "
+      f"turns, under sync-debug 'error': 0 host syncs; (device, host "
+      f"enqueue) medians {runs}); {card}")
+  two, four = _multi_rank_variants()
+  bf16 = {v["name"]: 2 if v["cls"] == "CameraBF16" else 1
+          for v in two + four}
+  _add(total, _multi_rank(2, two, bf16))
+  _add(total, _multi_rank(4, four, bf16))
+  return total, timing
+
 def _chain_large(inputs, dtype, driver, checksum):
   """K chained 6x8K steps of the working dtype through ``process_banded``
   with ``driver``, the EMA carried over; with ``checksum`` every output
@@ -2105,6 +2352,9 @@ def main(argv=None):
   phase_host_api()
   for n, v in phase_large().items():
     launches[n] += v
+  par_launches, par_timing = phase_parallel(card, frames)
+  for n, v in par_launches.items():
+    launches[n] += v
   never = sorted(n for n, v in launches.items() if v == 0)
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
@@ -2112,6 +2362,7 @@ def main(argv=None):
   timing["routes"] = phase_route_timing(card)
   timing["formats"] = phase_format_timing(card)
   timing["large"] = phase_large_timing(card)
+  timing["parallel"] = par_timing
 
   kernels = []
   for name, k in hopper.KERNELS.items():

@@ -15,7 +15,9 @@ working dtypes); the reference's per-image API on the same classes
 ``PlanarImage`` handles, ``resize_image``, ``process_stream``); the
 packed codecs (``ops.packed``), the HWC demosaic and mosaic
 (``bayer_to_rgb``, ``rgb_to_bayer``), the color conversions
-(``ops.color``) and the standalone tonemaps (``ops.tonemap``). It
+(``ops.color``) and the standalone tonemaps (``ops.tonemap``); and the
+step with a rig's cameras, or each frame's rows, split over the ranks of
+a ``torch.distributed`` group, one device each (``parallel``). It
 imports torch and numpy, never jax.
 """
 

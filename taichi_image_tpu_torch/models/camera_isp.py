@@ -73,6 +73,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
@@ -411,30 +412,53 @@ def _decode_checked(raws, fmt, wd, ids_format, backend):
   return phases
 
 
-def _meter(strided: torch.Tensor, prev: torch.Tensor, t) -> torch.Tensor:
+def _meter(strided: torch.Tensor, prev: torch.Tensor, t, group=None,
+           n_total: Optional[int] = None) -> torch.Tensor:
   """:func:`metering_update_ca`, and under TAICHI_IMAGE_TPU_DEBUG the
   check that the new metrics are finite."""
-  m = metering_update_ca(strided, prev, t)
+  m = metering_update_ca(strided, prev, t, group=group, n_total=n_total)
   if debug_util.debug_enabled():
     debug_util.check_metrics(m)
   return m
 
 
-def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t):
+def _min_max(lo: torch.Tensor, hi: torch.Tensor, group) -> torch.Tensor:
+  """``[lo, hi]``; with a process ``group``, the min of ``lo`` and the max
+  of ``hi`` over its ranks, as one all_reduce MAX of ``[-lo, hi]`` (the
+  negation is exact)."""
+  if group is None:
+    return torch.stack([lo, hi])
+  v = torch.stack([-lo, hi])
+  dist.all_reduce(v, op=dist.ReduceOp.MAX, group=group)
+  return torch.stack([-v[0], v[1]])
+
+
+def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t, group=None,
+                       n_total: Optional[int] = None):
   """EMA metering update from an (N, 3, hs, ws) sample: global bounds ->
   blend with prev -> normalized stats over the blended bounds -> blend
-  the whole vec9 with prev (taichi_image_tpu camera_isp.py:996-1025)."""
+  the whole vec9 with prev (taichi_image_tpu camera_isp.py:996-1025).
+
+  With a ``torch.distributed`` process ``group`` (the JAX package's
+  ``axis_name``) ``x`` is this rank's part of the sample: the bounds, the
+  log bounds and the five sums are reduced over the group (three
+  all_reduce calls) and the sums divided by ``n_total``, the sample's
+  pixel count over every rank. Without a group ``n_total`` defaults to
+  ``x``'s own count."""
   x = x.to(torch.float32)
-  b = lerp(t, torch.stack([x.amin(), x.amax()]), prev[:2])
+  b = lerp(t, _min_max(x.amin(), x.amax(), group), prev[:2])
   scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
   r, g, bch = scaled[:, 0], scaled[:, 1], scaled[:, 2]
   gray = 0.299 * r + 0.587 * g + 0.114 * bch
   log_gray = torch.log(torch.clamp_min(gray, 1e-4))
   sums = torch.stack([log_gray.sum(), gray.sum(), r.sum(), g.sum(),
                       bch.sum()])
-  n_total = x.shape[0] * x.shape[2] * x.shape[3]
-  stats = torch.cat([b, torch.stack([log_gray.amin(), log_gray.amax()]),
-                     sums / n_total])
+  log_bounds = _min_max(log_gray.amin(), log_gray.amax(), group)
+  if group is not None:
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+  if n_total is None:
+    n_total = x.shape[0] * x.shape[2] * x.shape[3]
+  stats = torch.cat([b, log_bounds, sums / n_total])
   return lerp(t, stats, prev)
 
 
@@ -604,12 +628,18 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                    intensity, light_adapt, color_adapt, fmt, ids_format,
                    work_dtype, pattern, cc, resize_plan, stride, transform,
                    tonemap, color_format: str = "rgb",
-                   backend: str = "auto"):
+                   backend: str = "auto", group=None,
+                   n_total: Optional[int] = None):
   """One ISP step over a camera batch: ``(new_metrics (9,) f32, planar
   u8 (N, 3, h', w'))``, or with ``color_format="yuv420"`` ``(new_metrics,
   (Y (N, h', w'), VU (N, 2, h'/2, w'/2)))``. Arguments as in the JAX
   ``fused_isp_step``; ``backend`` ("auto" | "kernel" | "plain") routes
-  every kernel stage."""
+  every kernel stage. ``group`` and ``n_total`` are the JAX step's
+  ``axis_name`` and ``n_total``: ``raws`` is this rank's share of the
+  cameras of a batch split over the ranks of the ``torch.distributed``
+  group, and the metering is reduced over it (:func:`metering_update_ca`);
+  each image's max stays its own. The front-fused route is off under a
+  group, as in the JAX package."""
   if color_format not in ("rgb", "yuv420"):
     raise ValueError(f"unknown color_format {color_format!r}")
   if tonemap not in ("reinhard", "linear"):
@@ -622,8 +652,8 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
   wd = types.canonical_dtype(work_dtype)
   phases = _decode_checked(raws, fmt, wd, ids_format, backend)
 
-  if _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt,
-                        phases):
+  if group is None and _front_fused_route(wd, resize_plan, stride, tonemap,
+                                         color_adapt, phases):
     # metering first, from the sample pre-pass; then stencil + map as one
     # kernel (K7) and the finish
     new_metrics = _meter(bayer_ops.demosaic_samples(
@@ -640,7 +670,8 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
                           backend=backend)
     size, scale = resize_plan
     rgb = _resize_x12(x12, size, scale, wd, backend=backend)
-    new_metrics = _meter(subsample_hw(rgb, stride, stride), prev, t)
+    new_metrics = _meter(subsample_hw(rgb, stride, stride), prev, t,
+                         group, n_total)
     if color_format == "yuv420":
       # the tonemap, the transform and I420 in one kernel
       if tonemap == "reinhard":
@@ -670,7 +701,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                                    backend=backend,
                                    sample_step=max(stride // 2, 1))
-  new_metrics = _meter(strided, prev, t)
+  new_metrics = _meter(strided, prev, t, group, n_total)
   # K3 + K4, or K4's linear mode; the transform lives in K4's stores. An
   # odd stride's I420 is the JAX package's planar conversion (the matrix
   # before the block mean) of the RGB

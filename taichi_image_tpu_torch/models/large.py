@@ -28,7 +28,9 @@ full-res rows) of halo on each side, zeros beyond the image:
 With a resize plan the bands partition the output rows; each band
 demosaics the input rows its bilinear taps span (plus the halo) and runs
 K12 with the frame's taps for its rows (``resize.band_taps``), then K3
-and the resize route's tail per band.
+and the resize route's tail per band. The row-sharded steps
+(``parallel/spatial.py``) run the same band body (:func:`band_x12`,
+:func:`resize_band`, :func:`finish_resized`) on each rank's rows.
 
 Band starts are multiples of lcm(stride / 2, 16) (``band_plan``), so the
 joined samples are the whole frame's sample tensor and the max of the
@@ -167,14 +169,16 @@ def _band_raws(raws: torch.Tensor, p0: int, p1: int) -> torch.Tensor:
   return band.view(raws.dtype)
 
 
-def _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
-              sample_step):
-  """Decode and demosaic half-res rows [p0, p1) of the frame (hh rows):
-  ``(x12 (N, 12, p1 - p0, wh), sample or None)``, each pixel's value the
-  whole frame's (the halo rows give the stencil its neighbours, and the
-  top and bottom factors apply only at the image's own edges)."""
-  phases = ci._decode_checked(_band_raws(raws, p0, p1), fmt, wd, ids_format,
-                              "auto")
+def band_x12(band, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
+             sample_step):
+  """Decode and demosaic half-res rows [p0, p1) of a frame of hh rows from
+  ``band``, the frame's raw rows [2 p0 - 2, 2 p1 + 2) with zero rows
+  beyond the image (what :func:`_band_raws` copies out of a whole frame,
+  or what a row shard holds with its halo): ``(x12 (N, 12, p1 - p0, wh),
+  sample or None)``, each pixel's value the whole frame's (the halo rows
+  give the stencil its neighbours, and the top and bottom factors apply
+  only at the image's own edges)."""
+  phases = ci._decode_checked(band, fmt, wd, ids_format, "auto")
   hb = p1 - p0
   wh = phases.shape[-1]
   fin = bayer_ops._finish_spec_for(pattern, "mhc", hb + 2, wh, cc, wd,
@@ -183,6 +187,45 @@ def _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
   return hopper_dm.demosaic_stencil(
       phases, bayer_ops._demosaic_tables(pattern, "mhc"), fin, sample_step,
       rows=(1, hb + 1))
+
+
+def _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
+              sample_step):
+  """:func:`band_x12` of half-res rows [p0, p1) of the whole frame
+  ``raws``."""
+  return band_x12(_band_raws(raws, p0, p1), p0, p1, hh, fmt, ids_format, wd,
+                  pattern, cc, sample_step)
+
+
+def resize_in_rows(r_lo, r_hi, o0: int, o1: int, hh: int):
+  """The half-res input rows [p0, p1) that output rows [o0, o1) of a
+  resize tap (``r_lo``, ``r_hi``: the frame's full-res taps per output
+  row)."""
+  return int(r_lo[o0]) // 2, min(int(r_hi[o1 - 1]) // 2 + 1, hh)
+
+
+def resize_band(x12, out_rows, in_rows, hh, wh, size, scale_yx):
+  """Output rows ``out_rows`` = (o0, o1) of the frame's resize from
+  ``x12``, the x12 of its half-res input rows ``in_rows``: K12 with the
+  frame's taps for those rows (``resize.band_taps``). Planar
+  (N, 3, o1 - o0, w_out) of x12's dtype."""
+  taps = hopper_resize.band_taps(hh, wh, size, scale_yx, out_rows, in_rows,
+                                 x12.device)
+  return hopper_resize.resize_x12(x12, taps)
+
+
+def finish_resized(x, scal, gamma, tonemap: str, transform: ImageTransform,
+                   color_format: str):
+  """The resize route's tail on planar ``x`` (K3's map, or the resized
+  image under the linear tonemap) with ``scal`` (the max, or the linear
+  scalars): planar u8 RGB under ``transform``, or with I420 output the
+  tonemap, the transform and I420 in one kernel."""
+  if color_format == "yuv420":
+    return hopper_yuv420.yuv420_planar_tone(x, scal, gamma, tonemap,
+                                            transform)
+  tone = (ci.reinhard_gamma_ca if tonemap == "reinhard"
+          else hopper_finish.linear_u8)
+  return ci._transform_planar(tone(x, scal, gamma), transform)
 
 
 def _join(outs, transform: ImageTransform, color_format: str):
@@ -259,11 +302,9 @@ def _resize_loop(raws, prev, t, n_bands, resize_plan, *, fmt, ids_format,
   h_out = int(size[1])
   r_lo, r_hi, _ = _axis_samples(h_out, h, sy)
 
-  def in_rows(o0, o1):
-    return int(r_lo[o0]) // 2, min(int(r_hi[o1 - 1]) // 2 + 1, hh)
-
   def extent(plan):
-    return max(p1 - p0 for p0, p1 in (in_rows(*b) for b in plan))
+    return max(p1 - p0 for p0, p1 in (resize_in_rows(r_lo, r_hi, *b, hh)
+                                      for b in plan))
 
   # seeded from input phase rows: a band's size follows the input rows its
   # taps span, not its output rows
@@ -275,25 +316,17 @@ def _resize_loop(raws, prev, t, n_bands, resize_plan, *, fmt, ids_format,
   size_i, scale_yx = (int(size[0]), h_out), (float(sy), float(sx))
   rgbs, samples = [], []
   for o0, o1 in obands:
-    p0, p1 = in_rows(o0, o1)
-    taps = hopper_resize.band_taps(hh, wh, size_i, scale_yx, (o0, o1),
-                                   (p0, p1), raws.device)
-    rgbs.append(hopper_resize.resize_x12(
-        _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc, 0)[0],
-        taps))
+    p0, p1 = resize_in_rows(r_lo, r_hi, o0, o1, hh)
+    x12 = _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
+                    0)[0]
+    rgbs.append(resize_band(x12, (o0, o1), (p0, p1), hh, wh, size_i,
+                            scale_yx))
     samples.append(bayer_ops.subsample_hw(rgbs[-1], stride, stride))
   metrics = ci._meter(torch.cat(samples, dim=2), prev, t)
   srcs, scal = _tone_inputs(rgbs, metrics, tonemap, intensity, light_adapt,
                             color_adapt)
-  if color_format == "yuv420":
-    # the tonemap, the transform and I420 in one kernel per band
-    outs = _finish_bands(srcs, lambda x: hopper_yuv420.yuv420_planar_tone(
-        x, scal, gamma, tonemap, transform))
-  else:
-    tone = (ci.reinhard_gamma_ca if tonemap == "reinhard"
-            else hopper_finish.linear_u8)
-    outs = _finish_bands(srcs, lambda x: ci._transform_planar(
-        tone(x, scal, gamma), transform))
+  outs = _finish_bands(srcs, lambda x: finish_resized(
+      x, scal, gamma, tonemap, transform, color_format))
   return metrics, _join(outs, transform, color_format)
 
 

@@ -25,6 +25,9 @@ device other than capability (9, 0) raises. The plain PyTorch twin of a
 kernel runs only for CPU tensors (``backend="auto"``) or when asked for
 by name (``backend="plain"``).
 
+A kernel launches on the device of the tensors its wrapper was given,
+with that device current (:meth:`Kernel.launch`), on its current stream.
+
 Every wrapper adds one to its kernel's ``launches`` count where it
 launches the kernel, and nowhere else, so a run can show that the main
 path went through the kernels (``launch_counts``/``reset_launches``).
@@ -149,10 +152,14 @@ class Kernel:
       self._fn = fn
     return self._fn
 
-  def launch(self, *args) -> None:
-    """Call the C launcher (which enqueues the kernel on the given
-    stream) and count the launch; raise on a CUDA error."""
-    err = self._launcher()(*args)
+  def launch(self, device: torch.device, *args) -> None:
+    """Call the C launcher with ``args`` and the current stream of
+    ``device`` (the device of the tensors it is given), with ``device``
+    the current device: the CUDA runtime launches on the current device,
+    and the launchers size their grids from it (``tit::resident_blocks``).
+    Count the launch; raise on a CUDA error."""
+    with torch.cuda.device(device):
+      err = self._launcher()(*args, stream_of(device))
     if err != 0:
       raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t "
                          f"{err}")
@@ -215,9 +222,10 @@ def _capability(device: torch.device) -> tuple[int, int]:
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:
-  """Pick the route for tensor ``x``: the kernel for a CUDA tensor under
-  ``backend="auto"``, the plain twin for a CPU tensor. ``"kernel"`` on a
-  CPU tensor raises; ``"plain"`` always takes the twin."""
+  """Pick the route for tensor ``x``: the kernel for a CUDA tensor (on
+  any device; it launches there) under ``backend="auto"``, the plain twin
+  for a CPU tensor. ``"kernel"`` on a CPU tensor raises; ``"plain"``
+  always takes the twin."""
   if backend not in BACKENDS:
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{BACKENDS}")
@@ -228,11 +236,6 @@ def use_kernel(backend: str, x: torch.Tensor) -> bool:
       raise ValueError(
           f"backend='kernel' needs CUDA tensors, got a tensor on {x.device}")
     return False
-  if x.device.index not in (None, 0):
-    raise NotImplementedError(
-        "the kernels launch on CUDA device 0 only; placement on other "
-        "devices comes with the multi-GPU work (ROADMAP.md queue 1, "
-        "item 11)")
   major_minor = _capability(x.device)
   if major_minor != (9, 0):
     raise RuntimeError(

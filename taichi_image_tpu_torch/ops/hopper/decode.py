@@ -106,9 +106,8 @@ def decode12_phases(raws: torch.Tensor, ids_format: bool,
     return decode12_phases_plain(raws, ids_format, dtype)
   hopper.check_tensor("raws", raws, torch.uint8, 3, raws.device)
   out = torch.empty((n, 4, h // 2, wb // 3), dtype=dtype, device=raws.device)
-  KERNELS[dtype].launch(hopper.ptr(raws), hopper.ptr(out), n, h, wb,
-                        int(bool(ids_format)), DECODE_SCALE,
-                        hopper.stream_of(raws.device))
+  KERNELS[dtype].launch(raws.device, hopper.ptr(raws), hopper.ptr(out), n, h,
+                        wb, int(bool(ids_format)), DECODE_SCALE)
   return out
 
 
@@ -155,8 +154,8 @@ def decode16_phases(raws: torch.Tensor, dtype: torch.dtype,
     # copied to an aligned buffer
     raws = raws.clone()
   out = torch.empty((n, 4, h // 2, wb // 4), dtype=dtype, device=raws.device)
-  DECODE16_KERNELS[dtype].launch(hopper.ptr(raws), hopper.ptr(out), n, h, wb,
-                                 hopper.stream_of(raws.device))
+  DECODE16_KERNELS[dtype].launch(raws.device, hopper.ptr(raws),
+                                 hopper.ptr(out), n, h, wb)
   return out
 
 
@@ -201,6 +200,6 @@ def split_phases(cfa: torch.Tensor, dtype: torch.dtype,
     return split_phases_plain(cfa, dtype)
   hopper.check_tensor("cfa", cfa, cfa.dtype, 3, cfa.device)
   out = torch.empty((n, 4, h // 2, w // 2), dtype=dtype, device=cfa.device)
-  SPLIT_KERNELS[cfa.dtype, dtype].launch(hopper.ptr(cfa), hopper.ptr(out), n,
-                                         h, w, hopper.stream_of(cfa.device))
+  SPLIT_KERNELS[cfa.dtype, dtype].launch(cfa.device, hopper.ptr(cfa),
+                                         hopper.ptr(out), n, h, w)
   return out

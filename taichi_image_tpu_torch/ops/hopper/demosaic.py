@@ -231,10 +231,9 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
   samp = (torch.empty((n, 3, -(-ho // s), -(-wh // s)), dtype=dtype,
                       device=dev) if s else None)
   params = stencil_params(weights, finish)
-  KERNELS[dtype].launch(hopper.ptr(phases), hopper.ptr(x12),
+  KERNELS[dtype].launch(dev, hopper.ptr(phases), hopper.ptr(x12),
                         hopper.ptr(samp) if s else None, n, hh, wh, s,
                         params.ctypes.data_as(ctypes.c_void_p),
                         int(finish["cc"] is not None), variant,
-                        finish["top_row"], finish["bot_row"], r0, ho,
-                        hopper.stream_of(dev))
+                        finish["top_row"], finish["bot_row"], r0, ho)
   return x12, samp

@@ -167,12 +167,11 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
   out = torch.empty(shape, dtype=torch.uint8, device=x12.device)
   inv_gamma = _inv_gamma(gamma)
-  KERNELS[x12.dtype].launch(hopper.ptr(x12), hopper.ptr(scal),
+  KERNELS[x12.dtype].launch(x12.device, hopper.ptr(x12), hopper.ptr(scal),
                             hopper.ptr(out), n, hh, wh,
                             int(mode == "linear"), int(inv_gamma is not None),
                             1.0 if inv_gamma is None else inv_gamma,
-                            int(swap), int(fy), int(fx),
-                            hopper.stream_of(x12.device))
+                            int(swap), int(fy), int(fx))
   return out
 
 
@@ -197,9 +196,9 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
   inv_gamma = _inv_gamma(gamma)
   YUV420_KERNELS[x12.dtype].launch(
-      hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n,
-      hh, wh, int(mode == "linear"), int(inv_gamma is not None),
+      dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu),
+      n, hh, wh, int(mode == "linear"), int(inv_gamma is not None),
       1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
       yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
-      hopper.ptr(yuv420.inv255_table(dev)), hopper.stream_of(dev))
+      hopper.ptr(yuv420.inv255_table(dev)))
   return y, vu

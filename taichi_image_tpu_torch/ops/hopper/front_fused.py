@@ -73,10 +73,9 @@ def front_fused(phases: torch.Tensor, weights: np.ndarray, finish: dict,
   scratch = torch.empty((2 * n,), dtype=torch.int32, device=dev)
   mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=dev)
   params = stencil_params(weights, finish)
-  KERNEL.launch(hopper.ptr(phases), hopper.ptr(p), hopper.ptr(scratch),
+  KERNEL.launch(dev, hopper.ptr(phases), hopper.ptr(p), hopper.ptr(scratch),
                 hopper.ptr(mx), n, hh, wh,
                 params.ctypes.data_as(ctypes.c_void_p),
                 int(finish["cc"] is not None), variant, finish["top_row"],
-                finish["bot_row"], hopper.ptr(scal),
-                hopper.stream_of(dev))
+                finish["bot_row"], hopper.ptr(scal))
   return p, mx

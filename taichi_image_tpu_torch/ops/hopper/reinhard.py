@@ -116,8 +116,7 @@ def reinhard_map(x: torch.Tensor, scal: torch.Tensor, ca_mode: bool,
   # the encoded maxima, then the block counters: one memset clears both
   scratch = torch.empty((2 * n,), dtype=torch.int32, device=x.device)
   mx = torch.empty((n, 1, 1, 1), dtype=torch.float32, device=x.device)
-  KERNELS[x.dtype].launch(hopper.ptr(x), hopper.ptr(p), hopper.ptr(scratch),
-                          hopper.ptr(mx), n, nc // 3, hh, wh,
-                          hopper.ptr(scal), int(bool(ca_mode)),
-                          hopper.stream_of(x.device))
+  KERNELS[x.dtype].launch(x.device, hopper.ptr(x), hopper.ptr(p),
+                          hopper.ptr(scratch), hopper.ptr(mx), n, nc // 3, hh,
+                          wh, hopper.ptr(scal), int(bool(ca_mode)))
   return p, mx

@@ -197,8 +197,9 @@ def _launch(x12: torch.Tensor, taps: ResizeTaps, path: str) -> torch.Tensor:
   out = torch.empty((n, 3, taps.h_out, taps.w_out), dtype=x12.dtype,
                     device=x12.device)
   KERNELS[x12.dtype].launch(
-      hopper.ptr(x12), hopper.ptr(out), n, hh, wh, taps.h_out, taps.w_out,
+      x12.device, hopper.ptr(x12), hopper.ptr(out), n, hh, wh, taps.h_out,
+      taps.w_out,
       hopper.ptr(taps.r_lo), hopper.ptr(taps.r_hi), hopper.ptr(taps.r_f),
       hopper.ptr(taps.c_lo), hopper.ptr(taps.c_hi), hopper.ptr(taps.c_f),
-      int(path == "aligned"), hopper.stream_of(x12.device))
+      int(path == "aligned"))
   return out

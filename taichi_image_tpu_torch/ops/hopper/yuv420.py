@@ -247,10 +247,9 @@ def yuv420_planar(rgb: torch.Tensor, backend: str = "auto"):
   y = torch.empty((n, h, w), dtype=torch.uint8, device=rgb.device)
   vu = torch.empty((n, 2, h // 2, w // 2), dtype=torch.uint8,
                    device=rgb.device)
-  KERNEL.launch(hopper.ptr(rgb), hopper.ptr(y), hopper.ptr(vu), n, h, w,
-                coefficients_ptr(False),
-                hopper.ptr(inv255_table(rgb.device)),
-                hopper.stream_of(rgb.device))
+  KERNEL.launch(rgb.device, hopper.ptr(rgb), hopper.ptr(y), hopper.ptr(vu), n,
+                h, w, coefficients_ptr(False),
+                hopper.ptr(inv255_table(rgb.device)))
   return y, vu
 
 
@@ -291,9 +290,8 @@ def yuv420_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
   vu = torch.empty((n, 2, ho // 2, wo // 2), dtype=torch.uint8, device=dev)
   inv_gamma = finish._inv_gamma(gamma)
   TONE_KERNELS[x.dtype].launch(
-      hopper.ptr(x), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n, h,
-      w, int(mode == "linear"), int(inv_gamma is not None),
+      dev, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n,
+      h, w, int(mode == "linear"), int(inv_gamma is not None),
       1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
-      coefficients_ptr(False),
-      hopper.ptr(inv255_table(dev)), hopper.stream_of(dev))
+      coefficients_ptr(False), hopper.ptr(inv255_table(dev)))
   return y, vu

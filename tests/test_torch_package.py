@@ -52,6 +52,12 @@ def test_import_pulls_in_no_jax():
       import taichi_image_tpu_torch.ops.kernel
       import taichi_image_tpu_torch.ops.packed
       import taichi_image_tpu_torch.models.camera_isp
+      import taichi_image_tpu_torch.models.large
+      import taichi_image_tpu_torch.parallel
+      import taichi_image_tpu_torch.parallel.runtime
+      import taichi_image_tpu_torch.parallel.sharding
+      import taichi_image_tpu_torch.parallel.spatial
+      import taichi_image_tpu_torch.parallel.dryrun
       import taichi_image_tpu_torch.utils.cache
       import taichi_image_tpu_torch.utils.debug
       bad = sorted(m for m in sys.modules
