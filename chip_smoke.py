@@ -131,6 +131,29 @@ Phases (each prints a line; any failure raises and exits non-zero):
             bytes), the worst over the ranks all_reduced and printed; (d)
             four processes: the 2 x 2 grid of CameraBF16 the same way.
             The launches of every sharded step add to the kernel table's.
+5d. apps    the apps and tooling layer at full width, its files in a
+            temporary directory: (a) a scan folder of 6 cameras x 3
+            packed12 3840x2160 frames (a seeded scene), run through
+            tonemap_scan at its defaults (Camera32, rotate_90), with
+            --resize_width 1920 --dtype bf16 and with --fetch yuv420, each
+            pipelined and with --pipeline_depth 0: 3 JPEGs each, the two
+            runs bitwise, the last set bitwise write_image of a fresh
+            ISP's process outputs, and exactly the kernels of the route
+            launched once a set; (b) tonemap_scan's sets/s from the page
+            cache without JPEGs (48 sets, twice; and serial), writing
+            JPEGs (12 sets), process's sets/s fed host (pageable) sets and
+            sets on the card, with and without fetching each output, and
+            a set's parts one at a time (file reads, the stack into a
+            pinned buffer, pinned and pageable uploads and downloads);
+            (c) bench.camera_isp (Camera16, 200 iterations), bench.bayer
+            (1000), bench.interpolate and bench.shootout at 2160x3840,
+            their lines logged and each kernel side's launches counted;
+            (d) tonemap_images on two 2160x3840 u16 PNG CFAs,
+            decode_packed on one 4K raw, compare_bayer on a 1080x1920 PNG,
+            each with its kernels' launches; (e) profiling.trace around a
+            process step names the port's kernels, and types.from_dlpack
+            of a CUDA tensor shares its memory. Its launches add to the
+            kernel table's.
 6. timing   for each class, the step by bench.py's method (K chained
             steps, a distinct XOR byte per step, every output summed into
             one scalar read at the end, median of 5) under torch's
@@ -1875,6 +1898,426 @@ def phase_parallel(card, frames):
   _add(total, _multi_rank(4, four, bf16))
   return total, timing
 
+
+APP_FRAMES = 3       # frames per camera of phase_apps' scan folder
+APP_SETS = 48        # frame sets of the timed scan (links to those frames)
+APP_JPEG_SETS = 12   # frame sets of the timed run that writes JPEGs
+APP_STEPS = 30       # frame sets of each timed `process` loop
+# the tonemap_scan runs of phase_apps: flags beyond --scan/--width/--write,
+# the stages they launch and their dtype (the CLI's defaults: Camera32,
+# rotate_90, gamma 0.9, intensity 3, light_adapt 0.9, moving_alpha 0.02)
+APP_SCANS = {
+    "defaults": ([], ("decode", "demosaic", "reinhard", "finish"), "f32"),
+    "resize1920 bf16": (["--resize_width", "1920", "--dtype", "bf16"],
+                        ("decode", "demosaic", "resize", "reinhard"), "bf16"),
+    "I420 fetch": (["--fetch", "yuv420"],
+                   ("decode", "demosaic", "reinhard", "finish_yuv420"), "f32"),
+}
+
+
+def _app_run(fn, argv, expect=None):
+  """``fn(argv)`` with its standard output captured and the launch counts
+  set to 0 just before and read just after; fails unless exactly the
+  ``expect`` kernels launched, each as many times as it gives. Returns
+  (output, seconds, launch counts)."""
+  import contextlib
+  import io
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  buf = io.StringIO()
+  torch.cuda.synchronize()
+  hopper.reset_launches()
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(buf):
+      fn(argv)
+  except BaseException:
+    log(buf.getvalue())
+    raise
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  launches = {n: v for n, v in hopper.launch_counts().items() if v}
+  if expect is not None and launches != expect:
+    raise AssertionError(f"{fn.__module__} {argv}: launches {launches}, "
+                         f"expected {expect}")
+  return buf.getvalue(), secs, launches
+
+
+def _app_scan(root):
+  """N_CAM camera folders of APP_FRAMES packed12 W x H frames: a smooth
+  moving scene per camera plus noise from a seeded generator, mosaiced
+  and packed on the card."""
+  import torch
+  from taichi_image_tpu_torch.ops import bayer, packed
+  gen = torch.Generator(device="cuda").manual_seed(12)
+  yy, xx = torch.meshgrid(
+      torch.arange(H, dtype=torch.float32, device="cuda"),
+      torch.arange(W, dtype=torch.float32, device="cuda"), indexing="ij")
+  scan = root / "scan"
+  for cam in range(N_CAM):
+    d = scan / f"cam{cam}"
+    d.mkdir(parents=True)
+    for f in range(APP_FRAMES):
+      ph = f * 0.3 + cam * 0.7
+      img = torch.stack([0.5 + 0.4 * torch.sin(xx / 97.0 + ph),
+                         0.5 + 0.4 * torch.sin(yy / 71.0 - ph * 1.3),
+                         0.5 + 0.4 * torch.sin((xx + yy) / 133.0 + ph / 2)],
+                        dim=-1) * (0.6 + 0.1 * cam)
+      img = (img + 0.02 * torch.randn(img.shape, generator=gen,
+                                      device="cuda")).clamp(0.0, 1.0)
+      raw = packed.encode12(bayer.rgb_to_bayer(img), scaled=True)
+      (d / f"frame{f:03d}.raw").write_bytes(raw.cpu().numpy().tobytes())
+  return scan
+
+
+def _linked_scan(scan, root, n):
+  """A scan of ``n`` frame names per camera, each a link to one of the
+  scan's frames (read from the page cache once the scan was read)."""
+  for cam in sorted(scan.iterdir()):
+    d = root / cam.name
+    d.mkdir(parents=True)
+    for i in range(n):
+      (d / f"frame{i:03d}.raw").symlink_to(cam / f"frame{i % APP_FRAMES:03d}.raw")
+  return root
+
+
+def _host_sets(scan):
+  """The scan's frame sets as host (N_CAM, H, WB) u8 arrays, in order."""
+  import numpy as np
+  return [np.stack([np.fromfile(scan / f"cam{c}" / f"frame{f:03d}.raw",
+                                np.uint8).reshape(H, WB)
+                    for c in range(N_CAM)]) for f in range(APP_FRAMES)]
+
+
+def _scan_reference(sets, flags, sfx, path):
+  """write_image of the grid of a fresh ISP's ``process`` outputs for the
+  last set, after the others in order, with the CLI's defaults; returns
+  (the path, seconds of the fetch, grid and write in one thread)."""
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  from taichi_image_tpu_torch.scripts import tonemap_scan, util
+  resize = int(flags[flags.index("--resize_width") + 1]) if (
+      "--resize_width" in flags) else 0
+  i420 = "yuv420" in flags
+  isp = getattr(ttit, CLASSES[sfx])(
+      ttit.BayerPattern.RGGB, transform=ImageTransform.rotate_90,
+      moving_alpha=0.02, resize_width=resize, device="cuda")
+  for raws in sets:
+    out = isp.process(raws, gamma=0.9, intensity=3.0, light_adapt=0.9,
+                      color_adapt=0.0,
+                      color_format="yuv420" if i420 else "rgb")
+  t0 = time.perf_counter()
+  if i420:
+    util.write_image(path, tonemap_scan.i420_grid(
+        out[0].cpu().numpy(), out[1].cpu().numpy(), 2), mode="YCbCr")
+  else:
+    util.write_image(path, tonemap_scan.rgb_grid(out.cpu().numpy(), 2))
+  return path, time.perf_counter() - t0
+
+
+def _apps_scan_checks(root, scan, sets):
+  """(a): each APP_SCANS run of tonemap_scan, pipelined and serial, with
+  its JPEGs checked; returns (launch counts, sets/s of the JPEG runs)."""
+  from taichi_image_tpu_torch.scripts import tonemap_scan
+  total, rates = {}, {}
+  for name, (flags, stages, sfx) in APP_SCANS.items():
+    expect = {f"{st}_{sfx}": APP_FRAMES for st in stages}
+    slug = name.replace(" ", "_")
+    base = ["--scan", str(scan), "--width", str(W), *flags]
+    jpegs, secs = {}, {}
+    for depth in ("2", "0"):
+      out = root / f"{slug}_{depth}"
+      argv = base + ["--write", str(out)]
+      if depth == "0":
+        argv += ["--pipeline_depth", "0"]
+      _, secs[depth], launches = _app_run(tonemap_scan.main, argv, expect)
+      _add(total, launches)
+      jpegs[depth] = sorted(out.glob("*.jpg"))
+      if len(jpegs[depth]) != APP_FRAMES:
+        raise AssertionError(f"tonemap_scan {name}: {len(jpegs[depth])} "
+                             f"JPEGs for {APP_FRAMES} frame sets")
+    for a, b in zip(jpegs["2"], jpegs["0"]):
+      if a.name != b.name or a.read_bytes() != b.read_bytes():
+        raise AssertionError(f"tonemap_scan {name}: {a.name} pipelined != "
+                             "--pipeline_depth 0")
+    ref, one = _scan_reference(sets, flags, sfx, root / f"{slug}_ref.jpg")
+    if ref.read_bytes() != jpegs["2"][-1].read_bytes():
+      raise AssertionError(f"tonemap_scan {name}: {jpegs['2'][-1].name} is "
+                           "not write_image of process's outputs")
+    rates[name] = dict(sets_per_s=APP_FRAMES / secs["2"], one_jpeg_s=one)
+    log(f"apps tonemap_scan {name}: {APP_FRAMES} sets of {N_CAM}x{H}x{W} "
+        f"packed12 -> {APP_FRAMES} JPEGs ({jpegs['2'][-1].stat().st_size} "
+        f"bytes the last), pipelined bitwise --pipeline_depth 0 and "
+        f"bitwise write_image of a fresh ISP's process outputs; launches "
+        f"{expect} a run; {secs['2']:.3f} s pipelined, {secs['0']:.3f} s "
+        f"serial (incl. start-up and JPEG writing); one set's fetch, grid "
+        f"and JPEG in one thread {one:.3f} s")
+  return total, rates
+
+
+def _host_ms(fn, reps=5, batch=5):
+  """Median host ms per call of ``fn()`` over ``reps`` batches, each
+  timed to a synchronize."""
+  import torch
+  fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    t0 = time.perf_counter()
+    for _ in range(batch):
+      fn()
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3 / batch)
+  return statistics.median(times)
+
+
+def _apps_breakdown(timed, sets):
+  """A set's costs in the CLI, one at a time: the file reads
+  (load_images_iter over the timed scan), the stack into a pinned buffer,
+  the upload of a set and the download of its rotate_90 RGB output from
+  pinned and from pageable host memory."""
+  import contextlib
+  import io
+  import numpy as np
+  import torch
+  from taichi_image_tpu_torch.scripts import util
+  with contextlib.redirect_stdout(io.StringIO()):
+    folders, names = util.find_scan_folders(timed)
+  t0 = time.perf_counter()
+  for _ in util.load_images_iter(util.load_raw_bytes, folders, names):
+    pass
+  read_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+  pinned_in = torch.empty(sets[0].shape, dtype=torch.uint8, pin_memory=True)
+  stack_ms = _host_ms(lambda: np.stack(list(sets[0]), out=pinned_in.numpy()))
+  out_shape = (N_CAM, 3, W, H)
+  dev_in = torch.empty(sets[0].shape, dtype=torch.uint8, device="cuda")
+  dev_out = torch.randint(0, 256, out_shape, dtype=torch.uint8,
+                          device="cuda")
+  pinned_out = torch.empty(out_shape, dtype=torch.uint8, pin_memory=True)
+  pageable_in = torch.from_numpy(sets[0])
+  pageable_out = torch.empty(out_shape, dtype=torch.uint8)
+  ms = {
+      "read": read_ms, "stack into pinned": stack_ms,
+      "H2D pinned": _host_ms(lambda: dev_in.copy_(pinned_in,
+                                                  non_blocking=True)),
+      "H2D pageable": _host_ms(lambda: dev_in.copy_(pageable_in)),
+      "D2H pinned": _host_ms(lambda: pinned_out.copy_(dev_out,
+                                                      non_blocking=True)),
+      "D2H pageable": _host_ms(lambda: pageable_out.copy_(dev_out)),
+  }
+  nbytes = {"read": sets[0].nbytes, "stack into pinned": sets[0].nbytes,
+            "H2D pinned": sets[0].nbytes, "H2D pageable": sets[0].nbytes,
+            "D2H pinned": dev_out.numel(), "D2H pageable": dev_out.numel()}
+  gbps = {k: nbytes[k] / (v * 1e-3) / 1e9 for k, v in ms.items()}
+  log("timing apps a 6x4K set's parts, one at a time (host clock to a "
+      "synchronize, median of 5 x 5): "
+      + ", ".join(f"{k} {ms[k]:.3f} ms ({gbps[k]:.2f} GB/s)" for k in ms))
+  return dict(ms=ms, gbps=gbps)
+
+
+def _apps_timing(card, root, scan, sets, jpeg_rates):
+  """(b): sets/s of tonemap_scan from files in the page cache, and of
+  ``process`` fed host (pageable) sets or sets on the card."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  from taichi_image_tpu_torch.scripts import tonemap_scan
+  timed = _linked_scan(scan, root / "timed", APP_SETS)
+  base = ["--scan", str(timed), "--width", str(W)]
+  cli = [APP_SETS / _app_run(tonemap_scan.main, base)[1] for _ in range(2)]
+  serial = APP_SETS / _app_run(tonemap_scan.main,
+                               base + ["--pipeline_depth", "0"])[1]
+  jpeg_scan = _linked_scan(scan, root / "timed_jpeg", APP_JPEG_SETS)
+  jpeg = APP_JPEG_SETS / _app_run(tonemap_scan.main, [
+      "--scan", str(jpeg_scan), "--width", str(W), "--write",
+      str(root / "timed_jpeg_out")])[1]
+  isp = ttit.Camera32(ttit.BayerPattern.RGGB,
+                      transform=ImageTransform.rotate_90, moving_alpha=0.02,
+                      device="cuda")
+  kw = dict(gamma=0.9, intensity=3.0, light_adapt=0.9, color_adapt=0.0)
+  dev_sets = [torch.from_numpy(s).cuda() for s in sets]
+
+  def rate(feed, fetch):
+    for raws in feed:
+      isp.process(raws, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(APP_STEPS):
+      out = isp.process(feed[i % len(feed)], **kw)
+      if fetch:
+        out.cpu()
+    torch.cuda.synchronize()
+    return APP_STEPS / (time.perf_counter() - t0)
+
+  proc = {"host sets": rate(sets, False), "host sets + fetch": rate(sets, True),
+          "card sets": rate(dev_sets, False),
+          "card sets + fetch": rate(dev_sets, True)}
+  timing = dict(cli_sets_per_s=cli, cli_serial_sets_per_s=serial,
+                cli_jpeg_sets_per_s=jpeg, jpeg_runs=jpeg_rates,
+                process_sets_per_s=proc,
+                breakdown=_apps_breakdown(timed, sets))
+  log(f"timing apps tonemap_scan 6x4K (Camera32, rotate_90, RGB fetch) from "
+      f"the page cache, no JPEG: {cli[0]:.2f} / {cli[1]:.2f} sets/s (two "
+      f"runs of {APP_SETS} sets), --pipeline_depth 0 {serial:.2f} sets/s; "
+      f"writing JPEGs: {jpeg:.2f} sets/s ({APP_JPEG_SETS} sets); process "
+      f"({APP_STEPS} sets, host clock to a synchronize): "
+      + ", ".join(f"{k} {v:.2f}" for k, v in proc.items())
+      + f" sets/s; {card}")
+  return timing
+
+
+def _apps_benches():
+  """(c): the bench modules at 6x4K / 2160x3840, each kernel side's
+  launches counted; returns (launch counts, printed lines)."""
+  import torch._inductor.config
+  # the shootout's torch.compile side compiles in this process, so that no
+  # compile worker pool is left to stop
+  torch._inductor.config.compile_threads = 1
+  from taichi_image_tpu_torch.bench import bayer as bench_bayer
+  from taichi_image_tpu_torch.bench import camera_isp as bench_isp
+  from taichi_image_tpu_torch.bench import interpolate as bench_interp
+  from taichi_image_tpu_torch.bench import shootout
+  runs = [
+      ("bench.camera_isp", bench_isp.main, ["--iterations", "200"],
+       {f"{st}_f16": 1 + 20 + 200 for st in _MAIN}),
+      ("bench.bayer", bench_bayer.main,
+       ["--iterations", "1000", "--warmup", "50"], {"demosaic_f32": 1050}),
+      ("bench.interpolate", bench_interp.main,
+       ["--iterations", "500", "--warmup", "20"], {}),
+      # the kernel side of each race: a warm-up and 3 reps of 10 steps
+      ("bench.shootout", shootout.main, [],
+       {"demosaic_f32": 40, "decode_bf16": 40}),
+  ]
+  total, lines = {}, {}
+  for name, fn, argv, expect in runs:
+    out, secs, launches = _app_run(fn, argv, expect)
+    _add(total, launches)
+    lines[name] = out.splitlines()
+    log(f"apps {name} {' '.join(argv)} ({secs:.1f} s, launches {launches}):")
+    for line in lines[name]:
+      log(f"  {line}")
+  return total, lines
+
+
+def _apps_other_clis(root, scan):
+  """(d): tonemap_images on two 2160x3840 u16 PNG CFAs, decode_packed on
+  one 4K raw, compare_bayer on a 1080x1920 PNG; returns launch counts."""
+  import numpy as np
+  import torch
+  from PIL import Image
+  from taichi_image_tpu_torch.ops import bayer
+  from taichi_image_tpu_torch.scripts import (compare_bayer, decode_packed,
+                                              tonemap_images)
+  gen = torch.Generator(device="cuda").manual_seed(13)
+  yy, xx = torch.meshgrid(
+      torch.arange(H, dtype=torch.float32, device="cuda"),
+      torch.arange(W, dtype=torch.float32, device="cuda"), indexing="ij")
+  rgb = torch.stack([0.5 + 0.4 * torch.sin(xx / 61.0),
+                     0.5 + 0.4 * torch.cos(yy / 43.0),
+                     0.5 + 0.4 * torch.sin((xx - yy) / 89.0)], dim=-1)
+  cfas = root / "cfa"
+  cfas.mkdir()
+  for i in range(2):
+    img = (rgb * (0.7 + 0.1 * i) + 0.01 * torch.randn(
+        rgb.shape, generator=gen, device="cuda")).clamp(0.0, 1.0)
+    cfa = (bayer.rgb_to_bayer(img) * 65535.0).to(torch.int32).cpu().numpy()
+    Image.fromarray(cfa.astype(np.uint16)).save(str(cfas / f"im{i}.png"),
+                                                compress_level=1)
+  total = {}
+  out = root / "images_out"
+  _, secs, launches = _app_run(
+      tonemap_images.main, [str(cfas), "--write", str(out)],
+      {f"{st}_f32": 2 for st in ("split_u16", "demosaic", "reinhard",
+                                 "finish")})
+  _add(total, launches)
+  if len(list(out.glob("*.jpg"))) != 2:
+    raise AssertionError(f"tonemap_images wrote {list(out.glob('*'))}")
+  log(f"apps tonemap_images: 2 {H}x{W} u16 PNG CFAs -> 2 JPEGs "
+      f"({secs:.2f} s), launches {launches}")
+  dest = root / "decoded.jpg"
+  text, secs, launches = _app_run(
+      decode_packed.main, [str(scan / "cam0" / "frame000.raw"), "--width",
+                           str(W), "--out", str(dest)],
+      {f"{st}_f32": 1 for st in _MAIN})
+  _add(total, launches)
+  if not dest.is_file() or f"({W}x{H})" not in text:
+    raise AssertionError(f"decode_packed: {text!r}")
+  log(f"apps decode_packed: {text.strip()} ({secs:.2f} s), launches "
+      f"{launches}")
+  png = root / "rgb1080.png"
+  small = (rgb[::2, ::2] * 255.0).to(torch.uint8).cpu().numpy()
+  Image.fromarray(small).save(str(png), compress_level=1)
+  text, secs, launches = _app_run(compare_bayer.main, [str(png)],
+                                  {"demosaic_f32": 8})
+  _add(total, launches)
+  log(f"apps compare_bayer on a {small.shape[0]}x{small.shape[1]} PNG "
+      f"({secs:.2f} s), launches {launches}:")
+  for line in text.splitlines():
+    log(f"  {line}")
+  return total
+
+
+def _apps_utils(root, sets):
+  """(e): profiling.trace around one process step names the port's
+  kernels; types.from_dlpack of a CUDA tensor shares its memory."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import types
+  from taichi_image_tpu_torch.utils import profiling
+  isp = ttit.Camera32(ttit.BayerPattern.RGGB, device="cuda")
+  raws = torch.from_numpy(sets[0]).cuda()
+  isp.process(raws)
+  torch.cuda.synchronize()
+  tdir = root / "trace"
+  with profiling.trace(str(tdir)):
+    with profiling.annotate("process"):
+      isp.process(raws)
+    torch.cuda.synchronize()
+  files = sorted(tdir.glob("*.pt.trace.json"))
+  if len(files) != 1:
+    raise AssertionError(f"profiling.trace wrote {files}")
+  events = json.loads(files[0].read_text())["traceEvents"]
+  names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+  want = ("decode12_kernel", "stencil_kernel", "map_kernel", "finish_")
+  missing = [k for k in want if not any(k in n for n in names)]
+  if missing or not any(e.get("name") == "process" for e in events):
+    raise AssertionError(f"the trace lacks {missing} (kernels {names})")
+  t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+  for src in (t.__dlpack__(), t):
+    u = types.from_dlpack(src)
+    if u.data_ptr() != t.data_ptr() or u.device != t.device:
+      raise AssertionError(f"from_dlpack copied: {u.device} {u.data_ptr()}")
+  u[0] = -1.0
+  if t[0].item() != -1.0:
+    raise AssertionError("from_dlpack's tensor does not share memory")
+  log(f"apps utils: profiling.trace wrote {files[0].name} "
+      f"({files[0].stat().st_size} bytes) naming "
+      f"{sorted(n[:60] for n in names)}; types.from_dlpack of a CUDA "
+      "tensor and of its __dlpack__ capsule share its memory")
+
+
+def phase_apps(card):
+  """The apps and tooling layer at 6x4K, its files staged in a temporary
+  directory: (a) tonemap_scan's runs checked, (b) its rate and
+  ``process``'s timed, (c) the benches, (d) the other CLIs, (e) utils.
+  Returns (launch counts, timing)."""
+  import pathlib
+  import tempfile
+  total = {}
+  with tempfile.TemporaryDirectory(prefix="chip-smoke-apps-") as tmp:
+    root = pathlib.Path(tmp)
+    scan = _app_scan(root)
+    sets = _host_sets(scan)
+    launches, jpeg_rates = _apps_scan_checks(root, scan, sets)
+    _add(total, launches)
+    timing = _apps_timing(card, root, scan, sets, jpeg_rates)
+    launches, timing["bench_lines"] = _apps_benches()
+    _add(total, launches)
+    _add(total, _apps_other_clis(root, scan))
+    _apps_utils(root, sets)
+  return total, timing
+
+
 def _chain_large(inputs, dtype, driver, checksum):
   """K chained 6x8K steps of the working dtype through ``process_banded``
   with ``driver``, the EMA carried over; with ``checksum`` every output
@@ -2329,6 +2772,7 @@ def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--out", help="also write every measurement to this JSON")
   args = ap.parse_args(argv)
+  t_start = time.perf_counter()
 
   card = phase_device()
   import torch
@@ -2355,6 +2799,9 @@ def main(argv=None):
   par_launches, par_timing = phase_parallel(card, frames)
   for n, v in par_launches.items():
     launches[n] += v
+  app_launches, app_timing = phase_apps(card)
+  for n, v in app_launches.items():
+    launches[n] += v
   never = sorted(n for n, v in launches.items() if v == 0)
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
@@ -2363,6 +2810,7 @@ def main(argv=None):
   timing["formats"] = phase_format_timing(card)
   timing["large"] = phase_large_timing(card)
   timing["parallel"] = par_timing
+  timing["apps"] = app_timing
 
   kernels = []
   for name, k in hopper.KERNELS.items():
@@ -2378,6 +2826,7 @@ def main(argv=None):
     with open(args.out, "w") as f:
       json.dump(dict(card=card, build=build, kernels=kernels,
                      kernel_modes=results, timing=timing), f, indent=1)
+  log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ import torch
 __all__ = ["scale_factor", "canonical_dtype", "dtype_of", "is_float_dtype",
            "as_tensor", "to_device",
            "scale_of", "to_float", "from_float", "empty_like", "zeros_like",
+           "from_dlpack", "to_dlpack", "to_torch", "from_torch",
            "u8", "u16", "i16", "f16", "bf16", "f32"]
 
 u8 = torch.uint8
@@ -140,3 +141,42 @@ def zeros_like(in_arr, shape=None, dtype=None) -> np.ndarray:
   shape = in_arr.shape if shape is None else shape
   dt = dtype_of(in_arr) if dtype is None else canonical_dtype(dtype)
   return np.zeros(tuple(shape), _numpy_dtype(dt))
+
+
+# --------------------------------------------------------------------------
+# DLPack interop (taichi_image_tpu/types.py:148-194).
+#
+# The reference borrows torch tensors zero-copy throughout (types.py:29-49,
+# camera_isp.py:83-84) so camera drivers hand over GPU buffers without a
+# copy. In the port the package's array is the tensor itself, so these are
+# the port's side of the same protocol: any producer (a JAX or numpy
+# array, cupy, a tensor) comes in through DLPack, sharing its memory when
+# it lies on a device torch can address.
+# --------------------------------------------------------------------------
+
+
+def from_dlpack(x) -> torch.Tensor:
+  """Import any DLPack-capable array (a JAX or numpy array, a tensor) as a
+  tensor, sharing its memory. Accepts an object implementing
+  ``__dlpack__`` or a legacy DLPack capsule."""
+  return torch.from_dlpack(x)
+
+
+def to_dlpack(x) -> torch.Tensor:
+  """Export through DLPack: a tensor implements ``__dlpack__`` itself, so
+  ``jnp.from_dlpack(to_dlpack(t))`` or ``np.from_dlpack`` borrows its
+  buffer (anything else goes through :func:`as_tensor`)."""
+  return as_tensor(x)
+
+
+def to_torch(x) -> torch.Tensor:
+  """A tensor as it is; any other DLPack producer through
+  :func:`from_dlpack` (sharing memory)."""
+  return x if isinstance(x, torch.Tensor) else from_dlpack(x)
+
+
+def from_torch(x: torch.Tensor) -> torch.Tensor:
+  """The port's arrays are tensors: a tensor is taken as it is."""
+  if not isinstance(x, torch.Tensor):
+    raise TypeError(f"from_torch takes a torch.Tensor, got {type(x)}")
+  return x

@@ -7,6 +7,9 @@ from taichi_image_tpu_torch.utils.bounds import (
     union_bounds,
 )
 from taichi_image_tpu_torch.utils.cache import cache
+from taichi_image_tpu_torch.utils.benchmark import Benchmark, benchmark
+from taichi_image_tpu_torch.utils.image import mse, psnr
+from taichi_image_tpu_torch.utils import profiling
 
 __all__ = [
     "Bounds",
@@ -16,4 +19,9 @@ __all__ = [
     "lerp",
     "union_bounds",
     "cache",
+    "Benchmark",
+    "benchmark",
+    "mse",
+    "psnr",
+    "profiling",
 ]
