@@ -139,11 +139,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
             pipelined and with --pipeline_depth 0: 3 JPEGs each, the two
             runs bitwise, the last set bitwise write_image of a fresh
             ISP's process outputs, and exactly the kernels of the route
-            launched once a set; (b) tonemap_scan's sets/s from the page
-            cache without JPEGs (48 sets, twice; and serial), writing
-            JPEGs (12 sets), process's sets/s fed host (pageable) sets and
-            sets on the card, with and without fetching each output, and
-            a set's parts one at a time (file reads, the stack into a
+            launched once a set; (f) process_stream fed 6 host numpy
+            sets (the scan's frames), prefetch 2, for Camera32 rotate_90
+            (the CLI's configuration) and CameraBF16's main path: planar
+            under sync-debug "error" and HWC under "warn" (its reports
+            logged), each output bitwise process of the same sets on the
+            card, as is process(layout="hwc") of each host set, each
+            main-path kernel launched once a set; process of a
+            read-only, a non-contiguous and a u16 host set bitwise the
+            same sets on the card; (b)
+            tonemap_scan's sets/s from the page cache without JPEGs (48
+            sets, twice; and serial), writing JPEGs (12 sets), process's
+            sets/s fed host sets (through its pinned ring) and sets on the
+            card, with and without a pageable fetch of each output and
+            with layout="hwc",
+            process_stream's sets/s fed host or card sets, planar and HWC,
+            and a set's parts one at a time (file reads, the stack into a
             pinned buffer, pinned and pageable uploads and downloads);
             (c) bench.camera_isp (Camera16, 200 iterations), bench.bayer
             (1000), bench.interpolate and bench.shootout at 2160x3840,
@@ -1903,6 +1914,16 @@ APP_FRAMES = 3       # frames per camera of phase_apps' scan folder
 APP_SETS = 48        # frame sets of the timed scan (links to those frames)
 APP_JPEG_SETS = 12   # frame sets of the timed run that writes JPEGs
 APP_STEPS = 30       # frame sets of each timed `process` loop
+APP_STREAM_SETS = 6  # host sets of each checked process_stream (2 passes)
+# the process_stream checks of phase_apps: (class, transform, moving_alpha,
+# process keyword arguments, dtype suffix): the scan CLI's configuration
+# (the one its rates are taken in) and CameraBF16's main path
+APP_STREAMS = {
+    "Camera32 rotate_90": ("Camera32", "rotate_90", 0.02,
+                           dict(gamma=0.9, intensity=3.0, light_adapt=0.9,
+                                color_adapt=0.0), "f32"),
+    "CameraBF16": ("CameraBF16", "none", 0.1, {}, "bf16"),
+}
 # the tonemap_scan runs of phase_apps: flags beyond --scan/--width/--write,
 # the stages they launch and their dtype (the CLI's defaults: Camera32,
 # rotate_90, gamma 0.9, intensity 3, light_adapt 0.9, moving_alpha 0.02)
@@ -2115,9 +2136,119 @@ def _apps_breakdown(timed, sets):
   return dict(ms=ms, gbps=gbps)
 
 
+def _stream_isp(name):
+  """A fresh ISP of the APP_STREAMS configuration ``name`` on the card,
+  and its process keyword arguments."""
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  cls, transform, alpha, kw, _ = APP_STREAMS[name]
+  return getattr(ttit, cls)(ttit.BayerPattern.RGGB,
+                            transform=ImageTransform[transform],
+                            moving_alpha=alpha, device="cuda"), kw
+
+
+def _counted_stream(name, feed, sfx, **layout):
+  """``process_stream`` of a fresh ISP over the host sets ``feed``
+  (prefetch 2), its outputs listed, with the launch counts set to 0 just
+  before and read just after; fails unless each main-path kernel launched
+  once a set. Returns (outputs, launch counts)."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  isp, kw = _stream_isp(name)
+  torch.cuda.synchronize()
+  hopper.reset_launches()
+  outs = list(isp.process_stream(iter(feed), prefetch=2, **layout, **kw))
+  torch.cuda.synchronize()
+  launches = {n: v for n, v in hopper.launch_counts().items() if v}
+  expect = {f"{st}_{sfx}": len(feed) for st in _MAIN}
+  if launches != expect:
+    raise AssertionError(f"process_stream {name} {layout}: launches "
+                         f"{launches}, expected {expect}")
+  return outs, launches
+
+
+def _apps_stream_checks(sets):
+  """(f): ``process_stream`` fed host numpy sets at 6x4K, prefetch 2, for
+  each APP_STREAMS configuration: planar under sync-debug "error" (the
+  loop makes no stream or device sync), and HWC under sync-debug "warn"
+  (what it reports is logged and returned); each output bitwise
+  ``process`` of the same sets on the card. Returns (launch counts,
+  {configuration: the HWC stream's sync reports})."""
+  import warnings
+  import numpy as np
+  import torch
+  feed = [sets[i % len(sets)] for i in range(APP_STREAM_SETS)]
+  card_sets = [torch.from_numpy(s).cuda() for s in sets]
+  total, reports = {}, {}
+  for name, (*_, sfx) in APP_STREAMS.items():
+    ref, kw = _stream_isp(name)
+    want = [ref.process(card_sets[i % len(sets)], **kw)
+            for i in range(APP_STREAM_SETS)]
+    blocking, _ = _stream_isp(name)  # process(layout="hwc") of host sets
+    want_hwc = [blocking.process(s, layout="hwc", **kw) for s in feed]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      planar, launches = _counted_stream(name, feed, sfx)
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+    _add(total, launches)
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter("always")
+      torch.cuda.set_sync_debug_mode("warn")
+      try:
+        hwc, launches = _counted_stream(name, feed, sfx, layout="hwc")
+      finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _add(total, launches)
+    reports[name] = sorted({str(w.message).splitlines()[0] for w in caught
+                            if "synchroniz" in str(w.message)})
+    for f, (p, h, w, wh) in enumerate(zip(planar, hwc, want, want_hwc)):
+      if not torch.equal(p, w):
+        raise AssertionError(f"process_stream {name} set {f}: planar is "
+                             "not bitwise process")
+      host = np.moveaxis(w.cpu().numpy(), 1, -1)
+      if not (isinstance(h, np.ndarray) and np.array_equal(h, host)
+              and np.array_equal(wh, host)):
+        raise AssertionError(f"process_stream {name} set {f}: HWC (or "
+                             "process(layout='hwc') of the host set) is "
+                             "not bitwise process")
+    log(f"apps process_stream {name}: {APP_STREAM_SETS} host numpy sets of "
+        f"{N_CAM}x{H}x{W} packed12, prefetch 2, planar (under sync-debug "
+        f"\"error\") and HWC bitwise process on the same sets on the card, "
+        f"and so is process(layout=\"hwc\") of each host set; "
+        f"launches {launches} a stream; sync-debug reports of the HWC "
+        f"stream: {reports[name] or 'none'}")
+  # other host sets through the ring: a read-only one, a non-contiguous
+  # one, and u16 CFAs (which go up as their int16 bits)
+  ro = sets[0].copy()
+  ro.setflags(write=False)
+  wide = np.zeros((N_CAM, H, 2 * WB), np.uint8)
+  wide[:, :, 1::2] = sets[1]
+  u16 = np.random.default_rng(14).integers(0, 65536, (N_CAM, H, W),
+                                           dtype=np.uint16)
+  cases = [("read-only", ro, card_sets[0], "packed12"),
+           ("non-contiguous", wide[:, :, 1::2], card_sets[1], "packed12"),
+           ("u16", u16, torch.from_numpy(u16.view(np.int16)).cuda().view(
+               torch.uint16), "u16")]
+  for what, host, card_set, fmt in cases:
+    a, _ = _stream_isp("CameraBF16")
+    b, _ = _stream_isp("CameraBF16")
+    if not torch.equal(a.process(host, fmt=fmt), b.process(card_set,
+                                                           fmt=fmt)):
+      raise AssertionError(f"process of a {what} host set is not bitwise "
+                           "the same set on the card")
+  log("apps process of a read-only, a non-contiguous and a u16 host set "
+      "(through the pinned ring) bitwise the same sets on the card")
+  return total, reports
+
+
 def _apps_timing(card, root, scan, sets, jpeg_rates):
-  """(b): sets/s of tonemap_scan from files in the page cache, and of
-  ``process`` fed host (pageable) sets or sets on the card."""
+  """(b): sets/s of tonemap_scan from files in the page cache, of
+  ``process`` fed host sets (staged through its pinned ring) or sets on
+  the card, with and without a pageable fetch of each output, of
+  ``process(layout="hwc")`` fed host sets, and of
+  ``process_stream`` (prefetch 2) fed host or card sets, planar and
+  HWC."""
   import torch
   import taichi_image_tpu_torch as ttit
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
@@ -2137,31 +2268,54 @@ def _apps_timing(card, root, scan, sets, jpeg_rates):
   kw = dict(gamma=0.9, intensity=3.0, light_adapt=0.9, color_adapt=0.0)
   dev_sets = [torch.from_numpy(s).cuda() for s in sets]
 
-  def rate(feed, fetch):
+  def rate(feed, fetch, **layout):
     for raws in feed:
-      isp.process(raws, **kw)
+      isp.process(raws, **layout, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(APP_STEPS):
-      out = isp.process(feed[i % len(feed)], **kw)
+      out = isp.process(feed[i % len(feed)], **layout, **kw)
       if fetch:
         out.cpu()
     torch.cuda.synchronize()
     return APP_STEPS / (time.perf_counter() - t0)
 
+  stream_isp, _ = _stream_isp("Camera32 rotate_90")
+
+  def stream_rate(feed, **layout):
+    # a first pass over the feed allocates the ring and the pinned outputs
+    for _ in stream_isp.process_stream(iter(feed), **layout, **kw):
+      pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in stream_isp.process_stream(
+        (feed[i % len(feed)] for i in range(APP_STEPS)), **layout, **kw):
+      pass
+    torch.cuda.synchronize()
+    return APP_STEPS / (time.perf_counter() - t0)
+
   proc = {"host sets": rate(sets, False), "host sets + fetch": rate(sets, True),
           "card sets": rate(dev_sets, False),
-          "card sets + fetch": rate(dev_sets, True)}
+          "card sets + fetch": rate(dev_sets, True),
+          "host sets, layout hwc": rate(sets, False, layout="hwc")}
+  stream = {"host sets": stream_rate(sets),
+            "host sets hwc": stream_rate(sets, layout="hwc"),
+            "card sets": stream_rate(dev_sets),
+            "card sets hwc": stream_rate(dev_sets, layout="hwc")}
   timing = dict(cli_sets_per_s=cli, cli_serial_sets_per_s=serial,
                 cli_jpeg_sets_per_s=jpeg, jpeg_runs=jpeg_rates,
-                process_sets_per_s=proc,
+                process_sets_per_s=proc, stream_sets_per_s=stream,
                 breakdown=_apps_breakdown(timed, sets))
   log(f"timing apps tonemap_scan 6x4K (Camera32, rotate_90, RGB fetch) from "
       f"the page cache, no JPEG: {cli[0]:.2f} / {cli[1]:.2f} sets/s (two "
       f"runs of {APP_SETS} sets), --pipeline_depth 0 {serial:.2f} sets/s; "
       f"writing JPEGs: {jpeg:.2f} sets/s ({APP_JPEG_SETS} sets); process "
-      f"({APP_STEPS} sets, host clock to a synchronize): "
+      f"({APP_STEPS} sets, host clock to a synchronize; host sets through "
+      f"its pinned ring, the fetch a pageable .cpu(), layout hwc a "
+      f"blocking copy into a pinned array): "
       + ", ".join(f"{k} {v:.2f}" for k, v in proc.items())
+      + f" sets/s; process_stream (prefetch 2, {APP_STEPS} sets): "
+      + ", ".join(f"{k} {v:.2f}" for k, v in stream.items())
       + f" sets/s; {card}")
   return timing
 
@@ -2298,9 +2452,10 @@ def _apps_utils(root, sets):
 
 def phase_apps(card):
   """The apps and tooling layer at 6x4K, its files staged in a temporary
-  directory: (a) tonemap_scan's runs checked, (b) its rate and
-  ``process``'s timed, (c) the benches, (d) the other CLIs, (e) utils.
-  Returns (launch counts, timing)."""
+  directory: (a) tonemap_scan's runs checked, (f) ``process_stream`` from
+  host sets checked, (b) the CLI's, ``process``'s and
+  ``process_stream``'s rates, (c) the benches, (d) the other CLIs, (e)
+  utils. Returns (launch counts, timing)."""
   import pathlib
   import tempfile
   total = {}
@@ -2310,7 +2465,10 @@ def phase_apps(card):
     sets = _host_sets(scan)
     launches, jpeg_rates = _apps_scan_checks(root, scan, sets)
     _add(total, launches)
+    launches, stream_syncs = _apps_stream_checks(sets)
+    _add(total, launches)
     timing = _apps_timing(card, root, scan, sets, jpeg_rates)
+    timing["stream_sync_reports"] = stream_syncs
     launches, timing["bench_lines"] = _apps_benches()
     _add(total, launches)
     _add(total, _apps_other_clis(root, scan))

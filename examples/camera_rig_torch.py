@@ -13,10 +13,13 @@ Run (the rig's full size, 6 x 2160 x 3840, on the CUDA device):
 Demonstrates the API surface a taichi_image user needs:
   * synthesizing packed12 RAW from RGB (`rgb_to_bayer` + `encode12`) —
     the reference's own test-fixture recipe (test/camera_isp.py:10-21) —
-    on the device;
+    on the device, fetched into host numpy sets, as a rig's capture
+    driver delivers them;
   * the fused per-frame step `isp.process` (decode -> demosaic+WB/CCM ->
     EMA metering -> Reinhard -> u8) and the streaming driver
-    `isp.process_stream`, with steps in flight on the device;
+    `isp.process_stream`: host sets go up through a pinned ring on a copy
+    stream and HWC frames come down on a download stream, with steps in
+    flight on the device;
   * I420 output for video encoders (`color_format="yuv420"`);
   * gray-world auto white balance from the metering state;
   * checkpointing the only cross-frame state (`state_dict`).
@@ -71,12 +74,18 @@ def main(argv=None):
   h, w, device = args.height, args.width, torch.device(args.device)
 
   # --- camera simulator: RGB scene -> packed12 RAW per camera ----------
+  # rendered on the device once, up front, and kept as host numpy sets:
+  # the frames a capture driver hands over (fetching each set while the
+  # stream runs would wait for the steps in flight)
+  recorded = []
+  for t in range(args.frames):
+    raws = [packed.encode12(tit.rgb_to_bayer(img, tit.BayerPattern.RGGB),
+                            scaled=True)
+            for img in synth_scene(h, w, t, args.cameras, device)]
+    recorded.append(torch.stack(raws).cpu().numpy())
+
   def raw_stream():
-    for t in range(args.frames):
-      raws = [packed.encode12(tit.rgb_to_bayer(img, tit.BayerPattern.RGGB),
-                              scaled=True)
-              for img in synth_scene(h, w, t, args.cameras, device)]
-      yield torch.stack(raws)  # (n_cams, h, w*3//2) u8 on the device
+    yield from recorded  # (n_cams, h, w*3//2) u8 host arrays
 
   # --- the rig ----------------------------------------------------------
   isp = tit.Camera16(tit.BayerPattern.RGGB, moving_alpha=0.1,
@@ -92,8 +101,8 @@ def main(argv=None):
     n_done += 1
   dt = time.perf_counter() - t0
   print(f"RGB: {n_done} frame sets x {args.cameras} cams "
-        f"({args.cameras * n_done / dt:.1f} frames/s incl. scene synthesis "
-        f"+ host I/O + JPEG) -> {args.out}")
+        f"({args.cameras * n_done / dt:.1f} frames/s incl. upload, download "
+        f"and JPEG) -> {args.out}")
 
   # --- I420 branch (what a video encoder consumes) ----------------------
   isp2 = tit.Camera16(tit.BayerPattern.RGGB, moving_alpha=0.1,

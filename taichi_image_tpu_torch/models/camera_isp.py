@@ -738,6 +738,11 @@ def state_from_jax(state: dict) -> dict:
 # ISP class.
 # --------------------------------------------------------------------------
 
+# pinned upload buffers of an ISP whose process_stream has not sized them
+# (process_stream's default prefetch of 2, plus 2)
+_RING = 4
+
+
 class _ISPBase:
   """Per-rig ISP configuration + the vec9 EMA metering state (a (9,) f32
   tensor on ``device``), driving :func:`fused_isp_step` per frame set."""
@@ -768,6 +773,7 @@ class _ISPBase:
     self.color_correction = np.asarray(color_correction, np.float64)
     self.metrics = None
     self.device = torch.device(device)
+    self._uploader = None
 
   def set(self, moving_alpha: Optional[float] = None,
           resize_width: Optional[int] = None,
@@ -1105,12 +1111,15 @@ class _ISPBase:
     u8, updating the EMA state.
 
     ``raws``: (n_cameras, H, W_bytes) uint8, a tensor or numpy array
-    (moved to the ISP's device). Returns planar (n, 3, h', w') u8 on the
-    device, or with ``layout='hwc'`` a host numpy (n, h', w', 3) array.
-    ``color_format='yuv420'`` returns planar I420 ``(Y, VU)`` u8 on the
-    device instead (``layout`` ignored; even output dims required).
+    (moved to the ISP's device: on CUDA a host set goes up through the
+    ISP's pinned ring, :meth:`_upload`, so the call returns without
+    waiting for the steps in flight). Returns planar (n, 3, h', w') u8 on
+    the device, or with ``layout='hwc'`` a host numpy (n, h', w', 3)
+    array, which waits for the step. ``color_format='yuv420'`` returns
+    planar I420 ``(Y, VU)`` u8 on the device instead (``layout`` ignored;
+    even output dims required).
     """
-    raws = _on_device(raws, self.device)
+    raws = self._upload(raws)
     debug_util.validate_raw(raws, fmt)
     prev, t = self._prev_t()
     plan = self._resize_plan_key(raws, fmt)
@@ -1148,21 +1157,55 @@ class _ISPBase:
     self.metrics = new_metrics
     return _layout(out, color_format, layout)
 
+  def _upload(self, raws) -> torch.Tensor:
+    """``raws`` on the ISP's device. On CUDA a host set (numpy or a CPU
+    tensor) is copied into the ISP's ring of pinned buffers
+    (:class:`types.Uploader`, ``_RING`` buffers unless
+    :meth:`process_stream` sized it) and sent on a copy stream that the
+    step's stream waits on; anything else moves as :func:`_on_device`
+    moves it."""
+    if self.device.type != "cuda" or (isinstance(raws, torch.Tensor)
+                                      and raws.device.type != "cpu"):
+      return _on_device(raws, self.device)
+    if self._uploader is None:
+      self._uploader = types.Uploader(self.device, _RING)
+    return self._uploader(raws)
+
   def process_stream(self, raw_iter, prefetch: int = 2, **kwargs):
     """Iterate raw frame batches through :meth:`process`, yielding the
-    outputs in order with ``prefetch`` steps in flight: CUDA's launch
-    queue runs ahead of the host as JAX's asynchronous dispatch does, and
-    nothing syncs but a ``layout="hwc"`` conversion, which happens when
-    its frame is yielded. ``kwargs`` go to :meth:`process`."""
+    outputs in order with ``prefetch`` steps in flight: the host upload
+    of set t+1 overlaps the device compute of set t, as the JAX driver's
+    asynchronous dispatch does.
+
+    On CUDA a host set goes up through a ring of ``prefetch + 2`` pinned
+    buffers on a copy stream (:meth:`_upload`), and with
+    ``layout="hwc"`` (RGB) each step's output comes down on a download
+    stream into a pinned host tensor as soon as it is queued; the only
+    wait is on that frame's own copy event, when it is yielded. The
+    yielded array is the caller's: no later set writes into it. Planar
+    RGB and I420 stay on the device. On the CPU the sets are used as
+    they are. ``kwargs`` go to :meth:`process`."""
     layout = kwargs.pop("layout", "planar")
     to_host = layout == "hwc" and kwargs.get("color_format", "rgb") == "rgb"
+    if self.device.type == "cuda" and (self._uploader is None or
+                                       self._uploader.ring.n != prefetch + 2):
+      if self._uploader is not None:
+        self._uploader.ring.drain()
+      self._uploader = types.Uploader(self.device, prefetch + 2)
+    download = types.Downloader(self.device) if to_host else None
 
-    def finish(out):
-      return np.moveaxis(out.cpu().numpy(), 1, -1) if to_host else out
+    def start(out):
+      return download.start((out,)) if to_host else ((out,), None)
+
+    def finish(item):
+      (out,), copied = item
+      if copied is not None:
+        copied.synchronize()
+      return np.moveaxis(out.numpy(), 1, -1) if to_host else out
 
     pending = deque()
     for raws in raw_iter:
-      pending.append(self.process(raws, layout="planar", **kwargs))
+      pending.append(start(self.process(raws, layout="planar", **kwargs)))
       if len(pending) > prefetch:
         yield finish(pending.popleft())
     while pending:
@@ -1172,9 +1215,14 @@ class _ISPBase:
 def _layout(out, color_format: str, layout: str):
   """A step's output as ``process`` returns it: the I420 pair as it is,
   planar RGB on the device, or with ``layout="hwc"`` a host (n, h, w, 3)
-  array."""
+  array, fetched from CUDA with a blocking copy into a pinned host tensor
+  (torch's caching host allocator reuses its block once the caller drops
+  the array)."""
   if color_format == "rgb" and layout == "hwc":
-    return np.moveaxis(out.cpu().numpy(), 1, -1)
+    if out.device.type == "cuda":
+      host = types.pinned_empty(out.shape, out.dtype)
+      out = host.copy_(out)
+    return np.moveaxis(out.numpy(), 1, -1)
   return out
 
 

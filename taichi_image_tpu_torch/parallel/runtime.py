@@ -51,18 +51,15 @@ def device_count(backend: Optional[str] = None) -> int:
   return len(devices(backend))
 
 
-def _default_device_type() -> str:
-  return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def make_camera_mesh(n_devices: Optional[int] = None,
                      axis_name: str = CAMERA_AXIS,
                      device_type: Optional[str] = None):
   """1-D mesh over the camera/batch axis: the first ``n_devices`` ranks
   of the initialized default process group (all of them by default),
-  each driving one device of ``device_type`` ("cuda" when CUDA is
-  available, else "cpu"). Every rank of the group must call it; a rank
-  outside the mesh gets a mesh in which it has no coordinate."""
+  each driving one device of ``device_type`` ("cuda" unless the caller
+  asks for "cpu"; raises when no CUDA device is visible). Every rank of
+  the group must call it; a rank outside the mesh gets a mesh in which it
+  has no coordinate."""
   from torch.distributed.device_mesh import DeviceMesh
   if not dist.is_initialized():
     raise RuntimeError("make_camera_mesh needs an initialized default "
@@ -72,7 +69,11 @@ def make_camera_mesh(n_devices: Optional[int] = None,
   if not 1 <= n <= world:
     raise ValueError(f"n_devices={n_devices} must be in [1, {world}] (the "
                      "process group's ranks)")
-  return DeviceMesh(device_type or _default_device_type(), torch.arange(n),
+  device_type = device_type or "cuda"
+  if device_type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError("make_camera_mesh: no CUDA device is visible; pass "
+                       "device_type='cpu' to build a CPU mesh")
+  return DeviceMesh(device_type, torch.arange(n),
                     mesh_dim_names=(axis_name,))
 
 

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.models import camera_isp
 from taichi_image_tpu_torch.ops.bayer import BayerPattern
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
@@ -51,78 +52,6 @@ def i420_grid(y: np.ndarray, uv: np.ndarray, rows: int) -> np.ndarray:
     cr = uv[i, 1].repeat(2, axis=0).repeat(2, axis=1)
     cams.append(np.stack([y[i], cb, cr], axis=-1))
   return concat_image_grid(cams, rows=rows)
-
-
-class Uploader:
-  """Host frame sets -> one (n, H, W_bytes) u8 batch on ``device``.
-
-  On CUDA each set is stacked into a pinned host buffer taken from a ring
-  of ``n_buffers`` (allocated for the first set's shape, and again if a
-  set's shape changes) and copied with ``non_blocking=True`` on the
-  device's current stream, the step's; a buffer is refilled only after
-  the event recorded after its last copy has completed. On the CPU the
-  set is stacked into a plain tensor.
-  """
-
-  def __init__(self, device: torch.device, n_buffers: int):
-    self.device = device
-    self.n_buffers = n_buffers
-    self.buffers, self.copied = [], []
-    self.next = 0
-
-  def __call__(self, frames) -> torch.Tensor:
-    if self.device.type != "cuda":
-      return torch.from_numpy(np.stack(frames))
-    shape = (len(frames), *frames[0].shape)
-    if not self.buffers or tuple(self.buffers[0].shape) != shape:
-      for ev in self.copied:
-        if ev is not None:
-          ev.synchronize()
-      self.buffers = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-                      for _ in range(self.n_buffers)]
-      self.copied = [None] * self.n_buffers
-      self.next = 0
-    k = self.next
-    self.next = (k + 1) % self.n_buffers
-    if self.copied[k] is not None:
-      self.copied[k].synchronize()
-    buf = self.buffers[k]
-    np.stack(frames, out=buf.numpy())
-    batch = buf.to(self.device, non_blocking=True)
-    self.copied[k] = torch.cuda.current_stream(self.device).record_event()
-    return batch
-
-
-class Downloader:
-  """A step's device outputs -> host tensors, started without waiting.
-
-  On CUDA a copy stream of its own waits on an event of the compute
-  stream, copies each output with ``non_blocking=True`` into a pinned
-  host tensor and records an event; each output is marked as in use by
-  the copy stream (``record_stream``), so the caching allocator does not
-  hand its memory to a later step while the copy reads it. On the CPU the
-  outputs are the host tensors.
-  """
-
-  def __init__(self, device: torch.device):
-    self.device = device
-    self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                   else None)
-
-  def start(self, outs):
-    """(host tensors, the event after their copies, or None on the CPU)."""
-    if self.stream is None:
-      return list(outs), None
-    self.stream.wait_event(
-        torch.cuda.current_stream(self.device).record_event())
-    hosts = []
-    with torch.cuda.stream(self.stream):
-      for o in outs:
-        h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-        h.copy_(o, non_blocking=True)
-        o.record_stream(self.stream)
-        hosts.append(h)
-    return hosts, self.stream.record_event()
 
 
 def main(argv=None):
@@ -222,8 +151,8 @@ def main(argv=None):
   # while the next sets are uploaded and stepped; JPEG encoding runs on a
   # thread pool. The EMA metering chain stays on the device, so the loop
   # blocks only on a pinned buffer's reuse and on the oldest download.
-  upload = Uploader(device, args.pipeline_depth + 2)
-  download = Downloader(device)
+  upload = types.Uploader(device, args.pipeline_depth + 2)
+  download = types.Downloader(device)
   color_format = "yuv420" if args.fetch == "yuv420" else "rgb"
   pending, encodes = deque(), []
   with ThreadPoolExecutor(max_workers=4) as pool:

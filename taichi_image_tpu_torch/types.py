@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["scale_factor", "canonical_dtype", "dtype_of", "is_float_dtype",
-           "as_tensor", "to_device",
+           "as_tensor", "to_device", "pinned_empty", "HostRing", "Uploader",
+           "Downloader",
            "scale_of", "to_float", "from_float", "empty_like", "zeros_like",
            "from_dlpack", "to_dlpack", "to_torch", "from_torch",
            "u8", "u16", "i16", "f16", "bf16", "f32"]
@@ -83,6 +84,165 @@ def as_tensor(x, device=None) -> torch.Tensor:
   a = np.asarray(x)
   t = torch.from_numpy(a if a.flags.writeable else a.copy())
   return t if device is None else to_device(t, device)
+
+
+# --------------------------------------------------------------------------
+# Host <-> device staging: host frame sets go up through a ring of pinned
+# buffers on a copy stream of their own, and outputs come down on a
+# download stream into pinned host tensors, so that neither copy waits
+# for the steps queued on the compute stream.
+# --------------------------------------------------------------------------
+
+
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+  """A page-locked host tensor from torch's caching host allocator (a
+  freed block is handed out again once the copies that used it are
+  done). Raises where torch has no CUDA."""
+  return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
+  # torch copies few uint16 tensors between devices: they move as int16
+  return torch.int16 if dtype == torch.uint16 else dtype
+
+
+class HostRing:
+  """A ring of ``n`` host buffers that host sets are copied into before a
+  copy that runs after the host has moved on.
+
+  :meth:`stage` copies a set into the next buffer and hands it to
+  ``send``, which starts the buffer's copy and returns ``(result,
+  event)``; the buffer is refilled only after its own event has passed.
+  A set of another shape or dtype replaces the buffers, after every
+  copy in flight has passed. ``alloc(shape, dtype)`` makes a buffer
+  (:func:`pinned_empty` on the card).
+  """
+
+  def __init__(self, n: int, alloc=pinned_empty):
+    if n < 1:
+      raise ValueError(f"a ring needs at least one buffer, got {n}")
+    self.n = n
+    self.alloc = alloc
+    self.key = None
+    self.buffers, self.events = [], []
+    self.next = 0
+
+  def drain(self):
+    """Wait for every copy in flight from the ring's buffers."""
+    for ev in self.events:
+      if ev is not None:
+        ev.synchronize()
+
+  def _slot(self, shape, dtype: torch.dtype):
+    if self.key != (shape, dtype):
+      self.drain()
+      self.buffers = [self.alloc(shape, dtype) for _ in range(self.n)]
+      self.events = [None] * self.n
+      self.key, self.next = (shape, dtype), 0
+    k = self.next
+    self.next = (k + 1) % self.n
+    if self.events[k] is not None:
+      self.events[k].synchronize()
+    return k, self.buffers[k]
+
+  def stage(self, x, send) -> torch.Tensor:
+    """``x`` (a host array, CPU tensor, or sequence of equal frames that
+    are stacked) copied once into the next free buffer, then
+    ``send(buffer)``; returns its result as x's dtype. float64 arrays are
+    taken as float32 (as ``jnp.asarray`` takes them), uint16 moves as its
+    int16 bits."""
+    if isinstance(x, torch.Tensor):
+      dtype, shape = x.dtype, tuple(x.shape)
+      k, buf = self._slot(shape, _wire_dtype(dtype))
+      buf.copy_(x.view(buf.dtype))
+    else:
+      frames = ([np.asarray(f) for f in x] if isinstance(x, (list, tuple))
+                else None)
+      a = np.asarray(x) if frames is None else frames[0]
+      npdt = np.dtype(np.float32) if a.dtype == np.float64 else a.dtype
+      dtype = torch.from_numpy(np.empty(0, npdt)).dtype
+      shape = (tuple(a.shape) if frames is None
+               else (len(frames), *a.shape))
+      k, buf = self._slot(shape, _wire_dtype(dtype))
+      dst = buf.numpy().view(npdt)
+      if frames is None:
+        np.copyto(dst, a)
+      else:
+        np.stack(frames, out=dst)
+    out, self.events[k] = send(buf)
+    return out if out.dtype == dtype else out.view(dtype)
+
+
+class Uploader:
+  """Host frame sets -> tensors on ``device``, started without waiting for
+  the device.
+
+  On CUDA a set is copied into a :class:`HostRing` of ``n_buffers``
+  pinned buffers and sent with ``non_blocking=True`` on a copy stream of
+  its own; the device's current stream (the step's) waits on the copy's
+  event, and the uploaded tensor, allocated on the copy stream, is marked
+  as in use by the step's stream (``record_stream``), so the caching
+  allocator does not hand its memory on while either uses it. A tensor
+  on a device moves as :func:`to_device` moves it (not at all when it is
+  on ``device``). On the CPU a set is stacked into a plain tensor.
+  """
+
+  def __init__(self, device, n_buffers: int):
+    self.device = torch.device(device)
+    self.ring = HostRing(n_buffers)
+    self.stream = (torch.cuda.Stream(self.device)
+                   if self.device.type == "cuda" else None)
+
+  def __call__(self, x) -> torch.Tensor:
+    if self.stream is None or (isinstance(x, torch.Tensor)
+                               and x.device.type != "cpu"):
+      if isinstance(x, (list, tuple)):
+        x = np.stack([np.asarray(f) for f in x])
+      return to_device(as_tensor(x), self.device)
+    return self.ring.stage(x, self._send)
+
+  def _send(self, buf: torch.Tensor):
+    compute = torch.cuda.current_stream(self.device)
+    with torch.cuda.stream(self.stream):
+      dev = buf.to(self.device, non_blocking=True)
+    copied = self.stream.record_event()
+    compute.wait_event(copied)
+    dev.record_stream(compute)
+    return dev, copied
+
+
+class Downloader:
+  """A step's device outputs -> host tensors, started without waiting.
+
+  On CUDA a download stream of its own waits on an event of the device's
+  current stream, copies each output with ``non_blocking=True`` into a
+  new pinned host tensor (from torch's caching host allocator, so its
+  block is reused once the caller drops it) and records an event; each
+  output is marked as in use by the download stream (``record_stream``),
+  so the caching allocator does not hand its memory to a later step while
+  the copy reads it. On the CPU the outputs are the host tensors.
+  """
+
+  def __init__(self, device):
+    self.device = torch.device(device)
+    self.stream = (torch.cuda.Stream(self.device)
+                   if self.device.type == "cuda" else None)
+
+  def start(self, outs):
+    """(host tensors, the event after their copies, or None on the
+    CPU)."""
+    if self.stream is None:
+      return list(outs), None
+    self.stream.wait_event(
+        torch.cuda.current_stream(self.device).record_event())
+    hosts = []
+    with torch.cuda.stream(self.stream):
+      for o in outs:
+        h = pinned_empty(o.shape, o.dtype)
+        h.copy_(o, non_blocking=True)
+        o.record_stream(self.stream)
+        hosts.append(h)
+    return hosts, self.stream.record_event()
 
 
 def dtype_of(arr) -> torch.dtype:

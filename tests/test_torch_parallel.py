@@ -173,6 +173,17 @@ def world1(tmp_path_factory):
   dist.destroy_process_group()
 
 
+def test_make_camera_mesh_defaults_to_the_card(world1, monkeypatch):
+  """Without ``device_type`` the mesh is a CUDA mesh: with no CUDA device
+  visible it raises instead of building a CPU mesh; ``device_type="cpu"``
+  asks for the CPU."""
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+    parallel.make_camera_mesh()
+  mesh = parallel.make_camera_mesh(device_type="cpu")
+  assert mesh.device_type == "cpu" and tuple(mesh.shape) == (1,)
+
+
 def _samples():
   rng = np.random.default_rng(3)
   for shape, dtype in [((2, 3, 27, 48), torch.float32),
