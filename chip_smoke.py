@@ -9,12 +9,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device   CUDA available, capability (9, 0); the card's name and power
             limit as nvidia-smi reports them.
-2. build    nvcc builds the eight kernel sources (csrc/*.cu, one process
+2. build    nvcc builds the nine kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4, K4's I420 mode,
-            K12 and the planar I420 tonemap form for bf16, f16 and f32,
+            K12, the planar I420 tonemap form, the metering M (meter.cu)
+            and the resize route's RGB tail P (finish_planar_tone, in
+            finish.cu) for bf16, f16 and f32, M's vectors alone,
             the CFA split from u16, f16, f32 and packed16 bytes (K1's
             packed16 mode) to each,
-            the bf16 front-fused K7 and the u8 planar I420 conversion (35
+            the bf16 front-fused K7 and the u8 planar I420 conversion (42
             kernels); each source's register range and spill bytes from
             ptxas (every source must show 0 spill bytes), and the registers
             of each I420 kernel instantiation; the SASS instructions of
@@ -27,6 +29,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
             half-res: tiles cut on both axes, rows that are not whole
             vectors, planes that are not 16-byte aligned) and at a cut
             shape (520 x 1000: whole vectors, tiles cut on both axes):
+            M on the shape's stride-8 sample (t 0 and 0.9, color_adapt 0
+            and 0.5: the bounds and log bounds bitwise, the means within
+            1e-6 relative, the vectors within 1 ulp, two runs bitwise,
+            x12's strided view and, at 6x4K, the x0.5 resize's strided
+            view bitwise their contiguous layouts, a 1-pixel sample, NaN
+            pixels), P (finish_planar_tone) bitwise wherever the planar
+            I420 tonemap form is checked (both modes, gamma 1 and 2.2, the
+            8 transforms),
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
             methods, with and without a CCM), K4's two modes, each under
             the 8 transforms, and its I420 mode likewise (the bf16 dot or
@@ -74,9 +84,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             input against the plain route on the CPU.
 5. routes   the other routes the same way, each with the launch counts
             set to 0 just before it and read just after, held to the
-            kernels it must launch and no others: resize_width=1920 with
-            rotate_90 for each class, scale 0.37, flip_horiz for each
-            class, the linear tonemap at gamma 2.2 for each class,
+            kernels it must launch and no others (M twice a step):
+            resize_width=1920 with rotate_90 for each class (M, K3, P),
+            scale 0.37, flip_horiz for each class, the linear tonemap at
+            gamma 2.2 for each class, with and without resize_width=1920,
             metering stride 7, and the front-fused route
             (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only); then
             with color_format="yuv420" on 3 frames: the main path and
@@ -274,7 +285,7 @@ def phase_device():
 
 # sources redesigned for the card, which must build without spills
 NO_SPILLS = ("decode.cu", "demosaic.cu", "finish.cu", "front_fused.cu",
-             "reinhard.cu", "resize.cu", "split.cu", "yuv420.cu")
+             "meter.cu", "reinhard.cu", "resize.cu", "split.cu", "yuv420.cu")
 # K3's and K1's instantiations in a mangled name: the kernel, T, then two
 # bools (K3: color_adapt, vector path; K1: vector path, IDS layout)
 _KERNEL_ARGS = re.compile(r"(map_kernel|decode12_kernel)I(13__nv_bfloat16|"
@@ -490,6 +501,61 @@ def _map_edge_cases(kt, x12, scal, scal_ca):
   return worst
 
 
+# the map's intensity and light_adapt the metering checks use (not 1, so
+# that exp(-intensity) and light_adapt are not the trivial values)
+METER_INTENSITY, METER_LIGHT_ADAPT = 1.3, 0.7
+
+
+def _check_meter(what, sfx, x, prev, note, views=()):
+  """M against its twin on the sample ``x``, for t = 0 (zeros before it)
+  and t = 0.9 (``prev``), color_adapt 0 and 0.5: the bounds and log
+  bounds (vec9[0:4]) bitwise, the means (vec9[4:9]) within 1e-6
+  relative, the map's and the linear vectors within 1 ulp of the twin's
+  vectors of the kernel's vec9, and so are ``meter_vectors``'s; a second
+  run bitwise the first; each of ``views`` (the same values in another
+  layout) bitwise ``x``'s. Then NaN pixels: NaN where the twin has NaN,
+  the other values (the vectors' constants) within 1 ulp."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import meter
+  args = (METER_INTENSITY, METER_LIGHT_ADAPT)
+  zeros = torch.zeros(9, device=x.device)
+  for t, pv in ((0.0, zeros), (0.9, prev)):
+    for ca in (0.0, 0.5):
+      tag = f"meter {what} t={t} ca={ca}"
+      k = meter.meter(x, pv, t, *args, ca, backend="kernel")
+      p = meter.meter(x, pv, t, *args, ca, backend="plain")
+      _check_bits(f"{tag} bounds and log bounds", k.metrics[:4],
+                  p.metrics[:4])
+      rel = ((k.metrics[4:] - p.metrics[4:]).abs()
+             / p.metrics[4:].abs().clamp_min(1e-30)).max().item()
+      if not rel <= 1e-6:
+        raise AssertionError(f"{tag}: means {k.metrics} vs the twin's "
+                             f"{p.metrics}, max rel {rel:.3g}")
+      scal, lin = meter.vectors(k.metrics, *args, ca, backend="plain")
+      vs, vl = meter.vectors(k.metrics, *args, ca, backend="kernel")
+      u = max(ulps(k.scal, scal), ulps(k.lin, lin), ulps(vs, scal),
+              ulps(vl, lin))
+      if u > 1:
+        raise AssertionError(f"{tag}: vectors {u} ulps from the twin's")
+      for a, b in zip(k, meter.meter(x, pv, t, *args, ca, backend="kernel")):
+        _check_bits(f"{tag} second run", a, b)
+      for name, v in views:
+        for a, b in zip(k, meter.meter(v, pv, t, *args, ca,
+                                       backend="kernel")):
+          _check_bits(f"{tag} vs {name}", b, a)
+      note(f"meter_{sfx}", k.metrics, p.metrics)
+      note("meter_vectors", vs, scal)
+  nan = x.contiguous().clone()
+  nan.view(-1)[::97] = float("nan")
+  k = meter.meter(nan, zeros, 0.0, *args, backend="kernel")
+  p = meter.meter(nan, zeros, 0.0, *args, backend="plain")
+  for a, b in zip(k, p):
+    num = ~torch.isnan(a)
+    if not (torch.equal(num, ~torch.isnan(b))
+            and (not num.any() or ulps(a[num], b[num]) <= 1)):
+      raise AssertionError(f"meter {what} NaN pixels: {a} vs the twin's {b}")
+
+
 def _nbytes(*tensors) -> int:
   import torch
   total = 0
@@ -648,8 +714,8 @@ def phase_kernels(results):
                                                 _demosaic_tables,
                                                 _stencil_finish_spec)
   from taichi_image_tpu_torch.ops.hopper import decode, demosaic, finish
-  from taichi_image_tpu_torch.ops.hopper import front_fused, reinhard, resize
-  from taichi_image_tpu_torch.ops.hopper import yuv420
+  from taichi_image_tpu_torch.ops.hopper import front_fused, meter, reinhard
+  from taichi_image_tpu_torch.ops.hopper import resize, yuv420
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
   swaps = [t for t in ImageTransform if _TRANSFORM_SFF[t][0]]
@@ -702,7 +768,16 @@ def phase_kernels(results):
       fin = _stencil_finish_spec(weights, hh, wh, None, dtype)
       x12, samp = demosaic.demosaic_stencil(phases, weights, fin, 4,
                                             backend="kernel")
-      metrics = metering_update_ca(samp, torch.zeros(9, device=dev), 0.0)
+      zeros9 = torch.zeros(9, device=dev)
+      metrics = metering_update_ca(samp, zeros9, 0.0, backend="plain")
+      # M: against its twin at the shape's stride-8 sample, also as x12's
+      # strided view and, at 6x4K, on the resize route's strided view (its
+      # contiguous copy the same bits); a 1-pixel sample
+      prev = metering_update_ca((samp.float() * 0.8).to(dtype), zeros9, 0.0,
+                                backend="plain")
+      _check_meter(f"{kt} sample {tuple(samp.shape)}", sfx, samp, prev,
+                   note, [("x12's strided view", x12[:, 0:3, ::4, ::4])])
+      _check_meter(f"{kt} 1 pixel", sfx, samp[:1, :, :1, :1], prev, note)
       if shape in (ODD, RAGGED):
         # K2's banded mode (and K7's gates): every variant at ODD, the
         # main one at RAGGED
@@ -783,6 +858,11 @@ def phase_kernels(results):
                    pm)
         plans[scale] = (taps, kr)
         del kr, pr, kp, km, pp, pm
+      if shape == (N_CAM, H, WB):
+        view = plans[0.5][1][..., ::8, ::8]
+        _check_meter(f"{kt} the x0.5 resize's strided view "
+                     f"{tuple(view.shape)}", sfx, view, prev, note,
+                     [("its contiguous copy", view.contiguous())])
       # K7 (bf16): bitwise against K2 -> K3 on the card, K3's contract
       # against its twin
       if dtype == torch.bfloat16:
@@ -826,11 +906,21 @@ def phase_kernels(results):
           _check_bitwise(f"{what} VU", kvu, pvu)
           note(f"yuv420_planar_tone_{sfx}", ky, py)
           note(f"yuv420_planar_tone_{sfx}", kvu, pvu)
-      del img, tp, tmx, ky, kvu, py, pvu
+          # P, the RGB tail, on the same inputs: bitwise
+          ko = finish.finish_planar_tone(src, sc, gamma, mode, t,
+                                         backend="kernel")
+          po = finish.finish_planar_tone(src, sc, gamma, mode, t,
+                                         backend="plain")
+          _check_bitwise(what.replace("yuv420_planar_tone",
+                                      "finish_planar_tone"), ko, po)
+          note(f"finish_planar_tone_{sfx}", ko, po)
+      del img, tp, tmx, ky, kvu, py, pvu, ko, po
       log(f"kernels {kt}: decode, demosaic (8 variants), reinhard"
           + (" (and its degenerate cases)" if shape != (N_CAM, H, WB) else "")
-          + ", finish and its I420 mode (both modes, each under 8 "
-          "transforms), the planar I420 tonemap form (the same), resize ("
+          + ", meter (t 0 and 0.9, color_adapt 0 and 0.5, strided views, "
+          "1 pixel, NaN pixels), finish and its I420 mode (both modes, each "
+          "under 8 transforms), the planar I420 tonemap form and "
+          "finish_planar_tone (the same), resize ("
           + ", ".join(paths) + ")"
           + (", front_fused (8 variants)" if dtype == torch.bfloat16 else "")
           + " agree with their plain twins")
@@ -926,6 +1016,29 @@ def phase_kernels(results):
           lambda b: yuv420.yuv420_planar_tone(
               rp, rmx, 1.0, transform=ImageTransform.rotate_90, backend=b),
           [rp, rmx], tone_ops)
+      # P at the resize route's 6 x 1920 x 1080: the tone's ~4 operations
+      # per value (the linear one's ~7)
+      calls[f"finish_planar_tone_{sfx}"] = (
+          lambda b: finish.finish_planar_tone(rp, rmx, 1.0, backend=b),
+          [rp, rmx], 4 * rp.numel())
+      calls[f"finish_planar_tone_{sfx} linear"] = (
+          lambda b: finish.finish_planar_tone(rgb, lin, 1.0, "linear",
+                                              backend=b),
+          [rgb, lin], 7 * rgb.numel())
+      calls[f"finish_planar_tone_{sfx} rotate_90"] = (
+          lambda b: finish.finish_planar_tone(
+              rp, rmx, 1.0, transform=ImageTransform.rotate_90, backend=b),
+          [rp, rmx], 4 * rp.numel())
+      # M on the main path's sample (t = 0.9): per pixel ~6 operations of
+      # the bounds, 3 divisions, the gray, a log and the sums, ~45
+      calls[f"meter_{sfx}"] = (
+          lambda b: meter.meter(samp, prev, 0.9, backend=b), [samp, prev],
+          45 * samp[:, 0].numel())
+      if dtype == torch.bfloat16:
+        calls["meter_vectors"] = (
+            lambda b: meter.vectors(metrics, METER_INTENSITY,
+                                    METER_LIGHT_ADAPT, 0.5, backend=b),
+            [metrics], 40)
       calls[f"reinhard_{sfx} planar1080"] = (
           lambda b: reinhard.reinhard_map(rgb, scal0, False, backend=b),
           [rgb, scal0], 10 * rgb.numel())
@@ -952,8 +1065,11 @@ def phase_kernels(results):
             (2 * live + 36 + 30 * 4) * npix)
       for name, (call, inputs, ops) in calls.items():
         note_ = "6x4K"
-        if name == "yuv420_planar" or name.startswith("yuv420_planar_tone"):
+        if name == "yuv420_planar" or name.startswith(
+            ("yuv420_planar_tone", "finish_planar_tone")):
           note_ = "6x1920x1080"
+        elif name.startswith("meter"):
+          note_ = f"6x4K stride 8: sample {tuple(samp.shape)}"
         if name.startswith("resize"):
           sc = next((s for s in (1.5, 0.37) if f"x{s}" in name), 0.5)
           note_ = (f"6x4K x{sc} -> {both[sc].w_out}x{both[sc].h_out}")
@@ -1232,6 +1348,10 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
         or any(v for n, v in launches.items() if n not in own)):
       raise AssertionError(f"{name} {cls.__name__} did not run through "
                            f"{sorted(own)} alone: {launches}")
+    meter = f"meter_{sfx}"
+    if meter in own and launches[meter] != 2 * len(frames):
+      raise AssertionError(f"{name} {cls.__name__}: {meter} launched "
+                           f"{launches[meter]} times in {len(frames)} steps")
     plan = isp._resize_plan(h, decoded_width(fmt, w_raw))
     color_format = proc_kw.get("color_format", "rgb")
     args = _step_args(cls._work_dtype, plan, isp.metering_stride,
@@ -1278,7 +1398,17 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
   return isp, {n: launches[n] for n in own}
 
 
-_MAIN = ("decode", "demosaic", "reinhard", "finish")
+_MAIN = ("decode", "demosaic", "meter", "reinhard", "finish")
+# the resize route's stages before its tail (P for RGB, the planar I420
+# tonemap form for I420)
+_RESIZE = ("decode", "demosaic", "resize", "meter", "reinhard")
+
+
+def _step_launches(stages, sfx, steps):
+  """{kernel: launches} of ``steps`` steps through ``stages`` of the dtype
+  suffix ``sfx``: one launch of each stage a step, two of M's."""
+  return {f"{st}_{sfx}": steps * (2 if st == "meter" else 1)
+          for st in stages}
 
 
 def phase_slice(frames, sfx):
@@ -1316,7 +1446,7 @@ def phase_routes(frames):
   """Every other route, each driven alone; returns the launch counts
   summed over the routes."""
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
-  resize = ("decode", "demosaic", "resize", "reinhard")
+  resize = (*_RESIZE, "finish_planar_tone")
   routes = []
   for sfx in CLASSES:
     routes += [
@@ -1324,8 +1454,11 @@ def phase_routes(frames):
          dict(resize_width=1920, transform=ImageTransform.rotate_90), {}),
         ("flip_horiz", sfx, _MAIN,
          dict(transform=ImageTransform.flip_horiz), {}),
-        ("linear gamma 2.2", sfx, ("decode", "demosaic", "finish"), {},
-         dict(tonemap="linear", gamma=2.2)),
+        ("linear gamma 2.2", sfx, ("decode", "demosaic", "meter", "finish"),
+         {}, dict(tonemap="linear", gamma=2.2)),
+        ("resize1920 linear gamma 2.2", sfx,
+         ("decode", "demosaic", "resize", "meter", "finish_planar_tone"),
+         dict(resize_width=1920), dict(tonemap="linear", gamma=2.2)),
     ]
   routes += [
       ("scale 0.37", "bf16", resize, dict(scale=0.37), {}),
@@ -1338,7 +1471,7 @@ def phase_routes(frames):
       total[n] = total.get(n, 0) + v
   # the front-fused route: the variable set for this route only
   _, launches = drive_route(frames, "front-fused", "bf16",
-                            ("decode", "front_fused", "finish"),
+                            ("decode", "meter", "front_fused", "finish"),
                             env={FRONT_FUSED: "1"})
   for n, v in launches.items():
     total[n] = total.get(n, 0) + v
@@ -1348,20 +1481,20 @@ def phase_routes(frames):
   routes = []
   for sfx in CLASSES:
     routes += [
-        ("I420 main", sfx, ("decode", "demosaic", "reinhard",
+        ("I420 main", sfx, ("decode", "demosaic", "meter", "reinhard",
                             "finish_yuv420"), {}, yuv, {}, ()),
-        ("I420 resize1920+rotate_90", sfx, (*resize, "yuv420_planar_tone"),
+        ("I420 resize1920+rotate_90", sfx, (*_RESIZE, "yuv420_planar_tone"),
          dict(resize_width=1920, transform=ImageTransform.rotate_90), yuv,
          {}, ()),
     ]
   routes += [
       ("I420 resize1920 linear gamma 2.2", "bf16",
-       ("decode", "demosaic", "resize", "yuv420_planar_tone"),
+       ("decode", "demosaic", "resize", "meter", "yuv420_planar_tone"),
        dict(resize_width=1920), dict(yuv, tonemap="linear", gamma=2.2), {},
        ()),
       ("I420 stride 7", "bf16", _MAIN, dict(metering_stride=7), yuv, {},
        ("yuv420_planar",)),
-      ("I420 front-fused", "bf16", ("decode", "front_fused",
+      ("I420 front-fused", "bf16", ("decode", "meter", "front_fused",
                                     "finish_yuv420"), {}, yuv,
        {FRONT_FUSED: "1"}, ()),
   ]
@@ -1405,8 +1538,8 @@ def phase_format_routes(frames):
                for _ in range(FRAMES)]
     for sfx in CLASSES:
       _, launches = drive_route(fframes, f"format {fmt}", sfx,
-                                (stage, "demosaic", "reinhard", "finish"),
-                                proc_kw=dict(fmt=fmt))
+                                (stage, "demosaic", "meter", "reinhard",
+                                 "finish"), proc_kw=dict(fmt=fmt))
       _add(total, launches)
     del fframes
   # a tiny frame (2 x 6 pixels, phase planes 1 x 3): the demosaic's
@@ -1415,7 +1548,7 @@ def phase_format_routes(frames):
                         dtype=torch.uint8) for _ in range(FRAMES)]
   for sfx in CLASSES:
     _, launches = drive_route(tiny, "tiny 2x6", sfx,
-                              ("decode", "reinhard", "finish"))
+                              ("decode", "meter", "reinhard", "finish"))
     _add(total, launches)
 
   def reset():
@@ -1442,8 +1575,7 @@ def phase_format_routes(frames):
       handles = lazy.tonemap_reinhard([lazy.load_packed12(r) for r in raws])
       outs.append((torch.stack([h.planar for h in handles]),
                    lazy.metrics.clone()))
-    got = counts(f"lazy list {name}", {f"{st}_{sfx}": FRAMES
-                                       for st in _MAIN})
+    got = counts(f"lazy list {name}", _step_launches(_MAIN, sfx, FRAMES))
     for f, raws in enumerate(frames):
       want = fresh.process(raws)
       if not (torch.equal(outs[f][0], want)
@@ -1466,9 +1598,10 @@ def phase_format_routes(frames):
     handles[2]._force()
     isp.update_metering(handles)
     outs = isp.tonemap_linear(handles, gamma=1.2)
+    # M in update_metering and again in tonemap_linear's staged metering
     got = counts(f"staged u16 {name}", {
         f"split_u16_{sfx}": N_CAM, f"demosaic_{sfx}": N_CAM,
-        f"finish_{sfx}": 1})
+        f"meter_{sfx}": 4, f"finish_{sfx}": 1})
     args = _step_args(cls._work_dtype, tonemap="linear", gamma=1.2,
                       fmt="u16")
     m1, _ = ci.fused_isp_step(u16, torch.zeros(9, device="cuda"), 0.0,
@@ -1490,7 +1623,7 @@ def phase_format_routes(frames):
   ref = ttit.CameraBF16(BayerPattern.RGGB, device="cuda")
   reset()
   outs = list(stream.process_stream(iter(frames)))
-  got = counts("process_stream", {f"{st}_bf16": FRAMES for st in _MAIN})
+  got = counts("process_stream", _step_launches(_MAIN, "bf16", FRAMES))
   for f, raws in enumerate(frames):
     if not torch.equal(outs[f], ref.process(raws)):
       raise AssertionError(f"process_stream frame {f}: not bitwise process")
@@ -1518,10 +1651,12 @@ def phase_format_routes(frames):
         f"{tuple(img.planar.shape)} bitwise the plain stages; launches {got}")
 
   # images not of the class's working dtype, on CameraBF16: f32 (H, W, 3)
-  # images through tonemap_reinhard (a planar batch) and tonemap_only
-  # (one strided view) run K3<f32> and one cast; a Camera32 phase handle
-  # through resize_image runs K12<f32> and one cast
+  # images through tonemap_reinhard (a planar batch: M<f32> on its strided
+  # view) and tonemap_only (one strided view; the vectors of the metrics
+  # it is given) run K3<f32> and one cast, then P<bf16>; a Camera32 phase
+  # handle through resize_image runs K12<f32> and one cast
   from taichi_image_tpu_torch.ops.hopper import finish as hfin
+  from taichi_image_tpu_torch.ops.hopper import meter as hmeter
   from taichi_image_tpu_torch.ops.hopper import reinhard as hrh
   bf = ttit.CameraBF16(BayerPattern.RGGB, device="cuda")
   imgs = [torch.rand((H, W, 3), generator=gen, device="cuda")
@@ -1529,14 +1664,17 @@ def phase_format_routes(frames):
   reset()
   outs = bf.tonemap_reinhard(imgs)
   one = bf.tonemap_only(imgs[1], bf.metrics, 1.0, 1.0, 1.0, 0.0)
-  got = counts("f32 images on CameraBF16", {"reinhard_f32": 2})
+  got = counts("f32 images on CameraBF16", {
+      "meter_f32": 2, "reinhard_f32": 2, "finish_planar_tone_bf16": 2,
+      "meter_vectors": 1})
   batch = torch.stack([im.movedim(-1, 0) for im in imgs])
-  m = ci._jit_metering_planar(batch, torch.zeros(9, device="cuda"), 0.0,
-                              bf.metering_stride)
-  scal, ca_mode = ci._map_scal(m, 1.0, 1.0, 0.0)
-  p, mx = hrh.reinhard_map_plain(batch, scal, ca_mode, torch.bfloat16)
+  m, scal, _ = hmeter.meter(ci.subsample_hw(batch, bf.metering_stride,
+                                            bf.metering_stride),
+                            torch.zeros(9, device="cuda"), 0.0,
+                            backend="plain")
+  p, mx = hrh.reinhard_map_plain(batch, scal, False, torch.bfloat16)
   want = hfin.gamma_u8(p, mx, 1.0)
-  p1, mx1 = hrh.reinhard_map_plain(batch[1:2], scal, ca_mode, torch.bfloat16)
+  p1, mx1 = hrh.reinhard_map_plain(batch[1:2], scal, False, torch.bfloat16)
   want1 = hfin.gamma_u8(p1, mx1, 1.0)[0]
   out = torch.stack([h.planar for h in outs])
   dm = (bf.metrics - m).abs().max().item()
@@ -1619,6 +1757,10 @@ def _large_vs_process(name, sfx, frames, drivers, isp_kw=None, proc_kw=None):
       _check_bitwise(f"large {name} {CLASSES[sfx]} {driver} frame {f} "
                      "metrics vs process", gm, wm)
     stencil[driver] = launches[f"demosaic_{sfx}"]
+    if launches[f"meter_{sfx}"] != 2 * len(frames):
+      raise AssertionError(f"large {name} {driver}: meter_{sfx} launched "
+                           f"{launches[f'meter_{sfx}']} times in "
+                           f"{len(frames)} frames")
     banded = driver in ("loop", "scan")
     if (stencil[driver] <= len(frames)) if banded else (
         stencil[driver] != len(frames)):
@@ -1787,8 +1929,11 @@ def _one_rank_steps(frames):
         for k, (a, b) in enumerate(zip(_outputs(out), _outputs(want),
                                        strict=True)):
           _check_bitwise(f"{what} output {k}", a, b)
-        # the same kernels, as many times, as the unsharded step
-        if launches != unsharded:
+        # the same kernels, as many times, as the unsharded step, but M's
+        # third launch (its finalize after the group's all_reduce calls)
+        grouped = dict(unsharded)
+        grouped[f"meter_{sfx}"] += 1
+        if launches != grouped:
           raise AssertionError(f"{what}: launched {launches}, the "
                                f"unsharded step {unsharded}")
       log(f"{what.rsplit(' frame', 1)[0]}: {len(frames)} frames bitwise "
@@ -1825,6 +1970,11 @@ def _multi_rank(n, variants, u8_max):
   for results in per_rank:
     for r in results:
       _add(total, r["launches"])
+      # M's three launches a step under the group
+      meters = [v for k, v in r["launches"].items() if k.startswith("meter_")]
+      if not meters or any(v % 3 for v in meters):
+        raise AssertionError(f"{n} processes, {r['name']}: M launched "
+                             f"{r['launches']}")
   for r in per_rank[0]:
     dryrun.check(r, u8_max[r["name"]])
     log(f"{n} processes on cuda:0 (gloo), {r['name']}: worst over the "
@@ -1928,11 +2078,12 @@ APP_STREAMS = {
 # the stages they launch and their dtype (the CLI's defaults: Camera32,
 # rotate_90, gamma 0.9, intensity 3, light_adapt 0.9, moving_alpha 0.02)
 APP_SCANS = {
-    "defaults": ([], ("decode", "demosaic", "reinhard", "finish"), "f32"),
+    "defaults": ([], _MAIN, "f32"),
     "resize1920 bf16": (["--resize_width", "1920", "--dtype", "bf16"],
-                        ("decode", "demosaic", "resize", "reinhard"), "bf16"),
+                        (*_RESIZE, "finish_planar_tone"), "bf16"),
     "I420 fetch": (["--fetch", "yuv420"],
-                   ("decode", "demosaic", "reinhard", "finish_yuv420"), "f32"),
+                   ("decode", "demosaic", "meter", "reinhard",
+                    "finish_yuv420"), "f32"),
 }
 
 
@@ -2042,7 +2193,7 @@ def _apps_scan_checks(root, scan, sets):
   from taichi_image_tpu_torch.scripts import tonemap_scan
   total, rates = {}, {}
   for name, (flags, stages, sfx) in APP_SCANS.items():
-    expect = {f"{st}_{sfx}": APP_FRAMES for st in stages}
+    expect = _step_launches(stages, sfx, APP_FRAMES)
     slug = name.replace(" ", "_")
     base = ["--scan", str(scan), "--width", str(W), *flags]
     jpegs, secs = {}, {}
@@ -2160,7 +2311,7 @@ def _counted_stream(name, feed, sfx, **layout):
   outs = list(isp.process_stream(iter(feed), prefetch=2, **layout, **kw))
   torch.cuda.synchronize()
   launches = {n: v for n, v in hopper.launch_counts().items() if v}
-  expect = {f"{st}_{sfx}": len(feed) for st in _MAIN}
+  expect = _step_launches(_MAIN, sfx, len(feed))
   if launches != expect:
     raise AssertionError(f"process_stream {name} {layout}: launches "
                          f"{launches}, expected {expect}")
@@ -2333,7 +2484,7 @@ def _apps_benches():
   from taichi_image_tpu_torch.bench import shootout
   runs = [
       ("bench.camera_isp", bench_isp.main, ["--iterations", "200"],
-       {f"{st}_f16": 1 + 20 + 200 for st in _MAIN}),
+       _step_launches(_MAIN, "f16", 1 + 20 + 200)),
       ("bench.bayer", bench_bayer.main,
        ["--iterations", "1000", "--warmup", "50"], {"demosaic_f32": 1050}),
       ("bench.interpolate", bench_interp.main,
@@ -2381,8 +2532,8 @@ def _apps_other_clis(root, scan):
   out = root / "images_out"
   _, secs, launches = _app_run(
       tonemap_images.main, [str(cfas), "--write", str(out)],
-      {f"{st}_f32": 2 for st in ("split_u16", "demosaic", "reinhard",
-                                 "finish")})
+      _step_launches(("split_u16", "demosaic", "meter", "reinhard",
+                      "finish"), "f32", 2))
   _add(total, launches)
   if len(list(out.glob("*.jpg"))) != 2:
     raise AssertionError(f"tonemap_images wrote {list(out.glob('*'))}")
@@ -2392,7 +2543,7 @@ def _apps_other_clis(root, scan):
   text, secs, launches = _app_run(
       decode_packed.main, [str(scan / "cam0" / "frame000.raw"), "--width",
                            str(W), "--out", str(dest)],
-      {f"{st}_f32": 1 for st in _MAIN})
+      _step_launches(_MAIN, "f32", 1))
   _add(total, launches)
   if not dest.is_file() or f"({W}x{H})" not in text:
     raise AssertionError(f"decode_packed: {text!r}")
@@ -2733,7 +2884,7 @@ def phase_timing(card, sfx):
   from taichi_image_tpu_torch.models import camera_isp as ci
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
-  from taichi_image_tpu_torch.ops.hopper import finish
+  from taichi_image_tpu_torch.ops.hopper import finish, meter
 
   dtype = next(d for d, s in hopper.DTYPE_SUFFIX.items() if s == sfx)
   name = CLASSES[sfx]
@@ -2761,17 +2912,17 @@ def phase_timing(card, sfx):
   x12, samp = ci.demosaic_phases(phases, BayerPattern.RGGB, out_dtype=dtype,
                                  sample_step=4)
   prev = torch.zeros(9, device=dev)
-  metrics = ci.metering_update_ca(samp, prev, 0.0)
-  p_cast, max_out = ci.reinhard_map_max_ca(x12, metrics, 1.0, 1.0, 0.0,
-                                           dtype)
+  mt = meter.meter(samp, prev, 0.0)
+  p_cast, max_out = ci.reinhard_map_max_ca(x12, mt.metrics, 1.0, 1.0, 0.0,
+                                           dtype, scal=mt.scal)
   out = finish.finish_planar_u8(p_cast, max_out, 1.0)
   stages = {
       "decode": lambda: ci.load_raw_phases(raws, "packed12", dtype),
       "stencil": lambda: ci.demosaic_phases(
           phases, BayerPattern.RGGB, out_dtype=dtype, sample_step=4),
-      "metering": lambda: ci.metering_update_ca(samp, prev, 0.9),
-      "map": lambda: ci.reinhard_map_max_ca(x12, metrics, 1.0, 1.0, 0.0,
-                                            dtype),
+      "metering": lambda: meter.meter(samp, mt.metrics, 0.9),
+      "map": lambda: ci.reinhard_map_max_ca(x12, mt.metrics, 1.0, 1.0, 0.0,
+                                            dtype, scal=mt.scal),
       "tail": lambda: finish.finish_planar_u8(p_cast, max_out, 1.0),
       "checksum": lambda: out.sum(dtype=torch.int64),
   }
@@ -2780,6 +2931,7 @@ def phase_timing(card, sfx):
   nbytes = {  # logical bytes, as bench.py's table counts them
       "decode": N_CAM * H * WB + N_CAM * 4 * hh * wh * e,
       "stencil": N_CAM * 4 * hh * wh * e + N_CAM * 12 * hh * wh * e,
+      "metering": samp.numel() * e,
       "map": 2 * N_CAM * 12 * hh * wh * e,
       "tail": N_CAM * 12 * hh * wh * e + N_CAM * 3 * H * W,
       "checksum": N_CAM * 3 * H * W,
@@ -2834,12 +2986,14 @@ def phase_route_timing(card):
         f"{card}")
     if name.endswith("resize1920"):
       # the resize step's profile and its enqueue without the checksum
-      _, bare_host, _ = bench_step(inputs, args, checksum=False)
+      bare, bare_host, _ = bench_step(inputs, args, checksum=False)
       busy, ops = profile_step(name, inputs, args)
-      out[name].update(bare_host_ms=bare_host, busy_share=busy,
+      out[name].update(bare_step_ms=statistics.median(bare),
+                       bare_host_ms=bare_host, busy_share=busy,
                        ops_per_step=ops)
-      log(f"timing {name}: host enqueue {statistics.median(bare_host):.4f} "
-          "ms/step without the checksum")
+      log(f"timing {name}: {statistics.median(bare):.4f} ms/step without "
+          f"the checksum, host enqueue {statistics.median(bare_host):.4f} "
+          "ms/step")
   main_args = _step_args(bf16)
   pair = {"composed": [], "front-fused": []}
   for which in ("composed", "front-fused", "front-fused", "composed"):

@@ -6,27 +6,30 @@ Counterpart of ``taichi_image_tpu/models/camera_isp.py``: every route of
 ``fused_isp_step`` with any raw format (packed12, packed16, u16, f16,
 f32), RGB or I420 output, for all three classes: CameraBF16 (bf16),
 Camera16 (f16) and Camera32 (f32). On a CUDA device each route is
-hand-written Hopper kernels, each instantiated for the working dtype T,
-plus the metering reduction in torch. The phase route (no resize):
+hand-written Hopper kernels, each instantiated for the working dtype T. The phase
+route (no resize):
 
   K1<T> decode   (N, H, 1.5W) u8     -> phases (N, 4, H/2, W/2) T
                  (packed16: K1's packed16 mode; u16/f16/f32 CFAs: the
                  CFA split, ops/hopper/decode.py)
   K2<T> stencil  phases              -> x12 (N, 12, H/2, W/2) T
                                         + metering sample (N, 3, ., .) T
-  metering       sample, prev vec9   -> new vec9 (torch, f32, on device)
-  K3<T> map      x12, scal(vec9)     -> p T + per-image max of the f32 p
+  M<T> meter     sample, prev vec9   -> new vec9 + the map's scalars +
+                                        the linear ones (f32, on device;
+                                        two launches)
+  K3<T> map      x12, scal           -> p T + per-image max of the f32 p
   K4<T> finish   p, max              -> planar u8 (N, 3, H, W), or (W, H)
                                         under a transform that swaps axes
 
-The linear tonemap skips K3: K4's linear mode reads x12 with [m0,
-1/(m1-m0)] from the metrics. An odd metering stride samples the planar
-image's pixels from x12 through a cached index (``planar_subsample``).
-The resize route runs K2 without the sample, K12<T> to planar
-(N, 3, h', w'), metering on its stride grid, K3<T> on the planar image,
-then the gamma (or the linear tonemap) and the transform in torch, as
-the JAX package leaves them to XLA; with I420 output one kernel does
-that tail and the conversion (``yuv420_planar_tone``). The front-fused
+The linear tonemap skips K3: K4's linear mode reads x12 with M's [m0,
+1/(m1-m0)]. An odd metering stride samples the planar image's pixels
+from x12 through a cached index (``planar_subsample``). The resize route
+runs K2 without the sample, K12<T> to planar (N, 3, h', w'), M on its
+stride grid (a strided view, read in place), K3<T> on the planar image,
+then P<T> (``finish_planar_tone``): the gamma (or the linear tonemap)
+and the transform in one pass, where the JAX package leaves them to
+XLA; with I420 output one kernel does that tail and the conversion
+(``yuv420_planar_tone``). The front-fused
 route (bf16, Reinhard, color_adapt 0, no resize, even stride, opt-in
 through ``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, the variable the JAX package
 reads) meters from ``demosaic_samples`` first and then runs K7, the
@@ -50,9 +53,10 @@ Frames under 4x4 pixels demosaic through the JAX package's own route
 for them (``ops/bayer._demosaic_denominator``, torch on the device); the
 kernels after it take phase planes one row or one column wide.
 
-No step syncs with the host: the metering vector feeds the kernels as a
-device tensor, and the resize taps and sample indices are made on the
-device once per configuration. vec9 layout: [bounds.min, bounds.max,
+No step syncs with the host: M's vectors feed the kernels as device
+tensors, and the resize taps and sample indices are made on the device
+once per configuration. ``backend="plain"`` runs every stage's plain
+twin, the metering's too. vec9 layout: [bounds.min, bounds.max,
 log_bounds.min, log_bounds.max, log_mean, mean, rgb_mean(3)]. Under
 ``TAICHI_IMAGE_TPU_DEBUG`` the step checks its decoded values and metrics
 (``utils/debug.py``), which reads them on the host.
@@ -77,7 +81,7 @@ import torch.distributed as dist
 
 from taichi_image_tpu_torch import types
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
-from taichi_image_tpu_torch.ops import interpolate
+from taichi_image_tpu_torch.ops import hopper, interpolate
 from taichi_image_tpu_torch.ops.bayer import (
     demosaic_phases, phases_to_planar, planar_from_phases_transformed,
     subsample_hw)
@@ -87,6 +91,7 @@ from taichi_image_tpu_torch.ops.bayer import (  # noqa: F401
 from taichi_image_tpu_torch.ops.hopper import decode as hopper_decode
 from taichi_image_tpu_torch.ops.hopper import finish as hopper_finish
 from taichi_image_tpu_torch.ops.hopper import front_fused as hopper_front
+from taichi_image_tpu_torch.ops.hopper import meter as hopper_meter
 from taichi_image_tpu_torch.ops.hopper import reinhard as hopper_reinhard
 from taichi_image_tpu_torch.ops.hopper import resize as hopper_resize
 from taichi_image_tpu_torch.ops.hopper import yuv420 as hopper_yuv420
@@ -413,31 +418,25 @@ def _decode_checked(raws, fmt, wd, ids_format, backend):
 
 
 def _meter(strided: torch.Tensor, prev: torch.Tensor, t, group=None,
-           n_total: Optional[int] = None) -> torch.Tensor:
-  """:func:`metering_update_ca`, and under TAICHI_IMAGE_TPU_DEBUG the
-  check that the new metrics are finite."""
-  m = metering_update_ca(strided, prev, t, group=group, n_total=n_total)
+           n_total: Optional[int] = None, intensity=1.0, light_adapt=1.0,
+           color_adapt=0.0, backend: str = "auto") -> hopper_meter.Metering:
+  """M (``ops/hopper/meter.py``): the new metrics and the tonemaps'
+  vectors; under TAICHI_IMAGE_TPU_DEBUG the check that the new metrics
+  are finite."""
+  m = hopper_meter.meter(strided, prev, t, intensity, light_adapt,
+                         color_adapt, group=group, n_total=n_total,
+                         backend=backend)
   if debug_util.debug_enabled():
-    debug_util.check_metrics(m)
+    debug_util.check_metrics(m.metrics)
   return m
 
 
-def _min_max(lo: torch.Tensor, hi: torch.Tensor, group) -> torch.Tensor:
-  """``[lo, hi]``; with a process ``group``, the min of ``lo`` and the max
-  of ``hi`` over its ranks, as one all_reduce MAX of ``[-lo, hi]`` (the
-  negation is exact)."""
-  if group is None:
-    return torch.stack([lo, hi])
-  v = torch.stack([-lo, hi])
-  dist.all_reduce(v, op=dist.ReduceOp.MAX, group=group)
-  return torch.stack([-v[0], v[1]])
-
-
 def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t, group=None,
-                       n_total: Optional[int] = None):
+                       n_total: Optional[int] = None, backend: str = "auto"):
   """EMA metering update from an (N, 3, hs, ws) sample: global bounds ->
   blend with prev -> normalized stats over the blended bounds -> blend
-  the whole vec9 with prev (taichi_image_tpu camera_isp.py:996-1025).
+  the whole vec9 with prev (taichi_image_tpu camera_isp.py:996-1025); M
+  on CUDA, its plain twin on the CPU.
 
   With a ``torch.distributed`` process ``group`` (the JAX package's
   ``axis_name``) ``x`` is this rank's part of the sample: the bounds, the
@@ -445,55 +444,61 @@ def metering_update_ca(x: torch.Tensor, prev: torch.Tensor, t, group=None,
   all_reduce calls) and the sums divided by ``n_total``, the sample's
   pixel count over every rank. Without a group ``n_total`` defaults to
   ``x``'s own count."""
-  x = x.to(torch.float32)
-  b = lerp(t, _min_max(x.amin(), x.amax(), group), prev[:2])
-  scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
-  r, g, bch = scaled[:, 0], scaled[:, 1], scaled[:, 2]
-  gray = 0.299 * r + 0.587 * g + 0.114 * bch
-  log_gray = torch.log(torch.clamp_min(gray, 1e-4))
-  sums = torch.stack([log_gray.sum(), gray.sum(), r.sum(), g.sum(),
-                      bch.sum()])
-  log_bounds = _min_max(log_gray.amin(), log_gray.amax(), group)
-  if group is not None:
-    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-  if n_total is None:
-    n_total = x.shape[0] * x.shape[2] * x.shape[3]
-  stats = torch.cat([b, log_bounds, sums / n_total])
-  return lerp(t, stats, prev)
+  return hopper_meter.meter(x, prev, t, group=group, n_total=n_total,
+                            backend=backend).metrics
 
 
-def _map_scal(metrics, intensity, light_adapt, color_adapt):
-  ca_mode = float(color_adapt) != 0.0
-  scal = (hopper_reinhard.reinhard_scal_ca(metrics, intensity, light_adapt,
-                                           color_adapt)
-          if ca_mode else
-          hopper_reinhard.reinhard_scal(metrics, intensity, light_adapt))
-  return scal, ca_mode
+def _map_scal(metrics, intensity, light_adapt, color_adapt,
+              backend: str = "auto"):
+  """The map's scalars of metrics the caller holds (``meter_vectors`` on
+  CUDA) and whether they are the color_adapt form."""
+  scal, _ = hopper_meter.vectors(metrics, intensity, light_adapt,
+                                 color_adapt, backend=backend)
+  return scal, float(color_adapt) != 0.0
 
 
 def reinhard_map_ca(x: torch.Tensor, metrics: torch.Tensor, intensity,
                     light_adapt, color_adapt) -> torch.Tensor:
-  """The f32 pre-gamma Reinhard map of (N, 3k, hh, wh), NaN zeroed."""
-  scal, ca_mode = _map_scal(metrics, intensity, light_adapt, color_adapt)
+  """The f32 pre-gamma Reinhard map of (N, 3k, hh, wh), NaN zeroed (K3's
+  plain arithmetic, with the plain vectors)."""
+  scal, ca_mode = _map_scal(metrics, intensity, light_adapt, color_adapt,
+                            backend="plain")
   return hopper_reinhard.reinhard_map_f32(x, scal, ca_mode)
 
 
 def reinhard_map_max_ca(x: torch.Tensor, metrics: torch.Tensor, intensity,
                         light_adapt, color_adapt, work_dtype,
-                        backend: str = "auto"):
+                        backend: str = "auto", scal=None):
   """Map stage (K3): ``(p in the working dtype, per-image max of the f32
-  p (N, 1, 1, 1))`` for (N, 3k, hh, wh) input of that dtype."""
+  p (N, 1, 1, 1))`` for (N, 3k, hh, wh) input of that dtype. ``scal`` is
+  M's map vector for these arguments; without it the vector is made from
+  ``metrics``."""
   wd = types.canonical_dtype(work_dtype)
   if x.dtype != wd:
     raise ValueError(f"map input is {x.dtype}, the working dtype {wd}")
-  scal, ca_mode = _map_scal(metrics, intensity, light_adapt, color_adapt)
+  ca_mode = float(color_adapt) != 0.0
+  if scal is None:
+    scal, _ = _map_scal(metrics, intensity, light_adapt, color_adapt,
+                        backend=backend)
   return hopper_reinhard.reinhard_map(x, scal, ca_mode, backend=backend)
 
 
+def _tone_any(x: torch.Tensor, scal: torch.Tensor, gamma, mode: str,
+              backend: str = "auto") -> torch.Tensor:
+  """The tone alone on any layout whose images hold 3m values: P with no
+  transform on the images seen as (N, 3, 1, m) (the tone is per value,
+  its max per image; the linear one has no per-image part, so the whole
+  tensor is one such image). u8 of ``x``'s shape."""
+  n = x.shape[0] if mode == "reinhard" else 1
+  return hopper_finish.finish_planar_tone(
+      x.reshape(n, 3, 1, -1), scal, gamma, mode,
+      backend=backend).reshape(x.shape)
+
+
 def reinhard_gamma_ca(p_cast: torch.Tensor, max_out: torch.Tensor,
-                      gamma: float) -> torch.Tensor:
-  """Gamma stage in phase layout: u8 of ``p_cast``'s shape."""
-  return hopper_finish.gamma_u8(p_cast, max_out, gamma)
+                      gamma: float, backend: str = "auto") -> torch.Tensor:
+  """Gamma stage on any (N, 3k, ...) layout: u8 of ``p_cast``'s shape."""
+  return _tone_any(p_cast, max_out, gamma, "reinhard", backend)
 
 
 def reinhard_apply_ca(x: torch.Tensor, metrics: torch.Tensor, gamma,
@@ -505,29 +510,32 @@ def reinhard_apply_ca(x: torch.Tensor, metrics: torch.Tensor, gamma,
   p_cast, max_out = reinhard_map_max_ca(x, metrics, intensity, light_adapt,
                                         color_adapt, work_dtype,
                                         backend=backend)
-  return reinhard_gamma_ca(p_cast, max_out, gamma)
+  return reinhard_gamma_ca(p_cast, max_out, gamma, backend)
 
 
-def linear_apply_ca(x: torch.Tensor, metrics: torch.Tensor,
-                    gamma) -> torch.Tensor:
-  """The linear tonemap on any layout (torch; the JAX package's XLA
-  elementwise chain)."""
-  return hopper_finish.linear_u8(x, hopper_finish.linear_scal(metrics),
-                                 gamma)
+def linear_apply_ca(x: torch.Tensor, metrics: torch.Tensor, gamma,
+                    backend: str = "auto") -> torch.Tensor:
+  """The linear tonemap on any (N, 3k, ...) layout (the JAX package's XLA
+  elementwise chain): the linear vector of ``metrics``, then P's tone."""
+  _, lin = hopper_meter.vectors(metrics, backend=backend)
+  return _tone_any(x, lin, gamma, "linear", backend)
 
 
 def demosaic_reinhard_front(phases: torch.Tensor, metrics: torch.Tensor,
                             intensity, light_adapt, pattern, cc,
-                            backend: str = "auto"):
+                            backend: str = "auto", scal=None):
   """Front-fused demosaic + Reinhard map (K7, bf16): ``(p (N, 12, hh, wh)
   bf16, per-image max (N, 1, 1, 1))`` from the phase planes, with metrics
-  computed beforehand (from ``ops/bayer.demosaic_samples``)."""
+  computed beforehand (from ``ops/bayer.demosaic_samples``); ``scal`` is
+  M's map vector, else it is made from ``metrics``."""
   _, _, hh, wh = phases.shape
   weights = bayer_ops._demosaic_tables(pattern, "mhc")
   fin = bayer_ops._finish_spec_for(pattern, "mhc", hh, wh,
                                    None if cc is None else tuple(cc),
                                    types.bf16)
-  scal = hopper_reinhard.reinhard_scal(metrics, intensity, light_adapt)
+  if scal is None:
+    scal, _ = _map_scal(metrics, intensity, light_adapt, 0.0,
+                        backend=backend)
   return hopper_front.front_fused(phases, weights, fin, scal,
                                   backend=backend)
 
@@ -652,42 +660,42 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
   wd = types.canonical_dtype(work_dtype)
   phases = _decode_checked(raws, fmt, wd, ids_format, backend)
 
+  def meter(sample, group=None):
+    return _meter(sample, prev, t, group, n_total, intensity, light_adapt,
+                  color_adapt, backend)
+
   if group is None and _front_fused_route(wd, resize_plan, stride, tonemap,
                                          color_adapt, phases):
     # metering first, from the sample pre-pass; then stencil + map as one
     # kernel (K7) and the finish
-    new_metrics = _meter(bayer_ops.demosaic_samples(
-        phases, pattern, cc=cc, out_dtype=wd,
-        sample_step=max(stride // 2, 1)), prev, t)
+    mt = meter(bayer_ops.demosaic_samples(phases, pattern, cc=cc,
+                                          out_dtype=wd,
+                                          sample_step=max(stride // 2, 1)))
     p_cast, max_out = demosaic_reinhard_front(
-        phases, new_metrics, intensity, light_adapt, pattern, cc,
-        backend=backend)
-    return new_metrics, _finish(p_cast, max_out, gamma, "reinhard",
-                                transform, color_format, backend)
+        phases, mt.metrics, intensity, light_adapt, pattern, cc,
+        backend=backend, scal=mt.scal)
+    return mt.metrics, _finish(p_cast, max_out, gamma, "reinhard",
+                               transform, color_format, backend)
 
   if resize_plan is not None:
     x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                           backend=backend)
     size, scale = resize_plan
     rgb = _resize_x12(x12, size, scale, wd, backend=backend)
-    new_metrics = _meter(subsample_hw(rgb, stride, stride), prev, t,
-                         group, n_total)
-    if color_format == "yuv420":
-      # the tonemap, the transform and I420 in one kernel
-      if tonemap == "reinhard":
-        src, scal = reinhard_map_max_ca(rgb, new_metrics, intensity,
-                                        light_adapt, color_adapt, wd,
-                                        backend=backend)
-      else:
-        src, scal = rgb, hopper_finish.linear_scal(new_metrics)
-      return new_metrics, hopper_yuv420.yuv420_planar_tone(
-          src, scal, gamma, tonemap, transform, backend=backend)
+    mt = meter(subsample_hw(rgb, stride, stride), group)
     if tonemap == "reinhard":
-      out = reinhard_apply_ca(rgb, new_metrics, gamma, intensity,
-                              light_adapt, color_adapt, wd, backend=backend)
+      src, scal = reinhard_map_max_ca(rgb, mt.metrics, intensity,
+                                      light_adapt, color_adapt, wd,
+                                      backend=backend, scal=mt.scal)
     else:
-      out = linear_apply_ca(rgb, new_metrics, gamma)
-    return new_metrics, _transform_planar(out, transform).contiguous()
+      src, scal = rgb, mt.lin
+    # the tonemap and the transform in one kernel (P), and I420 with them
+    # in another
+    if color_format == "yuv420":
+      return mt.metrics, hopper_yuv420.yuv420_planar_tone(
+          src, scal, gamma, tonemap, transform, backend=backend)
+    return mt.metrics, hopper_finish.finish_planar_tone(
+        src, scal, gamma, tonemap, transform, backend=backend)
 
   if stride % 2 != 0:
     # the samples of an odd stride fall on every phase: gather them from
@@ -701,23 +709,23 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                                    backend=backend,
                                    sample_step=max(stride // 2, 1))
-  new_metrics = _meter(strided, prev, t, group, n_total)
+  mt = meter(strided, group)
   # K3 + K4, or K4's linear mode; the transform lives in K4's stores. An
   # odd stride's I420 is the JAX package's planar conversion (the matrix
   # before the block mean) of the RGB
   phase_format = color_format if stride % 2 == 0 else "rgb"
   if tonemap == "linear":
-    out = _finish(x12, hopper_finish.linear_scal(new_metrics), gamma,
-                  "linear", transform, phase_format, backend)
+    out = _finish(x12, mt.lin, gamma, "linear", transform, phase_format,
+                  backend)
   else:
-    p_cast, max_out = reinhard_map_max_ca(x12, new_metrics, intensity,
+    p_cast, max_out = reinhard_map_max_ca(x12, mt.metrics, intensity,
                                           light_adapt, color_adapt, wd,
-                                          backend=backend)
+                                          backend=backend, scal=mt.scal)
     out = _finish(p_cast, max_out, gamma, "reinhard", transform,
                   phase_format, backend)
   if phase_format != color_format:
-    return new_metrics, yuv420_from_planar_u8(out, backend=backend)
-  return new_metrics, out
+    return mt.metrics, yuv420_from_planar_u8(out, backend=backend)
+  return mt.metrics, out
 
 
 def state_from_jax(state: dict) -> dict:
@@ -864,7 +872,7 @@ class _ISPBase:
                 np.asarray(prev, np.float32), device=self.device))
     fn = (_jit_metering_phases if form == "phases"
           else _jit_metering_planar)
-    return fn(batch, prev, float(t), stride)
+    return fn(batch, prev, float(t), stride).metrics
 
   @staticmethod
   def _lazy_key(images):
@@ -1020,11 +1028,18 @@ class _ISPBase:
     form, batch = self._stack_batch(images)
     self._update_metering_batch(form, batch)
 
-  def _update_metering_batch(self, form: str, batch: torch.Tensor):
+  def _update_metering_batch(self, form: str, batch: torch.Tensor,
+                             intensity=1.0, light_adapt=1.0,
+                             color_adapt=0.0) -> hopper_meter.Metering:
+    """M over the batch: the new metrics become the ISP's; returns them
+    with the tonemaps' vectors for these arguments."""
     prev, t = self._prev_t()
     fn = (_jit_metering_phases if form == "phases"
           else _jit_metering_planar)
-    self.metrics = fn(batch, prev, t, self.metering_stride)
+    mt = fn(batch, prev, t, self.metering_stride, intensity, light_adapt,
+            color_adapt)
+    self.metrics = mt.metrics
+    return mt
 
   def _metrics_tensor(self, metrics) -> torch.Tensor:
     if torch.is_tensor(metrics):
@@ -1058,12 +1073,13 @@ class _ISPBase:
     if out is not None:
       return out
     form, batch = self._stack_batch(images)
-    self._update_metering_batch(form, batch)
+    mt = self._update_metering_batch(form, batch, float(intensity),
+                                     float(light_adapt), float(color_adapt))
     fn = (_jit_reinhard_phases if form == "phases"
           else _jit_reinhard_planar)
     out = fn(batch, self.metrics, float(gamma), float(intensity),
              float(light_adapt), float(color_adapt), self._work_dtype,
-             self.transform)
+             self.transform, scal=mt.scal)
     return [PlanarImage(o) for o in out]
 
   def tonemap_linear(self, images: List,
@@ -1074,10 +1090,10 @@ class _ISPBase:
     if out is not None:
       return out
     form, batch = self._stack_batch(images)
-    self._update_metering_batch(form, batch)
+    mt = self._update_metering_batch(form, batch)
     fn = (_jit_linear_phases if form == "phases"
           else _jit_linear_planar)
-    out = fn(batch, self.metrics, float(gamma), self.transform)
+    out = fn(batch, self.metrics, float(gamma), self.transform, lin=mt.lin)
     return [PlanarImage(o) for o in out]
 
   def _tonemap_fused_lazy(self, images, tonemap, gamma, intensity=1.0,
@@ -1244,60 +1260,82 @@ def _jit_load_planar(raws, fmt, ids_format, work_dtype, pattern, cc,
   return x12
 
 
-def _jit_metering_planar(batch, prev, t, stride) -> torch.Tensor:
-  return _meter(subsample_hw(batch, stride, stride), prev, t)
+def _jit_metering_planar(batch, prev, t, stride, intensity=1.0,
+                         light_adapt=1.0, color_adapt=0.0
+                         ) -> hopper_meter.Metering:
+  # M reads the strided view in place
+  return _meter(subsample_hw(batch, stride, stride), prev, t,
+                intensity=intensity, light_adapt=light_adapt,
+                color_adapt=color_adapt)
 
 
-def _jit_metering_phases(x12, prev, t, stride) -> torch.Tensor:
+def _jit_metering_phases(x12, prev, t, stride, intensity=1.0,
+                         light_adapt=1.0, color_adapt=0.0
+                         ) -> hopper_meter.Metering:
   # full-res stride-s pixels are phase (0, 0)'s at half-res stride s / 2:
-  # the stencil's own metering sample
+  # the stencil's own metering sample, a strided view of x12
   s = stride // 2
-  return _meter(subsample_hw(x12[:, 0:3], s, s), prev, t)
+  return _meter(subsample_hw(x12[:, 0:3], s, s), prev, t,
+                intensity=intensity, light_adapt=light_adapt,
+                color_adapt=color_adapt)
 
 
-def _map_max_any(x, metrics, intensity, light_adapt, color_adapt, wd):
+def _map_max_any(x, metrics, intensity, light_adapt, color_adapt, wd,
+                 scal=None):
   """K3's stage, ``(p of the working dtype, per-image max)``: the working
   dtype's instantiation, else (an image the caller made, of any dtype)
   K3<f32> on x's f32 values and one cast of p, as the JAX package maps in
-  f32 and casts once."""
+  f32 and casts once. ``scal``: M's map vector, else made from
+  ``metrics``."""
   x = x.contiguous()
   if x.dtype == wd:
     return reinhard_map_max_ca(x, metrics, intensity, light_adapt,
-                               color_adapt, wd)
+                               color_adapt, wd, scal=scal)
   p, max_out = reinhard_map_max_ca(x.to(torch.float32), metrics, intensity,
-                                   light_adapt, color_adapt, torch.float32)
+                                   light_adapt, color_adapt, torch.float32,
+                                   scal=scal)
   return p.to(wd), max_out
 
 
 def _jit_reinhard_planar(batch, metrics, gamma, intensity, light_adapt,
-                         color_adapt, work_dtype, transform):
+                         color_adapt, work_dtype, transform, scal=None):
+  """The resize route's tail on a planar batch: K3, then P (the gamma,
+  u8 and the transform in one pass)."""
   wd = types.canonical_dtype(work_dtype)
   p_cast, max_out = _map_max_any(batch, metrics, intensity, light_adapt,
-                                 color_adapt, wd)
-  return _transform_planar(reinhard_gamma_ca(p_cast, max_out, gamma),
-                           transform).contiguous()
+                                 color_adapt, wd, scal)
+  return hopper_finish.finish_planar_tone(p_cast, max_out, gamma,
+                                          "reinhard", transform)
 
 
-def _jit_linear_planar(batch, metrics, gamma, transform):
-  return _transform_planar(linear_apply_ca(batch, metrics, gamma),
-                           transform).contiguous()
+def _jit_linear_planar(batch, metrics, gamma, transform, lin=None):
+  """P's linear mode on a planar batch (an image of another dtype than
+  the kernels' goes in as its f32 values)."""
+  if lin is None:
+    _, lin = hopper_meter.vectors(metrics)
+  x = batch.contiguous()
+  if x.dtype not in hopper.DTYPE_SUFFIX:
+    x = x.to(torch.float32)
+  return hopper_finish.finish_planar_tone(x, lin, gamma, "linear",
+                                          transform)
 
 
 def _jit_reinhard_phases(x12, metrics, gamma, intensity, light_adapt,
-                         color_adapt, work_dtype, transform):
+                         color_adapt, work_dtype, transform, scal=None):
   """The step's phase tail on a phase-form batch: K3, then K4 (the gamma,
   u8, the interleave and the transform in its stores)."""
   wd = types.canonical_dtype(work_dtype)
   p_cast, max_out = _map_max_any(x12, metrics, intensity, light_adapt,
-                                 color_adapt, wd)
+                                 color_adapt, wd, scal)
   return _finish(p_cast, max_out, gamma, "reinhard", transform, "rgb",
                  "auto")
 
 
-def _jit_linear_phases(x12, metrics, gamma, transform):
+def _jit_linear_phases(x12, metrics, gamma, transform, lin=None):
   """K4's linear mode on a phase-form batch."""
-  return _finish(x12, hopper_finish.linear_scal(metrics), gamma, "linear",
-                 transform, "rgb", "auto")
+  if lin is None:
+    _, lin = hopper_meter.vectors(metrics)
+  return _finish(x12, lin, gamma, "linear", transform, "rgb", "auto")
 
 
 def camera_isp(name: str, dtype=types.f32):

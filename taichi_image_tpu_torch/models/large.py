@@ -218,14 +218,13 @@ def finish_resized(x, scal, gamma, tonemap: str, transform: ImageTransform,
                    color_format: str):
   """The resize route's tail on planar ``x`` (K3's map, or the resized
   image under the linear tonemap) with ``scal`` (the max, or the linear
-  scalars): planar u8 RGB under ``transform``, or with I420 output the
-  tonemap, the transform and I420 in one kernel."""
+  scalars): planar u8 RGB under ``transform`` (P), or with I420 output
+  the tonemap, the transform and I420 in one kernel."""
   if color_format == "yuv420":
     return hopper_yuv420.yuv420_planar_tone(x, scal, gamma, tonemap,
                                             transform)
-  tone = (ci.reinhard_gamma_ca if tonemap == "reinhard"
-          else hopper_finish.linear_u8)
-  return ci._transform_planar(tone(x, scal, gamma), transform)
+  return hopper_finish.finish_planar_tone(x, scal, gamma, tonemap,
+                                          transform)
 
 
 def _join(outs, transform: ImageTransform, color_format: str):
@@ -247,18 +246,17 @@ def _join(outs, transform: ImageTransform, color_format: str):
   return torch.cat(outs, dim=3 if swap else 2)
 
 
-def _tone_inputs(xs, metrics, tonemap, intensity, light_adapt,
-                 color_adapt):
+def _tone_inputs(xs, mt, tonemap, color_adapt):
   """What the finish of each band takes: the bands' x (linear) or their
-  K3 maps, and the linear scalars or the frame's per-image max (the max
+  K3 maps, and M's linear scalars or the frame's per-image max (the max
   of the band maxima). Under Reinhard ``xs`` is emptied as the maps are
   made, so that a band's x is freed once its p exists."""
   if tonemap == "linear":
-    return xs, hopper_finish.linear_scal(metrics)
-  scal, ca_mode = ci._map_scal(metrics, intensity, light_adapt, color_adapt)
+    return xs, mt.lin
+  ca_mode = float(color_adapt) != 0.0
   ps, maxes = [], []
   while xs:
-    p, m = hopper_reinhard.reinhard_map(xs.pop(0), scal, ca_mode)
+    p, m = hopper_reinhard.reinhard_map(xs.pop(0), mt.scal, ca_mode)
     ps.append(p)
     maxes.append(m)
   return ps, torch.stack(maxes).amax(dim=0)
@@ -281,12 +279,12 @@ def _phase_loop(raws, prev, t, bands, *, fmt, ids_format, wd, pattern, cc,
   x12s, samples = (list(v) for v in zip(*(
       _band_x12(raws, p0, p1, hh, fmt, ids_format, wd, pattern, cc,
                 max(stride // 2, 1)) for p0, p1 in bands)))
-  metrics = ci._meter(torch.cat(samples, dim=2), prev, t)
-  srcs, scal = _tone_inputs(x12s, metrics, tonemap, intensity, light_adapt,
-                            color_adapt)
+  mt = ci._meter(torch.cat(samples, dim=2), prev, t, intensity=intensity,
+                 light_adapt=light_adapt, color_adapt=color_adapt)
+  srcs, scal = _tone_inputs(x12s, mt, tonemap, color_adapt)
   outs = _finish_bands(srcs, lambda x: ci._finish(
       x, scal, gamma, tonemap, transform, color_format, "auto"))
-  return metrics, _join(outs, transform, color_format)
+  return mt.metrics, _join(outs, transform, color_format)
 
 
 def _resize_loop(raws, prev, t, n_bands, resize_plan, *, fmt, ids_format,
@@ -322,12 +320,12 @@ def _resize_loop(raws, prev, t, n_bands, resize_plan, *, fmt, ids_format,
     rgbs.append(resize_band(x12, (o0, o1), (p0, p1), hh, wh, size_i,
                             scale_yx))
     samples.append(bayer_ops.subsample_hw(rgbs[-1], stride, stride))
-  metrics = ci._meter(torch.cat(samples, dim=2), prev, t)
-  srcs, scal = _tone_inputs(rgbs, metrics, tonemap, intensity, light_adapt,
-                            color_adapt)
+  mt = ci._meter(torch.cat(samples, dim=2), prev, t, intensity=intensity,
+                 light_adapt=light_adapt, color_adapt=color_adapt)
+  srcs, scal = _tone_inputs(rgbs, mt, tonemap, color_adapt)
   outs = _finish_bands(srcs, lambda x: finish_resized(
       x, scal, gamma, tonemap, transform, color_format))
-  return metrics, _join(outs, transform, color_format)
+  return mt.metrics, _join(outs, transform, color_format)
 
 
 def process_banded(raws, prev, t, *, n_bands, fmt="packed12",

@@ -7,8 +7,9 @@ that takes raw device pointers, sizes and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``. Each instantiation is a registered
 :class:`Kernel` named ``<stage>_<suffix>`` (``decode_f16``,
 ``demosaic_f32``, ...); the front-fused stencil exists for bf16 only
-(``front_fused_bf16``) and the planar I420 conversion for u8 only
-(``yuv420_planar``), each registered with :func:`register`, as is each
+(``front_fused_bf16``), the planar I420 conversion for u8 only
+(``yuv420_planar``) and the metering's vectors for f32 metrics only
+(``meter_vectors``), each registered with :func:`register`, as is each
 instantiation of the CFA split, a template over its source type too
 (``split_<source>_<suffix>``: ``split_u16_bf16``, ...). A source's
 library, holding all its instantiations, is compiled with ``nvcc`` on
@@ -202,7 +203,7 @@ def build_all() -> dict[str, Path]:
 
 def _import_kernel_modules():
   from taichi_image_tpu_torch.ops.hopper import (  # noqa: F401
-      decode, demosaic, finish, front_fused, reinhard, resize, yuv420)
+      decode, demosaic, finish, front_fused, meter, reinhard, resize, yuv420)
 
 
 def launch_counts() -> dict[str, int]:

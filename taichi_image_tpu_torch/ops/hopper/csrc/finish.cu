@@ -549,6 +549,196 @@ int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
                                             stream));
 }
 
+// ---------------------------------------------------------------------------
+// P<T>: the resize route's RGB tail in one pass, from the untransformed
+// planar (N, 3, h, w) of T: K3's map p and its per-image max, or the
+// resized image and [m0, inv_range]: the tone (finish.cuh tone_u8, K4's
+// bytes), then the three u8 planes stored under the output transform,
+// (N, 3, h, w), or (N, 3, w, h) under an axis swap. It replaces the JAX
+// resize route's XLA tail, reinhard_apply_ca or linear_apply_ca, then
+// _transform_planar (taichi_image_tpu/models/camera_isp.py:1721-1727,
+// :1790), which the port ran as torch's gamma_u8 / linear_u8 and a
+// transformed copy. Its twin is that torch code, bitwise.
+//
+// Bound: memory, sizeof(T) bytes read and 1 written per value: 74.6 + 37.3
+// MB at 6 x 1920 x 1080 bf16 (0.033 ms at 3.35 TB/s), 149.3 + 37.3 MB in
+// f32 (0.056 ms); on an H100 it runs at 72-86% of that (PERF.md section
+// 6), the tile path within 1.1x of the row path. Without an axis swap a
+// thread tones one run of kRun
+// values of a row (one 16-byte load of a 16-bit T, two of f32) and stores
+// its kRun bytes where the transform puts them, one 8-byte store (flip_x
+// reverses the bytes in registers). Under an axis swap a 256-thread block
+// tones a tile of kTile x kTile values of one channel into shared memory
+// (two runs a thread, rows padded by 4 bytes), then writes the tile's
+// kTile output rows (one per input column) as kTile / 8 8-byte stores
+// each, a warp covering 4 output rows of 64 bytes. A row that is not whole
+// runs (or, under a swap, an output row that is not whole 8-byte stores),
+// or an unaligned input, takes the element and byte path of the same
+// kernels. f.hh and f.wh hold the planar h and w here.
+
+constexpr int kTile = 64;  // the swapped tile's rows and columns
+
+__device__ __forceinline__ uint2 pack8(const unsigned q[kRun]) {
+  return make_uint2(q[0] | q[1] << 8 | q[2] << 16 | q[3] << 24,
+                    q[4] | q[5] << 8 | q[6] << 16 | q[7] << 24);
+}
+
+__device__ __forceinline__ uint2 reverse8(uint2 v) {
+  return make_uint2(__byte_perm(v.y, 0, 0x0123), __byte_perm(v.x, 0, 0x0123));
+}
+
+// No axis swap: block (16, 16) over (runs, rows), grid.z = n * 3.
+template <typename T, bool kLinear>
+__global__ void __launch_bounds__(256)
+    planar_tone_rows_kernel(const T* __restrict__ x,
+                            const float* __restrict__ scal,
+                            uint8_t* __restrict__ out, Finish f) {
+  const int bc = blockIdx.z, b = bc / 3;
+  const int h = f.hh, w = f.wh;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kRun;
+  if (y >= h || x0 >= w) return;
+  const size_t plane = static_cast<size_t>(bc) * h * w;
+  RawRun<T> r;
+  load_run<T>(x + plane + y * w + x0, f.vec, w - x0, r);
+  unsigned q[kRun];
+  tone_run<T, kLinear>(r, load_scal<kLinear>(scal, b), f, q);
+  uint8_t* row = out + plane + (f.flip_y ? h - 1 - y : y) * w;
+  if (f.vec) {
+    const uint2 v = pack8(q);
+    if (f.flip_x) {
+      *reinterpret_cast<uint2*>(row + w - x0 - kRun) = reverse8(v);
+    } else {
+      *reinterpret_cast<uint2*>(row + x0) = v;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const int xx = x0 + k;
+      if (xx >= w) break;
+      row[f.flip_x ? w - 1 - xx : xx] = static_cast<uint8_t>(q[k]);
+    }
+  }
+}
+
+// Axis swap: block 256 over a kTile x kTile tile of one channel, grid
+// (column tiles, row tiles, n * 3). Input (y, xc) lands on output row
+// flip_x(xc), byte flip_y(y).
+template <typename T, bool kLinear>
+__global__ void __launch_bounds__(256)
+    planar_tone_swap_kernel(const T* __restrict__ x,
+                            const float* __restrict__ scal,
+                            uint8_t* __restrict__ out, Finish f) {
+  constexpr int kPitch = kTile + 4;
+  constexpr int kRuns = kTile * kTile / (kRun * 256);  // runs a thread
+  constexpr int kSegs = kTile / 8;  // 8-byte stores of an output row
+  __shared__ alignas(16) uint8_t u8[kTile * kPitch];
+  const int tid = threadIdx.x, bc = blockIdx.z, b = bc / 3;
+  const int h = f.hh, w = f.wh;
+  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
+  const size_t plane = static_cast<size_t>(bc) * h * w;
+  const Scal sc = load_scal<kLinear>(scal, b);
+  RawRun<T> raw[kRuns];
+#pragma unroll
+  for (int m = 0; m < kRuns; ++m) {
+    const int v = (tid + m * 256) * kRun;
+    const int r = v / kTile, c = v - r * kTile;
+    const int y = y0 + r, xc = x0 + c;
+    const int n = y < h ? w - xc : 0;  // values of the run in the frame
+    if (n > 0) {
+      load_run<T>(x + plane + y * w + xc, f.vec, n, raw[m]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < RawRun<T>::kWords; ++k) raw[m].w[k] = 0u;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kRuns; ++m) {
+    const int v = (tid + m * 256) * kRun;
+    const int r = v / kTile, c = v - r * kTile;
+    unsigned q[kRun];
+    tone_run<T, kLinear>(raw[m], sc, f, q);
+    const uint2 p = pack8(q);
+    auto* d = reinterpret_cast<unsigned*>(u8 + r * kPitch + c);
+    d[0] = p.x;
+    d[1] = p.y;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kTile * kSegs / 256; ++m) {
+    const int k = tid + m * 256;
+    const int xl = k / kSegs, seg = k - xl * kSegs;
+    const int xc = x0 + xl, ys = y0 + 8 * seg;
+    if (xc >= w || ys >= h) continue;
+    uint8_t* orow = out + plane + static_cast<size_t>(
+                                      f.flip_x ? w - 1 - xc : xc) * h;
+    unsigned q[kRun];
+#pragma unroll
+    for (int e = 0; e < kRun; ++e) q[e] = u8[(8 * seg + e) * kPitch + xl];
+    if (f.vec) {
+      const uint2 v = pack8(q);
+      if (f.flip_y) {
+        *reinterpret_cast<uint2*>(orow + h - ys - kRun) = reverse8(v);
+      } else {
+        *reinterpret_cast<uint2*>(orow + ys) = v;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        const int y = ys + e;
+        if (y >= h) break;
+        orow[f.flip_y ? h - 1 - y : y] = static_cast<uint8_t>(q[e]);
+      }
+    }
+  }
+}
+
+template <typename T, bool kLinear>
+cudaError_t launch_planar_tone_mode(const T* x, const float* scal,
+                                    uint8_t* out, int n, const Finish& f,
+                                    int swap, cudaStream_t stream) {
+  if (swap) {
+    const dim3 grid((f.wh + kTile - 1) / kTile, (f.hh + kTile - 1) / kTile,
+                    n * 3);
+    planar_tone_swap_kernel<T, kLinear><<<grid, 256, 0, stream>>>(x, scal,
+                                                                  out, f);
+  } else {
+    const dim3 block(16, 16);
+    const dim3 grid((f.wh + block.x * kRun - 1) / (block.x * kRun),
+                    (f.hh + block.y - 1) / block.y, n * 3);
+    planar_tone_rows_kernel<T, kLinear><<<grid, block, 0, stream>>>(
+        x, scal, out, f);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_planar_tone(const void* x, const void* scal, void* out, int n,
+                       int h, int w, int linear, int apply_gamma,
+                       float inv_gamma, int swap, int flip_y, int flip_x,
+                       cudaStream_t stream) {
+  if (static_cast<long long>(n) * h * w == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (3LL * h * w > 0x7FFFFFFFLL || 3LL * n > 65535 ||
+      (h + 15) / 16 > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // vectors: whole runs along each input row and, under a swap, whole
+  // 8-byte stores along each output row
+  const int vec = w % kRun == 0 && (!swap || h % kRun == 0) &&
+                  tit::aligned16(x) &&
+                  reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const Finish f{h, w, apply_gamma, flip_y, flip_x, vec, inv_gamma};
+  const auto* xin = static_cast<const T*>(x);
+  const auto* s = static_cast<const float*>(scal);
+  auto* o = static_cast<uint8_t*>(out);
+  return static_cast<int>(
+      linear ? launch_planar_tone_mode<T, true>(xin, s, o, n, f, swap, stream)
+             : launch_planar_tone_mode<T, false>(xin, s, o, n, f, swap,
+                                                 stream));
+}
+
 }  // namespace
 
 #define TIT_FINISH_LAUNCHER(suffix, T)                                        \
@@ -572,3 +762,14 @@ TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
                             stream);                                        \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)
+
+#define TIT_FINISH_PLANAR_TONE_LAUNCHER(suffix, T)                        \
+  extern "C" int tit_finish_planar_tone_##suffix(                         \
+      const void* x, const void* scal, void* out, int n, int h, int w,    \
+      int linear, int apply_gamma, float inv_gamma, int swap, int flip_y, \
+      int flip_x, cudaStream_t stream) {                                  \
+    return launch_planar_tone<T>(x, scal, out, n, h, w, linear,           \
+                                 apply_gamma, inv_gamma, swap, flip_y,    \
+                                 flip_x, stream);                         \
+  }
+TIT_FOR_EACH_DTYPE(TIT_FINISH_PLANAR_TONE_LAUNCHER)

@@ -134,6 +134,32 @@ def stencil_params(weights: np.ndarray, finish: dict) -> np.ndarray:
   return block
 
 
+# {(id(weights), id(finish)): (weights, finish, variant, parameter block,
+# its pointer)}: the launch arguments of a configuration, made once. The
+# step's weights and finish specs come from caches
+# (ops/bayer._demosaic_tables, _finish_spec_for: the pattern, the CCM, the
+# dtype and the frame), so the same objects return every frame; an entry
+# holds them, so their ids cannot be reused while it lives. The specs are
+# never mutated.
+_LAUNCH_ARGS: dict = {}
+_LAUNCH_ARGS_MAX = 64
+
+
+def _launch_args(weights: np.ndarray, finish: dict):
+  """(variant, parameter block's pointer) of a configuration: the same
+  values as :func:`tap_variant` and :func:`stencil_params` give, without
+  their numpy work after the first launch."""
+  key = (id(weights), id(finish))
+  hit = _LAUNCH_ARGS.get(key)
+  if hit is None:
+    if len(_LAUNCH_ARGS) >= _LAUNCH_ARGS_MAX:
+      _LAUNCH_ARGS.pop(next(iter(_LAUNCH_ARGS)))
+    params = stencil_params(weights, finish)
+    hit = _LAUNCH_ARGS[key] = (weights, finish, tap_variant(weights), params,
+                               params.ctypes.data_as(ctypes.c_void_p))
+  return hit[2], hit[4]
+
+
 def _border_factor(oc: int, hh: int, wh: int, finish: dict, device):
   """(hh, wh) f32 renorm factor of channel ``oc``: rvf * cvv, then the
   corner multiplies (the kernel's order). Python-float operands act as
@@ -223,17 +249,15 @@ def demosaic_stencil(phases: torch.Tensor, weights: np.ndarray,
                                   rows)
   hopper.check_tensor("phases", phases, dtype, 4, phases.device)
   hopper.check_frame_size(hh, wh)
-  variant = tap_variant(weights)
+  variant, params = _launch_args(weights, finish)
   dev = phases.device
   ho = r1 - r0
   x12 = torch.empty((n, 12, ho, wh), dtype=dtype, device=dev)
   s = sample_step
   samp = (torch.empty((n, 3, -(-ho // s), -(-wh // s)), dtype=dtype,
                       device=dev) if s else None)
-  params = stencil_params(weights, finish)
   KERNELS[dtype].launch(dev, hopper.ptr(phases), hopper.ptr(x12),
                         hopper.ptr(samp) if s else None, n, hh, wh, s,
-                        params.ctypes.data_as(ctypes.c_void_p),
-                        int(finish["cc"] is not None), variant,
+                        params, int(finish["cc"] is not None), variant,
                         finish["top_row"], finish["bot_row"], r0, ho)
   return x12, samp

@@ -13,6 +13,14 @@ it is the phase route's tail, with the transform folded into the store
 addresses. The I420 mode replaces the JAX phase route's XLA I420 tail
 (``taichi_image_tpu/models/camera_isp.py:1774-1784``: the gamma or linear
 u8, the phase transform, ``yuv420_from_phases_u8``).
+
+:func:`finish_planar_tone` (P, ``finish_planar_tone_<T>``) is the resize
+route's RGB tail in one pass: the same tone on the planar image (K3's map
+or the resized image) and its store under the transform. It replaces the
+JAX resize route's XLA tail (``reinhard_apply_ca`` or ``linear_apply_ca``,
+then ``_transform_planar``: ``camera_isp.py:1721-1727``, ``:1790``); its
+twin is that chain in torch, :func:`gamma_u8` or :func:`linear_u8` then
+the transformed copy.
 """
 
 from __future__ import annotations
@@ -27,10 +35,14 @@ from taichi_image_tpu_torch.ops.bayer import (_TRANSFORM_SFF,
                                               planar_from_phases_transformed,
                                               transform_phases)
 from taichi_image_tpu_torch.ops.hopper import yuv420
-from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+from taichi_image_tpu_torch.ops.hopper.meter import linear_scal
+from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
+                                                    transform_axes)
 
 __all__ = ["finish_planar_u8", "finish_planar_u8_plain", "finish_yuv420",
-           "finish_yuv420_plain", "gamma_u8", "linear_scal", "linear_u8"]
+           "finish_yuv420_plain", "finish_planar_tone",
+           "finish_planar_tone_plain", "gamma_u8", "linear_scal",
+           "linear_u8"]
 
 MODES = ("reinhard", "linear")
 
@@ -49,6 +61,13 @@ YUV420_KERNELS = hopper.register_per_dtype(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/models/camera_isp.py:1485"))
+PLANAR_TONE_KERNELS = hopper.register_per_dtype(
+    "finish_planar_tone", "finish.cu", "tit_finish_planar_tone",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    dict.fromkeys(hopper.DTYPE_SUFFIX,
+                  "taichi_image_tpu/models/camera_isp.py:1721-1727"))
 
 
 def _inv_gamma(gamma: float):
@@ -73,13 +92,6 @@ def gamma_u8(p: torch.Tensor, max_out: torch.Tensor,
     o = torch.exp2(torch.log2(o) * inv_gamma)
   v = torch.nan_to_num(torch.clamp(255.0 * o, 0.0, 255.0), nan=0.0)
   return v.to(torch.uint8)
-
-
-def linear_scal(metrics: torch.Tensor) -> torch.Tensor:
-  """(2,) f32 [m0, inv_range = 1 / (m1 - m0)] on ``metrics``' device (no
-  host sync)."""
-  m = metrics.to(torch.float32)
-  return torch.stack([m[0], 1.0 / (m[1] - m[0])])
 
 
 def linear_u8(x: torch.Tensor, lin: torch.Tensor,
@@ -202,3 +214,42 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
       yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
       hopper.ptr(yuv420.inv255_table(dev)))
   return y, vu
+
+
+def finish_planar_tone_plain(x: torch.Tensor, scal: torch.Tensor,
+                             gamma: float, mode: str = "reinhard",
+                             transform: ImageTransform = ImageTransform.none
+                             ) -> torch.Tensor:
+  """Plain PyTorch twin of P: the mode's u8 of the planar ``x``, then the
+  transform as a contiguous copy."""
+  return transform_axes(_tone_u8(x, scal, gamma, mode), transform, 2,
+                        3).contiguous()
+
+
+def finish_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
+                       mode: str = "reinhard",
+                       transform: ImageTransform = ImageTransform.none,
+                       backend: str = "auto") -> torch.Tensor:
+  """P: untransformed planar (N, 3, h, w) of the working dtype (bf16, f16
+  or f32) -> planar u8 (N, 3, h', w') of the transformed image; bitwise
+  equal to the plain twin.
+
+  ``mode="reinhard"``: ``x`` is K3's p and ``scal`` its per-image f32 max
+  (N, 1, 1, 1). ``mode="linear"``: ``x`` is the image and ``scal`` the
+  linear vector [m0, inv_range]."""
+  _check_finish(x, scal, mode, channels=3)
+  if not hopper.use_kernel(backend, x):
+    return finish_planar_tone_plain(x, scal, gamma, mode, transform)
+  hopper.check_tensor("x", x, x.dtype, 4, x.device)
+  hopper.check_tensor("scal", scal, torch.float32, scal.ndim, x.device)
+  n, _, h, w = x.shape
+  hopper.check_int32_extent(f"a {h}x{w} planar image", 3 * h * w)
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  out = torch.empty((n, 3, w, h) if swap else (n, 3, h, w),
+                    dtype=torch.uint8, device=x.device)
+  inv_gamma = _inv_gamma(gamma)
+  PLANAR_TONE_KERNELS[x.dtype].launch(
+      x.device, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(out), n, h, w,
+      int(mode == "linear"), int(inv_gamma is not None),
+      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx))
+  return out

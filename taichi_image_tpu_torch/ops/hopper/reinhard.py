@@ -5,10 +5,11 @@ Replaces the TPU map kernels of ``taichi_image_tpu/ops/pallas/reinhard.py``:
 ``reinhard_map_bf16_dma`` (bf16), ``reinhard_map_pallas`` (f32) and, as
 the f16 instantiation, ``reinhard_map_q16_dma`` (the Camera16 route) and
 ``reinhard_map_packed(_dma)``, whose i32 containers stand in for the f16
-the TPU cannot load or store. The scalar vector comes from
-:func:`reinhard_scal` / :func:`reinhard_scal_ca`, computed in torch on
-the tensor's device and handed to the kernel as a device pointer: the
-main path makes no host sync.
+the TPU cannot load or store. The scalar vector is M's (``meter.py``:
+the metering kernel writes it beside the new vec9, or ``meter_vectors``
+from metrics the caller holds), handed to the kernel as a device
+pointer: the main path makes no host sync. :func:`reinhard_scal` and
+:func:`reinhard_scal_ca` are its plain twins, kept in ``meter.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import ctypes
 import torch
 
 from taichi_image_tpu_torch.ops import hopper
+from taichi_image_tpu_torch.ops.hopper.meter import (reinhard_scal,
+                                                     reinhard_scal_ca)
 
 __all__ = ["reinhard_scal", "reinhard_scal_ca", "reinhard_map",
            "reinhard_map_plain", "reinhard_map_f32"]
@@ -31,35 +34,6 @@ KERNELS = hopper.register_per_dtype(
     # f16 also covers reinhard_map_packed_dma (:441) and _packed (:482)
     {torch.bfloat16: f"{_PALLAS}:274", torch.float16: f"{_PALLAS}:625",
      torch.float32: f"{_PALLAS}:124"})
-
-
-def _scalar(v: float, device) -> torch.Tensor:
-  """A 0-d f32 tensor made on ``device`` by a fill (no host-to-device
-  copy, so no stream sync on the main path)."""
-  return torch.full((), float(v), dtype=torch.float32, device=device)
-
-
-def reinhard_scal(metrics: torch.Tensor, intensity: float,
-                  light_adapt: float) -> torch.Tensor:
-  """(6,) f32 on ``metrics``' device: [m0, range, map_key, mean,
-  exp(-intensity), light_adapt]."""
-  m = metrics.to(torch.float32)
-  key = (m[3] - m[4]) / (m[3] - m[2])
-  map_key = 0.3 + 0.7 * torch.pow(key, 1.4)
-  eni = torch.exp(_scalar(-float(intensity), m.device))
-  return torch.stack([m[0], m[1] - m[0], map_key, m[5], eni,
-                      _scalar(light_adapt, m.device)])
-
-
-def reinhard_scal_ca(metrics: torch.Tensor, intensity: float,
-                     light_adapt: float, color_adapt: float) -> torch.Tensor:
-  """(10,) f32: reinhard_scal's six plus [color_adapt, cmean_r, cmean_g,
-  cmean_b], cmean_c = lerp(color_adapt, mean, channel_mean_c)."""
-  m = metrics.to(torch.float32)
-  base = reinhard_scal(m, intensity, light_adapt)
-  ca = _scalar(color_adapt, m.device)
-  cmean = m[5] + ca * (m[6:9] - m[5])
-  return torch.cat([base, ca[None], cmean])
 
 
 def reinhard_map_f32(x: torch.Tensor, scal: torch.Tensor,

@@ -241,6 +241,25 @@ def _refuse(spec, device, cache):
   return dict(name=spec["name"], error=None)
 
 
+def _meter(spec, device, cache):
+  """The metering of this rank's cameras of the sample, reduced over the
+  world group (``ops/hopper/meter.meter`` with a group: M's three
+  launches on CUDA, its twin on the CPU): the new metrics and vectors."""
+  from taichi_image_tpu_torch.ops.hopper import meter
+  sample = torch.from_numpy(spec["sample"]).to(
+      device, types.canonical_dtype(spec["dtype"]))
+  i, n = dist.get_rank(), dist.get_world_size()
+  k = sample.shape[0] // n
+  part = sample[i * k:(i + 1) * k]
+  n_total = sample.shape[0] * sample.shape[2] * sample.shape[3]
+  got = meter.meter(part, torch.from_numpy(spec["prev"]).to(device),
+                    spec["t"], spec.get("intensity", 1.0),
+                    spec.get("light_adapt", 1.0), spec["color_adapt"],
+                    group=dist.group.WORLD, n_total=n_total)
+  return dict(name=spec["name"], **{f: getattr(got, f).cpu().numpy()
+                                     for f in got._fields})
+
+
 def _mesh_info(spec, device, cache):
   """``make_camera_mesh`` over every rank and over the first one."""
   out = {}
@@ -263,7 +282,8 @@ def run_variants(variants, device="cpu", keep=False) -> list[dict]:
   steps; with ``keep`` also each step's metrics and the whole output
   (gathered) with this rank's output shapes. "demosaic", "refuse" and
   "mesh" variants check ``demosaic_phases_spatial``, a factory's
-  ``ValueError`` and ``make_camera_mesh``."""
+  ``ValueError`` and ``make_camera_mesh``; a "meter" variant returns
+  the metering reduced over the ranks (:func:`_meter`)."""
   device = torch.device(device)
   if device.type == "cuda":
     device = torch.device("cuda", torch.cuda.current_device())
@@ -277,6 +297,8 @@ def run_variants(variants, device="cpu", keep=False) -> list[dict]:
       results.append(_refuse(spec, device, cache))
     elif kind == "mesh":
       results.append(_mesh_info(spec, device, cache))
+    elif kind == "meter":
+      results.append(_meter(spec, device, cache))
     else:
       results.append(_step(spec, device, cache, keep))
   return results

@@ -46,7 +46,6 @@ from taichi_image_tpu_torch.models import camera_isp as ci
 from taichi_image_tpu_torch.models import large
 from taichi_image_tpu_torch.ops import bayer as bayer_ops
 from taichi_image_tpu_torch.ops.hopper import demosaic as hopper_dm
-from taichi_image_tpu_torch.ops.hopper import finish as hopper_finish
 from taichi_image_tpu_torch.ops.hopper import yuv420 as hopper_yuv420
 from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
                                                     _axis_samples,
@@ -313,20 +312,21 @@ def _build_local_step(*, fmt, ids_format, work_dtype, pattern, cc, stride,
       x = large.resize_band(x12, out_rows, geom.q, geom.hh, geom.wh, size,
                             scale_yx)
       sample = bayer_ops.subsample_hw(x, stride, stride)
-    metrics = ci._meter(sample, prev, t, meter_group, n_total)
+    mt = ci._meter(sample, prev, t, meter_group, n_total, intensity,
+                   light_adapt, color_adapt)
     if tonemap == "reinhard":
-      x, scal = ci.reinhard_map_max_ca(x, metrics, intensity, light_adapt,
-                                       color_adapt, wd)
+      x, scal = ci.reinhard_map_max_ca(x, mt.metrics, intensity,
+                                       light_adapt, color_adapt, wd,
+                                       scal=mt.scal)
       # the image's max over its rows on every rank of the axis
       dist.all_reduce(scal, op=dist.ReduceOp.MAX, group=row_group)
     else:
-      scal = hopper_finish.linear_scal(metrics)
+      scal = mt.lin
     if geom.resize is None:
-      return metrics, ci._finish(x, scal, gamma, tonemap, transform,
-                                 color_format, "auto")
-    out = large.finish_resized(x, scal, gamma, tonemap, transform,
-                               color_format)
-    return metrics, out if color_format == "yuv420" else out.contiguous()
+      return mt.metrics, ci._finish(x, scal, gamma, tonemap, transform,
+                                    color_format, "auto")
+    return mt.metrics, large.finish_resized(x, scal, gamma, tonemap,
+                                            transform, color_format)
 
   return step
 

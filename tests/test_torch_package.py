@@ -22,6 +22,7 @@ from taichi_image_tpu_torch.ops.hopper import decode as th_decode  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import demosaic as th_dm  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import front_fused as th_ff  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import meter as th_meter  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import reinhard as th_rh  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import resize as th_rs  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import yuv420 as th_yuv  # noqa: E402
@@ -46,6 +47,7 @@ def test_import_pulls_in_no_jax():
       import taichi_image_tpu_torch.ops.hopper.resize
       import taichi_image_tpu_torch.ops.hopper.front_fused
       import taichi_image_tpu_torch.ops.hopper.yuv420
+      import taichi_image_tpu_torch.ops.hopper.meter
       import taichi_image_tpu_torch.ops.color
       import taichi_image_tpu_torch.ops.tonemap
       import taichi_image_tpu_torch.ops.interpolate
@@ -111,9 +113,9 @@ def test_every_jax_module_has_a_port():
 
 STAGES = ["decode", "demosaic", "reinhard", "finish", "resize",
           "finish_yuv420", "yuv420_planar_tone", "decode16", "split_u16",
-          "split_f16", "split_f32"]
+          "split_f16", "split_f32", "meter", "finish_planar_tone"]
 # one instantiation each, no X-macro
-_SINGLE = {"front_fused_bf16", "yuv420_planar"}
+_SINGLE = {"front_fused_bf16", "yuv420_planar", "meter_vectors"}
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 # XLA routes of the JAX package that a kernel instantiation replaces
 _XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
@@ -122,10 +124,17 @@ _XLA_ROUTES = {"decode_f32": "960-972", "resize_f16": "1315",
                   for sfx in ("bf16", "f16", "f32")},
                **{f"yuv420_planar_tone_{sfx}": "1721"
                   for sfx in ("bf16", "f16", "f32")},
+               **{f"meter_{sfx}": "996-1025"
+                  for sfx in ("bf16", "f16", "f32")},
+               **{f"finish_planar_tone_{sfx}": "1721-1727"
+                  for sfx in ("bf16", "f16", "f32")},
                **{f"decode16_{sfx}": "973-986"
                   for sfx in ("bf16", "f16", "f32")},
                **{f"split_{s}_{sfx}": "987-991" for s in ("u16", "f16", "f32")
                   for sfx in ("bf16", "f16", "f32")}}
+# XLA computations that a Pallas module keeps beside its kernels (the
+# map's scalar vectors, "computed in XLA"): {kernel: (lines, first line)}
+_XLA_IN_PALLAS = {"meter_vectors": ("52-76", "def reinhard_scal(")}
 
 
 def test_kernels_registered_with_sources():
@@ -147,6 +156,11 @@ def test_kernels_registered_with_sources():
     if k.name in _XLA_ROUTES:  # no Pallas kernel: an XLA route
       assert path == "taichi_image_tpu/models/camera_isp.py", path
       assert lines == _XLA_ROUTES[k.name]
+    elif k.name in _XLA_IN_PALLAS:
+      want, first = _XLA_IN_PALLAS[k.name]
+      assert path.startswith("taichi_image_tpu/ops/pallas/") and lines == want
+      text = (REPO / path).read_text().splitlines()
+      assert text[int(lines.split("-")[0]) - 1].startswith(first)
     else:
       assert path.startswith("taichi_image_tpu/ops/pallas/"), path
       text = (REPO / path).read_text().splitlines()
@@ -178,6 +192,10 @@ def _kernel_calls(dtype):
       "finish_yuv420": lambda: th_fin.finish_yuv420(
           x12, torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
       "yuv420_planar_tone": lambda: th_yuv.yuv420_planar_tone(
+          x12[:, :3], torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
+      "meter": lambda: th_meter.meter(x12[:, :3], torch.zeros(9), 0.0,
+                                      backend="kernel"),
+      "finish_planar_tone": lambda: th_fin.finish_planar_tone(
           x12[:, :3], torch.ones(1, 1, 1, 1), 1.0, backend="kernel"),
       "resize": lambda: th_rs.resize_x12(
           x12, th_rs.resize_taps(4, 6, (6, 4), (0.5, 0.5),

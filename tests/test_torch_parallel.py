@@ -147,18 +147,20 @@ def test_run_ranks_reports_a_failing_rank():
 # --------------------------------------------------------------------------
 
 def metering_before_groups(x, prev, t):
-  """``metering_update_ca`` as it was before it took a group."""
+  """``metering_update_ca`` as it was before it took a group, with the
+  five sums in f64 rounded once to f32 and the division by the count in
+  IEEE f32, as the metering kernel and its twin take them."""
   x = x.to(torch.float32)
   b = lerp(t, torch.stack([x.amin(), x.amax()]), prev[:2])
   scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
   r, g, bch = scaled[:, 0], scaled[:, 1], scaled[:, 2]
   gray = 0.299 * r + 0.587 * g + 0.114 * bch
   log_gray = torch.log(torch.clamp_min(gray, 1e-4))
-  sums = torch.stack([log_gray.sum(), gray.sum(), r.sum(), g.sum(),
-                      bch.sum()])
+  sums = torch.stack([v.double().sum() for v in
+                      (log_gray, gray, r, g, bch)]).float()
   n_total = x.shape[0] * x.shape[2] * x.shape[3]
   stats = torch.cat([b, torch.stack([log_gray.amin(), log_gray.amax()]),
-                     sums / n_total])
+                     sums / torch.tensor(float(n_total))])
   return lerp(t, stats, prev)
 
 
