@@ -483,16 +483,43 @@ def reinhard_map_max_ca(x: torch.Tensor, metrics: torch.Tensor, intensity,
   return hopper_reinhard.reinhard_map(x, scal, ca_mode, backend=backend)
 
 
+# What one launch of P takes of an image seen as (3, 1, m), and of images:
+# it indexes an image's values in 32 bits and puts its 3 planes on grid.z.
+_TONE_VALUES = 3 * (1 << 28)
+_TONE_IMAGES = 65535 // 3
+
+
 def _tone_any(x: torch.Tensor, scal: torch.Tensor, gamma, mode: str,
               backend: str = "auto") -> torch.Tensor:
   """The tone alone on any layout whose images hold 3m values: P with no
   transform on the images seen as (N, 3, 1, m) (the tone is per value,
   its max per image; the linear one has no per-image part, so the whole
-  tensor is one such image). u8 of ``x``'s shape."""
+  tensor is one such image). u8 of ``x``'s shape.
+
+  A dtype other than the kernels' goes in as its f32 values (the twins'
+  first step), as does a max or linear vector of another dtype than f32.
+  A tensor beyond one launch's extent runs as several, on parts of at
+  most ``_TONE_IMAGES`` images of ``_TONE_VALUES`` values, each with its
+  images' max."""
+  if x.numel() == 0:
+    return torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+  if x.dtype not in hopper.DTYPE_SUFFIX:
+    x = x.to(torch.float32)
+  scal = scal.to(torch.float32)
   n = x.shape[0] if mode == "reinhard" else 1
-  return hopper_finish.finish_planar_tone(
-      x.reshape(n, 3, 1, -1), scal, gamma, mode,
-      backend=backend).reshape(x.shape)
+  flat = x.reshape(n, -1)
+  if mode == "reinhard":
+    scal = scal.reshape(-1)
+  rows = []
+  for i in range(0, n, _TONE_IMAGES):
+    s = scal[i:i + _TONE_IMAGES] if mode == "reinhard" else scal
+    row = [hopper_finish.finish_planar_tone(
+        part.reshape(part.shape[0], 3, 1, -1), s, gamma, mode,
+        backend=backend).reshape(part.shape)
+           for part in flat[i:i + _TONE_IMAGES].split(_TONE_VALUES, dim=1)]
+    rows.append(row[0] if len(row) == 1 else torch.cat(row, dim=1))
+  out = rows[0] if len(rows) == 1 else torch.cat(rows)
+  return out.reshape(x.shape)
 
 
 def reinhard_gamma_ca(p_cast: torch.Tensor, max_out: torch.Tensor,
@@ -1093,7 +1120,7 @@ class _ISPBase:
     mt = self._update_metering_batch(form, batch)
     fn = (_jit_linear_phases if form == "phases"
           else _jit_linear_planar)
-    out = fn(batch, self.metrics, float(gamma), self.transform, lin=mt.lin)
+    out = fn(batch, float(gamma), self.transform, mt.lin)
     return [PlanarImage(o) for o in out]
 
   def _tonemap_fused_lazy(self, images, tonemap, gamma, intensity=1.0,
@@ -1308,11 +1335,9 @@ def _jit_reinhard_planar(batch, metrics, gamma, intensity, light_adapt,
                                           "reinhard", transform)
 
 
-def _jit_linear_planar(batch, metrics, gamma, transform, lin=None):
-  """P's linear mode on a planar batch (an image of another dtype than
-  the kernels' goes in as its f32 values)."""
-  if lin is None:
-    _, lin = hopper_meter.vectors(metrics)
+def _jit_linear_planar(batch, gamma, transform, lin):
+  """P's linear mode on a planar batch with M's linear vector ``lin`` (an
+  image of another dtype than the kernels' goes in as its f32 values)."""
   x = batch.contiguous()
   if x.dtype not in hopper.DTYPE_SUFFIX:
     x = x.to(torch.float32)
@@ -1331,10 +1356,8 @@ def _jit_reinhard_phases(x12, metrics, gamma, intensity, light_adapt,
                  "auto")
 
 
-def _jit_linear_phases(x12, metrics, gamma, transform, lin=None):
-  """K4's linear mode on a phase-form batch."""
-  if lin is None:
-    _, lin = hopper_meter.vectors(metrics)
+def _jit_linear_phases(x12, gamma, transform, lin):
+  """K4's linear mode on a phase-form batch with M's linear vector."""
   return _finish(x12, lin, gamma, "linear", transform, "rgb", "auto")
 
 

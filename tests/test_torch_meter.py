@@ -9,7 +9,8 @@ Contracts:
     odd stride's gather), t in {0, 0.9} and color_adapt in {0, 0.5}:
     vec9 within 1e-5, the vectors within 1e-5 relative (PyTorch's and
     XLA's CPU sums run in other orders); a strided view bitwise its
-    contiguous copy;
+    contiguous copy; the stride-7 bf16 step against JAX's under
+    tests/test_torch_resize.py's ``compare_step``;
   * the group twin on 2 gloo ranks against JAX's ``axis_name`` path (a
     ``vmap`` over the two shards): the same contract, every rank the same
     bits;
@@ -37,6 +38,7 @@ from taichi_image_tpu_torch.ops import bayer as tbayer  # noqa: E402
 from taichi_image_tpu_torch.ops import hopper  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import meter as th_meter  # noqa: E402
 from taichi_image_tpu_torch.parallel import dryrun  # noqa: E402
+from test_torch_resize import route_vs_jax  # noqa: E402
 
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 SOURCES = ("stencil", "resize_view", "x12_view", "gather")
@@ -111,6 +113,16 @@ def test_meter_twin_matches_jax(dtype, source, t, ca):
                         INTENSITY, LIGHT_ADAPT, ca)
   for a, b in zip(got, same):
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ca", [0.0, 0.5], ids=["ca0", "ca0.5"])
+def test_stride7_bf16_route_matches_jax(ca):
+  """The stride-7 bf16 route, whose map's bf16 rounding is the most
+  sensitive to the metering's last bits: the port's step, with the sums
+  in f64, against JAX's step, with its f32 sums, under compare_step's
+  contract, at these tests' largest raws and three frames of EMA."""
+  route_vs_jax("CameraBF16", [_raws(300 + f) for f in range(3)], stride=7,
+               color_adapt=ca)
 
 
 def test_meter_returns_metering_update_ca():

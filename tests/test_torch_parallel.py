@@ -143,13 +143,30 @@ def test_run_ranks_reports_a_failing_rank():
 
 
 # --------------------------------------------------------------------------
-# The metering and the step without a group are what they were.
+# The metering and the step without a group keep their group-free form.
 # --------------------------------------------------------------------------
 
 def metering_before_groups(x, prev, t):
-  """``metering_update_ca`` as it was before it took a group, with the
-  five sums in f64 rounded once to f32 and the division by the count in
-  IEEE f32, as the metering kernel and its twin take them."""
+  """``metering_update_ca`` as it was before it took a group: the five
+  sums in f32, divided by the pixel count as a Python number."""
+  x = x.to(torch.float32)
+  b = lerp(t, torch.stack([x.amin(), x.amax()]), prev[:2])
+  scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
+  r, g, bch = scaled[:, 0], scaled[:, 1], scaled[:, 2]
+  gray = 0.299 * r + 0.587 * g + 0.114 * bch
+  log_gray = torch.log(torch.clamp_min(gray, 1e-4))
+  sums = torch.stack([log_gray.sum(), gray.sum(), r.sum(), g.sum(),
+                      bch.sum()])
+  n_total = x.shape[0] * x.shape[2] * x.shape[3]
+  stats = torch.cat([b, torch.stack([log_gray.amin(), log_gray.amax()]),
+                     sums / n_total])
+  return lerp(t, stats, prev)
+
+
+def metering_without_a_group(x, prev, t):
+  """The same group-free formula in the arithmetic that the metering
+  kernel and its twin share: the five sums in f64 rounded once to f32,
+  the division by the count in IEEE f32."""
   x = x.to(torch.float32)
   b = lerp(t, torch.stack([x.amin(), x.amax()]), prev[:2])
   scaled = (x - b[0]) / (b[1] - b[0] + 1e-6)
@@ -198,9 +215,15 @@ def _samples():
 
 
 def test_metering_without_a_group_is_bitwise_its_old_form():
+  """Bitwise the group-free formula in the kernel's arithmetic, and within
+  1e-6 relative of the f32 sums it took before the metering kernel (the
+  bounds and log bounds bitwise: only the sums' rounding moved)."""
   for x, prev, t in _samples():
-    assert torch.equal(tci.metering_update_ca(x, prev, t),
-                       metering_before_groups(x, prev, t))
+    got = tci.metering_update_ca(x, prev, t)
+    assert torch.equal(got, metering_without_a_group(x, prev, t))
+    old = metering_before_groups(x, prev, t)
+    assert torch.equal(got[:4], old[:4])
+    np.testing.assert_allclose(got.numpy(), old.numpy(), rtol=1e-6, atol=0)
 
 
 def test_metering_with_a_one_rank_group_is_bitwise_without(world1):
@@ -233,7 +256,7 @@ _ARGS = (0.8, 2.0, 1.0, 0.0, "packed12", False)
 @pytest.mark.parametrize("tonemap", ["reinhard", "linear"])
 def test_step_without_a_group_is_bitwise_its_stages(dtype, tonemap):
   """The phase route of ``fused_isp_step``, composed by hand from its
-  stages with the metering's old form."""
+  stages with the metering's group-free form."""
   raws, prev = _raws(), torch.rand(9)
   m, out = tci.fused_isp_step(raws, prev, 0.9, *_ARGS, dtype,
                               BayerPattern.RGGB, None, None, 8,
@@ -241,7 +264,7 @@ def test_step_without_a_group_is_bitwise_its_stages(dtype, tonemap):
   phases = tci.load_raw_phases(raws, "packed12", dtype)
   x12, sample = demosaic_phases(phases, BayerPattern.RGGB, out_dtype=dtype,
                                 sample_step=4)
-  want_m = metering_before_groups(sample, prev, 0.9)
+  want_m = metering_without_a_group(sample, prev, 0.9)
   if tonemap == "reinhard":
     p, mx = tci.reinhard_map_max_ca(x12, want_m, 2.0, 1.0, 0.0, dtype)
     want = th_fin.finish_planar_u8(p, mx, 0.8)

@@ -149,6 +149,51 @@ def test_planar_tail_is_the_route_tail():
   assert torch.equal(out, want) and torch.equal(isp.metrics, mt.metrics)
 
 
+def test_tone_any_layout_takes_other_dtypes():
+  """The public tones on any layout take an f64 image (and max) as their
+  f32 values: bitwise the torch tone on the f64 tensor, which casts first,
+  and within a count of JAX's (its f64 arrays are f32 without x64)."""
+  _, t, m = _planar("f32")
+  x = t.double().permute(0, 2, 3, 1)  # channels last, f64
+  lin = th_meter.linear_scal(m)
+  got = tci.linear_apply_ca(x, m, 2.2)
+  assert got.shape == x.shape and got.dtype == torch.uint8
+  assert torch.equal(got, th_fin.linear_u8(x, lin, 2.2))
+  want = np.asarray(jci.linear_apply_ca(jnp.asarray(x.numpy()),
+                                        jnp.asarray(m.numpy()), 2.2))
+  assert np.abs(got.numpy().astype(int) - want).max() <= 1
+  mx = x.amax(dim=(1, 2, 3), keepdim=True)
+  got = tci.reinhard_gamma_ca(x, mx, 2.2)
+  assert torch.equal(got, th_fin.gamma_u8(x, mx, 2.2))
+  assert torch.equal(got, tci.reinhard_gamma_ca(x.float(), mx.float(), 2.2))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tone_any_in_parts_is_one_pass(mode, monkeypatch):
+  """Beyond one launch's extent the tone runs on parts (a few images of a
+  few values each, each with its images' max): bitwise one pass."""
+  x = torch.from_numpy(np.random.default_rng(8).random((5, 6, 4, 3),
+                                                       np.float32))
+  scal = (x.amax(dim=(1, 2, 3), keepdim=True) if mode == "reinhard"
+          else torch.tensor([0.1, 1.25]))
+  want = tci._tone_any(x, scal, 2.2, mode)
+  monkeypatch.setattr(tci, "_TONE_VALUES", 6)
+  monkeypatch.setattr(tci, "_TONE_IMAGES", 2)
+  calls = []
+  real = th_fin.finish_planar_tone
+  monkeypatch.setattr(th_fin, "finish_planar_tone",
+                      lambda v, *a, **k: calls.append(v.shape) or real(v, *a,
+                                                                      **k))
+  got = tci._tone_any(x, scal, 2.2, mode)
+  assert torch.equal(got, want)
+  # linear: one image of 360 values; Reinhard: 3 parts of <= 2 images of 72
+  assert len(calls) == (60 if mode == "linear" else 36)
+  assert all(s[2] * s[3] * 3 <= 6 and s[0] <= 2 for s in calls)
+  empty = tci._tone_any(x[:0], scal[:0] if mode == "reinhard" else scal,
+                        1.0, mode)
+  assert empty.shape == (0, 6, 4, 3) and empty.dtype == torch.uint8
+
+
 def test_planar_tail_refuses_bad_input():
   x = torch.zeros(1, 3, 4, 6)
   one = torch.ones(1, 1, 1, 1)
