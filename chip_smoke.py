@@ -34,7 +34,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
             1e-6 relative, the vectors within 1 ulp, two runs bitwise,
             x12's strided view and, at 6x4K, the x0.5 resize's strided
             view bitwise their contiguous layouts, a 1-pixel sample, NaN
-            pixels), P (finish_planar_tone) bitwise wherever the planar
+            pixels; at 6x4K also blocks whose runs end mid-row, rows of
+            1001 pixels, a view from column 1 bitwise its aligned copy,
+            and the 6x8K whole frame's sample, pass 2 from device memory,
+            bitwise its band-joined form; each sample's plan logged),
+            P (finish_planar_tone) bitwise wherever the planar
             I420 tonemap form is checked (both modes, gamma 1 and 2.2, the
             8 transforms),
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
@@ -84,7 +88,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
             input against the plain route on the CPU.
 5. routes   the other routes the same way, each with the launch counts
             set to 0 just before it and read just after, held to the
-            kernels it must launch and no others (M twice a step):
+            kernels it must launch and no others (M once a step):
             resize_width=1920 with rotate_90 for each class (M, K3, P),
             scale 0.37, flip_horiz for each class, the linear tonemap at
             gamma 2.2 for each class, with and without resize_width=1920,
@@ -182,7 +186,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
             sync-debug "error" mode (the step must not sync with the
             host); the step without the checksum; the device busy share
             and the device operations per step from a torch.profiler
-            trace; a per-stage table. Then the same
+            trace; a per-stage table. Then M's time in the kernel
+            table: its launch's device time from a profiler trace at each
+            dtype's 6x4K sample (the kernels phase's events measure its
+            wrapper's host time), beside the device time of torch.aminmax
+            over the same sample (its library call) and the wrapper's host
+            time a call. Then the same
             step method for the resize->1920 step of each class and the
             front-fused bf16 step, each resize->1920 step and the
             front-fused step with its profile (busy share, device
@@ -517,6 +526,9 @@ def _check_meter(what, sfx, x, prev, note, views=()):
   the other values (the vectors' constants) within 1 ulp."""
   import torch
   from taichi_image_tpu_torch.ops.hopper import meter
+  p = meter.plan(x.shape, x.dtype)
+  log(f"  meter {what}: {p.grid} blocks of {p.per_block} runs of {p.run} "
+      f"pixels, pass 2 from {'shared' if p.cached else 'device'} memory")
   args = (METER_INTENSITY, METER_LIGHT_ADAPT)
   zeros = torch.zeros(9, device=x.device)
   for t, pv in ((0.0, zeros), (0.9, prev)):
@@ -554,6 +566,103 @@ def _check_meter(what, sfx, x, prev, note, views=()):
     if not (torch.equal(num, ~torch.isnan(b))
             and (not num.any() or ulps(a[num], b[num]) <= 1)):
       raise AssertionError(f"meter {what} NaN pixels: {a} vs the twin's {b}")
+
+
+def _check_meter_shapes(kt, sfx, dtype, gen, note):
+  """M's shapes of work beyond the stencil's samples, each under
+  :func:`_check_meter`'s contract: blocks whose runs end mid-row; rows of
+  1001 pixels, which no run divides (the vector path's ragged end, rows
+  not 16-byte aligned); a view from column 1 (its data 16-byte aligned
+  nowhere, every run loaded a pixel at a time) bitwise its aligned copy;
+  the 6x8K whole frame's sample, too large for shared memory (pass 2 from
+  device memory), bitwise its band-joined form."""
+  import torch
+  from taichi_image_tpu_torch.models.camera_isp import metering_update_ca
+  dev = torch.device("cuda")
+
+  def rand(shape):
+    return (torch.rand(shape, generator=gen, device=dev) * 1.3).to(dtype)
+  unaligned = rand((N_CAM, 3, 270, 481))[..., 1:]
+  big = rand((N_CAM, 3, 540, 1440))
+  bands = torch.cat([big[:, :, r:r + 68] for r in range(0, 540, 68)], dim=2)
+  cases = [("blocks ending mid-row", rand((3, 3, 301, 1000)), []),
+           ("rows of 1001", rand((4, 3, 271, 1001)), []),
+           ("a view from column 1", unaligned,
+            [("its aligned copy", unaligned.contiguous())]),
+           ("the 6x8K whole frame's sample", big,
+            [("its band-joined form", bands)])]
+  zeros9 = torch.zeros(9, device=dev)
+  for what, x, views in cases:
+    prev = metering_update_ca((x.float() * 0.8).to(dtype), zeros9, 0.0,
+                              backend="plain")
+    _check_meter(f"{kt} {what} {tuple(x.shape)}", sfx, x, prev, note, views)
+
+
+def _device_ms(fn, calls=50):
+  """(device ms per call of ``fn``, {kernel: launches per call}): the sum
+  of the kernels' device time in a profiler trace of ``calls`` calls after
+  a warm-up, over ``calls``; (None, {}) where the trace holds no device
+  time."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  for _ in range(3):
+    fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  kern = [(e.key, e.self_device_time_total, e.count)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+  if not kern:
+    return None, {}
+  return (sum(t for _, t, _ in kern) / calls / 1e3,
+          {k[:60]: c / calls for k, _, c in kern})
+
+
+def _host_us(fn, calls=200):
+  """Median host time in us of one call of ``fn`` with the launch queue
+  empty (a synchronize before each call, outside the timed part)."""
+  import torch
+  times = []
+  for _ in range(calls + 10):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    times.append((time.perf_counter() - t0) * 1e6)
+  return statistics.median(times[10:])
+
+
+def _time_meter(results, name, call, sample):
+  """M's own numbers beside :func:`_time`'s (whose CUDA events around
+  batches of wrapper calls measure the wrapper's host time, longer than
+  the launch's device time): its device time per launch and that of its
+  library call, one ``torch.aminmax`` over the same sample (the function of
+  its bounds pass), from profiler traces; the wrapper's host time per
+  call. ``ms`` and ``library_ms`` become the device times; the events'
+  times stay as ``wrapper_ms`` and ``library_event_ms``."""
+  import torch
+  r = results[name]
+  dev_ms, kernels = _device_ms(lambda: call("kernel"))
+  lib_ms, lib_kernels = _device_ms(lambda: torch.aminmax(sample))
+  lib_event = min(median_ms(lambda: torch.aminmax(sample)) for _ in range(2))
+  host = _host_us(lambda: call("kernel"))
+  r.update(wrapper_ms=r["ms"], library_event_ms=lib_event, host_us=host,
+           kernels=kernels, library_kernels=lib_kernels)
+  if dev_ms is not None:
+    r.update(ms=dev_ms, share=r["bound_ms"] / dev_ms)
+  r["library_ms"] = lib_ms if lib_ms is not None else lib_event
+  dev = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us"
+  lib = "not measured" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+  log(f"  {name}: device time per launch {dev} ({kernels}), "
+      f"{r['share']:.1%} of its bound {r['bound_ms'] * 1e3:.2f} us; "
+      f"torch.aminmax of the same sample: device {lib} ({lib_kernels}), "
+      f"events {lib_event * 1e3:.2f} us; wrapper host time {host:.2f} us "
+      f"a call, {r['wrapper_ms'] * 1e3:.2f} us a call in batches of 10 "
+      f"(sample {tuple(sample.shape)})")
 
 
 def _nbytes(*tensors) -> int:
@@ -778,6 +887,8 @@ def phase_kernels(results):
       _check_meter(f"{kt} sample {tuple(samp.shape)}", sfx, samp, prev,
                    note, [("x12's strided view", x12[:, 0:3, ::4, ::4])])
       _check_meter(f"{kt} 1 pixel", sfx, samp[:1, :, :1, :1], prev, note)
+      if shape == (N_CAM, H, WB):
+        _check_meter_shapes(kt, sfx, dtype, gen, note)
       if shape in (ODD, RAGGED):
         # K2's banded mode (and K7's gates): every variant at ODD, the
         # main one at RAGGED
@@ -1349,7 +1460,7 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
       raise AssertionError(f"{name} {cls.__name__} did not run through "
                            f"{sorted(own)} alone: {launches}")
     meter = f"meter_{sfx}"
-    if meter in own and launches[meter] != 2 * len(frames):
+    if meter in own and launches[meter] != len(frames):
       raise AssertionError(f"{name} {cls.__name__}: {meter} launched "
                            f"{launches[meter]} times in {len(frames)} steps")
     plan = isp._resize_plan(h, decoded_width(fmt, w_raw))
@@ -1406,9 +1517,9 @@ _RESIZE = ("decode", "demosaic", "resize", "meter", "reinhard")
 
 def _step_launches(stages, sfx, steps):
   """{kernel: launches} of ``steps`` steps through ``stages`` of the dtype
-  suffix ``sfx``: one launch of each stage a step, two of M's."""
-  return {f"{st}_{sfx}": steps * (2 if st == "meter" else 1)
-          for st in stages}
+  suffix ``sfx``: one launch of each stage a step (M's one cooperative
+  launch too)."""
+  return {f"{st}_{sfx}": steps for st in stages}
 
 
 def phase_slice(frames, sfx):
@@ -1601,7 +1712,7 @@ def phase_format_routes(frames):
     # M in update_metering and again in tonemap_linear's staged metering
     got = counts(f"staged u16 {name}", {
         f"split_u16_{sfx}": N_CAM, f"demosaic_{sfx}": N_CAM,
-        f"meter_{sfx}": 4, f"finish_{sfx}": 1})
+        f"meter_{sfx}": 2, f"finish_{sfx}": 1})
     args = _step_args(cls._work_dtype, tonemap="linear", gamma=1.2,
                       fmt="u16")
     m1, _ = ci.fused_isp_step(u16, torch.zeros(9, device="cuda"), 0.0,
@@ -1665,7 +1776,7 @@ def phase_format_routes(frames):
   outs = bf.tonemap_reinhard(imgs)
   one = bf.tonemap_only(imgs[1], bf.metrics, 1.0, 1.0, 1.0, 0.0)
   got = counts("f32 images on CameraBF16", {
-      "meter_f32": 2, "reinhard_f32": 2, "finish_planar_tone_bf16": 2,
+      "meter_f32": 1, "reinhard_f32": 2, "finish_planar_tone_bf16": 2,
       "meter_vectors": 1})
   batch = torch.stack([im.movedim(-1, 0) for im in imgs])
   m, scal, _ = hmeter.meter(ci.subsample_hw(batch, bf.metering_stride,
@@ -1757,7 +1868,7 @@ def _large_vs_process(name, sfx, frames, drivers, isp_kw=None, proc_kw=None):
       _check_bitwise(f"large {name} {CLASSES[sfx]} {driver} frame {f} "
                      "metrics vs process", gm, wm)
     stencil[driver] = launches[f"demosaic_{sfx}"]
-    if launches[f"meter_{sfx}"] != 2 * len(frames):
+    if launches[f"meter_{sfx}"] != len(frames):
       raise AssertionError(f"large {name} {driver}: meter_{sfx} launched "
                            f"{launches[f'meter_{sfx}']} times in "
                            f"{len(frames)} frames")
@@ -1929,10 +2040,11 @@ def _one_rank_steps(frames):
         for k, (a, b) in enumerate(zip(_outputs(out), _outputs(want),
                                        strict=True)):
           _check_bitwise(f"{what} output {k}", a, b)
-        # the same kernels, as many times, as the unsharded step, but M's
-        # third launch (its finalize after the group's all_reduce calls)
+        # the same kernels, as many times, as the unsharded step, but M:
+        # three launches (bounds, stats, finalize, between the group's
+        # all_reduce calls) for the unsharded step's one
         grouped = dict(unsharded)
-        grouped[f"meter_{sfx}"] += 1
+        grouped[f"meter_{sfx}"] += 2
         if launches != grouped:
           raise AssertionError(f"{what}: launched {launches}, the "
                                f"unsharded step {unsharded}")
@@ -2951,6 +3063,29 @@ def phase_timing(card, sfx):
               stage_bytes=nbytes)
 
 
+def phase_meter_timing(results):
+  """M's device time per launch, its library call's and its wrapper's host
+  time (:func:`_time_meter`) on each dtype's 6x4K stride-8 sample from the
+  main path's kernels. Its profiler traces run after the apps phase: run
+  in the kernels phase, they left the apps phase's trace with no
+  kernels."""
+  import torch
+  from taichi_image_tpu_torch.models import camera_isp as ci
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import BayerPattern
+  from taichi_image_tpu_torch.ops.hopper import meter
+
+  raws = _inputs()[0]
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    phases = ci.load_raw_phases(raws, "packed12", dtype)
+    _, samp = ci.demosaic_phases(phases, BayerPattern.RGGB, out_dtype=dtype,
+                                 sample_step=4)
+    prev = meter.meter(samp, torch.zeros(9, device="cuda"), 0.0).metrics
+    _time_meter(results, f"meter_{sfx}",
+                lambda b, samp=samp, prev=prev: meter.meter(
+                    samp, prev, 0.9, backend=b), samp)
+
+
 def phase_route_timing(card):
   """The same step method for the other routes: the resize->1920 step of
   each class, the transform and linear marginals (bf16), the front-fused
@@ -3118,6 +3253,7 @@ def main(argv=None):
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
+  phase_meter_timing(results)
   timing["routes"] = phase_route_timing(card)
   timing["formats"] = phase_format_timing(card)
   timing["large"] = phase_large_timing(card)

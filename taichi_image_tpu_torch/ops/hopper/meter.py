@@ -10,11 +10,12 @@ plus the linear tonemap's ``[m0, 1 / (m1 - m0)]``. :func:`meter` takes the
 the resize route's strided view, ``x12[:, 0:3]``'s, a gather, the band
 loop's joined samples) and the previous vec9 and returns the new vec9,
 the map's (6,) or (10,) scalars and the linear (2,) ones, all on the
-device and without a host sync: two launches, three under a process
-group (bounds, then the all_reduce MAX of ``[-min, max]``; stats, then
-the all_reduce MAX of the log bounds and SUM of the five sums; finalize).
-:func:`vectors` computes the two vectors alone from metrics the caller
-holds (``meter_vectors``).
+device and without a host sync: one cooperative launch, three under a
+process group (bounds, then the all_reduce MAX of ``[-min, max]``; stats,
+then the all_reduce MAX of the log bounds and SUM of the five sums;
+finalize). :func:`plan` is the launch's partition, a function of the
+sample's shape and dtype alone. :func:`vectors` computes the two vectors
+alone from metrics the caller holds (``meter_vectors``).
 
 The plain twins are the torch code the port ran before (about 52 device
 operations a step): :func:`metering_update_plain`, :func:`reinhard_scal`,
@@ -31,41 +32,80 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.utils.bounds import lerp
 
-__all__ = ["Metering", "meter", "meter_plain", "metering_update_plain",
-           "reinhard_scal", "reinhard_scal_ca", "linear_scal", "vectors",
-           "vectors_plain"]
+__all__ = ["Metering", "Plan", "meter", "meter_plain",
+           "metering_update_plain", "plan", "reinhard_scal",
+           "reinhard_scal_ca", "linear_scal", "vectors", "vectors_plain"]
 
-# partials the kernel's scratch holds (csrc/meter.cu kMaxBlocks), and the
-# scratch's bytes: a 64-byte header of counters, then 8 bytes of bounds and
-# 48 of stats per block
-MAX_BLOCKS = 1024
-SCRATCH_BYTES = 64 + MAX_BLOCKS * (8 + 48)
+# The launch plan (csrc/meter.cu): blocks of THREADS threads, at most
+# MAX_GRID of them, which is BLOCKS_PER_SM on each of MIN_SMS SMs (the
+# fewest of an sm_90 part, the H100 PCIe's), so the grid is co-resident on
+# any such card and one cooperative launch can hold a grid barrier; a
+# block keeps its runs in shared memory for the second pass where they fit
+# in CACHE_BYTES.
+THREADS = 256
+BLOCKS_PER_SM = 4
+MIN_SMS = 114
+MAX_GRID = BLOCKS_PER_SM * MIN_SMS
+CACHE_BYTES = 40 * 1024
+RUN_BYTES = 16  # a run: one 16-byte vector of a row of each channel
+# the scratch: a 64-byte header of counters and the bounds' atomic keys,
+# then 48 bytes of stats per block
+SCRATCH_BYTES = 64 + MAX_GRID * 48
 
 KERNELS = hopper.register_per_dtype(
     "meter", "meter.cu", "tit_meter",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/models/camera_isp.py:996-1025"),
-    defines={"TIT_METER_MAX_BLOCKS": MAX_BLOCKS})
+    defines={"TIT_METER_THREADS": THREADS, "TIT_METER_MAX_GRID": MAX_GRID,
+             "TIT_METER_BLOCKS_PER_SM": BLOCKS_PER_SM,
+             "TIT_METER_CACHE_BYTES": CACHE_BYTES})
 VECTORS = hopper.register(
     "meter_vectors", "meter.cu", "tit_meter_vectors",
     [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "taichi_image_tpu/ops/pallas/reinhard.py:52-76")
 
-# the kernel's phases (csrc/meter.cu Phase)
-_BOUNDS, _STATS, _FINALIZE = 0, 1, 2
+# the kernel's phases (csrc/meter.cu Phase): one cooperative launch without
+# a group; bounds, stats and finalize with one
+_FUSED, _BOUNDS, _STATS, _FINALIZE = 0, 1, 2, 3
+
+
+class Plan(NamedTuple):
+  """M's partition of a (N, C, hs, ws) sample: each row of each image is
+  cut into runs of ``run`` pixels (the last may be shorter), block b owns
+  runs [b per_block, (b + 1) per_block) in (n, y, x) order and its thread
+  t the runs t, t + THREADS, ... of those."""
+  run: int        # pixels of a run: 16 bytes of the dtype
+  runs: int       # runs of the sample: n hs ceil(ws / run)
+  per_block: int  # runs of a block
+  grid: int       # blocks
+  cached: bool    # the second pass reads the runs from shared memory
+
+
+def plan(shape, dtype: torch.dtype) -> Plan:
+  """The launch plan of a sample of ``shape`` (N, C, hs, ws) and
+  ``dtype``: a function of these alone (not of the strides or the card),
+  so a view and its copy, and the band loop's joined samples and the whole
+  frame's, are reduced in the same order. A block takes at least THREADS
+  runs, and the grid at most MAX_GRID blocks."""
+  n, _, hs, ws = (int(v) for v in shape)
+  run = RUN_BYTES // dtype.itemsize
+  runs = n * hs * -(-ws // run)
+  per_block = max(THREADS, -(-runs // MAX_GRID))
+  return Plan(run, runs, per_block, -(-runs // per_block),
+              3 * per_block * RUN_BYTES <= CACHE_BYTES)
 
 
 class Metering(NamedTuple):
@@ -201,6 +241,28 @@ def _scratch(device: torch.device) -> torch.Tensor:
   return buf
 
 
+# {(shape, strides, dtype): (launch block, its pointer)}: the launcher's
+# shape-dependent arguments, made once a layout (csrc/meter.cu Launch)
+_LAUNCH_BLOCKS: dict = {}
+_LAUNCH_BLOCKS_MAX = 64
+
+
+def _launch_block(x: torch.Tensor) -> ctypes.c_void_p:
+  """The host block the launcher reads: the shape, the strides in elements
+  and :func:`plan`'s per_block, grid and cached, as 11 int64s."""
+  key = (x.shape, x.stride(), x.dtype)
+  hit = _LAUNCH_BLOCKS.get(key)
+  if hit is None:
+    if len(_LAUNCH_BLOCKS) >= _LAUNCH_BLOCKS_MAX:
+      _LAUNCH_BLOCKS.pop(next(iter(_LAUNCH_BLOCKS)))
+    p = plan(x.shape, x.dtype)
+    block = np.array([*x.shape, *x.stride(), p.per_block, p.grid,
+                      int(p.cached)], dtype=np.int64)
+    hit = _LAUNCH_BLOCKS[key] = (block,
+                                 block.ctypes.data_as(ctypes.c_void_p))
+  return hit[1]
+
+
 def _t_arg(t, device):
   """The EMA weight as the kernel takes it: ``(None, t)`` for a host
   number (or a CPU tensor), ``(0-d f32 device tensor, 0.0)`` for a device
@@ -253,39 +315,31 @@ def meter(x: torch.Tensor, prev, t, intensity=1.0, light_adapt=1.0,
   if x.dtype not in hopper.DTYPE_SUFFIX:
     x = x.to(torch.float32)
   prev = prev.contiguous()
-  n, c, hs, ws = x.shape
   if n_total is None:
-    n_total = n * hs * ws
+    n_total = x.shape[0] * x.shape[2] * x.shape[3]
   t_dev, t_val = _t_arg(t, dev)
-  out = torch.empty(23, dtype=torch.float32, device=dev)
-  scratch = _scratch(dev)
+  out = torch.empty(21, dtype=torch.float32, device=dev)
   ca_mode = _ca_mode(color_adapt)
   kernel = KERNELS[x.dtype]
-
-  def launch(phase, mm, lb=None, sums=None):
-    kernel.launch(dev, hopper.ptr(x), n, c, hs, ws, *x.stride(),
-                  hopper.ptr(prev), None if t_dev is None
-                  else hopper.ptr(t_dev), t_val, hopper.ptr(scratch),
-                  hopper.ptr(mm), None if lb is None else hopper.ptr(lb),
-                  None if sums is None else hopper.ptr(sums),
-                  hopper.ptr(out), float(n_total), float(intensity),
-                  float(light_adapt), float(color_adapt), int(ca_mode),
-                  phase)
+  head = (hopper.ptr(x), _launch_block(x), hopper.ptr(prev),
+          None if t_dev is None else hopper.ptr(t_dev), t_val,
+          hopper.ptr(_scratch(dev)))
+  tail = (hopper.ptr(out), float(n_total), float(intensity),
+          float(light_adapt), float(color_adapt), int(ca_mode))
 
   if group is None:
-    mm = out[21:23]  # [-min, max], read by the stats launch
-    launch(_BOUNDS, mm)
-    launch(_STATS, mm)
+    kernel.launch(dev, *head, None, None, None, *tail, _FUSED)
   else:
     mm = torch.empty(2, dtype=torch.float32, device=dev)
     lb = torch.empty(2, dtype=torch.float32, device=dev)
     sums = torch.empty(5, dtype=torch.float32, device=dev)
-    launch(_BOUNDS, mm)
+    exchange = (hopper.ptr(mm), hopper.ptr(lb), hopper.ptr(sums))
+    kernel.launch(dev, *head, *exchange, *tail, _BOUNDS)
     dist.all_reduce(mm, op=dist.ReduceOp.MAX, group=group)
-    launch(_STATS, mm, lb, sums)
+    kernel.launch(dev, *head, *exchange, *tail, _STATS)
     dist.all_reduce(lb, op=dist.ReduceOp.MAX, group=group)
     dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-    launch(_FINALIZE, mm, lb, sums)
+    kernel.launch(dev, *head, *exchange, *tail, _FINALIZE)
   return Metering(out[0:9], out[9:19 if ca_mode else 15], out[19:21])
 
 

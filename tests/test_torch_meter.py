@@ -16,10 +16,16 @@ Contracts:
     bits;
   * the wrapper: its argument checks, ``backend="kernel"`` on the CPU
     raising before any launch, and (with the launcher recorded) the
-    launches and collectives it makes: two launches without a group,
-    three and the three all_reduce calls with one.
+    launches and collectives it makes: one launch without a group, three
+    and the three all_reduce calls with one; its launch block made once a
+    layout;
+  * the launch plan: a function of the shape and dtype alone, within the
+    grid's cap, at the chip_smoke shapes; and a Python emulation of the
+    kernel's division-free walk visiting each run of the sample once, at
+    its own offset, for contiguous samples and strided views.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -262,42 +268,184 @@ def test_meter_launches(monkeypatch, grouped):
   assert got.scal.data_ptr() == out.data_ptr() + 9 * 4
   assert got.lin.data_ptr() == out.data_ptr() + 19 * 4
   launches = [c for c in rec.calls if c[0] == "launch"]
-  assert [c[1] for c in launches] == [torch.float16] * (3 if grouped else 2)
+  assert [c[1] for c in launches] == [torch.float16] * (3 if grouped else 1)
   phases = [c[2][-1] for c in launches]
-  assert phases == ([0, 1, 2] if grouped else [0, 1])
+  assert phases == ([th_meter._BOUNDS, th_meter._STATS, th_meter._FINALIZE]
+                    if grouped else [th_meter._FUSED])
+  p = th_meter.plan((2, 3, 10, 7), torch.float16)
   for _, _, a in launches:
     assert a[0].value == base.data_ptr()
-    assert a[1:5] == (2, 3, 10, 7)
-    assert a[5:9] == x.stride() == (6720, 2240, 224, 8)
-    assert _ptr(a[10]) is None and a[11] == pytest.approx(0.9)  # host t
-    assert _ptr(a[16]) == out.data_ptr()
-    assert a[17] == (280.0 if grouped else 140.0)
-    assert a[18:22] == (pytest.approx(INTENSITY), pytest.approx(LIGHT_ADAPT),
+    # the launch block: the shape, the strides and the plan
+    block = np.ctypeslib.as_array(
+        ctypes.cast(a[1], ctypes.POINTER(ctypes.c_int64)), (11,))
+    assert block.tolist() == [2, 3, 10, 7, 6720, 2240, 224, 8, p.per_block,
+                              p.grid, int(p.cached)]
+    assert _ptr(a[3]) is None and a[4] == pytest.approx(0.9)  # host t
+    assert _ptr(a[9]) == out.data_ptr()
+    assert a[10] == (280.0 if grouped else 140.0)
+    assert a[11:15] == (pytest.approx(INTENSITY), pytest.approx(LIGHT_ADAPT),
                         0.5, 1)
   if not grouped:
-    # [-min, max] lives in the output's last two slots; no exchange buffers
-    assert [_ptr(a[13]) for _, _, a in launches] == [out.data_ptr() + 84] * 2
-    assert all(_ptr(a[14]) is None and _ptr(a[15]) is None
-               for _, _, a in launches)
-    assert len(rec.calls) == 2
+    # one launch, no exchange buffers, no collective
+    assert all(_ptr(v) is None for v in launches[0][2][6:9])
+    assert len(rec.calls) == 1
     return
   kinds = [c[0] if c[0] == "launch" else c[1] for c in rec.calls]
   assert kinds == ["launch", th_meter.dist.ReduceOp.MAX, "launch",
                    th_meter.dist.ReduceOp.MAX, th_meter.dist.ReduceOp.SUM,
                    "launch"]
-  mm, lb, sums = (_ptr(launches[2][2][i]) for i in (13, 14, 15))
+  mm, lb, sums = (_ptr(launches[0][2][i]) for i in (6, 7, 8))
   assert [c[2:] for c in rec.calls if c[0] == "all_reduce"] == [
       (mm, 2), (lb, 2), (sums, 5)]
-  assert _ptr(launches[0][2][14]) is None  # the bounds launch: no lb
-  assert (_ptr(launches[1][2][14]), _ptr(launches[1][2][15])) == (lb, sums)
+  for _, _, a in launches:  # the same exchange buffers in every phase
+    assert [_ptr(v) for v in a[6:9]] == [mm, lb, sums]
 
 
 def test_meter_launches_other_dtypes_as_f32(monkeypatch):
   rec = _Recorder(monkeypatch)
   th_meter.meter(torch.zeros(1, 3, 4, 4, dtype=torch.uint8), torch.zeros(9),
                  torch.tensor(0.5))
-  assert [c[1] for c in rec.calls] == [torch.float32] * 2
-  assert rec.calls[0][2][11] == 0.5  # a CPU tensor's t is a host number
+  assert [c[1] for c in rec.calls] == [torch.float32]
+  assert rec.calls[0][2][4] == 0.5  # a CPU tensor's t is a host number
+
+
+def test_meter_launch_block_is_cached(monkeypatch):
+  """The launcher's shape-dependent argument is made once a layout
+  (shape, strides, dtype): a second tensor of the same layout, wherever
+  its data lie, passes the same block; another layout its own."""
+  rec = _Recorder(monkeypatch)
+  base = torch.zeros(2, 3, 20, 33)
+  for x in (base, base.clone(), base[..., 1:], base[..., :32],
+            base[..., ::2]):
+    th_meter.meter(x, torch.zeros(9), 0.0)
+  blocks = [c[2][1].value for c in rec.calls]
+  assert blocks[0] == blocks[1] and blocks[2] == blocks[3]
+  assert len(set(blocks)) == 3
+
+
+# ------------------------------------------------------------ the plan
+
+# (N, C, hs, ws) samples: the main path's stride-8 sample at 6x4K, the x0.5
+# resize's strided view there, the 6x8K whole frame's, chunks that end
+# mid-row, ws not a multiple of any run, one pixel, one column, one row
+PLAN_SHAPES = [(6, 3, 270, 480), (6, 3, 135, 240), (6, 3, 540, 1440),
+               (3, 3, 301, 1000), (4, 3, 37, 1001), (1, 3, 1, 1),
+               (5, 3, 700, 1), (2, 4, 1, 3000), (2, 3, 129, 251)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+def test_plan_depends_on_the_shape_alone(shape, dtype):
+  """The partition is a function of the shape and the dtype: the same for
+  a view, its copy and the band loop's joined samples; it never exceeds
+  the grid's cap, gives every block at least THREADS runs (or all of them)
+  and every block some, and caches a block's runs only where they fit."""
+  wd = DTYPES[dtype]
+  p = th_meter.plan(shape, wd)
+  n, c, hs, ws = shape
+  assert p.run == 16 // wd.itemsize
+  assert p.runs == n * hs * -(-ws // p.run)
+  assert 1 <= p.grid <= th_meter.MAX_GRID
+  assert p.per_block >= min(th_meter.THREADS, p.runs)
+  assert (p.grid - 1) * p.per_block < p.runs <= p.grid * p.per_block
+  assert p.cached == (3 * p.per_block * 16 <= th_meter.CACHE_BYTES)
+  assert th_meter.MAX_GRID == th_meter.BLOCKS_PER_SM * 114
+  assert th_meter.SCRATCH_BYTES == 64 + th_meter.MAX_GRID * 48
+  big = torch.zeros(n, c + 2, hs + 1, 2 * ws + 3, dtype=wd)
+  view = big[:, 1:c + 1, 1:, 3::2]
+  assert view.shape == shape
+  bands = torch.cat([view[:, :, :hs // 2], view[:, :, hs // 2:]], dim=2)
+  for other in (view, view.contiguous(), bands):
+    assert th_meter.plan(other.shape, other.dtype) == p
+    blk = np.ctypeslib.as_array(ctypes.cast(
+        th_meter._launch_block(other), ctypes.POINTER(ctypes.c_int64)),
+                                (11,))
+    assert blk.tolist() == [*shape, *other.stride(), p.per_block, p.grid,
+                            int(p.cached)]
+
+
+def test_plan_at_the_main_shapes():
+  """The plan each chip_smoke shape takes: at 6x4K the stride-8 sample
+  gives each thread at most one run (bf16/f16) or two (f32) and keeps
+  them in shared memory; the 6x8K whole frame's sample fills the grid
+  and takes the second pass from device memory."""
+  main = (6, 3, 270, 480)
+  assert th_meter.plan(main, torch.bfloat16) == (8, 97200, 256, 380, True)
+  assert th_meter.plan(main, torch.float16) == (8, 97200, 256, 380, True)
+  assert th_meter.plan(main, torch.float32) == (4, 194400, 427, 456, True)
+  big = (6, 3, 540, 1440)
+  assert th_meter.plan(big, torch.bfloat16) == (8, 583200, 1279, 456, False)
+  assert th_meter.plan(big, torch.float32) == (4, 1166400, 2558, 456, False)
+  assert th_meter.plan((1, 3, 1, 1), torch.float32) == (4, 1, 256, 1, True)
+
+
+def _walk(shape, strides, dtype):
+  """csrc/meter.cu's walk in Python (geometry, cursor_at, advance,
+  run_len): {run index: (block, thread, the thread's step, offset of the
+  run's first value of channel 0, pixels)} of every run the threads
+  visit, each thread starting at its first run and advancing THREADS runs
+  a step by the launcher's constants, with no division."""
+  n, _, hs, ws = shape
+  s0, _, s2, s3 = strides
+  p = th_meter.plan(shape, dtype)
+  nt, run = th_meter.THREADS, p.run
+  rpr = -(-ws // run)
+  last = ws - (rpr - 1) * run
+  rows = nt // rpr
+  dx, dy, dn = nt % rpr, rows % hs, rows // hs
+  x_step, x_wrap = dx * run * s3, s2 - rpr * run * s3
+  y_step, y_wrap = dy * s2 + dn * s0, s0 - hs * s2
+  seen = {}
+  for b in range(p.grid):
+    r0 = b * p.per_block
+    r1 = min(p.runs, r0 + p.per_block)
+    for t in range(min(nt, r1 - r0)):
+      count = (r1 - r0 - t + nt - 1) // nt
+      r = r0 + t
+      row = r // rpr
+      im = row // hs
+      x, y = r - row * rpr, row - im * hs
+      off = im * s0 + y * s2 + x * run * s3
+      for i in range(count):
+        assert r0 + t + i * nt not in seen
+        seen[r0 + t + i * nt] = (b, t, i, off, last if x == rpr - 1 else run)
+        x += dx
+        off += x_step
+        if x >= rpr:
+          x -= rpr
+          off += x_wrap
+          y += 1
+        y += dy
+        off += y_step
+        if y >= hs:
+          y -= hs
+          off += y_wrap
+  return p, seen
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES[3:],
+                         ids=["x".join(map(str, s)) for s in PLAN_SHAPES[3:]])
+def test_walk_visits_each_run_once_in_order(shape, dtype):
+  """Every run of the sample is visited once, by the block that owns it,
+  and the walk's offset and length are the run's own (computed here with
+  divisions), for a contiguous sample and a strided view: so the kernel's
+  two passes take every pixel once, a thread in run order."""
+  wd = DTYPES[dtype]
+  n, c, hs, ws = shape
+  big = torch.zeros(n, c + 1, hs + 2, 3 * ws, dtype=wd)
+  for x in (big[:, :c, :hs, :ws].contiguous(), big[:, 1:, 2:, ::3]):
+    p, seen = _walk(shape, x.stride(), wd)
+    assert sorted(seen) == list(range(p.runs))
+    rpr = -(-ws // p.run)
+    s0, _, s2, s3 = x.stride()
+    for r, (b, t, i, off, length) in seen.items():
+      row, xr = divmod(r, rpr)
+      im, y = divmod(row, hs)
+      assert b == r // p.per_block and r == b * p.per_block + t + i * 256
+      assert off == im * s0 + y * s2 + xr * p.run * s3
+      assert length == min(p.run, ws - xr * p.run)
 
 
 def test_vectors_launch(monkeypatch):
