@@ -8,7 +8,10 @@ Run from the repository root:
 Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device   CUDA available, capability (9, 0); the card's name and power
-            limit as nvidia-smi reports them.
+            limit as nvidia-smi reports them; its SM count, M's blocks
+            per SM, and M's plan of the 6x4K and 6x1080p stride-8 samples
+            and the 6x8K whole frame's in each dtype, with the SMs its
+            cooperative launch needs and the form it takes on this card.
 2. build    nvcc builds the nine kernel sources (csrc/*.cu, one process
             each, in parallel) from this checkout: K1-K4, K4's I420 mode,
             K12, the planar I420 tonemap form, the metering M (meter.cu)
@@ -86,6 +89,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
             all-plain route on the card; the launch counts of that run
             (each class through its own dtype's four kernels); a small
             input against the plain route on the CPU.
+4b. split   M's split form (bounds, stats, finalize), forced by showing
+            the wrapper a device of 16 SMs, against the cooperative launch
+            this card takes: on each dtype's 6x4K stride-8 sample and the
+            6x8K whole frame's, t 0 and 0.9, color_adapt 0 and 0.5, the
+            metrics and both vectors bitwise, 3 launches against 1; five
+            chained 6x4K process steps of each class with the split form
+            forced bitwise the default steps (outputs and metrics), 3 M
+            launches a step against 1, every other kernel as often.
 5. routes   the other routes the same way, each with the launch counts
             set to 0 just before it and read just after, held to the
             kernels it must launch and no others (M once a step):
@@ -191,9 +202,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
             dtype's 6x4K sample (the kernels phase's events measure its
             wrapper's host time), beside the device time of torch.aminmax
             over the same sample (its library call) and the wrapper's host
-            time a call. Then the same
-            step method for the resize->1920 step of each class and the
-            front-fused bf16 step, each resize->1920 step and the
+            time a call; the device time of M's split form (forced, its
+            three launches) beside the cooperative launch's at each
+            dtype's 6x4K stride-8 sample and the 6x8K whole frame's. Then
+            the same step method for the resize->1920 step of each class
+            and the front-fused bf16 step, each resize->1920 step and the
             front-fused step with its profile (busy share, device
             operations per step) and its host enqueue without the
             checksum; the I420 marginal of the 6x4K and resize->1920
@@ -214,6 +227,8 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import itertools
 import json
 import re
@@ -289,7 +304,37 @@ def phase_device():
   log(f"device: {torch.cuda.get_device_name(0)}, capability {cap}, "
       f"torch {torch.__version__}, CUDA {torch.version.cuda}")
   log(card)
+  _log_meter_forms()
   return card
+
+
+# M's samples whose form depends on the device's SMs: the main path's
+# stride-8 sample at 6x4K, the 6x8K whole frame's, the stride-8 sample at
+# 6x1080p
+METER_FORM_SAMPLES = {"6x4K stride 8": (N_CAM, 3, 270, 480),
+                      "6x8K whole frame": (N_CAM, 3, 540, 1440),
+                      "6x1080p stride 8": (N_CAM, 3, 135, 240)}
+
+
+def _log_meter_forms():
+  """The device's SMs, M's blocks per SM, and each sample's plan in each
+  dtype with the SMs its cooperative launch needs and the form it takes on
+  this device."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.hopper import meter
+  sms = meter._sms(torch.device("cuda"))
+  per_sm = meter.BLOCKS_PER_SM
+  log(f"device: {sms} SMs; M holds {per_sm} blocks an SM, so its "
+      f"cooperative launch takes grids of up to {per_sm * sms} blocks")
+  for name, shape in METER_FORM_SAMPLES.items():
+    plans = []
+    for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+      p = meter.plan(shape, dtype)
+      need = -(-p.grid // per_sm)
+      plans.append(f"{sfx} {p.grid} blocks, {need} SMs, "
+                   + ("cooperative" if need <= sms else "split"))
+    log(f"  M's plan of the {name} sample {shape}: {'; '.join(plans)}")
 
 
 # sources redesigned for the card, which must build without spills
@@ -1551,6 +1596,141 @@ def phase_slice(frames, sfx):
       f"card agree with the CPU plain route (last: metrics |d| {dm:.3g}, "
       f"u8 max {d.max().item()})")
   return launches
+
+
+# the SMs of the device M's wrapper is shown to force its split form: a
+# grid of more than 4 x 16 = 64 blocks, so every 6x4K and 6x8K plan
+FORCED_SMS = 16
+
+
+class _forced_sms:
+  """Inside a ``with`` block M's wrapper sees a device of ``n`` SMs (its
+  SM-count helper replaced in this process, restored on exit)."""
+
+  def __init__(self, n=FORCED_SMS):
+    self.n = n
+
+  def __enter__(self):
+    from taichi_image_tpu_torch.ops.hopper import meter
+    self.old = meter._sms
+    meter._sms = lambda device: self.n
+
+  def __exit__(self, *exc):
+    from taichi_image_tpu_torch.ops.hopper import meter
+    meter._sms = self.old
+
+
+def _meter_launches(sfx, fn):
+  """``fn()`` and the launches of meter_<sfx> it made."""
+  from taichi_image_tpu_torch.ops import hopper
+  k = hopper.KERNELS[f"meter_{sfx}"]
+  before = k.launches
+  out = fn()
+  return out, k.launches - before
+
+
+def _meter_samples(frames):
+  """{dtype suffix: [(name, sample)]}: the main path's 6x4K stride-8
+  sample of ``frames[0]`` (decode and stencil) and a seeded 6x8K whole
+  frame's sample."""
+  import torch
+  from taichi_image_tpu_torch.models import camera_isp as ci
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import BayerPattern
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  out = {}
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    phases = ci.load_raw_phases(frames[0], "packed12", dtype)
+    _, samp = ci.demosaic_phases(phases, BayerPattern.RGGB, out_dtype=dtype,
+                                 sample_step=4)
+    big = (torch.rand(METER_FORM_SAMPLES["6x8K whole frame"], generator=gen,
+                      device="cuda") * 1.3).to(dtype)
+    out[sfx] = [("6x4K stride 8", samp), ("6x8K whole frame", big)]
+  return out
+
+
+def phase_meter_split(frames):
+  """M's split form, forced by a device of FORCED_SMS SMs, against the
+  cooperative launch this card takes: (a) on each dtype's 6x4K stride-8
+  sample and the 6x8K whole frame's, for t = 0 and 0.9 and color_adapt 0
+  and 0.5, the metrics and both vectors (21 floats with color_adapt)
+  bitwise, in 3 launches against 1; (b) five chained 6x4K ``process``
+  steps of each class, the EMA carried, every output and the metrics
+  bitwise the default steps', with 3 M launches a step and every other
+  kernel launched as often. Returns the launch counts of the forced
+  steps."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import BayerPattern
+  from taichi_image_tpu_torch.models.camera_isp import metering_update_ca
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.hopper import meter
+
+  dev = torch.device("cuda")
+  sms = meter._sms(dev)
+  zeros9 = torch.zeros(9, device=dev)
+  args = (METER_INTENSITY, METER_LIGHT_ADAPT)
+  for sfx, samples in _meter_samples(frames).items():
+    for name, x in samples:
+      coop = -(-meter.plan(x.shape, x.dtype).grid // meter.BLOCKS_PER_SM)
+      if coop > sms:
+        raise AssertionError(f"M's {name} plan needs {coop} SMs; this "
+                             f"device has {sms}")
+      prev = metering_update_ca((x.float() * 0.8).to(x.dtype), zeros9, 0.0,
+                                backend="plain")
+      for t, pv in ((0.0, zeros9), (0.9, prev)):
+        for ca in (0.0, 0.5):
+          tag = f"meter {sfx} {name} t={t} ca={ca}"
+          one, n_one = _meter_launches(sfx, lambda: meter.meter(
+              x, pv, t, *args, ca, backend="kernel"))
+          with _forced_sms():
+            split, n_split = _meter_launches(sfx, lambda: meter.meter(
+                x, pv, t, *args, ca, backend="kernel"))
+          if (n_one, n_split) != (1, 3):
+            raise AssertionError(f"{tag}: {n_one} launches by default, "
+                                 f"{n_split} forced split (want 1 and 3)")
+          for field, a, b in zip(meter.Metering._fields, split, one):
+            _check_bits(f"{tag} split form's {field}", a, b)
+    log(f"meter split {sfx}: the split form (forced {FORCED_SMS} SMs) "
+        f"bitwise the cooperative launch on {', '.join(n for n, _ in samples)}"
+        " (t 0 and 0.9, color_adapt 0 and 0.5; 3 launches against 1)")
+
+  total = dict.fromkeys(hopper.KERNELS, 0)
+  for sfx in CLASSES:
+    cls = getattr(ttit, CLASSES[sfx])
+    runs = {}
+    for forced in (False, True):
+      isp = cls(BayerPattern.RGGB, device="cuda")
+      torch.cuda.synchronize()
+      hopper.reset_launches()
+      outs, metrics = [], []
+      with _forced_sms() if forced else contextlib.nullcontext():
+        for raws in frames:
+          outs.append(isp.process(raws))
+          metrics.append(isp.metrics.clone())
+      torch.cuda.synchronize()
+      runs[forced] = outs, metrics, hopper.launch_counts()
+    (d_out, d_m, d_n), (s_out, s_m, s_n) = runs[False], runs[True]
+    m = f"meter_{sfx}"
+    if d_n[m] != len(frames) or s_n[m] != 3 * len(frames):
+      raise AssertionError(f"{CLASSES[sfx]} forced split: {m} launched "
+                           f"{s_n[m]} times, by default {d_n[m]}, in "
+                           f"{len(frames)} steps")
+    if {k: v for k, v in d_n.items() if k != m} != {
+        k: v for k, v in s_n.items() if k != m}:
+      raise AssertionError(f"{CLASSES[sfx]} forced split launched {s_n}, "
+                           f"the default steps {d_n}")
+    for f in range(len(frames)):
+      _check_bits(f"{CLASSES[sfx]} forced split frame {f} metrics", s_m[f],
+                  d_m[f])
+      _check_bits(f"{CLASSES[sfx]} forced split frame {f} output", s_out[f],
+                  d_out[f])
+    for k, v in s_n.items():
+      total[k] += v
+    log(f"meter split {CLASSES[sfx]}: {len(frames)} chained process steps "
+        f"with the split form forced bitwise the default steps (outputs "
+        f"and metrics), {m} {s_n[m]} launches against {d_n[m]}")
+  return total
 
 
 def phase_routes(frames):
@@ -3063,12 +3243,18 @@ def phase_timing(card, sfx):
               stage_bytes=nbytes)
 
 
-def phase_meter_timing(results):
+def _us(ms) -> str:
+  return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def phase_meter_timing(results, card):
   """M's device time per launch, its library call's and its wrapper's host
   time (:func:`_time_meter`) on each dtype's 6x4K stride-8 sample from the
-  main path's kernels. Its profiler traces run after the apps phase: run
-  in the kernels phase, they left the apps phase's trace with no
-  kernels."""
+  main path's kernels; then the device time of the split form's three
+  launches (forced by :class:`_forced_sms`) beside the cooperative
+  launch's at that sample and the 6x8K whole frame's. Its profiler traces
+  run after the apps phase: run in the kernels phase, they left the apps
+  phase's trace with no kernels."""
   import torch
   from taichi_image_tpu_torch.models import camera_isp as ci
   from taichi_image_tpu_torch.ops import hopper
@@ -3084,6 +3270,20 @@ def phase_meter_timing(results):
     _time_meter(results, f"meter_{sfx}",
                 lambda b, samp=samp, prev=prev: meter.meter(
                     samp, prev, 0.9, backend=b), samp)
+  for sfx, samples in _meter_samples([raws]).items():
+    for name, x in samples:
+      prev = meter.meter(x, torch.zeros(9, device="cuda"), 0.0).metrics
+      call = functools.partial(meter.meter, x, prev, 0.9)
+      coop_ms, coop_k = _device_ms(call)
+      with _forced_sms():
+        split_ms, split_k = _device_ms(call)
+      results[f"meter_{sfx} split {name}"] = dict(
+          ms=split_ms, cooperative_ms=coop_ms, kernels=split_k,
+          cooperative_kernels=coop_k)
+      log(f"  meter_{sfx} {name} {tuple(x.shape)}: split form (forced "
+          f"{FORCED_SMS} SMs) {_us(split_ms)} of device time a call "
+          f"({split_k}), cooperative launch {_us(coop_ms)} ({coop_k}); "
+          f"{card}")
 
 
 def phase_route_timing(card):
@@ -3236,6 +3436,8 @@ def main(argv=None):
   for sfx in CLASSES:
     for n, v in phase_slice(frames, sfx).items():
       launches[n] += v
+  for n, v in phase_meter_split(frames).items():
+    launches[n] += v
   for n, v in phase_routes(frames).items():
     launches[n] += v
   for n, v in phase_format_routes(frames).items():
@@ -3253,7 +3455,7 @@ def main(argv=None):
   if never:
     raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
-  phase_meter_timing(results)
+  phase_meter_timing(results, card)
   timing["routes"] = phase_route_timing(card)
   timing["formats"] = phase_format_timing(card)
   timing["large"] = phase_large_timing(card)

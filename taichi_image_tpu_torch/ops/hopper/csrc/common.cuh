@@ -6,6 +6,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -167,21 +168,39 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Blocks of `threads` threads that the card holds at once for `kernel`
-// (SMs x resident blocks per SM): a grid-stride kernel given that many
-// runs in one wave. A failed query returns 0 and leaves its error for
-// the launcher's cudaGetLastError.
+// A launcher's answer for each device, by device ordinal: 0 until that
+// device is first asked. A device of ordinal kMaxDevices or more is asked
+// at every launch.
+constexpr int kMaxDevices = 64;
+struct PerDevice {
+  std::atomic<int> value[kMaxDevices];
+};
+
+// Blocks of `threads` threads, each with `smem` bytes of dynamic shared
+// memory, that the current device holds at once for `kernel` (its SMs x
+// the blocks an SM holds), into `blocks`: a grid-stride kernel given that
+// many runs in one wave, a cooperative grid of at most that many blocks.
+// Asked once a device, kept in the launcher's `cache` (zero-initialised,
+// one per kernel). Returns the failed query's error, if any.
 template <typename Kernel>
-inline int resident_blocks(Kernel kernel, int threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess) {
-    return 0;
+inline cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                                   PerDevice& cache, int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  blocks = kept ? cache.value[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   }
-  return sms * per_sm;
+  if (e != cudaSuccess) return e;
+  blocks = sms * per_sm;
+  if (kept) cache.value[dev].store(blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace tit

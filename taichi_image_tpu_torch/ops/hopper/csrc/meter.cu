@@ -35,10 +35,14 @@
 //     the log bounds and the five sums (in double) of the block's pixels;
 //     the last block to count itself reduces the stats partials in block
 //     order and finalizes (vec9 and the vectors);
-//   - the grid is at most kMaxGrid blocks, co-resident on any sm_90 part
-//     (kBlocksPerSm on each of 114 SMs, held by __launch_bounds__ and
-//     checked against the occupancy calculator before the first launch:
-//     a grid that cannot be co-resident is an error, never a hang);
+//   - the grid is at most kMaxGrid blocks (kBlocksPerSm, held by
+//     __launch_bounds__, on each of an H100 PCIe's 114 SMs); the wrapper
+//     takes this launch only where the plan's grid is co-resident on the
+//     device (kBlocksPerSm on each of its SMs: every plan on a whole
+//     H100), and runs the split form below on a device with fewer SMs
+//     (a MIG slice); the launcher checks the grid against the device's
+//     SMs and the occupancy calculator, asked once a device, so a grid
+//     that cannot be co-resident is an error, never a hang;
 //   - a run is one 16-byte vector of a row of each channel (8 bf16/f16
 //     pixels or 4 f32); a block owns consecutive runs and thread t the
 //     block's runs t, t + kThreads, ..., walked without a division: (x,
@@ -55,14 +59,17 @@
 //     the data pointer move only the addresses and pick the loads), so a
 //     strided view and its contiguous copy give the same bits, and so do
 //     the whole frame's sample and the band loop's joined one.
-// Under a process group the phases stay separate launches, since a
-// collective cannot run inside a kernel: bounds (pass 1, the last block
-// writes [-min, max], the pair an all_reduce MAX reduces), stats (pass 2
-// from device memory, the last block writes this rank's [-lmin, lmax] and
-// f32 sums for the two all_reduce calls), then a one-thread finalize: the
-// same partition, reductions and finalize, so one rank is bitwise no
-// group. No float atomics: the counters and keys are integers, and each
-// launch leaves them at 0, so no memset runs.
+// The split form: under a process group the phases stay separate
+// launches, since a collective cannot run inside a kernel: bounds (pass
+// 1, the last block writes [-min, max], the pair an all_reduce MAX
+// reduces), stats (pass 2 from device memory, the last block writes this
+// rank's [-lmin, lmax] and f32 sums for the two all_reduce calls), then a
+// one-thread finalize: the same partition, reductions and finalize, so
+// one rank is bitwise no group, and so is the split form without a group
+// (the same three launches with no all_reduce between them), which a
+// device that cannot hold the plan's grid at once runs. No float
+// atomics: the counters and keys are integers, and each launch leaves
+// them at 0, so no memset runs.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py's
 // profiler traces; PERF.md section 6): 10.2-13.5 us a launch at the 6x4K
 // sample in bf16/f16 and 15.1-15.2 us in f32, 15.5-18.0 us inside the
@@ -82,7 +89,6 @@
 #include <cooperative_groups.h>
 #include <cuda/atomic>
 
-#include <atomic>
 #include <cmath>
 
 #include "common.cuh"
@@ -92,7 +98,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 // ops/hopper/meter.py's plan constants: the grid's cap (BLOCKS_PER_SM on
-// each of MIN_SMS SMs), the blocks of it each SM must hold, the shared
+// each of PLAN_SMS SMs), the blocks of it each SM must hold, the shared
 // memory a block may keep its runs in
 constexpr int kMaxGrid = TIT_METER_MAX_GRID;
 constexpr int kBlocksPerSm = TIT_METER_BLOCKS_PER_SM;
@@ -712,22 +718,20 @@ bool geometry(const Launch& l, Geometry& g) {
   return true;
 }
 
-// Whether kBlocksPerSm blocks of meter_kernel<T> with its largest shared
-// memory fit on an SM, so that the cap's kMaxGrid blocks are co-resident
-// on any sm_90 part of 114 SMs or more: cudaSuccess, the query's error or
-// cudaErrorCooperativeLaunchTooLarge. Checked once an instantiation (the
-// answer is the same on every sm_90 card).
+// Whether `blocks` blocks of meter_kernel<T>, with its largest shared
+// memory, are co-resident on the current device (its SMs x the blocks an
+// SM holds, asked once a device ordinal): cudaSuccess, the query's error
+// or cudaErrorCooperativeLaunchTooLarge. The wrapper runs the split form
+// wherever the grid exceeds kBlocksPerSm on each of the device's SMs, so
+// it never meets this error.
 template <typename T>
-cudaError_t co_resident() {
-  static std::atomic<bool> checked{false};
-  if (checked.load(std::memory_order_relaxed)) return cudaSuccess;
-  int per_sm = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, meter_kernel<T>, tit::kThreads, kCacheBytes);
+cudaError_t co_resident(int blocks) {
+  static tit::PerDevice resident;
+  int most = 0;
+  const cudaError_t e = tit::resident_blocks(meter_kernel<T>, tit::kThreads,
+                                             kCacheBytes, resident, most);
   if (e != cudaSuccess) return e;
-  if (per_sm < kBlocksPerSm) return cudaErrorCooperativeLaunchTooLarge;
-  checked.store(true, std::memory_order_relaxed);
-  return cudaSuccess;
+  return blocks <= most ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
 template <typename T>
@@ -753,7 +757,7 @@ int launch(const void* x, const void* launch_block, const void* prev,
   const auto* xin = static_cast<const T*>(x);
   auto* sc = static_cast<Scratch*>(scratch);
   if (phase == kFused) {
-    const cudaError_t fits = co_resident<T>();
+    const cudaError_t fits = co_resident<T>(g.blocks);
     if (fits != cudaSuccess) return static_cast<int>(fits);
     void* args[] = {&xin, &g, &sc, &pv, &tp, &t, &o, &n_total, &v};
     const size_t smem = g.cached ? 3 * g.per_block * sizeof(uint4) : 0;

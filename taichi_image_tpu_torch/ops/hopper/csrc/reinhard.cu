@@ -122,9 +122,13 @@ template <typename T, bool CA, bool kVec>
 cudaError_t launch_map(const T* x, T* p, unsigned* scratch, float* mx, int n,
                        int ng, int plane, const float* scal,
                        cudaStream_t stream) {
-  // one wave of the card, shared out over the (image, group) pairs
-  static const int resident =
-      tit::resident_blocks(map_kernel<T, CA, kVec>, tit::kThreads);
+  // one wave of the current device, shared out over the (image, group)
+  // pairs
+  static tit::PerDevice waves;
+  int resident = 0;
+  const cudaError_t err = tit::resident_blocks(
+      map_kernel<T, CA, kVec>, tit::kThreads, 0, waves, resident);
+  if (err != cudaSuccess) return err;
   const long long per_block =
       static_cast<long long>(tit::kThreads) * (kVec ? 16 / sizeof(T) : 1);
   long long blocks = (plane + per_block - 1) / per_block;

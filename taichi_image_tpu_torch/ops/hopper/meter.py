@@ -10,12 +10,15 @@ plus the linear tonemap's ``[m0, 1 / (m1 - m0)]``. :func:`meter` takes the
 the resize route's strided view, ``x12[:, 0:3]``'s, a gather, the band
 loop's joined samples) and the previous vec9 and returns the new vec9,
 the map's (6,) or (10,) scalars and the linear (2,) ones, all on the
-device and without a host sync: one cooperative launch, three under a
-process group (bounds, then the all_reduce MAX of ``[-min, max]``; stats,
-then the all_reduce MAX of the log bounds and SUM of the five sums;
-finalize). :func:`plan` is the launch's partition, a function of the
-sample's shape and dtype alone. :func:`vectors` computes the two vectors
-alone from metrics the caller holds (``meter_vectors``).
+device and without a host sync: one cooperative launch, or the split
+form's three (bounds, stats, finalize) on a device whose SMs cannot hold
+the plan's grid at once; under a process group the split form with the
+collectives between its launches (the all_reduce MAX of ``[-min, max]``
+after the bounds; the all_reduce MAX of the log bounds and SUM of the
+five sums after the stats). The two forms give the same bits.
+:func:`plan` is the launches' partition, a function of the sample's shape
+and dtype alone. :func:`vectors` computes the two vectors alone from
+metrics the caller holds (``meter_vectors``).
 
 The plain twins are the torch code the port ran before (about 52 device
 operations a step): :func:`metering_update_plain`, :func:`reinhard_scal`,
@@ -44,15 +47,16 @@ __all__ = ["Metering", "Plan", "meter", "meter_plain",
            "reinhard_scal_ca", "linear_scal", "vectors", "vectors_plain"]
 
 # The launch plan (csrc/meter.cu): blocks of THREADS threads, at most
-# MAX_GRID of them, which is BLOCKS_PER_SM on each of MIN_SMS SMs (the
-# fewest of an sm_90 part, the H100 PCIe's), so the grid is co-resident on
-# any such card and one cooperative launch can hold a grid barrier; a
-# block keeps its runs in shared memory for the second pass where they fit
-# in CACHE_BYTES.
+# MAX_GRID of them, which is BLOCKS_PER_SM on each of PLAN_SMS SMs (an
+# H100 PCIe's). A grid within BLOCKS_PER_SM on each of the device's SMs is
+# co-resident, so one cooperative launch can hold a grid barrier: every
+# plan on a whole H100; a device with fewer SMs (a MIG slice) runs a
+# larger grid in the split form. A block keeps its runs in shared memory
+# for the second pass where they fit in CACHE_BYTES.
 THREADS = 256
 BLOCKS_PER_SM = 4
-MIN_SMS = 114
-MAX_GRID = BLOCKS_PER_SM * MIN_SMS
+PLAN_SMS = 114
+MAX_GRID = BLOCKS_PER_SM * PLAN_SMS
 CACHE_BYTES = 40 * 1024
 RUN_BYTES = 16  # a run: one 16-byte vector of a row of each channel
 # the scratch: a 64-byte header of counters and the bounds' atomic keys,
@@ -77,8 +81,8 @@ VECTORS = hopper.register(
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "taichi_image_tpu/ops/pallas/reinhard.py:52-76")
 
-# the kernel's phases (csrc/meter.cu Phase): one cooperative launch without
-# a group; bounds, stats and finalize with one
+# the kernel's phases (csrc/meter.cu Phase): one cooperative launch, or
+# the split form's bounds, stats and finalize
 _FUSED, _BOUNDS, _STATS, _FINALIZE = 0, 1, 2, 3
 
 
@@ -97,9 +101,10 @@ class Plan(NamedTuple):
 def plan(shape, dtype: torch.dtype) -> Plan:
   """The launch plan of a sample of ``shape`` (N, C, hs, ws) and
   ``dtype``: a function of these alone (not of the strides or the card),
-  so a view and its copy, and the band loop's joined samples and the whole
-  frame's, are reduced in the same order. A block takes at least THREADS
-  runs, and the grid at most MAX_GRID blocks."""
+  so a view and its copy, the band loop's joined samples and the whole
+  frame's, and the two forms on any device are reduced in the same order.
+  A block takes at least THREADS runs, and the grid at most MAX_GRID
+  blocks."""
   n, _, hs, ws = (int(v) for v in shape)
   run = RUN_BYTES // dtype.itemsize
   runs = n * hs * -(-ws // run)
@@ -241,15 +246,17 @@ def _scratch(device: torch.device) -> torch.Tensor:
   return buf
 
 
-# {(shape, strides, dtype): (launch block, its pointer)}: the launcher's
-# shape-dependent arguments, made once a layout (csrc/meter.cu Launch)
+# {(shape, strides, dtype): (launch block, its pointer, the plan's grid)}:
+# the launcher's shape-dependent arguments, made once a layout
+# (csrc/meter.cu Launch)
 _LAUNCH_BLOCKS: dict = {}
 _LAUNCH_BLOCKS_MAX = 64
 
 
-def _launch_block(x: torch.Tensor) -> ctypes.c_void_p:
-  """The host block the launcher reads: the shape, the strides in elements
-  and :func:`plan`'s per_block, grid and cached, as 11 int64s."""
+def _launch_block(x: torch.Tensor) -> tuple[ctypes.c_void_p, int]:
+  """The host block the launcher reads (the shape, the strides in
+  elements and :func:`plan`'s per_block, grid and cached, as 11 int64s)
+  and the plan's grid."""
   key = (x.shape, x.stride(), x.dtype)
   hit = _LAUNCH_BLOCKS.get(key)
   if hit is None:
@@ -259,8 +266,25 @@ def _launch_block(x: torch.Tensor) -> ctypes.c_void_p:
     block = np.array([*x.shape, *x.stride(), p.per_block, p.grid,
                       int(p.cached)], dtype=np.int64)
     hit = _LAUNCH_BLOCKS[key] = (block,
-                                 block.ctypes.data_as(ctypes.c_void_p))
-  return hit[1]
+                                 block.ctypes.data_as(ctypes.c_void_p),
+                                 p.grid)
+  return hit[1], hit[2]
+
+
+# {device index: its SMs}
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+  """The SMs of the CUDA ``device`` (the current device where it names
+  no index), asked once a device index: the SMs of its MIG slice on a
+  partitioned card."""
+  index = torch.cuda.current_device() if device.index is None else device.index
+  n = _SMS.get(index)
+  if n is None:
+    n = _SMS[index] = (torch.cuda.get_device_properties(index)
+                       .multi_processor_count)
+  return n
 
 
 def _t_arg(t, device):
@@ -295,11 +319,15 @@ def meter(x: torch.Tensor, prev, t, intensity=1.0, light_adapt=1.0,
   scalars for ``intensity``, ``light_adapt`` and ``color_adapt`` (10 with
   color_adapt != 0) and the linear ones.
 
-  With a ``torch.distributed`` process ``group`` (the JAX package's
-  ``axis_name``) ``x`` is this rank's part of the sample: the bounds, log
-  bounds and sums are reduced over the group (three all_reduce calls) and
-  the sums divided by ``n_total``, the sample's pixel count over every
-  rank. Without a group ``n_total`` defaults to ``x``'s own count."""
+  Without a group this is one cooperative launch where the plan's grid
+  is co-resident on ``x``'s device (BLOCKS_PER_SM on each of its SMs),
+  else the split form's three launches, with the same bits. With a
+  ``torch.distributed`` process ``group`` (the JAX package's
+  ``axis_name``) ``x`` is this rank's part of the sample: the split form,
+  with the bounds, log bounds and sums reduced over the group (three
+  all_reduce calls) and the sums divided by ``n_total``, the sample's
+  pixel count over every rank. Without a group ``n_total`` defaults to
+  ``x``'s own count."""
   _check_sample(x)
   prev = torch.as_tensor(prev, dtype=torch.float32, device=x.device)
   if prev.shape != (9,):
@@ -321,26 +349,39 @@ def meter(x: torch.Tensor, prev, t, intensity=1.0, light_adapt=1.0,
   out = torch.empty(21, dtype=torch.float32, device=dev)
   ca_mode = _ca_mode(color_adapt)
   kernel = KERNELS[x.dtype]
-  head = (hopper.ptr(x), _launch_block(x), hopper.ptr(prev),
+  block, grid = _launch_block(x)
+  head = (hopper.ptr(x), block, hopper.ptr(prev),
           None if t_dev is None else hopper.ptr(t_dev), t_val,
           hopper.ptr(_scratch(dev)))
   tail = (hopper.ptr(out), float(n_total), float(intensity),
           float(light_adapt), float(color_adapt), int(ca_mode))
 
-  if group is None:
+  if group is None and grid <= BLOCKS_PER_SM * _sms(dev):
     kernel.launch(dev, *head, None, None, None, *tail, _FUSED)
   else:
-    mm = torch.empty(2, dtype=torch.float32, device=dev)
-    lb = torch.empty(2, dtype=torch.float32, device=dev)
-    sums = torch.empty(5, dtype=torch.float32, device=dev)
-    exchange = (hopper.ptr(mm), hopper.ptr(lb), hopper.ptr(sums))
-    kernel.launch(dev, *head, *exchange, *tail, _BOUNDS)
+    _split(kernel, dev, head, tail, group)
+  return Metering(out[0:9], out[9:19 if ca_mode else 15], out[19:21])
+
+
+def _split(kernel: hopper.Kernel, dev: torch.device, head, tail,
+           group) -> None:
+  """M's split form: the bounds, stats and finalize launches on one set
+  of exchange buffers, with a process ``group``'s all_reduce calls
+  between them. The kernels share the cooperative launch's partition,
+  reductions and finalize, so without a group (or with one rank) they
+  give its bits."""
+  mm = torch.empty(2, dtype=torch.float32, device=dev)
+  lb = torch.empty(2, dtype=torch.float32, device=dev)
+  sums = torch.empty(5, dtype=torch.float32, device=dev)
+  exchange = (hopper.ptr(mm), hopper.ptr(lb), hopper.ptr(sums))
+  kernel.launch(dev, *head, *exchange, *tail, _BOUNDS)
+  if group is not None:
     dist.all_reduce(mm, op=dist.ReduceOp.MAX, group=group)
-    kernel.launch(dev, *head, *exchange, *tail, _STATS)
+  kernel.launch(dev, *head, *exchange, *tail, _STATS)
+  if group is not None:
     dist.all_reduce(lb, op=dist.ReduceOp.MAX, group=group)
     dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-    kernel.launch(dev, *head, *exchange, *tail, _FINALIZE)
-  return Metering(out[0:9], out[9:19 if ca_mode else 15], out[19:21])
+  kernel.launch(dev, *head, *exchange, *tail, _FINALIZE)
 
 
 def vectors(metrics: torch.Tensor, intensity=1.0, light_adapt=1.0,

@@ -17,8 +17,10 @@ Contracts:
   * the wrapper: its argument checks, ``backend="kernel"`` on the CPU
     raising before any launch, and (with the launcher recorded) the
     launches and collectives it makes: one launch without a group, three
-    and the three all_reduce calls with one; its launch block made once a
-    layout;
+    and the three all_reduce calls with one; without a group, on a device
+    whose SMs (stubbed) cannot hold the plan's grid at BLOCKS_PER_SM
+    each, the split form's three launches and no collective; the SM count
+    asked once a device index; its launch block made once a layout;
   * the launch plan: a function of the shape and dtype alone, within the
     grid's cap, at the chip_smoke shapes; and a Python emulation of the
     kernel's division-free walk visiting each run of the sample once, at
@@ -27,6 +29,7 @@ Contracts:
 
 import ctypes
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -232,11 +235,14 @@ def test_meter_kernel_backend_on_cpu_raises(dtype):
 
 class _Recorder:
   """Stands in for the launchers and all_reduce on the CPU: records each
-  call's arguments, in order."""
+  call's arguments, in order. The device has ``sms`` SMs (a whole H100's
+  by default); with ``sms=None`` the wrapper asks torch for them."""
 
-  def __init__(self, monkeypatch):
+  def __init__(self, monkeypatch, sms=132):
     self.calls = []
     monkeypatch.setattr(hopper, "use_kernel", lambda backend, x: True)
+    if sms is not None:
+      monkeypatch.setattr(th_meter, "_sms", lambda device: sms)
     monkeypatch.setattr(th_meter, "_scratch",
                         lambda device: torch.zeros(th_meter.SCRATCH_BYTES,
                                                    dtype=torch.uint8))
@@ -301,6 +307,81 @@ def test_meter_launches(monkeypatch, grouped):
     assert [_ptr(v) for v in a[6:9]] == [mm, lb, sums]
 
 
+# Samples whose form depends on the device's SMs: (N, C, hs, ws) and
+# plan()'s grid in bf16, f16 and f32 (the main path's stride-8 sample at
+# 6x4K, the 6x8K whole frame's, the stride-8 sample at 6x1080p)
+FORM_SAMPLES = {"6x4K stride 8": ((6, 3, 270, 480), (380, 380, 456)),
+                "6x8K whole frame": ((6, 3, 540, 1440), (456, 456, 456)),
+                "6x1080p stride 8": ((6, 3, 135, 240), (95, 95, 190))}
+SM_COUNTS = (16, 24, 94, 95, 113, 114, 132)
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sample", FORM_SAMPLES)
+def test_meter_form_follows_the_device(monkeypatch, sample, dtype, sms):
+  """Without a group the wrapper takes the one cooperative launch exactly
+  where the plan's grid fits BLOCKS_PER_SM blocks on each of the device's
+  SMs, and otherwise the split form: bounds, stats and finalize on the
+  same exchange buffers, with no all_reduce, the sample's own pixel count
+  as n_total, and the same launch block as the cooperative launch."""
+  rec = _Recorder(monkeypatch, sms=sms)
+  wd = DTYPES[dtype]
+  shape, grids = FORM_SAMPLES[sample]
+  grid = grids[list(DTYPES).index(dtype)]
+  assert th_meter.plan(shape, wd).grid == grid
+  x = torch.zeros((), dtype=wd).expand(shape)  # the plan reads the shape
+  th_meter.meter(x, torch.zeros(9), 0.9, INTENSITY, LIGHT_ADAPT, 0.5)
+  assert all(c[0] == "launch" and c[1] == wd for c in rec.calls)
+  phases = [c[2][-1] for c in rec.calls]
+  if grid <= th_meter.BLOCKS_PER_SM * sms:
+    assert phases == [th_meter._FUSED]
+    assert all(_ptr(v) is None for v in rec.calls[0][2][6:9])
+  else:
+    assert phases == [th_meter._BOUNDS, th_meter._STATS, th_meter._FINALIZE]
+    exchange = [[_ptr(v) for v in c[2][6:9]] for c in rec.calls]
+    assert None not in exchange[0] and len(set(exchange[0])) == 3
+    assert exchange == [exchange[0]] * 3
+  n, _, hs, ws = shape
+  for _, _, a in rec.calls:
+    assert a[10] == float(n * hs * ws)
+    block = np.ctypeslib.as_array(
+        ctypes.cast(a[1], ctypes.POINTER(ctypes.c_int64)), (11,))
+    assert block[9] == grid
+
+
+def test_meter_sms_are_asked_once_a_device(monkeypatch):
+  """The SM count is cached per device index: two devices of different
+  counts (stubbed) give the 6x4K bf16 sample (380 blocks) different
+  forms, each device's count asked of torch once."""
+  rec = _Recorder(monkeypatch, sms=None)
+  sms = {0: 132, 1: 16}
+  asked, current = [], [0]
+
+  def properties(index):
+    asked.append(index)
+    return types.SimpleNamespace(multi_processor_count=sms[index])
+  monkeypatch.setattr(th_meter, "_SMS", {})
+  monkeypatch.setattr(th_meter.torch.cuda, "get_device_properties",
+                      properties)
+  monkeypatch.setattr(th_meter.torch.cuda, "current_device",
+                      lambda: current[0])
+  x = torch.zeros((), dtype=torch.bfloat16).expand(6, 3, 270, 480)
+  forms = []
+  for index in (0, 1, 0, 1):
+    current[0] = index
+    rec.calls.clear()
+    th_meter.meter(x, torch.zeros(9), 0.0)
+    forms.append([c[2][-1] for c in rec.calls])
+  fused, split = [th_meter._FUSED], [th_meter._BOUNDS, th_meter._STATS,
+                                     th_meter._FINALIZE]
+  assert forms == [fused, split, fused, split]
+  assert asked == [0, 1]
+  assert th_meter._sms(torch.device("cuda", 1)) == 16
+  assert th_meter._sms(torch.device("cuda", 0)) == 132
+  assert asked == [0, 1] and th_meter._SMS == sms
+
+
 def test_meter_launches_other_dtypes_as_f32(monkeypatch):
   rec = _Recorder(monkeypatch)
   th_meter.meter(torch.zeros(1, 3, 4, 4, dtype=torch.uint8), torch.zeros(9),
@@ -358,9 +439,10 @@ def test_plan_depends_on_the_shape_alone(shape, dtype):
   bands = torch.cat([view[:, :, :hs // 2], view[:, :, hs // 2:]], dim=2)
   for other in (view, view.contiguous(), bands):
     assert th_meter.plan(other.shape, other.dtype) == p
+    ptr, grid = th_meter._launch_block(other)
+    assert grid == p.grid
     blk = np.ctypeslib.as_array(ctypes.cast(
-        th_meter._launch_block(other), ctypes.POINTER(ctypes.c_int64)),
-                                (11,))
+        ptr, ctypes.POINTER(ctypes.c_int64)), (11,))
     assert blk.tolist() == [*shape, *other.stride(), p.per_block, p.grid,
                             int(p.cached)]
 
