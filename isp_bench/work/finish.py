@@ -1,0 +1,18 @@
+"""K4, the tail (``finish_<T>``): p and each image's max in, planar u8
+RGB out, the transform in its stores (chip_smoke's stage table)."""
+
+from isp_bench.work.isp_set import STAGE_OPS, item_bytes, pixels
+
+SYMBOLS = ("finish_rows_kernel", "finish_swap_kernel")
+
+
+def _tone(cfg: dict) -> float:
+  return STAGE_OPS["tone_per_value"] - (1.0 if cfg["gamma"] == 1.0 else 0.0)
+
+
+def logical_bytes(cfg: dict, color_format: str) -> int:
+  return 3 * pixels(cfg) * (item_bytes(cfg) + 1) + 4 * cfg["cameras"]
+
+
+def ops(cfg: dict, color_format: str) -> float:
+  return 3 * _tone(cfg) * pixels(cfg)
