@@ -71,6 +71,7 @@ batches run K3 and K4 as the step does.
 
 from __future__ import annotations
 
+import itertools
 import os
 from collections import deque
 from typing import List, Optional
@@ -101,6 +102,7 @@ from taichi_image_tpu_torch.ops.hopper.yuv420 import (  # noqa: F401
     yuv420_w6 as _yuv420_w6)
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 from taichi_image_tpu_torch.utils import debug as debug_util
+from taichi_image_tpu_torch.utils import profiling
 from taichi_image_tpu_torch.utils.bounds import lerp
 
 __all__ = ["camera_isp", "Camera16", "Camera32", "CameraBF16", "default_cc",
@@ -685,74 +687,90 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
     hopper_yuv420.check_even(
         *interpolate.transformed_size((w_out, h_out), transform)[::-1])
   wd = types.canonical_dtype(work_dtype)
-  phases = _decode_checked(raws, fmt, wd, ids_format, backend)
+  # the tracer's stage spans, each ending where the next begins; ``stage``
+  # is None while tracing is off (utils/profiling.py)
+  with profiling.stages() as stage:
+    if stage:
+      stage("isp.decode")
+    phases = _decode_checked(raws, fmt, wd, ids_format, backend)
 
-  def meter(sample, group=None):
-    return _meter(sample, prev, t, group, n_total, intensity, light_adapt,
-                  color_adapt, backend)
+    def meter(sample, group=None):
+      if stage:
+        stage("isp.meter")
+      return _meter(sample, prev, t, group, n_total, intensity, light_adapt,
+                    color_adapt, backend)
 
-  if group is None and _front_fused_route(wd, resize_plan, stride, tonemap,
-                                         color_adapt, phases):
-    # metering first, from the sample pre-pass; then stencil + map as one
-    # kernel (K7) and the finish
-    mt = meter(bayer_ops.demosaic_samples(phases, pattern, cc=cc,
-                                          out_dtype=wd,
-                                          sample_step=max(stride // 2, 1)))
-    p_cast, max_out = demosaic_reinhard_front(
-        phases, mt.metrics, intensity, light_adapt, pattern, cc,
-        backend=backend, scal=mt.scal)
-    return mt.metrics, _finish(p_cast, max_out, gamma, "reinhard",
-                               transform, color_format, backend)
+    if group is None and _front_fused_route(wd, resize_plan, stride, tonemap,
+                                           color_adapt, phases):
+      # metering first, from the sample pre-pass; then stencil + map as one
+      # kernel (K7, the map's stage) and the finish
+      if stage:
+        stage("isp.demosaic")
+      mt = meter(bayer_ops.demosaic_samples(phases, pattern, cc=cc,
+                                            out_dtype=wd,
+                                            sample_step=max(stride // 2, 1)))
+      if stage:
+        stage("isp.reinhard")
+      p_cast, max_out = demosaic_reinhard_front(
+          phases, mt.metrics, intensity, light_adapt, pattern, cc,
+          backend=backend, scal=mt.scal)
+      if stage:
+        stage("isp.finish")
+      return mt.metrics, _finish(p_cast, max_out, gamma, "reinhard",
+                                 transform, color_format, backend)
 
-  if resize_plan is not None:
-    x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
-                          backend=backend)
-    size, scale = resize_plan
-    rgb = _resize_x12(x12, size, scale, wd, backend=backend)
-    mt = meter(subsample_hw(rgb, stride, stride), group)
+    if stage:
+      stage("isp.demosaic")
+    if resize_plan is not None:
+      x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                            backend=backend)
+      if stage:
+        stage("isp.resize")
+      size, scale = resize_plan
+      src = _resize_x12(x12, size, scale, wd, backend=backend)
+      mt = meter(subsample_hw(src, stride, stride), group)
+      phase_format = None
+    elif stride % 2 != 0:
+      # the samples of an odd stride fall on every phase: gather them from
+      # x12 (the planar image's pixels); the tonemap stays in phase form,
+      # since the map is per pixel and the max runs over the same pixels
+      src = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                            backend=backend)
+      mt = meter(bayer_ops.planar_subsample(src, stride), group)
+      # an odd stride's I420 is the JAX package's planar conversion (the
+      # matrix before the block mean) of the RGB
+      phase_format = "rgb"
+    else:
+      # full-res stride-s pixels are exactly phase (0, 0) at half-res s/2
+      src, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
+                                     backend=backend,
+                                     sample_step=max(stride // 2, 1))
+      mt = meter(strided, group)
+      phase_format = color_format
     if tonemap == "reinhard":
-      src, scal = reinhard_map_max_ca(rgb, mt.metrics, intensity,
+      if stage:
+        stage("isp.reinhard")
+      src, scal = reinhard_map_max_ca(src, mt.metrics, intensity,
                                       light_adapt, color_adapt, wd,
                                       backend=backend, scal=mt.scal)
     else:
-      src, scal = rgb, mt.lin
-    # the tonemap and the transform in one kernel (P), and I420 with them
-    # in another
-    if color_format == "yuv420":
-      return mt.metrics, hopper_yuv420.yuv420_planar_tone(
+      scal = mt.lin
+    if stage:
+      stage("isp.finish")
+    if phase_format is None:
+      # the resize route: the tonemap and the transform in one kernel (P),
+      # and I420 with them in another
+      if color_format == "yuv420":
+        return mt.metrics, hopper_yuv420.yuv420_planar_tone(
+            src, scal, gamma, tonemap, transform, backend=backend)
+      return mt.metrics, hopper_finish.finish_planar_tone(
           src, scal, gamma, tonemap, transform, backend=backend)
-    return mt.metrics, hopper_finish.finish_planar_tone(
-        src, scal, gamma, tonemap, transform, backend=backend)
-
-  if stride % 2 != 0:
-    # the samples of an odd stride fall on every phase: gather them from
-    # x12 (the planar image's pixels); the tonemap stays in phase form,
-    # since the map is per pixel and the max runs over the same pixels
-    x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
-                          backend=backend)
-    strided = bayer_ops.planar_subsample(x12, stride)
-  else:
-    # full-res stride-s pixels are exactly phase (0, 0) at half-res s/2
-    x12, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
-                                   backend=backend,
-                                   sample_step=max(stride // 2, 1))
-  mt = meter(strided, group)
-  # K3 + K4, or K4's linear mode; the transform lives in K4's stores. An
-  # odd stride's I420 is the JAX package's planar conversion (the matrix
-  # before the block mean) of the RGB
-  phase_format = color_format if stride % 2 == 0 else "rgb"
-  if tonemap == "linear":
-    out = _finish(x12, mt.lin, gamma, "linear", transform, phase_format,
+    # K3 + K4, or K4's linear mode; the transform lives in K4's stores
+    out = _finish(src, scal, gamma, tonemap, transform, phase_format,
                   backend)
-  else:
-    p_cast, max_out = reinhard_map_max_ca(x12, mt.metrics, intensity,
-                                          light_adapt, color_adapt, wd,
-                                          backend=backend, scal=mt.scal)
-    out = _finish(p_cast, max_out, gamma, "reinhard", transform,
-                  phase_format, backend)
-  if phase_format != color_format:
-    return mt.metrics, yuv420_from_planar_u8(out, backend=backend)
-  return mt.metrics, out
+    if phase_format != color_format:
+      out = yuv420_from_planar_u8(out, backend=backend)
+    return mt.metrics, out
 
 
 def state_from_jax(state: dict) -> dict:
@@ -809,6 +827,8 @@ class _ISPBase:
     self.metrics = None
     self.device = torch.device(device)
     self._uploader = None
+    # the ids of the sets this instance processes while tracing is on
+    self._sets = itertools.count()
 
   def set(self, moving_alpha: Optional[float] = None,
           resize_width: Optional[int] = None,
@@ -1162,17 +1182,18 @@ class _ISPBase:
     planar I420 ``(Y, VU)`` u8 on the device instead (``layout`` ignored;
     even output dims required).
     """
-    raws = self._upload(raws)
-    debug_util.validate_raw(raws, fmt)
-    prev, t = self._prev_t()
-    plan = self._resize_plan_key(raws, fmt)
-    new_metrics, out = fused_isp_step(
-        raws, prev, t, float(gamma), float(intensity), float(light_adapt),
-        float(color_adapt), fmt, ids_format, self._work_dtype,
-        self.bayer_pattern, self._cc_tuple(), plan, self.metering_stride,
-        self.transform, tonemap, color_format=color_format)
-    self.metrics = new_metrics
-    return _layout(out, color_format, layout)
+    with profiling.span("isp.process", self._sets):
+      raws = self._upload(raws)
+      debug_util.validate_raw(raws, fmt)
+      prev, t = self._prev_t()
+      plan = self._resize_plan_key(raws, fmt)
+      new_metrics, out = fused_isp_step(
+          raws, prev, t, float(gamma), float(intensity), float(light_adapt),
+          float(color_adapt), fmt, ids_format, self._work_dtype,
+          self.bayer_pattern, self._cc_tuple(), plan, self.metering_stride,
+          self.transform, tonemap, color_format=color_format)
+      self.metrics = new_metrics
+      return _layout(out, color_format, layout)
 
   def process_large(self, raws, n_bands: int = 4, fmt: str = "packed12",
                     ids_format: bool = False, gamma: float = 1.0,
@@ -1185,20 +1206,21 @@ class _ISPBase:
     runs the whole-frame step, ``"loop"`` and ``"scan"`` the band loop
     over at least ``n_bands`` row bands (models/large.py)."""
     from taichi_image_tpu_torch.models import large
-    raws = _on_device(raws, self.device)
-    debug_util.validate_raw(raws, fmt)
-    prev, t = self._prev_t()
-    new_metrics, out = large.process_banded(
-        raws, prev, t, n_bands=n_bands, fmt=fmt, ids_format=ids_format,
-        work_dtype=self._work_dtype, pattern=self.bayer_pattern,
-        cc=self._cc_tuple(), stride=self.metering_stride, gamma=float(gamma),
-        intensity=float(intensity), light_adapt=float(light_adapt),
-        color_adapt=float(color_adapt), tonemap=tonemap,
-        color_format=color_format,
-        resize_plan=self._resize_plan_key(raws, fmt),
-        transform=self.transform, driver=driver)
-    self.metrics = new_metrics
-    return _layout(out, color_format, layout)
+    with profiling.span("isp.process", self._sets):
+      raws = _on_device(raws, self.device)
+      debug_util.validate_raw(raws, fmt)
+      prev, t = self._prev_t()
+      new_metrics, out = large.process_banded(
+          raws, prev, t, n_bands=n_bands, fmt=fmt, ids_format=ids_format,
+          work_dtype=self._work_dtype, pattern=self.bayer_pattern,
+          cc=self._cc_tuple(), stride=self.metering_stride,
+          gamma=float(gamma), intensity=float(intensity),
+          light_adapt=float(light_adapt), color_adapt=float(color_adapt),
+          tonemap=tonemap, color_format=color_format,
+          resize_plan=self._resize_plan_key(raws, fmt),
+          transform=self.transform, driver=driver)
+      self.metrics = new_metrics
+      return _layout(out, color_format, layout)
 
   def _upload(self, raws) -> torch.Tensor:
     """``raws`` on the ISP's device. On CUDA a host set (numpy or a CPU

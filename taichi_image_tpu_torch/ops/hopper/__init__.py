@@ -32,6 +32,9 @@ with that device current (:meth:`Kernel.launch`), on its current stream.
 Every wrapper adds one to its kernel's ``launches`` count where it
 launches the kernel, and nowhere else, so a run can show that the main
 path went through the kernels (``launch_counts``/``reset_launches``).
+The tracer (``utils/profiling.py``) times each C launcher call while it is
+on (``isp.launch``, ``launch_ns``), and each library's first load in this
+process (``isp.load``, ``load_ns``) and nvcc run (``builds``) always.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from taichi_image_tpu_torch.utils import profiling
 
 __all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
            "nvcc_flags", "build_all", "launch_counts", "reset_launches",
@@ -116,6 +121,7 @@ def _build(source: str) -> Path:
     return out
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+  profiling.count_build(source)
   proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
                         capture_output=True, text=True)
   if proc.returncode != 0:
@@ -125,6 +131,20 @@ def _build(source: str) -> Path:
   out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
   os.replace(tmp, out)
   return out
+
+
+# {source: its loaded library}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _library(source: str) -> ctypes.CDLL:
+  """``csrc/<source>``'s library, built if its cache misses and loaded
+  once a process (the ``isp.load`` span)."""
+  lib = _LIBS.get(source)
+  if lib is None:
+    with profiling.load(source):
+      lib = _LIBS[source] = ctypes.CDLL(str(_build(source)))
+  return lib
 
 
 class Kernel:
@@ -146,8 +166,7 @@ class Kernel:
 
   def _launcher(self):
     if self._fn is None:
-      lib = ctypes.CDLL(str(self.build()))
-      fn = getattr(lib, self.symbol)
+      fn = getattr(_library(self.source), self.symbol)
       fn.argtypes = self.argtypes
       fn.restype = ctypes.c_int
       self._fn = fn
@@ -159,8 +178,14 @@ class Kernel:
     the current device: the CUDA runtime launches on the current device,
     and the launchers size their grids from it (``tit::resident_blocks``).
     Count the launch; raise on a CUDA error."""
+    fn = self._launcher()
     with torch.cuda.device(device):
-      err = self._launcher()(*args, stream_of(device))
+      stream = stream_of(device)
+      if profiling.ON:
+        with profiling.launch(self.name):
+          err = fn(*args, stream)
+      else:
+        err = fn(*args, stream)
     if err != 0:
       raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t "
                          f"{err}")

@@ -1,4 +1,4 @@
-"""Profiling / tracing hooks (counterpart of
+"""Profiling and tracing (counterpart of
 ``taichi_image_tpu/utils/profiling.py``).
 
 The reference's only observability is the bench harness's synchronized
@@ -6,41 +6,252 @@ wall clock (bench/util.py:8-28, SURVEY.md §5). Here ``trace(...)`` wraps a
 block in a ``torch.profiler`` profile (the host, and the CUDA devices when
 there are any) and writes a Chrome trace that Perfetto and TensorBoard
 load; ``annotate`` marks named regions.
+
+The port's own tracer is off by default: :func:`enable` /
+:func:`disable`, or ``with tracing():``, turn it on, and ``trace`` turns
+it on for its block. The port marks its hot path with spans
+(:data:`SPANS`): ``isp.process`` around each ``process`` and
+``process_large`` call, opening a set (its id is the instance's count of
+traced sets before it); inside ``fused_isp_step`` one span per stage on
+the route taken (``isp.decode``, ``isp.demosaic``, ``isp.resize``,
+``isp.meter``, ``isp.reinhard``, ``isp.finish``); ``isp.launch`` around
+each hand-written kernel's C launcher call; ``isp.load`` around each kernel
+library's first load (hashing its sources, ``nvcc --version``, nvcc where
+the build cache misses, ``dlopen``).
+
+While tracing is off a span site costs one check of :data:`ON` (a stage
+of ``fused_isp_step`` one check of its local ``stage``): no span object,
+no clock, no ``record_function``. While it is on, every span adds
+to aggregates kept per name (calls, total ns, and self ns: its time less
+what its child spans cover), bounded by the number of names, and carries
+the set id of the span it opened in. While a torch.profiler session is
+recording, each span is also a ``record_function`` named ``<span>
+[<kernel or source>] set=<id>``, so it lands in the session's Chrome trace
+on the profiler's clock, beside the device's kernels.
+
+Counters: ``launch_ns`` per kernel (host ns inside its C launcher while
+tracing is on, a launch held up by a full launch queue included),
+``builds`` per source (nvcc runs in this process) and ``load_ns`` per
+source. The load spans and their counters are kept whether tracing is on
+or off: they run once a source per process, never on the hot path.
+:func:`snapshot` returns the aggregates and counters, :func:`reset`
+clears them.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
+import threading
+from time import perf_counter_ns
 
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.profiler import (ProfilerActivity, profile, record_function,
+                            tensorboard_trace_handler)
+
+# every name the port opens a span under
+SPANS = ("isp.process", "isp.decode", "isp.demosaic", "isp.resize",
+         "isp.meter", "isp.reinhard", "isp.finish", "isp.launch", "isp.load")
+
+# the one flag every span site checks
+ON = False
+
+_spans: dict[str, list] = {}     # name: [calls, total ns, self ns]
+_launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
+_builds: dict[str, int] = {}     # source: nvcc runs
+_load_ns: dict[str, int] = {}    # source: ns of its library's first load
+_lock = threading.Lock()         # for the aggregates and counters above
+_recording = torch.autograd._profiler_enabled   # a profiler session records
+
+
+class _Local(threading.local):
+  def __init__(self):
+    self.stack = []   # this thread's open spans, innermost last
+
+
+_local = _Local()
+
+
+def enable() -> None:
+  """Turn the tracer on."""
+  global ON
+  ON = True
+
+
+def disable() -> None:
+  """Turn the tracer off (the aggregates stay until :func:`reset`)."""
+  global ON
+  ON = False
+
+
+@contextlib.contextmanager
+def tracing():
+  """The tracer on for the enclosed block, then as it was."""
+  global ON
+  was, ON = ON, True
+  try:
+    yield
+  finally:
+    ON = was
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, create_perfetto_link: bool = False):
   """Capture a profile of the enclosed block into ``log_dir``
-  (``<host>_<pid>.<time>.pt.trace.json``). ``create_perfetto_link`` is
-  accepted for the JAX signature and has no effect, as on JAX's CPU."""
+  (``<host>_<pid>.<time>.pt.trace.json``), with the tracer on, so that
+  the port's spans land in it. ``create_perfetto_link`` is accepted for
+  the JAX signature and has no effect, as on JAX's CPU."""
   del create_perfetto_link
   activities = [ProfilerActivity.CPU]
   if torch.cuda.is_available():
     activities.append(ProfilerActivity.CUDA)
   with profile(activities=activities,
                on_trace_ready=tensorboard_trace_handler(str(log_dir))):
-    yield
+    with tracing():
+      yield
+
+
+class _Off:
+  """What a span site enters while tracing is off."""
+  __slots__ = ()
+
+  def __enter__(self):
+    return None
+
+  def __exit__(self, *exc):
+    return None
+
+
+_OFF = _Off()
+
+
+class _Span:
+  """One span; with a ``tag`` (a kernel, a source) its time also goes to
+  ``counter[tag]``."""
+  __slots__ = ("name", "tag", "counter", "set_id", "t0", "child_ns", "mark",
+               "stack")
+
+  def __init__(self, name: str, set_id=None, tag: str | None = None,
+               counter: dict | None = None):
+    self.name, self.set_id = name, set_id
+    self.tag, self.counter = tag, counter
+
+  def label(self) -> str:
+    parts = [self.name]
+    if self.tag is not None:
+      parts.append(self.tag)
+    if self.set_id is not None:
+      parts.append(f"set={self.set_id}")
+    return " ".join(parts)
+
+  def __enter__(self):
+    self.stack = stack = _local.stack
+    if self.set_id is None and stack:
+      self.set_id = stack[-1].set_id
+    if _recording():
+      self.mark = record_function(self.label())
+      self.mark.__enter__()
+    else:
+      self.mark = None
+    self.child_ns = 0
+    stack.append(self)
+    self.t0 = perf_counter_ns()
+    return self
+
+  def __exit__(self, *exc):
+    ns = perf_counter_ns() - self.t0
+    stack = self.stack
+    stack.pop()
+    if stack:
+      stack[-1].child_ns += ns
+    with _lock:
+      agg = _spans.get(self.name)
+      if agg is None:
+        agg = _spans[self.name] = [0, 0, 0]
+      agg[0] += 1
+      agg[1] += ns
+      agg[2] += ns - self.child_ns
+      if self.counter is not None:
+        self.counter[self.tag] = self.counter.get(self.tag, 0) + ns
+    if self.mark is not None:
+      self.mark.__exit__(*exc)
+
+
+def span(name: str, sets=None):
+  """A span named ``name`` while tracing is on (a no-op while it is off).
+  ``sets``: an iterator of set ids (``itertools.count()``): the span opens
+  a new set and takes the next id from it; without it the span carries
+  the set id of the span it opens in."""
+  if not ON:
+    return _OFF
+  return _Span(name, None if sets is None else next(sets))
+
+
+class _Stages:
+  """The stage spans of one step, each ending where the next begins."""
+  __slots__ = ("open",)
+
+  def __enter__(self):
+    self.open = None
+    return self
+
+  def __call__(self, name: str) -> None:
+    self.__exit__(None, None, None)
+    self.open = _Span(name)
+    self.open.__enter__()
+
+  def __exit__(self, *exc):
+    if self.open is not None:
+      self.open.__exit__(*exc)
+      self.open = None
+
+
+def stages():
+  """``with stages() as stage:``, then ``stage(name)`` where each stage of a
+  step begins: the stage spans follow one another, the last ending with
+  the block. While tracing is off ``stage`` is None, so that a stage site
+  costs one check of it."""
+  return _Stages() if ON else _OFF
 
 
 def annotate(name: str):
-  """Named trace region (shows up in the profile timeline)."""
-  return torch.profiler.record_function(name)
+  """Named trace region: a span of the tracer (in the profile timeline
+  while tracing is on and a profiler records)."""
+  return span(name)
 
 
-@contextlib.contextmanager
-def stage_timer(stats: dict, name: str):
-  """Accumulate host wall-clock per pipeline stage into ``stats``."""
-  t0 = time.perf_counter()
-  try:
-    yield
-  finally:
-    stats[name] = stats.get(name, 0.0) + time.perf_counter() - t0
+def launch(kernel: str) -> _Span:
+  """The ``isp.launch`` span of one C launcher call of ``kernel``, which
+  adds its time to the kernel's ``launch_ns``. The caller checks
+  :data:`ON`."""
+  return _Span("isp.launch", tag=kernel, counter=_launch_ns)
+
+
+def load(source: str) -> _Span:
+  """The ``isp.load`` span of ``source``'s library's first load, which
+  adds its time to the source's ``load_ns``; kept whether tracing is on or
+  off."""
+  return _Span("isp.load", tag=source, counter=_load_ns)
+
+
+def count_build(source: str) -> None:
+  """Count one nvcc run on ``source``."""
+  with _lock:
+    _builds[source] = _builds.get(source, 0) + 1
+
+
+def snapshot() -> dict:
+  """The aggregates and counters: ``spans`` {name: {calls, ns, self_ns}},
+  ``launch_ns`` {kernel: ns}, ``builds`` {source: nvcc runs} and
+  ``load_ns`` {source: ns}."""
+  with _lock:
+    return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
+                      for name, (c, ns, self_ns) in _spans.items()},
+            "launch_ns": dict(_launch_ns), "builds": dict(_builds),
+            "load_ns": dict(_load_ns)}
+
+
+def reset() -> None:
+  """Clear the aggregates and counters."""
+  with _lock:
+    for d in (_spans, _launch_ns, _builds, _load_ns):
+      d.clear()

@@ -1,0 +1,391 @@
+"""The port's tracer (``utils/profiling.py``) on the CPU: off by default and
+free of spans, clocks and ``record_function`` while off; while on, one
+``isp.process`` span a set with the set's id, the stages of the route taken
+in order inside it, each kernel launch inside its stage, self times less
+what children cover, the spans in ``trace(log_dir)``'s Chrome file, and the
+launch, build and load counters. The kernels' launchers and nvcc are
+stubbed, as in test_torch_meter.py."""
+
+import contextlib
+import itertools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import taichi_image_tpu_torch as ttit  # noqa: E402
+from taichi_image_tpu_torch.ops import hopper  # noqa: E402
+from taichi_image_tpu_torch.ops.hopper import meter as th_meter  # noqa: E402
+from taichi_image_tpu_torch.ops.interpolate import ImageTransform  # noqa: E402
+from taichi_image_tpu_torch.utils import profiling  # noqa: E402
+
+H, W = 16, 24   # a frame's pixels: packed12 rows of 36 bytes
+
+# the stages of each route, in order
+PHASE = ["isp.decode", "isp.demosaic", "isp.meter", "isp.reinhard",
+         "isp.finish"]
+ROUTES = {
+    "phase": (dict(), dict(), PHASE),
+    "linear": (dict(), dict(tonemap="linear"),
+               ["isp.decode", "isp.demosaic", "isp.meter", "isp.finish"]),
+    "resize": (dict(resize_width=12), dict(),
+               ["isp.decode", "isp.demosaic", "isp.resize", "isp.meter",
+                "isp.reinhard", "isp.finish"]),
+    "odd stride i420": (dict(metering_stride=3), dict(color_format="yuv420"),
+                        PHASE),
+    "rotate_90": (dict(transform=ImageTransform.rotate_90), dict(), PHASE),
+}
+
+
+@pytest.fixture(autouse=True)
+def _clean():
+  profiling.reset()
+  yield
+  profiling.disable()
+  profiling.reset()
+
+
+def _raws(n=2, seed=0):
+  rng = np.random.default_rng(seed)
+  return rng.integers(0, 256, (n, H, W * 3 // 2), dtype=np.uint8)
+
+
+def _profiled(fn):
+  """Run ``fn`` in a torch.profiler session; return the session's
+  ``isp.*`` events as (name, tag, set id, start, end), by start."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU]) as prof:
+    fn()
+  with tempfile.TemporaryDirectory() as tmp:
+    path = f"{tmp}/trace.json"
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f)["traceEvents"]
+  out = []
+  for e in events:
+    if e.get("cat") != "user_annotation" or not e["name"].startswith("isp."):
+      continue
+    words = e["name"].split(" ")
+    sets = [int(w[4:]) for w in words if w.startswith("set=")]
+    tag = [w for w in words[1:] if not w.startswith("set=")]
+    out.append((words[0], tag[0] if tag else None,
+                sets[0] if sets else None, e["ts"], e["ts"] + e["dur"]))
+  return sorted(out, key=lambda ev: ev[3])
+
+
+def _inside(inner, outer) -> bool:
+  return outer[3] <= inner[3] and inner[4] <= outer[4]
+
+
+def test_off_by_default_and_records_nothing(monkeypatch):
+  assert profiling.ON is False
+  opened, clock = [], []
+  monkeypatch.setattr(profiling, "record_function",
+                      lambda *a: opened.append(a))
+  real = profiling.perf_counter_ns
+  monkeypatch.setattr(profiling, "perf_counter_ns",
+                      lambda: clock.append(1) or real())
+  # one shared object, no span made
+  assert profiling.span("isp.process", itertools.count()) is \
+      profiling.span("isp.decode") is profiling.stages()
+  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu")
+  # even inside a profiler session nothing is opened while tracing is off
+  events = _profiled(lambda: [isp.process(_raws()) for _ in range(2)])
+  assert events == [] and opened == [] and clock == []
+  assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
+                                  "builds": {}, "load_ns": {}}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_each_set_holds_its_stages_in_route_order(route):
+  cls_kw, call_kw, stages = ROUTES[route]
+  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu", **cls_kw)
+  n = 3
+  with profiling.tracing():
+    events = _profiled(lambda: [isp.process(_raws(seed=i), **call_kw)
+                                for i in range(n)])
+  assert profiling.ON is False   # as it was before the block
+  sets = [e for e in events if e[0] == "isp.process"]
+  assert [e[2] for e in sets] == list(range(n))
+  for p in sets:
+    inside = [e for e in events if e[0] != "isp.process" and _inside(e, p)]
+    assert [e[0] for e in inside] == stages
+    assert all(e[2] == p[2] for e in inside)
+  snap = profiling.snapshot()["spans"]
+  assert snap["isp.process"]["calls"] == n
+  assert {name: s["calls"] for name, s in snap.items()} == {
+      "isp.process": n, **{s: n for s in stages}}
+  assert set(snap) <= set(profiling.SPANS)
+
+
+def test_the_front_fused_route_counts_k7_as_the_map(monkeypatch):
+  monkeypatch.setenv("TAICHI_IMAGE_TPU_FRONT_FUSED", "1")
+  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    events = _profiled(lambda: isp.process(_raws()))
+  assert [e[0] for e in events] == ["isp.process", *PHASE]
+  # each stage ends where the next begins
+  assert all(a[4] <= b[3] for a, b in zip(events[1:], events[2:]))
+
+
+def test_process_large_opens_a_set_of_the_same_count():
+  isp = ttit.Camera32(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    events = _profiled(lambda: (isp.process(_raws()),
+                                isp.process_large(_raws(), driver="auto")))
+  sets = [e for e in events if e[0] == "isp.process"]
+  assert [e[2] for e in sets] == [0, 1]
+  assert [e[0] for e in events if e[2] == 1 and e[0] != "isp.process"] == \
+      PHASE
+
+
+def test_set_ids_are_per_instance():
+  a = ttit.Camera16(ttit.BayerPattern.RGGB, device="cpu")
+  b = ttit.Camera16(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    events = _profiled(lambda: (a.process(_raws()), a.process(_raws()),
+                                b.process(_raws())))
+  assert [e[2] for e in events if e[0] == "isp.process"] == [0, 1, 0]
+
+
+def _fake_clock(monkeypatch, ticks):
+  it = iter(ticks)
+  monkeypatch.setattr(profiling, "perf_counter_ns", lambda: next(it))
+
+
+def test_self_time_is_the_duration_less_the_children(monkeypatch):
+  # outer 0..100 holds a 10..30 (itself holding b 12..20) and c 40..45
+  _fake_clock(monkeypatch, [0, 10, 12, 20, 30, 40, 45, 100])
+  span = profiling.span
+  with profiling.tracing():
+    with span("outer", itertools.count(7)):
+      with span("a"):
+        with span("b"):
+          pass
+      with span("c"):
+        pass
+  snap = profiling.snapshot()["spans"]
+  assert snap["outer"] == {"calls": 1, "ns": 100, "self_ns": 100 - 20 - 5}
+  assert snap["a"] == {"calls": 1, "ns": 20, "self_ns": 20 - 8}
+  assert snap["b"] == {"calls": 1, "ns": 8, "self_ns": 8}
+  assert snap["c"] == {"calls": 1, "ns": 5, "self_ns": 5}
+
+
+def test_a_failing_child_still_closes(monkeypatch):
+  _fake_clock(monkeypatch, [0, 5, 15, 40])
+  with profiling.tracing():
+    with profiling.span("outer"):
+      with pytest.raises(KeyError):
+        with profiling.span("inner"):
+          raise KeyError("stage failed")
+  snap = profiling.snapshot()["spans"]
+  assert snap["inner"]["ns"] == 10 and snap["outer"]["self_ns"] == 30
+  assert profiling._local.stack == []
+
+
+def test_annotate_and_spans_reach_the_trace_file(tmp_path):
+  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.trace(str(tmp_path)):
+    assert profiling.ON
+    with profiling.annotate("isp step"):
+      isp.process(_raws())
+      isp.process(_raws())
+  assert profiling.ON is False
+  files = list(tmp_path.glob("*.pt.trace.json"))
+  assert len(files) == 1
+  names = {e.get("name") for e in
+           json.loads(files[0].read_text())["traceEvents"]}
+  assert "isp step" in names
+  for i in (0, 1):
+    assert {f"{s} set={i}" for s in ["isp.process", *PHASE]} <= names
+
+
+def test_annotate_is_a_span_of_the_tracer():
+  with profiling.annotate("region"):
+    pass
+  assert profiling.snapshot()["spans"] == {}
+  with profiling.tracing():
+    with profiling.annotate("region"):
+      pass
+  assert profiling.snapshot()["spans"]["region"]["calls"] == 1
+
+
+def test_threads_lose_no_update():
+  """Spans on more threads than cores, switching often: every call and
+  every counted ns arrives, and each thread's nesting stays its own."""
+  n_threads, n = 4 * (os.cpu_count() or 1), 4000
+  interval = sys.getswitchinterval()
+  sys.setswitchinterval(1e-6)
+  try:
+    with profiling.tracing():
+      def work(i):
+        for _ in range(n):
+          with profiling.span("isp.process", itertools.count(i)):
+            with profiling.launch(f"k{i % 3}"):
+              pass
+      with ThreadPoolExecutor(n_threads) as pool:
+        for f in [pool.submit(work, i) for i in range(n_threads)]:
+          f.result(timeout=60)
+  finally:
+    sys.setswitchinterval(interval)
+  snap = profiling.snapshot()
+  assert snap["spans"]["isp.process"]["calls"] == n_threads * n
+  launch = snap["spans"]["isp.launch"]
+  assert launch["calls"] == n_threads * n
+  assert sum(snap["launch_ns"].values()) == launch["ns"] == launch["self_ns"]
+  process = snap["spans"]["isp.process"]
+  assert process["ns"] - process["self_ns"] == launch["ns"]
+
+
+def test_no_span_name_is_one_of_the_benchmarks():
+  # the benchmark's own host spans and its slice (isp_bench/trace.py)
+  assert all(name.startswith("isp.") for name in profiling.SPANS)
+  assert not set(profiling.SPANS) & {"process", "sync", "slice"}
+
+
+# -- the kernels' launches and loads, with stubbed launchers and nvcc --------
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+  """Kernel.launch on the CPU: no device to enter, stream 0."""
+  monkeypatch.setattr(torch.cuda, "device",
+                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(hopper, "stream_of", lambda device: 0)
+
+
+def _stub_nvcc(monkeypatch, tmp_path):
+  """nvcc that writes an empty library; returns the list of its runs."""
+  runs = []
+
+  def run(cmd, **kwargs):
+    runs.append(cmd)
+    open(cmd[cmd.index("-o") + 1], "wb").close()
+    return subprocess.CompletedProcess(cmd, 0, "", "")
+  monkeypatch.setattr(hopper, "_nvcc", lambda: "nvcc")
+  monkeypatch.setattr(hopper, "_nvcc_version", lambda nvcc: "V")
+  monkeypatch.setattr(hopper, "BUILD_DIR", tmp_path)
+  monkeypatch.setattr(hopper.subprocess, "run", run)
+  return runs
+
+
+class _Lib:
+  """A loaded library whose every symbol returns ``err``."""
+
+  def __init__(self, path, err=0):
+    self.path = path
+    self.err = err
+
+  def __getattr__(self, symbol):
+    def fn(*args):
+      return self.err
+    return fn
+
+
+def test_a_build_a_cache_hit_and_the_loads_are_counted(monkeypatch, tmp_path,
+                                                       stub_launch):
+  runs = _stub_nvcc(monkeypatch, tmp_path)
+  monkeypatch.setattr(hopper, "_LIBS", {})
+  monkeypatch.setattr(hopper.ctypes, "CDLL", _Lib)
+  k = hopper.Kernel("decode_t", "decode.cu", "tit_t", [], "none")
+  k.launch(torch.device("cpu"), 1, 2)   # tracing off: the load still counts
+  snap = profiling.snapshot()
+  assert len(runs) == 1 and snap["builds"] == {"decode.cu": 1}
+  assert snap["load_ns"]["decode.cu"] > 0
+  assert snap["spans"] == {"isp.load": {
+      "calls": 1, "ns": snap["load_ns"]["decode.cu"],
+      "self_ns": snap["load_ns"]["decode.cu"]}}
+  assert snap["launch_ns"] == {} and k.launches == 1
+  # a sibling kernel of the source loads nothing more
+  hopper.Kernel("decode_u", "decode.cu", "tit_u", [], "none").launch(
+      torch.device("cpu"))
+  assert profiling.snapshot()["spans"]["isp.load"]["calls"] == 1
+  # a new process: the cache hits, nvcc does not run, the load counts
+  monkeypatch.setattr(hopper, "_LIBS", {})
+  first = profiling.snapshot()["load_ns"]["decode.cu"]
+  hopper.Kernel("decode_v", "decode.cu", "tit_v", [], "none").launch(
+      torch.device("cpu"))
+  snap = profiling.snapshot()
+  assert len(runs) == 1 and snap["builds"] == {"decode.cu": 1}
+  assert snap["spans"]["isp.load"]["calls"] == 2
+  assert snap["load_ns"]["decode.cu"] > first
+
+
+def test_launch_ns_counts_each_launch_while_on(monkeypatch, stub_launch):
+  _fake_clock(monkeypatch, [0, 7, 100, 103])
+  k = hopper.Kernel("demosaic_t", "demosaic.cu", "tit_t", [], "none")
+  calls = []
+  k._fn = lambda *args: calls.append(args) or 0
+  k.launch(torch.device("cpu"), 5)        # off: no clock read
+  with profiling.tracing():
+    k.launch(torch.device("cpu"), 6)
+    k.launch(torch.device("cpu"), 7)
+  assert calls == [(5, 0), (6, 0), (7, 0)] and k.launches == 3
+  snap = profiling.snapshot()
+  assert snap["launch_ns"] == {"demosaic_t": 7 + 3}
+  assert snap["spans"]["isp.launch"] == {"calls": 2, "ns": 10, "self_ns": 10}
+
+
+def test_a_failed_launch_still_raises(stub_launch):
+  k = hopper.Kernel("finish_t", "finish.cu", "tit_t", [], "none")
+  k._fn = lambda *args: 700
+  with profiling.tracing():
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+      k.launch(torch.device("cpu"))
+  assert k.launches == 0 and profiling.snapshot()["launch_ns"]["finish_t"] >= 0
+
+
+def test_reset_clears_everything(stub_launch):
+  profiling.count_build("x.cu")
+  with profiling.tracing(), profiling.span("isp.process"):
+    pass
+  profiling.reset()
+  assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
+                                  "builds": {}, "load_ns": {}}
+
+
+@pytest.fixture
+def kernel_route(monkeypatch, stub_launch):
+  """The kernel route on CPU tensors: every launcher a stub that records
+  its kernel's name (th_meter's SMs and scratch as in test_torch_meter)."""
+  launched = []
+  monkeypatch.setattr(hopper, "use_kernel", lambda backend, x: True)
+  monkeypatch.setattr(th_meter, "_sms", lambda device: 132)
+  monkeypatch.setattr(th_meter, "_scratch",
+                      lambda device: torch.zeros(th_meter.SCRATCH_BYTES,
+                                                 dtype=torch.uint8))
+  hopper._import_kernel_modules()
+  for name, k in hopper.KERNELS.items():
+    monkeypatch.setattr(k, "_fn",
+                        lambda *args, name=name: launched.append(name) or 0)
+  return launched
+
+
+@pytest.mark.parametrize("cls,suffix", [(ttit.CameraBF16, "bf16"),
+                                        (ttit.Camera32, "f32")])
+def test_each_launch_lies_inside_its_stage(kernel_route, cls, suffix):
+  isp = cls(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    events = _profiled(lambda: [isp.process(_raws()) for _ in range(2)])
+  want = {"isp.decode": f"decode_{suffix}", "isp.demosaic": f"demosaic_{suffix}",
+          "isp.meter": f"meter_{suffix}", "isp.reinhard": f"reinhard_{suffix}",
+          "isp.finish": f"finish_{suffix}"}
+  assert kernel_route == list(want.values()) * 2
+  launches = [e for e in events if e[0] == "isp.launch"]
+  assert len(launches) == 10
+  for stage in (e for e in events if e[0] in want):
+    inner = [e for e in launches if _inside(e, stage)]
+    assert [(e[1], e[2]) for e in inner] == [(want[stage[0]], stage[2])]
+  snap = profiling.snapshot()
+  assert set(snap["launch_ns"]) == set(want.values())
+  assert sum(snap["launch_ns"].values()) == snap["spans"]["isp.launch"]["ns"]
+  # every ns of a set is some span's own: the self times add up to the sets
+  spans = snap["spans"]
+  assert sum(s["self_ns"] for s in spans.values()) == \
+      spans["isp.process"]["ns"]
