@@ -25,8 +25,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
             of each I420 kernel instantiation; the SASS instructions of
             each K1, K3 and K12 instantiation and of K7 (cuobjdump), and
             of their loops per pixel (K3), column pair (K1), output (K12)
-            or half-res pixel (K7, with its map loop).
-3. kernels  each kernel against its plain PyTorch twin on the card, at
+            or half-res pixel (K7, with its map loop); K4's SASS a toned
+            value by tone form (MUFU, F2I, FCHK, FFMA, FADD, FMUL, all).
+3. kernels  first the tone's kernels (K4 rows and rotate_90, its I420
+            mode, P, the planar I420 tonemap form) bitwise their twins on
+            every value of 0 and up and 4096 negative ones of bf16 and
+            f16, and on 10^7 f32 values with each gamma's byte
+            boundaries (16 ulps either side), at gamma 1, 0.6, 0.9, 2.2
+            and 7.5, Reinhard under the maxima 1e-6, 0.37 and 1.13, and
+            linear. Then
+            each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
             half-res: tiles cut on both axes, rows that are not whole
@@ -42,15 +50,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
             and the 6x8K whole frame's sample, pass 2 from device memory,
             bitwise its band-joined form; each sample's plan logged),
             P (finish_planar_tone) bitwise wherever the planar
-            I420 tonemap form is checked (both modes, gamma 1 and 2.2, the
-            8 transforms),
+            I420 tonemap form is checked (both modes, gamma 1, 0.6, 0.9,
+            2.2 and 7.5, the 8 transforms at 0.6 and 2.2),
             K1-K4, K2 and K7 for every tap-mask variant (4 patterns x 2
-            methods, with and without a CCM), K4's two modes, each under
-            the 8 transforms, and its I420 mode likewise (the bf16 dot or
+            methods, with and without a CCM), K4's two modes at gamma 1,
+            0.6, 0.9, 2.2 and 7.5 (each tone form), under the 8 transforms
+            at 0.6 and 2.2, and its I420 mode likewise (the bf16 dot or
             the f32 chains by the dtype), the planar I420 kernel at the
             shape's full-res frame and at 6 x 1920 x 1080 (6x4K) or a
             2-pixel-narrower one (ragged), its tonemap form (both modes,
-            gamma 1 and 2.2, the 8 transforms) on K3's map of the x0.5
+            the same gammas and transforms) on K3's map of the x0.5
             resize (6 x 1920 x 1080) or of a planar frame of the shape's
             full-res size, K12 at x0.5 (6x4K ->
             1920x1080), x0.37, x1.5 and x0.25 on the path its wrapper
@@ -70,8 +79,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
             K2 -> K3 and within K3's contract of its twin; kernel
             and twin times from CUDA events around batches of 10 calls,
             K3 in both adapt modes, K4 under every transform that swaps
-            the axes, K12's direct path at x0.5 and, in bf16, K12 at x1.5
-            and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
+            the axes and at gamma 0.6 and 0.9 (without a transform and
+            under rotate_90), K12's direct path at x0.5 and, in bf16, K12
+            at x1.5 and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
             planar I420 kernel at 6 x 1920 x 1080 and 6x4K, its tonemap
             form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), K2's
             banded mode on an interior 6x8K band in each dtype, and each
@@ -249,6 +259,11 @@ YUV_FRAMES = 3              # frames of each I420 route
 K = 10                      # chained steps per timed run
 REPS = 5                    # timed runs (median)
 CLASSES = {"bf16": "CameraBF16", "f16": "Camera16", "f32": "Camera32"}
+# the gammas the tone's kernels are checked at: 1 (no pow), 0.6, 0.9 and
+# 2.2 (the pow of the division-free quotient) and 7.5 (the division's pow);
+# the 8 transforms at those of TRANSFORM_GAMMAS
+GAMMAS = (1.0, 0.6, 0.9, 2.2, 7.5)
+TRANSFORM_GAMMAS = (0.6, 2.2)
 FRONT_FUSED = "TAICHI_IMAGE_TPU_FRONT_FUSED"
 
 
@@ -353,11 +368,24 @@ _RESIZE_PATHS = ("direct", "aligned")  # csrc/resize.cu's kAligned
 _FRONT_ARGS = re.compile(r"front_fused_kernelILi(\d)E")
 # the I420 kernels' instantiations: K4's I420 mode without a swap (T, the
 # linear tonemap) and the I420 tile kernel (T, the sum, the linear tonemap,
-# the swap, flip_y, flip_x)
+# the tone form, the swap, flip_y, flip_x)
 _I420_ROWS = re.compile(r"finish_yuv420_kernelI(13__nv_bfloat16|6__half|f)"
                         r"Lb([01])E")
 _I420_TILE = re.compile(r"i420_tile_kernelI(13__nv_bfloat16|6__half|f)"
-                        r"L\w*?I420E(\d)E((?:Lb[01]E){4})")
+                        r"L\w*?I420E(\d)ELb[01]E(?:L\w*?ToneE\dE)?"
+                        r"((?:Lb[01]E){3})")
+# K4's kernels in finish.cu: the kernel, T, the linear tonemap and the tone
+# form (csrc/finish.cuh Tone; none where gamma was a run-time branch)
+_TONE_ARGS = re.compile(r"(finish_rows_kernel|finish_swap_kernel)"
+                        r"I(13__nv_bfloat16|6__half|f)Lb([01])E"
+                        r"(?:L\w*?ToneE(\d)E)?")
+# the values each of them tones in its code: a thread's 32, once on the
+# vector path and once on the element path
+_TONE_VALUES = 64
+_TONE_FORMS = ("gamma1", "pow_rcp", "pow_div")
+# the SASS opcodes counted a toned value (MUFU: LG2, EX2 and RCP on the
+# quarter-rate pipe; F2I the u8 convert; FCHK the division's range test)
+_TONE_OPS = ("MUFU", "F2I", "FCHK", "FFMA", "FADD", "FMUL")
 _I420_KINDS = ("dot", "chains", "planar")
 # elements per pass of K3's and K1's vector loops, one 16-byte run of T:
 # K3 maps that many pixels, K1 unpacks that many column pairs
@@ -392,6 +420,42 @@ def sass_counts(path):
     out[name] = (len(insns), max(loops, default=0), int(regs.get(name, 0)),
                  sorted(loops))
   return out
+
+
+def sass_opcodes(path):
+  """{mangled kernel: {SASS opcode: count}} of a built library from
+  ``cuobjdump -sass``: each instruction's opcode (its mnemonic before the
+  first '.', the predicate dropped), NOPs not counted."""
+  out = {}
+  for chunk in _cuobjdump(path, "-sass").split("Function : ")[1:]:
+    name = chunk.split(None, 1)[0]
+    ops = out[name] = {}
+    for line in chunk.splitlines():
+      m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                   line)
+      if m and m.group(1) != "NOP":
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+  return out
+
+
+def tone_sass(path):
+  """{"<kernel> <T> linear=<0|1> <tone form>": {opcode: count a value,
+  "total": SASS instructions a value}} of K4's kernels in a built
+  finish.cu: static counts over the values toned in the kernel's code,
+  every instruction of the kernel (its index arithmetic and stores
+  included); the form is "runtime" where gamma was a branch inside the
+  kernel, which then holds both forms' code."""
+  rows = {}
+  for mangled, ops in sass_opcodes(path).items():
+    m = _TONE_ARGS.search(mangled)
+    if not m:
+      continue
+    kernel, t, linear, tone = m.groups()
+    form = "runtime" if tone is None else _TONE_FORMS[int(tone)]
+    row = {op: ops.get(op, 0) / _TONE_VALUES for op in _TONE_OPS}
+    row["total"] = sum(ops.values()) / _TONE_VALUES
+    rows[f"{kernel} {_T_NAMES[t]} linear={linear} {form}"] = row
+  return rows
 
 
 def phase_build():
@@ -429,8 +493,8 @@ def phase_build():
       a, t = _I420_ROWS.search(fn), _I420_TILE.search(fn)
       if a:
         key = f"finish_yuv420_{_T_NAMES[a.group(1)]} linear={a.group(2)}"
-      elif t:  # the 8 flips and 2 modes of one sum and swap, as a range
-        swap = re.findall(r"[01]", t.group(3))[1]
+      elif t:  # the flips, modes and tone forms of one sum and swap
+        swap = re.findall(r"[01]", t.group(3))[0]
         key = (f"tile {_I420_KINDS[int(t.group(2))]}_{_T_NAMES[t.group(1)]}"
                f" swap={swap}")
       else:
@@ -500,6 +564,19 @@ def phase_build():
       log(f"  {name}: {regs} registers, {total} SASS instructions, "
           f"longest loop {loop}; {per:.1f} per {unit}{extra}")
     sources[source]["sass"] = rows
+  # SASS of K4's tone a value, by tone form (its quarter-rate MUFU and F2I
+  # ops, the division's FCHK)
+  try:
+    rows = tone_sass(libs["finish.cu"])
+  except (OSError, subprocess.CalledProcessError) as e:
+    log(f"  finish.cu: SASS not measured (cuobjdump: {e})")
+    rows = {}
+  for name, row in sorted(rows.items()):
+    if "linear=0" in name:
+      log(f"  {name}: a value " + ", ".join(
+          f"{op} {row[op]:.2f}" for op in (*_TONE_OPS, "total")))
+  if rows:
+    sources["finish.cu"]["tone_sass"] = rows
   return dict(seconds=dt, sources=sources)
 
 
@@ -854,6 +931,107 @@ def _check_banded(kt, phases, dtype, variants, ccm, scal, note):
   return len(kinds)
 
 
+# the per-image maxima of the tone's exhaustive check
+TONE_MAXIMA = (1e-6, 0.37, 1.13)
+
+
+def _tone_values(dtype, gen):
+  """(3, n) values of ``dtype``, a row for each of TONE_MAXIMA, n a whole
+  number of 12 x 128 planes (zeros after the values): for f16 and bf16
+  every non-negative bit pattern and 4096 negative ones; for f32 10^7
+  random values (half in [0, 1.3 m), half over 10^-45 .. 10^38), each
+  gamma's byte boundaries m (k / 255)^gamma and k m / 255 with 16 ulps
+  either side, negatives, zeros of both signs, inf and NaN."""
+  import torch
+  dev = torch.device("cuda")
+  rows = []
+  for m in TONE_MAXIMA:
+    if dtype != torch.float32:
+      bits = torch.cat([torch.arange(0, 0x8000, device=dev),
+                        torch.arange(0x8000, 0x10000, 8, device=dev)])
+      v = (bits - (bits >= 0x8000) * 0x10000).to(torch.int16).view(dtype)
+    else:
+      half = 5_000_000
+      rand = torch.rand(half, generator=gen, device=dev) * (1.3 * m)
+      wide = 10.0 ** (torch.rand(half, generator=gen, device=dev,
+                                 dtype=torch.float64) * 83 - 45)
+      k = torch.arange(256, device=dev, dtype=torch.float64) / 255.0
+      edge = torch.cat([(m * k ** g).float() for g in GAMMAS])
+      near = [edge]
+      for d in (float("inf"), float("-inf")):
+        e = edge
+        for _ in range(16):
+          e = torch.nextafter(e, torch.full_like(e, d))
+          near.append(e)
+      special = torch.tensor([0.0, -0.0, 1e-45, 1e-40, -1e-40, -0.5,
+                              float("inf"), float("-inf"), float("nan")],
+                             device=dev)
+      v = torch.cat([rand, wide.float(), -wide[:4096].float(), *near,
+                     special])
+    rows.append(v)
+  plane = 12 * 128
+  n = -(-rows[0].numel() // plane) * plane
+  out = torch.zeros((3, n), dtype=dtype, device=dev)
+  for i, v in enumerate(rows):
+    out[i, :v.numel()] = v
+  return out
+
+
+def _check_tone_bits(note):
+  """The tone's kernels bitwise their twins on every value a 16-bit dtype
+  holds (and 4096 negative ones) and on 10^7 f32 values with each
+  gamma's byte boundaries: K4 (rows and rotate_90), its I420 mode (rows
+  and the rotate_90 tile), P (rows and rotate_90) and the planar I420
+  tonemap form, at every gamma of GAMMAS, Reinhard under each of
+  TONE_MAXIMA and linear with [0, 1 / m]."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.hopper import finish, yuv420
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  gen = torch.Generator(device="cuda").manual_seed(20)
+  rot = ImageTransform.rotate_90
+  for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+    vals = _tone_values(dtype, gen)
+    x12 = vals.view(3, 12, -1, 128)
+    planar = vals.view(3, 3, -1, 128)
+    mx = torch.tensor(TONE_MAXIMA, device="cuda").view(3, 1, 1, 1)
+    for gamma in GAMMAS:
+      cases = [("reinhard", x12, planar, mx)]
+      cases += [("linear", x12[i:i + 1], planar[i:i + 1],
+                 torch.tensor([0.0, 1.0 / m], device="cuda"))
+                for i, m in enumerate(TONE_MAXIMA)]
+      for mode, x, img, sc in cases:
+        what = f"tone bits {sfx} {mode} gamma={gamma}"
+        for t in (ImageTransform.none, rot):
+          ko = finish.finish_planar_u8(x, sc, gamma, mode, t,
+                                       backend="kernel")
+          po = finish.finish_planar_u8(x, sc, gamma, mode, t,
+                                       backend="plain")
+          _check_bitwise(f"{what} finish {t.value}", ko, po)
+          note(f"finish_{sfx}", ko, po)
+          for kind, fn in (("finish_yuv420", finish.finish_yuv420),
+                           ("yuv420_planar_tone", yuv420.yuv420_planar_tone)):
+            src = x if kind == "finish_yuv420" else img
+            ky, kvu = fn(src, sc, gamma, mode, t, backend="kernel")
+            py, pvu = fn(src, sc, gamma, mode, t, backend="plain")
+            _check_bitwise(f"{what} {kind} {t.value} Y", ky, py)
+            _check_bitwise(f"{what} {kind} {t.value} VU", kvu, pvu)
+            note(f"{kind}_{sfx}", ky, py)
+          ko = finish.finish_planar_tone(img, sc, gamma, mode, t,
+                                         backend="kernel")
+          po = finish.finish_planar_tone(img, sc, gamma, mode, t,
+                                         backend="plain")
+          _check_bitwise(f"{what} finish_planar_tone {t.value}", ko, po)
+          note(f"finish_planar_tone_{sfx}", ko, po)
+    log(f"kernels: tone bits {sfx}: finish, finish_yuv420, "
+        f"finish_planar_tone and yuv420_planar_tone (rows and rotate_90) "
+        f"agree with their plain twins on {vals.shape[1]} values a maximum "
+        f"({'every bit pattern of 0 and up and 4096 negative' if dtype != torch.float32 else '10^7 random and the byte boundaries'}), "
+        f"gamma {', '.join(map(str, GAMMAS))}, Reinhard under maxima "
+        f"{', '.join(map(str, TONE_MAXIMA))} and linear")
+    del vals, x12, planar
+
+
 def phase_kernels(results):
   """Each kernel against its plain twin on the card; fills ``results``
   {name: {ms, plain_ms, max_abs_err}} (kernel names, plus extra timed
@@ -873,6 +1051,9 @@ def phase_kernels(results):
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
   swaps = [t for t in ImageTransform if _TRANSFORM_SFF[t][0]]
+  gamma_cases = [(g, ImageTransform.none) for g in GAMMAS
+                 if g not in TRANSFORM_GAMMAS]
+  gamma_cases += [(g, t) for g in TRANSFORM_GAMMAS for t in ImageTransform]
   dev = torch.device("cuda")
   gen = torch.Generator(device=dev).manual_seed(0)
   ccm = tuple((default_cc * [1.8, 1.0, 2.1]).astype("float32").ravel()
@@ -884,6 +1065,7 @@ def phase_kernels(results):
   def note(name, a, b):
     err[name] = max(err[name], (a.float() - b.float()).abs().max().item())
 
+  _check_tone_bits(note)
   for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
     raws = torch.randint(0, 256, shape, generator=gen, device=dev,
                          dtype=torch.uint8)
@@ -961,16 +1143,14 @@ def phase_kernels(results):
         edge = _map_edge_cases(kt, x12, reinhard.reinhard_scal(
             metrics, 1.0, 1.0), scal_ca)
         err[f"reinhard_{sfx}"] = max(err[f"reinhard_{sfx}"], edge)
-      # K4: bitwise, Reinhard and linear modes at gamma 1 and 2.2, each
-      # under the 8 transforms at gamma 2.2
+      # K4: bitwise, Reinhard and linear modes at every gamma of
+      # GAMMAS, each under the 8 transforms at gamma 0.6 and 2.2
       scal0 = reinhard.reinhard_scal(metrics, 1.0, 1.0)
       p_cast, max_out = reinhard.reinhard_map(x12, scal0, False)
       lin = finish.linear_scal(metrics)
       for mode, src, sc in (("reinhard", p_cast, max_out),
                             ("linear", x12, lin)):
-        cases = [(1.0, ImageTransform.none)]
-        cases += [(2.2, t) for t in ImageTransform]
-        for gamma, t in cases:
+        for gamma, t in gamma_cases:
           ko = finish.finish_planar_u8(src, sc, gamma, mode, t,
                                        backend="kernel")
           po = finish.finish_planar_u8(src, sc, gamma, mode, t,
@@ -1038,8 +1218,9 @@ def phase_kernels(results):
                                            backend="plain")
           _check_map(f"front_fused {kv} vs twin", fp, fm, pp, pm)
           note("front_fused_bf16", fp, pp)
-      # the planar I420 tonemap form: bitwise, both modes, gamma 1 and
-      # 2.2 under the 8 transforms, on K3's map of the x0.5 resize (6x4K)
+      # the planar I420 tonemap form: bitwise, both modes, every gamma of
+      # GAMMAS, 0.6 and 2.2 under the 8 transforms, on K3's map of the x0.5
+      # resize (6x4K)
       # or of a planar frame of the shape's full-res size (RAGGED: rows not
       # whole copies, odd block counts; CUT: tiles cut on both axes)
       if shape == (N_CAM, H, WB):
@@ -1050,8 +1231,7 @@ def phase_kernels(results):
         img.view(-1)[::13] = 0.0
       tp, tmx = reinhard.reinhard_map(img, scal0, False)
       for mode, src, sc in (("reinhard", tp, tmx), ("linear", img, lin)):
-        for gamma, t in [(1.0, ImageTransform.none),
-                         *((2.2, t) for t in ImageTransform)]:
+        for gamma, t in gamma_cases:
           ky, kvu = yuv420.yuv420_planar_tone(src, sc, gamma, mode, t,
                                               backend="kernel")
           py, pvu = yuv420.yuv420_planar_tone(src, sc, gamma, mode, t,
@@ -1135,6 +1315,15 @@ def phase_kernels(results):
             lambda b, t=t: finish.finish_planar_u8(
                 p_cast, max_out, 1.0, transform=t, backend=b),
             [p_cast, max_out], 4 * 12 * npix)
+      # K4 at the benchmark's gammas (0.6, 0.9), rows and rotate_90: the
+      # pow's log2 and exp2 add ~4 operations a value
+      for gamma, t in itertools.product(
+          (0.6, 0.9), (ImageTransform.none, ImageTransform.rotate_90)):
+        tag_ = "" if t == ImageTransform.none else f" {t.value}"
+        calls[f"finish_{sfx}{tag_} gamma {gamma}"] = (
+            lambda b, g=gamma, t=t: finish.finish_planar_u8(
+                p_cast, max_out, g, transform=t, backend=b),
+            [p_cast, max_out], 8 * 12 * npix)
       # K4's I420 mode: the map's 4 operations per value, then per
       # half-res pixel 4 Y of ~10 and the chroma's ~40
       yuv_ops = (4 * 12 + 80) * npix

@@ -23,9 +23,14 @@
 // half-res pixel (0.134 ms for 6 x 4K bf16 at 3.35 TB/s), as long as the
 // per-element work stays small: the Reinhard quotient comes from the
 // per-image reciprocal and two FMAs (finish.cuh tone_u8), with no division
-// and no branch. Each thread takes kV = 8 consecutive half-res pixels of one
-// row of one colour: one or two 16-byte loads from each of its 4 phase
-// planes, the per-image scalar read once, 4 x kV bytes out. Input
+// (below gamma 7) and no branch, and the tone's form (gamma 1, or the pow
+// of that quotient or of the division) is a compile-time variant. At gamma
+// != 1 the pow itself bounds it by instruction issue: log2f is a polynomial
+// of ~25 instructions, exp2f one MUFU.EX2 (PERF.md section 6), and a value
+// takes no division and no F2I. Each thread takes kV = 8 consecutive
+// half-res pixels of one row of one colour: one or two 16-byte loads from
+// each of its 4 phase planes, the per-image scalar read once, 4 x kV bytes
+// out. Input
 // (y, x) = (2i + pr, 2j + pc) comes from channel pc*6 + pr*3 + c. The grid
 // is (column runs, rows, n * 3), so all indexing is 32-bit within a plane,
 // with no division per pixel.
@@ -46,9 +51,9 @@
 // the element-by-element loads and byte stores of the same kernel (the
 // launcher picks `vec` from the sizes and pointers).
 //
-// The quotient is the IEEE one and the u8 convert truncates toward zero
-// (XLA's f32->u8 convert, camera_isp.py:1106); fmaxf maps a NaN (log2 of a
-// negative p at gamma != 1) to 0.
+// The byte is the one of the IEEE quotient (finish.cuh tone_u8) and the u8
+// convert truncates toward zero (XLA's f32->u8 convert, camera_isp.py:1106);
+// fmaxf maps a NaN (log2 of a negative p at gamma != 1) to 0.
 #include "finish.cuh"
 
 namespace {
@@ -63,7 +68,7 @@ constexpr int kSwapRuns = 8;   // column runs of a swapped tile (warps)
 // run's first element in the plane of input phase (pr, pc). With `vec`
 // each plane is read in 16-byte vectors, else element by element up to n
 // elements (the rest are 0).
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __device__ __forceinline__ void finish_run(const T* const src[4], bool vec,
                                            int n, const Scal& sc,
                                            const Finish& f,
@@ -74,7 +79,7 @@ __device__ __forceinline__ void finish_run(const T* const src[4], bool vec,
     for (int pc = 0; pc < 2; ++pc) {
       RawRun<T> r;
       load_run<T>(src[pr * 2 + pc], vec, n, r);
-      tone_run<T, kLinear>(r, sc, f, q[pr][pc]);
+      tone_run<T, kLinear, kTone>(r, sc, f, q[pr][pc]);
     }
   }
 }
@@ -103,7 +108,7 @@ __device__ __forceinline__ uint4 reverse_bytes(uint4 v) {
 }
 
 // No axis swap: block (16, 16) over (runs, rows).
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __global__ void __launch_bounds__(256)
     finish_rows_kernel(const T* __restrict__ x,
                        const float* __restrict__ scal,
@@ -115,8 +120,8 @@ __global__ void __launch_bounds__(256)
   unsigned q[2][2][kV];
   const T* src[4];
   run_planes(x, b, c, i, j0, f, src);
-  finish_run<T, kLinear>(src, f.vec, f.wh - j0, load_scal<kLinear>(scal, b),
-                         f, q);
+  finish_run<T, kLinear, kTone>(src, f.vec, f.wh - j0,
+                                load_scal<kLinear>(scal, b), f, q);
   const int h = 2 * f.hh, w = 2 * f.wh;
   uint8_t* ob = out + static_cast<size_t>(bc) * h * w;
 #pragma unroll
@@ -158,10 +163,12 @@ __global__ void __launch_bounds__(256)
 // shared memory with coalesced 16-byte loads (rows padded by 16 bytes, so
 // the lanes' reads of 32 rows fall in distinct banks); the output tile of
 // 2 * 8 * kV rows x' by 2 * 32 bytes y goes through shared memory too.
-// Five blocks per SM for the 16-bit T (their tone and tile then fit in 48
-// registers); f32 needs more, and spilled when held there.
-template <typename T, bool kLinear>
-__global__ void __launch_bounds__(256, sizeof(T) == 2 ? 5 : 1)
+// Five blocks per SM in every T and tone form: the tone and the tile fit in
+// 48 registers without a spill. Left free, the f32 tone took 56 (gamma 1)
+// and 72 (the pow) registers, 4 and 3 blocks an SM: 0.333 against 0.305 ms
+// and 0.499 against 0.377 ms at 6 x 4K (PERF.md section 6).
+template <typename T, bool kLinear, Tone kTone>
+__global__ void __launch_bounds__(256, 5)
     finish_swap_kernel(const T* __restrict__ x,
                        const float* __restrict__ scal,
                        uint8_t* __restrict__ out, Finish f) {
@@ -200,12 +207,13 @@ __global__ void __launch_bounds__(256, sizeof(T) == 2 ? 5 : 1)
       src[pp] = &xs[pp][threadIdx.x][threadIdx.y * kV];
     }
     // rows and columns past the frame compute bytes that are never stored
-    finish_run<T, kLinear>(src, true, kV, load_scal<kLinear>(scal, b), f, q);
+    finish_run<T, kLinear, kTone>(src, true, kV, load_scal<kLinear>(scal, b),
+                                  f, q);
   } else if (i < f.hh && j0 < f.wh) {
     const T* src[4];
     run_planes(x, b, c, i, j0, f, src);
-    finish_run<T, kLinear>(src, false, f.wh - j0, load_scal<kLinear>(scal, b),
-                           f, q);
+    finish_run<T, kLinear, kTone>(src, false, f.wh - j0,
+                                  load_scal<kLinear>(scal, b), f, q);
   }
 #pragma unroll
   for (int k = 0; k < kV; ++k) {
@@ -241,45 +249,47 @@ __global__ void __launch_bounds__(256, sizeof(T) == 2 ? 5 : 1)
   }
 }
 
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 cudaError_t launch_mode(const T* x, const float* scal, uint8_t* out, int n,
                         const Finish& f, int swap, cudaStream_t stream) {
   if (swap) {
     const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
                     (f.hh + kSwapRows - 1) / kSwapRows, n * 3);
-    finish_swap_kernel<T, kLinear><<<grid, dim3(kSwapRows, kSwapRuns), 0,
-                                     stream>>>(x, scal, out, f);
+    finish_swap_kernel<T, kLinear, kTone>
+        <<<grid, dim3(kSwapRows, kSwapRuns), 0, stream>>>(x, scal, out, f);
   } else {
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
                     (f.hh + block.y - 1) / block.y, n * 3);
-    finish_rows_kernel<T, kLinear><<<grid, block, 0, stream>>>(x, scal, out,
-                                                                f);
+    finish_rows_kernel<T, kLinear, kTone>
+        <<<grid, block, 0, stream>>>(x, scal, out, f);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* scal, void* out, int n, int hh,
-           int wh, int linear, int apply_gamma, float inv_gamma, int swap,
+           int wh, int linear, int tone, float inv_gamma, int swap,
            int flip_y, int flip_x, cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (!tit::image_fits_int32(hh, wh) || 3LL * n > 65535) {
+  if (!tit::image_fits_int32(hh, wh) || 3LL * n > 65535 ||
+      !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each row, and (with a swap) whole 16-byte
   // vectors along each output row of 2 hh bytes
   const int vec = wh % kV == 0 && (!swap || hh % 8 == 0) &&
                   tit::aligned16(x) && tit::aligned16(out);
-  const Finish f{hh, wh, apply_gamma, flip_y, flip_x, vec, inv_gamma};
+  const Finish f{hh, wh, flip_y, flip_x, vec, inv_gamma};
   const auto* xin = static_cast<const T*>(x);
   const auto* s = static_cast<const float*>(scal);
   auto* o = static_cast<uint8_t*>(out);
-  return static_cast<int>(
-      linear ? launch_mode<T, true>(xin, s, o, n, f, swap, stream)
-             : launch_mode<T, false>(xin, s, o, n, f, swap, stream));
+  return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
+    return launch_mode<T, decltype(lin)::value, decltype(tn)::value>(
+        xin, s, o, n, f, swap, stream);
+  }));
 }
 
 // ---------------------------------------------------------------------------
@@ -308,7 +318,7 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
 // bytes written (4 of Y, 2 of VU): 373.2 MB at 6 x 4K bf16, 0.1114 ms at
 // 3.35 TB/s. Its arithmetic, not those bytes, bounds it (PERF.md section 6:
 // an earlier form reading a tile that stays in L2 took 94% of its time),
-// so the tone takes no division at gamma 1 (finish.cuh tone_u8) and the
+// so the tone takes no division below gamma 7 (finish.cuh tone_u8) and the
 // conversion's bytes no u8 <-> f32 convert. Without an axis swap the block
 // is K4's (16, 16) over (runs, rows): a thread issues the loads of all four
 // output phases of its run (two in f32, for registers) before it tones the
@@ -372,7 +382,7 @@ __device__ __forceinline__ void load_phase(const T* xb, int plane, int pp,
   }
 }
 
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __global__ void __launch_bounds__(256)
     finish_yuv420_kernel(const T* __restrict__ x,
                          const float* __restrict__ scal,
@@ -415,7 +425,7 @@ __global__ void __launch_bounds__(256)
     unsigned q[3][kV];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      tone_run<T, kLinear>(raw[pp % kRing][c], sc, f, q[c]);
+      tone_run<T, kLinear, kTone>(raw[pp % kRing][c], sc, f, q[c]);
     }
     if (pp + kRing < 4) {
       load_phase<T>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
@@ -498,7 +508,7 @@ __global__ void __launch_bounds__(256)
   store_chroma_run(crow + bh * bw, uw, f, bw, j0, n);
 }
 
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 cudaError_t launch_yuv420_mode(const T* x, const float* scal,
                                const float* inv255, uint8_t* y, uint8_t* vu,
                                int n, const Finish& f, const Yuv& cv,
@@ -506,28 +516,27 @@ cudaError_t launch_yuv420_mode(const T* x, const float* scal,
   const dim3 block(16, 16);
   const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
                   (f.hh + block.y - 1) / block.y, n);
-  finish_yuv420_kernel<T, kLinear>
+  finish_yuv420_kernel<T, kLinear, kTone>
       <<<grid, block, 0, stream>>>(x, scal, inv255, y, vu, f, cv);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
-                  int hh, int wh, int linear, int apply_gamma,
-                  float inv_gamma, int swap, int flip_y, int flip_x,
-                  const float* coef, const void* inv255,
-                  cudaStream_t stream) {
+                  int hh, int wh, int linear, int tone, float inv_gamma,
+                  int swap, int flip_y, int flip_x, const float* coef,
+                  const void* inv255, cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
   if (!tit::image_fits_int32(hh, wh) || n > 65535 ||
-      (hh + 15) / 16 > 65535) {
+      (hh + 15) / 16 > 65535 || !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each row
   const int vec = wh % kV == 0 && tit::aligned16(x) && tit::aligned16(y) &&
                   tit::aligned16(vu);
-  const Finish f{hh, wh, apply_gamma, flip_y, flip_x, vec, inv_gamma};
+  const Finish f{hh, wh, flip_y, flip_x, vec, inv_gamma};
   Yuv cv;
   static_assert(sizeof(Yuv) == 12 * sizeof(float), "Yuv is 12 floats");
   memcpy(&cv, coef, sizeof(cv));
@@ -540,13 +549,12 @@ int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
     constexpr I420 kKind = std::is_same_v<T, __nv_bfloat16> ? I420::kDot
                                                             : I420::kChains;
     return static_cast<int>(launch_i420_tiles<T, kKind, true>(
-        xin, s, tab, yo, vo, n, f, linear, cv, stream));
+        xin, s, tab, yo, vo, n, f, linear, tone, cv, stream));
   }
-  return static_cast<int>(
-      linear ? launch_yuv420_mode<T, true>(xin, s, tab, yo, vo, n, f, cv,
-                                           stream)
-             : launch_yuv420_mode<T, false>(xin, s, tab, yo, vo, n, f, cv,
-                                            stream));
+  return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
+    return launch_yuv420_mode<T, decltype(lin)::value, decltype(tn)::value>(
+        xin, s, tab, yo, vo, n, f, cv, stream);
+  }));
 }
 
 // ---------------------------------------------------------------------------
@@ -588,7 +596,7 @@ __device__ __forceinline__ uint2 reverse8(uint2 v) {
 }
 
 // No axis swap: block (16, 16) over (runs, rows), grid.z = n * 3.
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __global__ void __launch_bounds__(256)
     planar_tone_rows_kernel(const T* __restrict__ x,
                             const float* __restrict__ scal,
@@ -602,7 +610,7 @@ __global__ void __launch_bounds__(256)
   RawRun<T> r;
   load_run<T>(x + plane + y * w + x0, f.vec, w - x0, r);
   unsigned q[kRun];
-  tone_run<T, kLinear>(r, load_scal<kLinear>(scal, b), f, q);
+  tone_run<T, kLinear, kTone>(r, load_scal<kLinear>(scal, b), f, q);
   uint8_t* row = out + plane + (f.flip_y ? h - 1 - y : y) * w;
   if (f.vec) {
     const uint2 v = pack8(q);
@@ -624,7 +632,7 @@ __global__ void __launch_bounds__(256)
 // Axis swap: block 256 over a kTile x kTile tile of one channel, grid
 // (column tiles, row tiles, n * 3). Input (y, xc) lands on output row
 // flip_x(xc), byte flip_y(y).
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __global__ void __launch_bounds__(256)
     planar_tone_swap_kernel(const T* __restrict__ x,
                             const float* __restrict__ scal,
@@ -657,7 +665,7 @@ __global__ void __launch_bounds__(256)
     const int v = (tid + m * 256) * kRun;
     const int r = v / kTile, c = v - r * kTile;
     unsigned q[kRun];
-    tone_run<T, kLinear>(raw[m], sc, f, q);
+    tone_run<T, kLinear, kTone>(raw[m], sc, f, q);
     const uint2 p = pack8(q);
     auto* d = reinterpret_cast<unsigned*>(u8 + r * kPitch + c);
     d[0] = p.x;
@@ -693,35 +701,35 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 cudaError_t launch_planar_tone_mode(const T* x, const float* scal,
                                     uint8_t* out, int n, const Finish& f,
                                     int swap, cudaStream_t stream) {
   if (swap) {
     const dim3 grid((f.wh + kTile - 1) / kTile, (f.hh + kTile - 1) / kTile,
                     n * 3);
-    planar_tone_swap_kernel<T, kLinear><<<grid, 256, 0, stream>>>(x, scal,
-                                                                  out, f);
+    planar_tone_swap_kernel<T, kLinear, kTone>
+        <<<grid, 256, 0, stream>>>(x, scal, out, f);
   } else {
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kRun - 1) / (block.x * kRun),
                     (f.hh + block.y - 1) / block.y, n * 3);
-    planar_tone_rows_kernel<T, kLinear><<<grid, block, 0, stream>>>(
-        x, scal, out, f);
+    planar_tone_rows_kernel<T, kLinear, kTone>
+        <<<grid, block, 0, stream>>>(x, scal, out, f);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_planar_tone(const void* x, const void* scal, void* out, int n,
-                       int h, int w, int linear, int apply_gamma,
-                       float inv_gamma, int swap, int flip_y, int flip_x,
+                       int h, int w, int linear, int tone, float inv_gamma,
+                       int swap, int flip_y, int flip_x,
                        cudaStream_t stream) {
   if (static_cast<long long>(n) * h * w == 0) {
     return static_cast<int>(cudaSuccess);
   }
   if (3LL * h * w > 0x7FFFFFFFLL || 3LL * n > 65535 ||
-      (h + 15) / 16 > 65535) {
+      (h + 15) / 16 > 65535 || !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each input row and, under a swap, whole
@@ -729,14 +737,15 @@ int launch_planar_tone(const void* x, const void* scal, void* out, int n,
   const int vec = w % kRun == 0 && (!swap || h % kRun == 0) &&
                   tit::aligned16(x) &&
                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  const Finish f{h, w, apply_gamma, flip_y, flip_x, vec, inv_gamma};
+  const Finish f{h, w, flip_y, flip_x, vec, inv_gamma};
   const auto* xin = static_cast<const T*>(x);
   const auto* s = static_cast<const float*>(scal);
   auto* o = static_cast<uint8_t*>(out);
-  return static_cast<int>(
-      linear ? launch_planar_tone_mode<T, true>(xin, s, o, n, f, swap, stream)
-             : launch_planar_tone_mode<T, false>(xin, s, o, n, f, swap,
-                                                 stream));
+  return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
+    return launch_planar_tone_mode<T, decltype(lin)::value,
+                                   decltype(tn)::value>(xin, s, o, n, f,
+                                                        swap, stream);
+  }));
 }
 
 }  // namespace
@@ -744,20 +753,20 @@ int launch_planar_tone(const void* x, const void* scal, void* out, int n,
 #define TIT_FINISH_LAUNCHER(suffix, T)                                        \
   extern "C" int tit_finish_planar_u8_##suffix(                               \
       const void* x, const void* scal, void* out, int n, int hh, int wh,      \
-      int linear, int apply_gamma, float inv_gamma, int swap, int flip_y,     \
+      int linear, int tone, float inv_gamma, int swap, int flip_y,            \
       int flip_x, cudaStream_t stream) {                                      \
-    return launch<T>(x, scal, out, n, hh, wh, linear, apply_gamma, inv_gamma, \
-                     swap, flip_y, flip_x, stream);                           \
+    return launch<T>(x, scal, out, n, hh, wh, linear, tone, inv_gamma, swap,  \
+                     flip_y, flip_x, stream);                                 \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
 
 #define TIT_FINISH_YUV420_LAUNCHER(suffix, T)                               \
   extern "C" int tit_finish_yuv420_##suffix(                                \
       const void* x, const void* scal, void* y, void* vu, int n, int hh,    \
-      int wh, int linear, int apply_gamma, float inv_gamma, int swap,       \
-      int flip_y, int flip_x, const float* coef, const void* inv255,        \
+      int wh, int linear, int tone, float inv_gamma, int swap, int flip_y,  \
+      int flip_x, const float* coef, const void* inv255,                    \
       cudaStream_t stream) {                                                \
-    return launch_yuv420<T>(x, scal, y, vu, n, hh, wh, linear, apply_gamma, \
+    return launch_yuv420<T>(x, scal, y, vu, n, hh, wh, linear, tone,        \
                             inv_gamma, swap, flip_y, flip_x, coef, inv255,  \
                             stream);                                        \
   }
@@ -766,10 +775,10 @@ TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)
 #define TIT_FINISH_PLANAR_TONE_LAUNCHER(suffix, T)                        \
   extern "C" int tit_finish_planar_tone_##suffix(                         \
       const void* x, const void* scal, void* out, int n, int h, int w,    \
-      int linear, int apply_gamma, float inv_gamma, int swap, int flip_y, \
+      int linear, int tone, float inv_gamma, int swap, int flip_y,        \
       int flip_x, cudaStream_t stream) {                                  \
-    return launch_planar_tone<T>(x, scal, out, n, h, w, linear,           \
-                                 apply_gamma, inv_gamma, swap, flip_y,    \
-                                 flip_x, stream);                         \
+    return launch_planar_tone<T>(x, scal, out, n, h, w, linear, tone,     \
+                                 inv_gamma, swap, flip_y, flip_x,         \
+                                 stream);                                 \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_PLANAR_TONE_LAUNCHER)

@@ -5,9 +5,9 @@
 // Tone: reinhard o = p / max(1e-6, max_out[n]), or linear y = max((x - m0) *
 // inv_range, 0); exp2(log2(.) * inv_gamma) when gamma != 1; then
 // trunc(clip(255 o, 0, 255)) or trunc(clip(clip(y, 0, 1) * 255, 0, 255)).
-// The quotient is the IEEE one (tone_u8) and the u8 convert truncates
-// toward zero (XLA's f32->u8 convert); fmaxf maps a NaN (log2 of a
-// negative p at gamma != 1) to 0.
+// The quotient's bits are the IEEE one's wherever they can reach a byte
+// (tone_u8) and the u8 convert truncates toward zero (XLA's f32->u8
+// convert); fmaxf maps a NaN (log2 of a negative p at gamma != 1) to 0.
 #pragma once
 
 #include <cstring>
@@ -18,8 +18,15 @@ namespace tit {
 
 constexpr int kRun = 8;  // values of a tone run
 
+// The tone's form, a compile-time parameter of every kernel that tones:
+// kGamma1 (gamma 1: no pow), kPowRcp (the pow of the division-free
+// quotient; the linear tone's pow, which has no quotient) or kPowDiv (the
+// pow of the true division). The launchers take it as an int, which
+// ops/hopper/finish.py tone_form picks from gamma.
+enum class Tone : int { kGamma1 = 0, kPowRcp = 1, kPowDiv = 2 };
+
 struct Finish {
-  int hh, wh, apply_gamma, flip_y, flip_x, vec;
+  int hh, wh, flip_y, flip_x, vec;
   float inv_gamma;
 };
 
@@ -38,9 +45,11 @@ __device__ __forceinline__ Scal load_scal(const float* __restrict__ scal,
 }
 
 // trunc(v) for 0 <= v < 2^23 (v not NaN) from an add rounded toward zero:
-// the bits of 2^23 + trunc(v). The F2I convert it replaces runs at a
-// quarter of the add's rate; the I420 conversion's bytes take it, the
-// tone keeps the convert (faster in K4, PERF.md section 6).
+// the bits of 2^23 + trunc(v). The F2I convert it replaces issues on the
+// quarter-rate pipe beside MUFU; the I420 conversion's bytes and the
+// tone's pow forms take the add, the tone at gamma 1 keeps the convert
+// (the add was no faster there in K4: PERF.md section 6, "F2I against the
+// add").
 __device__ __forceinline__ unsigned trunc_small(float v) {
   return __float_as_uint(__fadd_rz(v, 8388608.0f)) - 0x4B000000u;
 }
@@ -50,33 +59,56 @@ __device__ __forceinline__ float float_small(unsigned q) {
   return __uint_as_float(0x4B000000u | q) - 8388608.0f;
 }
 
-template <bool kLinear>
+// RN(p / mx) without the division, which branches to a subroutine
+// (Markstein): q0 = p RN(1/mx) lies within an ulp of the quotient, the
+// residual p - q0 mx is exact in one FMA, and q0 + r RN(1/mx) in one more
+// is RN(p / mx) while |q0| >= 2^-64 (mx >= 1e-6: nothing underflows). An
+// infinite q0 (p infinite) is the quotient; a NaN stays NaN.
+__device__ __forceinline__ float reinhard_quotient(float p, const Scal& sc) {
+  const float q0 = p * sc.rmx;
+  const float r = __fmaf_rn(-q0, sc.mx, p);
+  return fabsf(q0) <= 0x1.fffffep127f ? __fmaf_rn(r, sc.rmx, q0) : q0;
+}
+
+// The byte of one value. The Reinhard forms give the division's byte:
+//   - kGamma1: reinhard_quotient is bitwise p / mx while |q0| >= 2^-64;
+//     below that 255 o < 1, a byte of 0 either way.
+//   - kPowRcp: the same quotient, then the pow. Where |q0| >= 2^-64 the
+//     pow sees the division's bits. Below it both quotients are under
+//     2^-63, so o^(1/gamma) < 2^(-63/gamma) and the byte is 0 either way
+//     while 255 2^(-63/gamma) < 1, that is 0 < gamma < 63 / log2(255) =
+//     7.88; tone_form takes this form for gamma < 7 (a margin of 0.88 for
+//     the few ulps of log2f and exp2f). A zero p gives log2 -inf, a byte
+//     of 0, in both; a negative p or a NaN gives NaN, a byte of 0.
+//   - kPowDiv: the true division, for every other gamma; mx >= 1e-6, so
+//     a zero p keeps off the division's slow path.
+// The pow forms truncate with trunc_small, an add, where gamma 1 keeps
+// the F2I convert: F2I issues on the quarter-rate pipe that exp2f's
+// MUFU.EX2 takes. The clip maps a NaN to 0, so 0 <= s <= 255 for both.
+template <bool kLinear, Tone kTone>
 __device__ __forceinline__ unsigned tone_u8(float xv, const Scal& sc,
                                             const Finish& f) {
+  constexpr bool kPow = kTone != Tone::kGamma1;
   float s;
-  if (kLinear) {
+  if constexpr (kLinear) {
     float y = fmaxf((xv - sc.m0) * sc.inv_range, 0.0f);
-    if (f.apply_gamma) y = exp2f(log2f(y) * f.inv_gamma);
+    if constexpr (kPow) y = exp2f(log2f(y) * f.inv_gamma);
     s = fminf(fmaxf(fminf(fmaxf(y, 0.0f), 1.0f) * 255.0f, 0.0f), 255.0f);
   } else {
     float o;
-    if (f.apply_gamma) {
-      // mx >= 1e-6, so a zero p keeps off the division's slow path
-      o = exp2f(log2f(div_rn_keep_zero(xv, sc.mx)) * f.inv_gamma);
+    if constexpr (kTone == Tone::kPowDiv) {
+      o = div_rn_keep_zero(xv, sc.mx);
     } else {
-      // RN(p / mx) without the division, which branches to a subroutine
-      // (Markstein): q0 = p RN(1/mx) lies within an ulp of the quotient,
-      // the residual p - q0 mx is exact in one FMA, and q0 + r RN(1/mx) in
-      // one more is RN(p / mx) while |q0| >= 2^-64 (mx >= 1e-6: nothing
-      // underflows). Below that 255 o < 1, a count of 0 either way, and
-      // an infinite q0 (p infinite) is the quotient; a NaN stays NaN.
-      const float q0 = xv * sc.rmx;
-      const float r = __fmaf_rn(-q0, sc.mx, xv);
-      o = fabsf(q0) <= 0x1.fffffep127f ? __fmaf_rn(r, sc.rmx, q0) : q0;
+      o = reinhard_quotient(xv, sc);
     }
+    if constexpr (kPow) o = exp2f(log2f(o) * f.inv_gamma);
     s = fminf(fmaxf(255.0f * o, 0.0f), 255.0f);
   }
-  return __float2uint_rz(s);  // fminf/fmaxf map a NaN to 0
+  if constexpr (kPow) {
+    return trunc_small(s);
+  } else {
+    return __float2uint_rz(s);
+  }
 }
 
 // One run of kRun values of T as loaded (their bits, in 32-bit words), so
@@ -116,7 +148,7 @@ __device__ __forceinline__ void load_run(const T* p, bool vec, int n,
 }
 
 // tone_u8 of each value of a loaded run.
-template <typename T, bool kLinear>
+template <typename T, bool kLinear, Tone kTone>
 __device__ __forceinline__ void tone_run(const RawRun<T>& r, const Scal& sc,
                                          const Finish& f, unsigned q[kRun]) {
   constexpr int kPer = 16 / sizeof(T);
@@ -127,7 +159,7 @@ __device__ __forceinline__ void tone_run(const RawRun<T>& r, const Scal& sc,
   }
 #pragma unroll
   for (int k = 0; k < kRun; ++k) {
-    q[k] = tone_u8<kLinear>(v[k], sc, f);
+    q[k] = tone_u8<kLinear, kTone>(v[k], sc, f);
   }
 }
 
@@ -223,8 +255,8 @@ struct I420Tile {
 // planar image) staged from rows x cols (the same, or the planar image's);
 // f.vec: whole runs a row and a 16-byte aligned input; pairs: the output's
 // block rows have an even width (4- and 2-byte stores).
-template <typename T, I420 kKind, bool kLinear, bool kSwap, bool kFlipY,
-          bool kFlipX>
+template <typename T, I420 kKind, bool kLinear, Tone kTone, bool kSwap,
+          bool kFlipY, bool kFlipX>
 __global__ void __launch_bounds__(kThreads)
     i420_tile_kernel(const T* __restrict__ x, const float* __restrict__ scal,
                      const float* __restrict__ inv255g,
@@ -259,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
     const int v = (tid + m * kThreads) * kRun;
     const int row = v / Tl::kRW, col = v - row * Tl::kRW;
     unsigned q[kRun];
-    tone_run<T, kLinear>(raw[m], sc, f, q);
+    tone_run<T, kLinear, kTone>(raw[m], sc, f, q);
     auto* d = reinterpret_cast<unsigned*>(u8 + row * Tl::kUP + col);
     d[0] = q[0] | q[1] << 8 | q[2] << 16 | q[3] << 24;
     d[1] = q[4] | q[5] << 8 | q[6] << 16 | q[7] << 24;
@@ -391,17 +423,37 @@ void with_bool(bool v, F&& f) {
   }
 }
 
+template <Tone kTone>
+using ToneC = std::integral_constant<Tone, kTone>;
+
+// Whether `tone` names a form (the launchers refuse any other int).
+inline bool tone_ok(int tone) { return tone >= 0 && tone <= 2; }
+
+// Run f(lin, tone) for the run-time mode and tone form as compile-time
+// constants (std::bool_constant, ToneC): five pairs, since the linear
+// tone has no quotient (kPowDiv runs its kPowRcp).
+template <typename F>
+decltype(auto) with_tone(bool linear, int tone, F&& f) {
+  if (linear) {
+    return tone == 0 ? f(std::true_type{}, ToneC<Tone::kGamma1>{})
+                     : f(std::true_type{}, ToneC<Tone::kPowRcp>{});
+  }
+  return tone == 0   ? f(std::false_type{}, ToneC<Tone::kGamma1>{})
+         : tone == 1 ? f(std::false_type{}, ToneC<Tone::kPowRcp>{})
+                     : f(std::false_type{}, ToneC<Tone::kPowDiv>{});
+}
+
 // Launch the tile kernel over n images of f.hh x f.wh input blocks, with or
-// without the axis swap (kSwap), the tonemap mode and the flips as
-// compile-time variants (the flips fix every shared-memory offset a block
-// reads); the caller has checked the sizes (32-bit offsets, the grid's
-// limits). x: the 12 phase planes (kDot, kChains) or the planar image
-// (kPlanar).
+// without the axis swap (kSwap), the tonemap mode, the tone form and the
+// flips as compile-time variants (the flips fix every shared-memory offset
+// a block reads); the caller has checked the sizes (32-bit offsets, the
+// grid's limits) and the tone form. x: the 12 phase planes (kDot, kChains)
+// or the planar image (kPlanar).
 template <typename T, I420 kKind, bool kSwap>
 cudaError_t launch_i420_tiles(const T* x, const float* scal,
                               const float* inv255, uint8_t* y, uint8_t* vu,
-                              int n, Finish f, int linear, const Yuv& cv,
-                              cudaStream_t stream) {
+                              int n, Finish f, int linear, int tone,
+                              const Yuv& cv, cudaStream_t stream) {
   using Tl = I420Tile<T, kKind, kSwap>;
   const int rows = Tl::kPlanar ? 2 * f.hh : f.hh;
   const int cols = Tl::kPlanar ? 2 * f.wh : f.wh;
@@ -411,11 +463,11 @@ cudaError_t launch_i420_tiles(const T* x, const float* scal,
                     reinterpret_cast<uintptr_t>(vu) % 2 == 0;
   const dim3 grid((f.wh + Tl::kTW - 1) / Tl::kTW,
                   (f.hh + Tl::kTH - 1) / Tl::kTH, n);
-  with_bool(linear, [&](auto lin) {
+  with_tone(linear, tone, [&](auto lin, auto tn) {
     with_bool(f.flip_y, [&](auto fy) {
       with_bool(f.flip_x, [&](auto fx) {
-        i420_tile_kernel<T, kKind, decltype(lin)::value, kSwap,
-                         decltype(fy)::value, decltype(fx)::value>
+        i420_tile_kernel<T, kKind, decltype(lin)::value, decltype(tn)::value,
+                         kSwap, decltype(fy)::value, decltype(fx)::value>
             <<<grid, kThreads, 0, stream>>>(x, scal, inv255, y, vu, f, rows,
                                             cols, pairs, cv);
       });

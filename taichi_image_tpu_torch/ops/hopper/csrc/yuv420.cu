@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(256)
 // The tonemap form: n images of (3, h, w) of T, h and w even.
 template <typename T>
 int launch_tone(const void* x, const void* scal, void* y, void* vu, int n,
-                int h, int w, int linear, int apply_gamma, float inv_gamma,
+                int h, int w, int linear, int tone, float inv_gamma,
                 int swap, int flip_y, int flip_x, const float* coef,
                 const void* inv255, cudaStream_t stream) {
   if (static_cast<long long>(n) * h * w == 0) {
@@ -169,12 +169,13 @@ int launch_tone(const void* x, const void* scal, void* y, void* vu, int n,
   }
   const int hh = h / 2, wh = w / 2;
   if (h % 2 || w % 2 || !tit::image_fits_int32(hh, wh) || n > 65535 ||
-      (hh + 7) / 8 > 65535) {  // the grid's y: tiles of 8 or 16 block rows
+      (hh + 7) / 8 > 65535 ||  // the grid's y: tiles of 8 or 16 block rows
+      !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Yuv cv;
   memcpy(&cv, coef, sizeof(cv));
-  const tit::Finish f{hh, wh, apply_gamma, flip_y, flip_x, 0, inv_gamma};
+  const tit::Finish f{hh, wh, flip_y, flip_x, 0, inv_gamma};
   const auto* xin = static_cast<const T*>(x);
   const auto* s = static_cast<const float*>(scal);
   const auto* tab = static_cast<const float*>(inv255);
@@ -182,9 +183,9 @@ int launch_tone(const void* x, const void* scal, void* y, void* vu, int n,
   auto* vo = static_cast<uint8_t*>(vu);
   return static_cast<int>(
       swap ? tit::launch_i420_tiles<T, tit::I420::kPlanar, true>(
-                 xin, s, tab, yo, vo, n, f, linear, cv, stream)
+                 xin, s, tab, yo, vo, n, f, linear, tone, cv, stream)
            : tit::launch_i420_tiles<T, tit::I420::kPlanar, false>(
-                 xin, s, tab, yo, vo, n, f, linear, cv, stream));
+                 xin, s, tab, yo, vo, n, f, linear, tone, cv, stream));
 }
 
 }  // namespace
@@ -214,10 +215,10 @@ extern "C" int tit_yuv420_planar(const void* rgb, void* y, void* vu, int n,
 #define TIT_YUV420_TONE_LAUNCHER(suffix, T)                                  \
   extern "C" int tit_yuv420_planar_tone_##suffix(                            \
       const void* x, const void* scal, void* y, void* vu, int n, int h,      \
-      int w, int linear, int apply_gamma, float inv_gamma, int swap,         \
-      int flip_y, int flip_x, const float* coef, const void* inv255,         \
+      int w, int linear, int tone, float inv_gamma, int swap, int flip_y,    \
+      int flip_x, const float* coef, const void* inv255,                     \
       cudaStream_t stream) {                                                 \
-    return launch_tone<T>(x, scal, y, vu, n, h, w, linear, apply_gamma,      \
+    return launch_tone<T>(x, scal, y, vu, n, h, w, linear, tone,             \
                           inv_gamma, swap, flip_y, flip_x, coef, inv255,     \
                           stream);                                           \
   }

@@ -21,6 +21,14 @@ JAX resize route's XLA tail (``reinhard_apply_ca`` or ``linear_apply_ca``,
 then ``_transform_planar``: ``camera_isp.py:1721-1727``, ``:1790``); its
 twin is that chain in torch, :func:`gamma_u8` or :func:`linear_u8` then
 the transformed copy.
+
+These kernels and the planar I420 tonemap form (``yuv420.py``) tone in one
+of three compiled forms that :func:`tone_form` picks from gamma
+(:data:`TONE_FORMS`): no pow at gamma 1; the pow of the Reinhard quotient
+taken without a division for 0 < gamma < 7 (and the linear tone's pow);
+the pow of the true division otherwise. Each gives its twin's byte
+(``csrc/finish.cuh`` ``tone_u8``). While tracing is on, each launch counts
+its form (``utils/profiling.py`` ``tone_forms``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from taichi_image_tpu_torch.ops.hopper import yuv420
 from taichi_image_tpu_torch.ops.hopper.meter import linear_scal
 from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
                                                     transform_axes)
+from taichi_image_tpu_torch.utils import profiling
 
 __all__ = ["finish_planar_u8", "finish_planar_u8_plain", "finish_yuv420",
            "finish_yuv420_plain", "finish_planar_tone",
@@ -77,6 +86,40 @@ def _inv_gamma(gamma: float):
   if gamma == 1.0:
     return None
   return float(np.float32(1.0 / gamma))
+
+
+# The tone's forms (csrc/finish.cuh Tone), by the int the launchers take.
+TONE_FORMS = ("gamma1", "pow_rcp", "pow_div")
+
+# Below this gamma the pow of the division-free quotient gives the
+# division's byte (csrc/finish.cuh tone_u8: exact while 0 < gamma < 7.88).
+POW_RCP_MAX_GAMMA = 7.0
+
+
+def tone_form(gamma: float, mode: str) -> int:
+  """The tone form the kernels take at ``gamma`` (an index of
+  :data:`TONE_FORMS`): gamma 1 takes no pow; the linear tone's pow has no
+  quotient; the Reinhard pow takes the division-free quotient for
+  0 < gamma < :data:`POW_RCP_MAX_GAMMA` and the true division otherwise."""
+  gamma = float(gamma)
+  if gamma == 1.0:
+    return 0
+  if mode == "linear" or 0.0 < gamma < POW_RCP_MAX_GAMMA:
+    return 1
+  return 2
+
+
+def tone_args(gamma: float, mode: str) -> tuple[int, int, float]:
+  """The launchers' (linear, tone, inv_gamma) for ``gamma`` and ``mode``."""
+  inv_gamma = _inv_gamma(gamma)
+  return (int(mode == "linear"), tone_form(gamma, mode),
+          1.0 if inv_gamma is None else inv_gamma)
+
+
+def count_tone(tone: int) -> None:
+  """Count one launch of the tone form ``tone`` while tracing is on."""
+  if profiling.ON:
+    profiling.count_tone(TONE_FORMS[tone])
 
 
 def gamma_u8(p: torch.Tensor, max_out: torch.Tensor,
@@ -178,12 +221,11 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   swap, fy, fx = _TRANSFORM_SFF[transform]
   shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
   out = torch.empty(shape, dtype=torch.uint8, device=x12.device)
-  inv_gamma = _inv_gamma(gamma)
+  linear, tone, inv_gamma = tone_args(gamma, mode)
   KERNELS[x12.dtype].launch(x12.device, hopper.ptr(x12), hopper.ptr(scal),
-                            hopper.ptr(out), n, hh, wh,
-                            int(mode == "linear"), int(inv_gamma is not None),
-                            1.0 if inv_gamma is None else inv_gamma,
-                            int(swap), int(fy), int(fx))
+                            hopper.ptr(out), n, hh, wh, linear, tone,
+                            inv_gamma, int(swap), int(fy), int(fx))
+  count_tone(tone)
   return out
 
 
@@ -206,13 +248,13 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   dev = x12.device
   y = torch.empty((n, 2 * bh, 2 * bw), dtype=torch.uint8, device=dev)
   vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
-  inv_gamma = _inv_gamma(gamma)
+  linear, tone, inv_gamma = tone_args(gamma, mode)
   YUV420_KERNELS[x12.dtype].launch(
       dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu),
-      n, hh, wh, int(mode == "linear"), int(inv_gamma is not None),
-      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
+      n, hh, wh, linear, tone, inv_gamma, int(swap), int(fy), int(fx),
       yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
       hopper.ptr(yuv420.inv255_table(dev)))
+  count_tone(tone)
   return y, vu
 
 
@@ -247,9 +289,9 @@ def finish_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
   swap, fy, fx = _TRANSFORM_SFF[transform]
   out = torch.empty((n, 3, w, h) if swap else (n, 3, h, w),
                     dtype=torch.uint8, device=x.device)
-  inv_gamma = _inv_gamma(gamma)
+  linear, tone, inv_gamma = tone_args(gamma, mode)
   PLANAR_TONE_KERNELS[x.dtype].launch(
       x.device, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(out), n, h, w,
-      int(mode == "linear"), int(inv_gamma is not None),
-      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx))
+      linear, tone, inv_gamma, int(swap), int(fy), int(fx))
+  count_tone(tone)
   return out

@@ -288,10 +288,10 @@ def yuv420_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
   dev = x.device
   y = torch.empty((n, ho, wo), dtype=torch.uint8, device=dev)
   vu = torch.empty((n, 2, ho // 2, wo // 2), dtype=torch.uint8, device=dev)
-  inv_gamma = finish._inv_gamma(gamma)
+  linear, tone, inv_gamma = finish.tone_args(gamma, mode)
   TONE_KERNELS[x.dtype].launch(
       dev, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu), n,
-      h, w, int(mode == "linear"), int(inv_gamma is not None),
-      1.0 if inv_gamma is None else inv_gamma, int(swap), int(fy), int(fx),
+      h, w, linear, tone, inv_gamma, int(swap), int(fy), int(fx),
       coefficients_ptr(False), hopper.ptr(inv255_table(dev)))
+  finish.count_tone(tone)
   return y, vu

@@ -31,8 +31,10 @@ on the profiler's clock, beside the device's kernels.
 
 Counters: ``launch_ns`` per kernel (host ns inside its C launcher while
 tracing is on, a launch held up by a full launch queue included),
-``builds`` per source (nvcc runs in this process) and ``load_ns`` per
-source. The load spans and their counters are kept whether tracing is on
+``tone_forms`` (launches of the tone's kernels while tracing is on, by the
+form their wrapper picked from gamma: ``gamma1``, ``pow_rcp``,
+``pow_div``; ``ops/hopper/finish.py`` ``tone_form``), ``builds`` per
+source (nvcc runs in this process) and ``load_ns`` per source. The load spans and their counters are kept whether tracing is on
 or off: they run once a source per process, never on the hot path.
 :func:`snapshot` returns the aggregates and counters, :func:`reset`
 clears them.
@@ -57,6 +59,7 @@ ON = False
 
 _spans: dict[str, list] = {}     # name: [calls, total ns, self ns]
 _launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
+_tone_forms: dict[str, int] = {}  # tone form: kernel launches
 _builds: dict[str, int] = {}     # source: nvcc runs
 _load_ns: dict[str, int] = {}    # source: ns of its library's first load
 _lock = threading.Lock()         # for the aggregates and counters above
@@ -233,6 +236,13 @@ def load(source: str) -> _Span:
   return _Span("isp.load", tag=source, counter=_load_ns)
 
 
+def count_tone(form: str) -> None:
+  """Count one launch of a tone kernel in ``form``. The caller checks
+  :data:`ON`."""
+  with _lock:
+    _tone_forms[form] = _tone_forms.get(form, 0) + 1
+
+
 def count_build(source: str) -> None:
   """Count one nvcc run on ``source``."""
   with _lock:
@@ -241,17 +251,17 @@ def count_build(source: str) -> None:
 
 def snapshot() -> dict:
   """The aggregates and counters: ``spans`` {name: {calls, ns, self_ns}},
-  ``launch_ns`` {kernel: ns}, ``builds`` {source: nvcc runs} and
-  ``load_ns`` {source: ns}."""
+  ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches}, ``builds``
+  {source: nvcc runs} and ``load_ns`` {source: ns}."""
   with _lock:
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
                       for name, (c, ns, self_ns) in _spans.items()},
-            "launch_ns": dict(_launch_ns), "builds": dict(_builds),
-            "load_ns": dict(_load_ns)}
+            "launch_ns": dict(_launch_ns), "tone_forms": dict(_tone_forms),
+            "builds": dict(_builds), "load_ns": dict(_load_ns)}
 
 
 def reset() -> None:
   """Clear the aggregates and counters."""
   with _lock:
-    for d in (_spans, _launch_ns, _builds, _load_ns):
+    for d in (_spans, _launch_ns, _tone_forms, _builds, _load_ns):
       d.clear()

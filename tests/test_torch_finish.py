@@ -114,13 +114,13 @@ def test_interleave_is_exact_movement():
 
 
 def _tone_quotient(p, mx):
-  """csrc/finish.cuh tone_u8's Reinhard quotient at gamma 1 in numpy:
-  q0 = p RN(1/mx), r = fma(-q0, mx, p), o = fma(r, RN(1/mx), q0), or q0
-  itself where it is infinite or NaN. Returns (o, whether the claim of
-  exactness covers it: 2^-64 <= |q0| <= FLT_MAX). The FMAs are emulated
-  exactly: r's product and sum are exact in f64 there, and the last sum is
-  rounded from a long double, or from its exact value where the long
-  double lands on an f32 midpoint."""
+  """csrc/finish.cuh tone_u8's Reinhard quotient without the division
+  (reinhard_quotient) in numpy: q0 = p RN(1/mx), r = fma(-q0, mx, p),
+  o = fma(r, RN(1/mx), q0), or q0 itself where it is infinite or NaN.
+  Returns (o, whether the claim of exactness covers it: 2^-64 <= |q0| <=
+  FLT_MAX). The FMAs are emulated exactly: r's product and sum are exact in
+  f64 there, and the last sum is rounded from a long double, or from its
+  exact value where the long double lands on an f32 midpoint."""
   f32 = np.float32
   rmx = f32(1) / mx
   with np.errstate(all="ignore"):
@@ -145,39 +145,75 @@ def _tone_quotient(p, mx):
     return np.where(finite, o, q0), exact
 
 
-def _u8(o):
+def _u8(o, gamma=1.0):
+  """The tone's byte of the quotient o: trunc(clip(255 o^(1/gamma), 0,
+  255)), the pow as exp2(log2(o) f32(1/gamma)) (none at gamma 1), a NaN
+  giving 0."""
   with np.errstate(all="ignore"):
+    if gamma != 1.0:
+      o = np.exp2(np.log2(o) * np.float32(1.0 / gamma))
     s = np.clip(np.float32(255) * o, 0, 255)
   return np.nan_to_num(s, nan=0.0).astype(np.uint8)
 
 
-@pytest.mark.parametrize("mx", [1e-6, 0.37, 0.999, 1.0, 1.13, 3.0, 97.5])
-def test_tone_quotient_is_the_division(mx):
-  """The kernel's Reinhard tone at gamma 1 takes no division: its
-  quotient is the IEEE one bit for bit wherever 2^-64 <= |q0|, and its
-  byte is the division's everywhere: p at random in [0, 1.3 mx) and over
-  10^-45 .. 10^38, on every truncation boundary k mx / 255 and 16 ulps
-  either side of it, zeros of both signs, subnormals, negatives, inf and
-  NaN."""
+def _around(v, ulps):
+  """v and the ``ulps`` f32 neighbours on each side of each of its
+  values."""
   f32 = np.float32
+  out = [v]
+  for d in (np.inf, -np.inf):
+    w = v
+    for _ in range(ulps):
+      w = np.nextafter(w, f32(d))
+      out.append(w)
+  return np.concatenate(out).astype(f32)
+
+
+@pytest.mark.parametrize("gamma", [1.0, 0.45, 0.6, 0.9, 2.2, 6.9])
+@pytest.mark.parametrize("mx", [1e-6, 0.37, 0.999, 1.0, 1.13, 3.0, 97.5])
+def test_tone_quotient_is_the_division(mx, gamma):
+  """The kernel's Reinhard tone takes no division at gamma 1 and, through
+  the pow, below gamma 7 (the form tone_form picks there): its quotient is
+  the IEEE one bit for bit wherever 2^-64 <= |q0|, and its byte is the
+  division's everywhere, the pow taken by the same log2 and exp2 on both:
+  p at random in [0, 1.3 mx) and over 10^-45 .. 10^38, on every truncation
+  boundary k mx / 255 and mx (k / 255)^gamma and 16 ulps either side of it,
+  zeros of both signs, subnormals, negatives, inf and NaN."""
+  f32 = np.float32
+  assert th_fin.tone_form(gamma, "reinhard") == (0 if gamma == 1.0 else 1)
   mx = f32(mx)
   rng = np.random.default_rng(7)
   rand = (rng.random(100_000) * 1.3 * mx).astype(f32)
   wide = (10.0 ** rng.uniform(-45, 38, 50_000)).astype(f32)
-  edge = (np.arange(256, dtype=f32) * mx / f32(255)).astype(f32)
-  near = [edge]
-  for d in (np.inf, -np.inf):
-    v = edge
-    for _ in range(16):
-      v = np.nextafter(v, f32(d))
-      near.append(v)
+  edge = np.concatenate([
+      (np.arange(256, dtype=f32) * mx / f32(255)).astype(f32),
+      (np.float64(mx) * (np.arange(256) / 255.0) ** gamma).astype(f32)])
   special = np.array([0.0, -0.0, 1e-45, 1e-40, -1e-40, 1e-30, -0.5, -3.0,
                       1e30, 3e38, np.inf, -np.inf, np.nan], f32)
-  p = np.concatenate([rand, wide, -wide[:1000], *near, special]).astype(f32)
+  p = np.concatenate([rand, wide, -wide[:1000], _around(edge, 16),
+                      special]).astype(f32)
   got, exact = _tone_quotient(p, mx)
   with np.errstate(all="ignore"):
     want = p / mx
   np.testing.assert_array_equal(got[exact].view(np.uint32),
                                 want[exact].view(np.uint32))
   assert exact[:rand.size].mean() > 0.99
-  np.testing.assert_array_equal(_u8(got), _u8(want))
+  np.testing.assert_array_equal(_u8(got, gamma), _u8(want, gamma))
+
+
+def test_trunc_small_is_the_truncation():
+  """csrc/finish.cuh trunc_small, the bits of RZ(v + 2^23) less those of
+  2^23, is trunc(v) for the tone's 0 <= v <= 255: on every byte boundary k
+  and 64 ulps either side of it, and at 10^6 random v in [0, 255]. The sum
+  is emulated in f64, where it is exact for v >= 2^-29 (below that it
+  rounds to within 2^-29 of 2^23 + v < 2^23 + 1), and its f32 RZ is the
+  floor, the f32 grid of [2^23, 2^24) being the integers."""
+  f32 = np.float32
+  rng = np.random.default_rng(11)
+  v = np.concatenate([_around(np.arange(256, dtype=f32), 64),
+                      (rng.random(1_000_000) * 255).astype(f32),
+                      np.array([0.0, -0.0, 1e-45, 255.0], f32)])
+  v = v[(v >= 0) & (v <= 255)]
+  rz = np.floor(v.astype(np.float64) + 2.0 ** 23).astype(f32)
+  got = rz.view(np.uint32) - np.uint32(0x4B000000)
+  np.testing.assert_array_equal(got, np.trunc(v).astype(np.uint32))

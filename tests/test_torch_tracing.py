@@ -3,7 +3,7 @@ free of spans, clocks and ``record_function`` while off; while on, one
 ``isp.process`` span a set with the set's id, the stages of the route taken
 in order inside it, each kernel launch inside its stage, self times less
 what children cover, the spans in ``trace(log_dir)``'s Chrome file, and the
-launch, build and load counters. The kernels' launchers and nvcc are
+launch, tone-form, build and load counters. The kernels' launchers and nvcc are
 stubbed, as in test_torch_meter.py."""
 
 import contextlib
@@ -100,7 +100,8 @@ def test_off_by_default_and_records_nothing(monkeypatch):
   events = _profiled(lambda: [isp.process(_raws()) for _ in range(2)])
   assert events == [] and opened == [] and clock == []
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "tone_forms": {}, "builds": {},
+                                  "load_ns": {}}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -344,10 +345,11 @@ def test_a_failed_launch_still_raises(stub_launch):
 def test_reset_clears_everything(stub_launch):
   profiling.count_build("x.cu")
   with profiling.tracing(), profiling.span("isp.process"):
-    pass
+    profiling.count_tone("pow_rcp")
   profiling.reset()
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "tone_forms": {}, "builds": {},
+                                  "load_ns": {}}
 
 
 @pytest.fixture
@@ -389,3 +391,43 @@ def test_each_launch_lies_inside_its_stage(kernel_route, cls, suffix):
   spans = snap["spans"]
   assert sum(s["self_ns"] for s in spans.values()) == \
       spans["isp.process"]["ns"]
+
+
+def test_tone_forms_count_each_tone_launch(kernel_route):
+  """The tone kernels' wrappers count each launch by the form they pass
+  (gamma 1, the division-free pow below gamma 7 and for the linear tone,
+  the division's pow from 7 up) while tracing is on, and nothing while it
+  is off."""
+  from taichi_image_tpu_torch.ops.hopper import finish, yuv420
+  tones = []
+  for k in [*finish.KERNELS.values(), *finish.YUV420_KERNELS.values(),
+            *finish.PLANAR_TONE_KERNELS.values(),
+            *yuv420.TONE_KERNELS.values()]:
+    k._fn = lambda *args: tones.append(args[6:8] if len(args) < 16
+                                       else args[7:9]) or 0
+  x12 = torch.rand(1, 12, 4, 8, dtype=torch.float16)
+  img = torch.rand(1, 3, 8, 16)
+  mx, lin = torch.ones(1, 1, 1, 1), torch.tensor([0.0, 1.0])
+
+  def launch_all():
+    finish.finish_planar_u8(x12, mx, 1.0)
+    finish.finish_planar_u8(x12, mx, 0.6,
+                            transform=ImageTransform.rotate_90)
+    finish.finish_planar_u8(x12, lin, 7.5, "linear")
+    finish.finish_yuv420(x12, mx, 0.9)
+    finish.finish_yuv420(x12, mx, 7.5)
+    finish.finish_planar_tone(img, mx, 2.2)
+    yuv420.yuv420_planar_tone(img, mx, 7.0)
+    yuv420.yuv420_planar_tone(img, lin, 1.0, "linear")
+
+  launch_all()   # tracing off: launched, not counted
+  assert profiling.snapshot()["tone_forms"] == {}
+  with profiling.tracing():
+    launch_all()
+  # (linear, tone) as each launcher was given them
+  want = [(0, 0), (0, 1), (1, 1), (0, 1), (0, 2), (0, 1), (0, 2), (1, 0)]
+  assert tones == want * 2
+  assert profiling.snapshot()["tone_forms"] == {"gamma1": 2, "pow_rcp": 4,
+                                                "pow_div": 2}
+  profiling.reset()
+  assert profiling.snapshot()["tone_forms"] == {}
