@@ -2,17 +2,19 @@
 
 A frozen copy of the upstream step's mathematics (uc-vision/taichi_image
 ``camera_isp.py``: packed12 decode, Malvar-He-Cutler demosaic with the
-dropped border taps divided out, the vec9 EMA metering, the Reinhard map,
-the gamma to u8, the image transforms and the I420 conversion), written
-at full resolution in plain PyTorch. It imports nothing of the program:
-the benchmark hands it the same raw sets it hands the program, and it
-works out everything else itself.
+dropped border taps divided out, the ``resize_width`` policy's bilinear
+resize, the vec9 EMA metering, the Reinhard map, the gamma to u8, the
+image transforms and the I420 conversion, in the upstream order: demosaic,
+resize, metering, tonemap, transform), written at full resolution in
+plain PyTorch. It imports nothing of the program: the benchmark hands it
+the same raw sets it hands the program, and it works out everything else
+itself.
 
 ``work_dtype`` is where the configuration materialises its images: the
-decoded CFA, the demosaiced RGB and the map's output are rounded to it,
-and the arithmetic between those points is float32 (sums of the metering
-in float64). Passing a lower precision than the configuration states
-gives the control that ``compare`` has to reject.
+decoded CFA, the demosaiced RGB, the resized RGB and the map's output are
+rounded to it, and the arithmetic between those points is float32 (sums
+of the metering in float64). Passing a lower precision than the
+configuration states gives the control that ``compare`` has to reject.
 """
 
 from __future__ import annotations
@@ -108,6 +110,43 @@ def rgb_frames(raws: torch.Tensor, work_dtype: torch.dtype) -> torch.Tensor:
   cfa = (decode_packed12(raws).to(torch.float32) * DECODE_SCALE).to(
       work_dtype)
   return demosaic(cfa).to(work_dtype)
+
+
+def resize_plan(h: int, w: int, resize_width: int):
+  """The upstream ``resize_width`` policy (``camera_isp.py:302-315``):
+  ``(h_out, w_out, scale)`` with ``scale = resize_width / w`` and the
+  height ``round(h * scale)``."""
+  scale = resize_width / w
+  return round(h * scale), resize_width, scale
+
+
+def resize_samples(n_out: int, n_in: int, scale: float):
+  """The upstream bilinear sampling of one axis, on the CPU: ``p =
+  f32(i) / f32(scale)``, ``i0 = trunc(p)``, ``frac = p - i0``, taps
+  ``i0`` and ``i0 + 1`` clamped to the frame: (lo, hi int64, frac
+  float32)."""
+  p = (torch.arange(n_out, dtype=torch.float32)
+       / torch.tensor(scale, dtype=torch.float32))
+  i0 = p.trunc()
+  return (i0.to(torch.int64).clamp(0, n_in - 1),
+          (i0.to(torch.int64) + 1).clamp(0, n_in - 1), p - i0)
+
+
+def resize(rgb: torch.Tensor, h_out: int, w_out: int, scale: float,
+           work_dtype: torch.dtype) -> torch.Tensor:
+  """(N, 3, H, W) -> (N, 3, h_out, w_out) of ``work_dtype``: rows mixed
+  first, then columns, each ``lo + frac * (hi - lo)`` in float32, one
+  rounding at the end. Both axes take the one ``scale``."""
+  _, _, h, w = rgb.shape
+  r_lo, r_hi, r_f = (t.to(rgb.device)
+                     for t in resize_samples(h_out, h, scale))
+  c_lo, c_hi, c_f = (t.to(rgb.device)
+                     for t in resize_samples(w_out, w, scale))
+  x = rgb.to(torch.float32)
+  top, bot = x.index_select(2, r_lo), x.index_select(2, r_hi)
+  rows = top + r_f[:, None] * (bot - top)
+  left, right = rows.index_select(3, c_lo), rows.index_select(3, c_hi)
+  return (left + c_f * (right - left)).to(work_dtype)
 
 
 def metering_sample(rgb: torch.Tensor, stride: int) -> torch.Tensor:
@@ -219,16 +258,26 @@ def meter_step(ss: SampleSums, prev: list, t: float) -> list:
 
 
 class Pipeline:
-  """The reference run over a chain of sets: the pool's RGB and metering
-  sums worked out once, the EMA state carried through every step in
-  order, and the output of any step on request."""
+  """The reference run over a chain of sets: the pool's RGB (resized
+  where the configuration has a ``resize_width`` above 0, and then only
+  the resized RGB kept) and metering sums worked out once, the EMA state
+  carried through every step in order, and the output of any step on
+  request."""
 
   def __init__(self, cfg: dict, pool, work_dtype: torch.dtype):
     self.cfg = cfg
     self.work_dtype = work_dtype
-    self.rgb = [rgb_frames(raws, work_dtype) for raws in pool]
+    self.rgb = [self._frames(raws) for raws in pool]
     stride = int(cfg["metering_stride"])
     self.sums = [SampleSums(metering_sample(x, stride)) for x in self.rgb]
+
+  def _frames(self, raws: torch.Tensor) -> torch.Tensor:
+    rgb = rgb_frames(raws, self.work_dtype)
+    width = int(self.cfg.get("resize_width", 0))
+    if width <= 0:
+      return rgb
+    return resize(rgb, *resize_plan(rgb.shape[2], rgb.shape[3], width),
+                  self.work_dtype)
 
   def states(self, chain, wanted) -> dict:
     """The metering state after each step of ``chain`` (indices into the

@@ -146,8 +146,8 @@ def test_an_added_file_is_found_without_an_edit(tmp_path):
       "def read(run):\n  return 7.0\n")
   (pkg / "limits" / "rig2x1080p_f16.burst.json").write_text(
       json.dumps({"metrics_gap": 1.0}))
-  (pkg / "work" / "resize.py").write_text(
-      "SYMBOLS = ('resize_kernel',)\n")
+  (pkg / "work" / "sharpen.py").write_text(
+      "SYMBOLS = ('sharpen_kernel',)\n")
   m["configs"].append({"name": "rig2x1080p_f16", "source": "x",
                        "file": "isp_bench/configs/rig2x1080p_f16.json",
                        "reduced": [], "why": "x"})
@@ -173,8 +173,8 @@ def test_an_added_file_is_found_without_an_edit(tmp_path):
   assert "queue_depth.p50" in names
   assert manifest.module("layer_metrics", "queue_depth.p50",
                          package=pkg).read(None) == 7.0
-  assert manifest.modules("work", package=pkg)["resize"].SYMBOLS == (
-      "resize_kernel",)
+  assert manifest.modules("work", package=pkg)["sharpen"].SYMBOLS == (
+      "sharpen_kernel",)
   after = {p.relative_to(pkg): p.read_bytes()
            for p in pkg.rglob("*") if p.is_file() and p.relative_to(pkg)
            in before}

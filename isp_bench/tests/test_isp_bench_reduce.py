@@ -145,7 +145,15 @@ def test_family_symbols_are_whole_words():
       "finish"
   assert trace.family_of("void finish_yuv420_kernel<float>()", FAMILIES) \
       is None
-  assert trace.family_of("void resize_kernel<float>()", FAMILIES) is None
+  assert trace.family_of("void (anonymous namespace)::resize_kernel<__half, "
+                         "true>(int)", FAMILIES) == "resize"
+  assert trace.family_of("void resize_kernel_v2<float>()", FAMILIES) is None
+  for kind in ("rows", "swap"):
+    assert trace.family_of(f"void (anonymous namespace)::planar_tone_{kind}"
+                           f"_kernel<__half, 1>(int)", FAMILIES) == \
+        "planar_tone"
+  assert trace.family_of("void yuv420_planar_tone_kernel<float>()",
+                         FAMILIES) is None
 
 
 def test_demosaic_counts_the_least_arithmetic():
@@ -159,3 +167,73 @@ def test_demosaic_counts_the_least_arithmetic():
   assert isp_set._stencil_ops(ref._VERT) == 16
   assert isp_set._stencil_ops(ref._IDENT) == 0
   assert isp_set.STAGE_OPS["demosaic"] == (28 + 32 + 32 + 28) / 4
+
+
+PIXELS = 6 * 2160 * 3840
+OUT_W1920 = 6 * 1080 * 1920
+# each configuration's set and kernel families on its own route: (bytes,
+# operations); the full-resolution routes as counted before the resize
+# route was, the x0.5 resize route worked by hand
+COUNTS = {
+    "rig6x4k_f16": {
+        "set": (223948800, 3852230400),
+        "decode": (174182400, 49766400),
+        "demosaic": (402796800, 1492992000),
+        "meter": (4665720, 20217600),
+        "reinhard": (597196848, 1393459200),
+        "finish": (447897624, 895795200)},
+    "scan6x4k_f32_rot90": {
+        "set": (223948800, 3852230400),
+        "decode": (273715200, 49766400),
+        "demosaic": (805593600, 1492992000),
+        "meter": (9331320, 20217600),
+        "reinhard": (1194393648, 1393459200),
+        "finish": (746496024, 895795200)},
+    "rig6x4k_f16_w1920": {
+        # raws 1.5 bytes a pixel, u8 RGB out; decode and demosaic (1 +
+        # 30) a pixel, then a resized pixel: the resize 27, the stride-8
+        # metering 26 / 64, the map 28, the tone at gamma 0.6 3 x 6
+        "set": (PIXELS * 3 // 2 + OUT_W1920 * 3,
+                31 * PIXELS + (27 + 26 / 64 + 28 + 18) * OUT_W1920),
+        "decode": (PIXELS * 3 // 2 + PIXELS * 2, PIXELS),
+        # the CFA in, x12 out, no metering sample
+        "demosaic": ((PIXELS + 3 * PIXELS) * 2, 30 * PIXELS),
+        # at x0.5 the taps touch every row and column of x12
+        "resize": ((3 * PIXELS + 3 * OUT_W1920) * 2, 27 * OUT_W1920),
+        "meter": (3 * 6 * 135 * 240 * 2 + 4 * 30, 26 * 6 * 135 * 240),
+        "reinhard": (2 * 3 * OUT_W1920 * 2 + 4 * 12, 28 * OUT_W1920),
+        "planar_tone": (3 * OUT_W1920 * 3 + 4 * 6, 18 * OUT_W1920)},
+}
+
+
+def _config(name):
+  if name == "rig6x4k_f16_w1920":
+    return dict(CFG, name=name, resize_width=1920)
+  return manifest.config(manifest.load(), name)
+
+
+@pytest.mark.parametrize("name", sorted(COUNTS))
+def test_counts_of_the_set_and_the_families(name):
+  from isp_bench.work import isp_set
+  cfg, want = _config(name), COUNTS[name]
+  assert (isp_set.irreducible_bytes(cfg, "rgb"), isp_set.ops(cfg, "rgb")) \
+      == want["set"]
+  work = manifest.modules("work")
+  for fam, counts in want.items():
+    if fam != "set":
+      assert (work[fam].logical_bytes(cfg, "rgb"),
+              work[fam].ops(cfg, "rgb")) == counts, fam
+
+
+def test_the_resized_sets_least_time_is_its_operations():
+  from isp_bench import peaks
+  from isp_bench.work import isp_set
+  cfg = _config("rig6x4k_f16_w1920")
+  assert isp_set.out_size(cfg) == (1080, 1920)
+  # 111,974,400 bytes (0.0334 ms) against 2,456,049,600 operations
+  # (0.0367 ms), most of them the full-resolution demosaic's
+  assert isp_set.irreducible_bytes(cfg, "rgb") == 111974400
+  assert isp_set.ops(cfg, "rgb") == 2456049600
+  bytes_s = isp_set.irreducible_bytes(cfg, "rgb") / peaks.HBM_BYTES_S
+  ops_s = isp_set.ops(cfg, "rgb") / peaks.F32_FLOPS
+  assert ops_s > bytes_s

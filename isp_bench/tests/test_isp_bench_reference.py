@@ -70,3 +70,20 @@ def test_i420_against_the_port():
     # the reference takes the block's mean colour, the port the mean of
     # the pixels' rows: equal up to rounding
     assert (got.to(torch.int16) - want.to(torch.int16)).abs().max() <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("resize_width", [50, 37, 75])   # x0.5, x0.37, x0.75
+def test_resize_against_the_port(resize_width, dtype):
+  from taichi_image_tpu_torch.models import camera_isp
+  from taichi_image_tpu_torch.ops.bayer import planar_to_phases
+  g = torch.Generator().manual_seed(13)
+  rgb = torch.rand((2, 3, 64, 100), generator=g).to(dtype)
+  h_out, w_out, scale = ref.resize_plan(64, 100, resize_width)
+  got = ref.resize(rgb, h_out, w_out, scale, dtype)
+  want = camera_isp._resize_from_phases(planar_to_phases(rgb),
+                                        (w_out, h_out), scale, dtype)
+  assert got.shape == (2, 3, round(64 * resize_width / 100), resize_width)
+  # both mix the rows first in float32 and round once
+  assert torch.equal(got, want)

@@ -1,16 +1,16 @@
 """K2, the MHC stencil (``demosaic_<T>``): the phase planes in, the
-12-channel phase RGB and the metering sample out (chip_smoke's stage
-table)."""
+12-channel phase RGB and the metering sample out; on the resize route
+no sample, since the metering reads the resized image (chip_smoke's
+stage table)."""
 
-from isp_bench.work.isp_set import STAGE_OPS, item_bytes, pixels
+from isp_bench.work.isp_set import (STAGE_OPS, item_bytes, pixels, resized,
+                                    sample_pixels)
 
 SYMBOLS = ("stencil_kernel",)
 
 
 def logical_bytes(cfg: dict, color_format: str) -> int:
-  s = cfg["metering_stride"]
-  sample = (cfg["cameras"] * 3 * -(-cfg["height"] // s)
-            * -(-cfg["width"] // s))
+  sample = 0 if resized(cfg) else 3 * sample_pixels(cfg)
   return (pixels(cfg) + 3 * pixels(cfg) + sample) * item_bytes(cfg)
 
 

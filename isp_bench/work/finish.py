@@ -1,13 +1,9 @@
 """K4, the tail (``finish_<T>``): p and each image's max in, planar u8
 RGB out, the transform in its stores (chip_smoke's stage table)."""
 
-from isp_bench.work.isp_set import STAGE_OPS, item_bytes, pixels
+from isp_bench.work.isp_set import item_bytes, pixels, tone_ops
 
 SYMBOLS = ("finish_rows_kernel", "finish_swap_kernel")
-
-
-def _tone(cfg: dict) -> float:
-  return STAGE_OPS["tone_per_value"] - (1.0 if cfg["gamma"] == 1.0 else 0.0)
 
 
 def logical_bytes(cfg: dict, color_format: str) -> int:
@@ -15,4 +11,4 @@ def logical_bytes(cfg: dict, color_format: str) -> int:
 
 
 def ops(cfg: dict, color_format: str) -> float:
-  return 3 * _tone(cfg) * pixels(cfg)
+  return 3 * tone_ops(cfg) * pixels(cfg)

@@ -1,13 +1,16 @@
 """The least work a frame set needs, whatever kernels carry it.
 
 Bytes: the raw set read once and the output written once, from the
-configuration's shapes. Operations: the reference's float32 arithmetic
-(``reference/isp.py``) counted per pixel of the full-resolution frame,
-each add, subtract, multiply, divide, min, max, compare, select, log,
-exp and pow one operation, as few as the arithmetic allows (the
-demosaic's taps of equal weight summed before their one multiply); the
-bit unpacking of the decode and the transform's data movement count
-none. A fused or removed kernel leaves both counts as they are.
+configuration's shapes, the output at the route's output size (the
+resized frame where the configuration has a ``resize_width``).
+Operations: the reference's float32 arithmetic (``reference/isp.py``)
+counted per pixel of the full-resolution frame up to the demosaic and per
+pixel of the output after it, each add, subtract, multiply, divide, min,
+max, compare, select, log, exp and pow one operation, as few as the
+arithmetic allows (the demosaic's taps of equal weight summed before
+their one multiply); the bit unpacking of the decode and the transform's
+data movement count none. A fused or removed kernel leaves both counts
+as they are.
 """
 
 from isp_bench.reference import isp as ref
@@ -32,10 +35,14 @@ def _demosaic_ops() -> float:
              for k in kernels) / len(ref.MHC_RGGB)
 
 
-# operations per full-resolution pixel of each stage of the reference
+# operations per pixel of each stage of the reference: the decode and the
+# demosaic a full-resolution pixel, the later stages an output pixel
 STAGE_OPS = {
     "decode": 1.0,              # the code times f32(1 / 4095)
     "demosaic": _demosaic_ops(),
+    # per output pixel: 3 values, each 3 lerps (two along the rows, one
+    # along the columns) of 3 operations (subtract, multiply, add)
+    "resize": 27.0,
     # per pixel of the sample: scaling 3 x (subtract, divide), the gray
     # 5, its clamp and log 2, five sums 5, the bounds of the values 6
     # and of the log 2
@@ -61,6 +68,39 @@ def pixels(cfg: dict) -> int:
   return cfg["cameras"] * cfg["height"] * cfg["width"]
 
 
+def resized(cfg: dict) -> bool:
+  """Whether the configuration takes the resize route."""
+  return int(cfg.get("resize_width", 0)) > 0
+
+
+def out_size(cfg: dict) -> tuple[int, int]:
+  """(height, width) of one camera's output: the resize plan's on the
+  resize route, else the frame's."""
+  if not resized(cfg):
+    return cfg["height"], cfg["width"]
+  h_out, w_out, _ = ref.resize_plan(cfg["height"], cfg["width"],
+                                    int(cfg["resize_width"]))
+  return h_out, w_out
+
+
+def out_pixels(cfg: dict) -> int:
+  h, w = out_size(cfg)
+  return cfg["cameras"] * h * w
+
+
+def sample_pixels(cfg: dict) -> int:
+  """Pixels of the metering sample: every ``metering_stride``-th row and
+  column of the output."""
+  s = cfg["metering_stride"]
+  h, w = out_size(cfg)
+  return cfg["cameras"] * -(-h // s) * -(-w // s)
+
+
+def tone_ops(cfg: dict) -> float:
+  """Operations of the tone a value (no pow at gamma 1)."""
+  return STAGE_OPS["tone_per_value"] - (1.0 if cfg["gamma"] == 1.0 else 0.0)
+
+
 def item_bytes(cfg: dict) -> int:
   """Bytes of one value of the configuration's working dtype."""
   return ITEM_BYTES[cfg["work_dtype"]]
@@ -70,17 +110,18 @@ def irreducible_bytes(cfg: dict, color_format: str) -> int:
   """The raw set read once and the output written once."""
   raw = pixels(cfg) * 3 // 2          # packed12: 1.5 bytes a pixel
   # u8 RGB: 3 bytes a pixel; I420: Y, and V and U a 2x2 block
-  out = pixels(cfg) * 3 if color_format == "rgb" else pixels(cfg) * 3 // 2
-  return raw + out
+  n = out_pixels(cfg)
+  return raw + (n * 3 if color_format == "rgb" else n * 3 // 2)
 
 
 def ops(cfg: dict, color_format: str) -> float:
   """The reference's float32 operations for one set."""
   s = cfg["metering_stride"]
-  tone = STAGE_OPS["tone_per_value"] - (1.0 if cfg["gamma"] == 1.0 else 0.0)
-  per_pixel = (STAGE_OPS["decode"] + STAGE_OPS["demosaic"]
-               + STAGE_OPS["meter_per_sample_pixel"] / (s * s)
-               + STAGE_OPS["map"] + 3 * tone)
+  per_out = (STAGE_OPS["meter_per_sample_pixel"] / (s * s)
+             + STAGE_OPS["map"] + 3 * tone_ops(cfg))
+  if resized(cfg):
+    per_out += STAGE_OPS["resize"]
   if color_format == "yuv420":
-    per_pixel += STAGE_OPS["i420"]
-  return per_pixel * pixels(cfg)
+    per_out += STAGE_OPS["i420"]
+  return ((STAGE_OPS["decode"] + STAGE_OPS["demosaic"]) * pixels(cfg)
+          + per_out * out_pixels(cfg))
