@@ -3,7 +3,8 @@ configuration, feeds it a cell's traffic through the cell's loop kind,
 and hands the run to the metrics and the comparison.
 
 This is the one module that imports the program (``taichi_image_tpu_torch``):
-the ISP classes, their enums, and the kernels' launch counter.
+the ISP classes, their enums, and the kernels' launch counter; it also
+switches the program's own tracer for a traced run's window.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from isp_bench import inputs, manifest
+from isp_bench import inputs, manifest, program_tracer
 from isp_bench.clock import process_age_s
 from isp_bench.trace import Spans, Tracer
 
@@ -50,6 +51,17 @@ def launch_count() -> int:
   """The program's count of kernel launches so far."""
   from taichi_image_tpu_torch.ops import hopper
   return sum(hopper.launch_counts().values())
+
+
+def program_tracing(on: bool) -> None:
+  """Turn the program's own tracer on (its ``enable``) or off (its
+  ``disable``); nothing where the loaded program has no such function.
+  Never resets it: set-up's ``isp.load`` spans stay for
+  ``kernel_load_s``."""
+  switch = getattr(sys.modules.get(program_tracer.MODULE),
+                   "enable" if on else "disable", None)
+  if switch is not None:
+    switch()
 
 
 def kernel_families() -> dict:
@@ -104,7 +116,8 @@ class Context:
                          int(traffic["slice_sets"]), seconds, self.spans,
                          self.sync, self.settle, launch_count,
                          _activities(device),
-                         kernel_families() if trace else {})
+                         kernel_families() if trace else {},
+                         program_tracing=program_tracing)
     self.kwargs = dict(fmt=cfg["raw_format"], ids_format=cfg["ids_format"],
                        gamma=float(cfg["gamma"]),
                        intensity=float(cfg["intensity"]),
@@ -207,8 +220,16 @@ def execute(cfg: dict, traffic: dict, seed: int, seconds: float,
       ctx.sync()
     lap("profiler")
   ctx.spans.enabled = trace
-  result = loop.run(ctx)
-  ctx.spans.enabled = False
+  if trace:
+    # the program's tracer on for the window, off inside each profiler
+    # slice (``Tracer``), so the slices read the program as run untraced
+    program_tracing(True)
+  try:
+    result = loop.run(ctx)
+  finally:
+    ctx.spans.enabled = False
+    if trace:
+      program_tracing(False)
   return Run(cfg, traffic, result, ctx.setup_s, ctx.spans,
              ctx.tracer.slices, phases), ctx
 

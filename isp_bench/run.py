@@ -38,7 +38,8 @@ for _var, _sub in (("TRITON_CACHE_DIR", "triton"),
                    ("CUDA_CACHE_PATH", "cuda")):
   os.environ[_var] = str(_CHECKOUT / ".bench_cache" / _sub)
 
-from isp_bench import compare, harness, manifest, peaks, reduce  # noqa: E402
+from isp_bench import (compare, harness, manifest, peaks,  # noqa: E402
+                       program_tracer, reduce)
 from isp_bench.reference import isp as ref  # noqa: E402
 
 AT_IMPORTS = clock.process_age_s()   # and PyTorch's import, the port's not
@@ -95,6 +96,30 @@ def _notes(run) -> None:
   for name, d in sorted(run.spans.durations.items()):
     note(f"span {name}: {len(d)} calls, mean {sum(d) / len(d) * 1e3:.4f} ms,"
          f" median {statistics.median(d) * 1e3:.4f} ms")
+
+
+def _program_notes() -> None:
+  """The program's own tracer over the sets it saw (the window's sets
+  outside the profiler slices): each span's calls, and its ms and self ms
+  a set (in all, for the set-up's ``isp.load``), each kernel's launcher ms
+  a set, and tone-kernel launches a set by form."""
+  snap = program_tracer.snapshot()
+  if snap is None:
+    note("program tracer: the program has none")
+    return
+  n = program_tracer.sets(snap)
+  note(f"program tracer: {n} sets seen")
+  for name, s in sorted(program_tracer.spans(snap).items()):
+    k, per = ((1, "in all") if name == program_tracer.LOAD or not n
+              else (n, "a set"))
+    note(f"program span {name}: {s['calls']} calls, {s['ns'] / k / 1e6:.6f}"
+         f" ms {per}, self {s['self_ns'] / k / 1e6:.6f} ms {per}")
+  if not n:
+    return
+  for kernel, ns in sorted(snap.get("launch_ns", {}).items()):
+    note(f"program launch_ns {kernel}: {ns / n / 1e6:.6f} ms a set")
+  for form, count in sorted(snap.get("tone_forms", {}).items()):
+    note(f"program tone_forms {form}: {count / n:.6f} a set")
 
 
 def _kernel_notes(run) -> None:
@@ -154,6 +179,7 @@ def main(argv=None) -> int:
   _notes(run)
   if trace:
     _kernel_notes(run)
+    _program_notes()
   note(f"device memory peak {peak} bytes")
 
   final, kept = harness.free_program(ctx)

@@ -1,6 +1,8 @@
 """No module of the benchmark loads JAX or the JAX package, and the
-reference imports nothing of the program. Top-level import names are
-compared whole: the port's name begins with the JAX package's."""
+reference, the trace slices' reader and the reader of the program's own
+tracer import nothing of the program (``harness.py`` alone does). Top-level
+import names are compared whole: the port's name begins with the JAX
+package's."""
 
 import ast
 from pathlib import Path
@@ -35,7 +37,8 @@ def test_no_jax(path):
   assert not _imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", _sources("reference"), ids=lambda p: str(
+@pytest.mark.parametrize("path", _sources("reference") + [
+    PACKAGE / "trace.py", PACKAGE / "program_tracer.py"], ids=lambda p: str(
     p.relative_to(PACKAGE)))
 def test_reference_imports_no_program(path):
   assert PROGRAM not in _imports(path)

@@ -1,7 +1,9 @@
 """The readers of the program's own spans and counters on synthetic
 snapshots, a program without a tracer read as nothing, the program's spans
-left out of the benchmark's own, and on the card every kernel launch
-inside its ``isp.launch`` span."""
+left out of the benchmark's own, a whole run's switching of the program's
+tracer (on for a traced window, off inside its profiler slices, never
+touched by an untraced run), and on the card every kernel launch inside
+its ``isp.launch`` span."""
 
 import json
 import sys
@@ -10,13 +12,17 @@ import types
 
 import pytest
 
-from isp_bench import harness, inputs, manifest, program_tracer, trace
+from isp_bench import (compare, harness, inputs, manifest, program_tracer,
+                       trace)
 from isp_bench.harness import LoopResult, Run
+from isp_bench.reference import isp as ref
 from isp_bench.trace import Spans
 
 M = manifest.load()
 CFG = manifest.config(M, "rig6x4k_f16")
 READERS = ("driver_self_ms", "launch_call_ms", "kernel_load_s")
+PER_LAYER = [e["name"] for e in manifest.metrics_of(M, "per_layer",
+                                                    "rig6x4k_f16.device")]
 
 
 def _read(name):
@@ -106,6 +112,117 @@ def test_the_programs_live_tracer_is_read():
     assert _read("launch_call_ms") is None   # the CPU launches nothing
   finally:
     profiling.reset()
+
+
+# -- a whole run on the CPU -----------------------------------------------------
+
+WORKLOAD = "rig6x4k_f16.device"
+SEED, SECONDS = 2 ** 31 + 31, 0.6
+
+
+def _whole_run(trace_on, monkeypatch):
+  """A short run of the f16 cell at 2 cameras of 64 x 96, with 2 profiler
+  slices of 4 sets, as ``isp_bench.run`` drives it. Returns (the run, the
+  program tracer's snapshot, whether it was correct, and (profiling.ON,
+  inside a slice) at each ``process`` call, warm-up included)."""
+  import torch
+  from taichi_image_tpu_torch.utils import profiling
+  w = manifest.workload(M, WORKLOAD)
+  cfg = dict(manifest.config(M, w["config"]), cameras=2, height=64, width=96)
+  traffic = dict(manifest.traffic(w["traffic"]), trace_slices=2,
+                 slice_sets=4)
+  loop = manifest.module("loops", traffic["loop"])
+  calls, inside = [], []
+  start, stop = trace.Tracer._start, trace.Tracer._stop
+
+  def _start(self):
+    start(self)
+    inside.append(True)
+
+  def _stop(self):
+    inside.append(False)
+    stop(self)
+  monkeypatch.setattr(trace.Tracer, "_start", _start)
+  monkeypatch.setattr(trace.Tracer, "_stop", _stop)
+  make_isp = harness.make_isp
+
+  def recording_isp(*args):
+    isp = make_isp(*args)
+    process = isp.process
+
+    def record(*a, **kw):
+      calls.append((profiling.ON, bool(inside and inside[-1])))
+      return process(*a, **kw)
+    isp.process = record
+    return isp
+  monkeypatch.setattr(harness, "make_isp", recording_isp)
+  run, ctx = harness.execute(cfg, traffic, SEED, SECONDS, trace_on,
+                             torch.device("cpu"), loop)
+  snap = program_tracer.snapshot()
+  final, kept = harness.free_program(ctx)
+  pipe = ref.Pipeline(cfg, ctx.pool, compare.work_dtype(cfg))
+  values = compare.readings(pipe, ctx.chain, kept, final,
+                            traffic["color_format"])
+  correct = compare.judge(values, manifest.limits(WORKLOAD))
+  return run, snap, correct, calls
+
+
+@pytest.fixture
+def tracer():
+  """The program's tracer, off and cleared, with one kernel library's load
+  recorded as set-up records it; off and cleared again after the test."""
+  from taichi_image_tpu_torch.utils import profiling
+  profiling.disable()
+  profiling.reset()
+  with profiling.load("decode.cu"):
+    pass
+  yield profiling
+  profiling.disable()
+  profiling.reset()
+
+
+def _readings(run) -> dict:
+  return {name: manifest.module("layer_metrics", name).read(run)
+          for name in PER_LAYER}
+
+
+def test_a_traced_run_traces_the_program_outside_its_slices(monkeypatch,
+                                                             tracer):
+  run, snap, correct, calls = _whole_run(True, monkeypatch)
+  assert correct and not tracer.ON
+  warm = int(manifest.traffic("device")["warmup_sets"])
+  window = calls[warm:]
+  assert len(window) == run.loop.attempted and run.slices
+  # the tracer off for every set inside a slice, on for every other one
+  assert [on for on, _ in calls[:warm]] == [False] * warm
+  assert all(on != in_slice for on, in_slice in window)
+  in_slices = sum(sl.sets for sl in run.slices)
+  assert in_slices == sum(s for _, s in window) > 0
+  assert program_tracer.sets(snap) == run.loop.attempted - in_slices > 0
+  assert _readings(run)["driver_self_ms"] > 0
+  assert program_tracer.spans(snap)[program_tracer.LOAD]["calls"] == 1
+
+
+@pytest.mark.parametrize("case", ["untraced", "a tracer without enable"])
+def test_a_run_that_leaves_the_programs_tracer_off(case, monkeypatch, tracer):
+  switched = []
+  monkeypatch.setattr(tracer, "enable", lambda: switched.append(True))
+  if case != "untraced":
+    monkeypatch.delattr(tracer, "enable")
+  run, snap, correct, calls = _whole_run(case != "untraced", monkeypatch)
+  assert correct and not tracer.ON and switched == []
+  assert {on for on, _ in calls} == {False}
+  assert program_tracer.PROCESS not in program_tracer.spans(snap)
+  assert program_tracer.spans(snap)[program_tracer.LOAD]["calls"] == 1
+  readings = _readings(run)
+  assert readings.pop("driver_self_ms") is None
+  if case != "untraced":
+    # otherwise the same metrics read a number as with the tracer on
+    monkeypatch.undo()
+    on = _readings(_whole_run(True, monkeypatch)[0])
+    assert on.pop("driver_self_ms") > 0
+    assert ({k: v is None for k, v in readings.items()}
+            == {k: v is None for k, v in on.items()})
 
 
 def test_parse_leaves_the_programs_spans_out_of_the_host_spans():

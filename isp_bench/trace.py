@@ -6,7 +6,10 @@ timed on the host clock and marked in the profiler's trace, and it
 profiles a few bounded slices spread over the window: each begins after
 a device sync and ends with one, so every device operation launched in
 a slice runs inside it. A slice is parsed after the window into its
-device operations and the host spans open around them.
+device operations and the host spans open around them. The program's own
+tracer, which the harness turns on for a traced window, is off inside
+each slice: it is switched between two sets, before the profiler starts
+and after the slice's trace is exported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from isp_bench import reduce
 HOST_SPANS = ("process", "sync")
 SLICE = "slice"
 _NULL = contextlib.nullcontext()
+
+
+def _no_switch(on: bool) -> None:
+  """A ``program_tracing`` for a program without a tracer."""
 
 
 class Spans:
@@ -83,11 +90,13 @@ class Tracer:
   window. ``sync`` waits for the device; ``settle`` runs one device
   operation of the benchmark's own and waits for it; ``launches`` reads the
   program's count of kernel launches; ``activities`` are the profiler's;
-  ``families`` {kernel family: its kernel symbols} label the kernels."""
+  ``families`` {kernel family: its kernel symbols} label the kernels;
+  ``program_tracing(on)`` switches the program's own tracer, off for each
+  slice and on again after it."""
 
   def __init__(self, enabled: bool, n_slices: int, slice_sets: int,
                seconds: float, spans: Spans, sync, settle, launches,
-               activities, families: dict):
+               activities, families: dict, program_tracing=_no_switch):
     self.enabled = enabled
     self.starts = [seconds * (i + 1) / (n_slices + 1)
                    for i in range(n_slices)]
@@ -95,6 +104,7 @@ class Tracer:
     self.spans, self.sync, self.settle = spans, sync, settle
     self.launches = launches
     self.activities, self.families = activities, families
+    self.program_tracing = program_tracing
     self.t0 = None
     self.active = None
     self.slices = []
@@ -120,6 +130,7 @@ class Tracer:
   def _start(self) -> None:
     from torch.profiler import profile, record_function
     self.sync()
+    self.program_tracing(False)
     prof = profile(activities=self.activities)
     prof.start()
     # a session's first device operation now and then goes unrecorded:
@@ -144,6 +155,7 @@ class Tracer:
         events = json.load(f)["traceEvents"]
     self.slices.append(parse(events, self.spans.count("process") - a["sets"],
                              self.launches() - a["launches"], self.families))
+    self.program_tracing(True)
 
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
