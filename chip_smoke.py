@@ -26,14 +26,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
             each K1, K3 and K12 instantiation and of K7 (cuobjdump), and
             of their loops per pixel (K3), column pair (K1), output (K12)
             or half-res pixel (K7, with its map loop); K4's SASS a toned
-            value by tone form (MUFU, F2I, FCHK, FFMA, FADD, FMUL, all).
+            value by tone form (MUFU, F2I, FCHK, FFMA, FADD, FMUL, all),
+            and its table form's loop a value (its LDS gathers among
+            them).
 3. kernels  first the tone's kernels (K4 rows and rotate_90, its I420
             mode, P, the planar I420 tonemap form) bitwise their twins on
             every value of 0 and up and 4096 negative ones of bf16 and
             f16, and on 10^7 f32 values with each gamma's byte
             boundaries (16 ulps either side), at gamma 1, 0.6, 0.9, 2.2
             and 7.5, Reinhard under the maxima 1e-6, 0.37 and 1.13, and
-            linear. Then
+            linear; K4's table form (bf16 and f16, its launcher called
+            with the table scratch) bitwise the twin on every bit
+            pattern at each gamma but 1, rows and flip_horiz, and bitwise
+            K4's direct form (the launcher without it) on random bits at
+            6x4K and on a 6x8K band (272 x 3840), gamma 0.6, 0.9, 2.2
+            and 7.5, Reinhard and linear, no transform and flip_horiz.
+            Then
             each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
@@ -80,8 +88,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
             and twin times from CUDA events around batches of 10 calls,
             K3 in both adapt modes, K4 under every transform that swaps
             the axes and at gamma 0.6 and 0.9 (without a transform and
-            under rotate_90), K12's direct path at x0.5 and, in bf16, K12
-            at x1.5 and x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
+            under rotate_90; without a transform in bf16 and f16 its table
+            form, and beside it the direct form),
+            K12's direct path at x0.5 and, in bf16, K12 at x1.5 and
+            x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
             planar I420 kernel at 6 x 1920 x 1080 and 6x4K, its tonemap
             form at 6 x 1920 x 1080 (Reinhard, linear, rotate_90), K2's
             banded mode on an interior 6x8K band in each dtype, and each
@@ -215,6 +225,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
             time a call; the device time of M's split form (forced, its
             three launches) beside the cooperative launch's at each
             dtype's 6x4K stride-8 sample and the 6x8K whole frame's. Then
+            K4's table form on the 6x4K main path's p (bf16, f16; gamma
+            0.6, 0.9): its table build's and its rows kernel's device time
+            beside the direct form's, from profiler traces. Then
             the same step method for the resize->1920 step of each class
             and the front-fused bf16 step, each resize->1920 step and the
             front-fused step with its profile (busy share, device
@@ -374,14 +387,17 @@ _I420_ROWS = re.compile(r"finish_yuv420_kernelI(13__nv_bfloat16|6__half|f)"
 _I420_TILE = re.compile(r"i420_tile_kernelI(13__nv_bfloat16|6__half|f)"
                         r"L\w*?I420E(\d)ELb[01]E(?:L\w*?ToneE\dE)?"
                         r"((?:Lb[01]E){3})")
-# K4's kernels in finish.cu: the kernel, T, the linear tonemap and the tone
-# form (csrc/finish.cuh Tone; none where gamma was a run-time branch)
+# K4's kernels in finish.cu: the kernel, T, the linear tonemap, the tone
+# form (csrc/finish.cuh Tone; none where gamma was a run-time branch) and
+# the rows kernel's table form (none before it had one)
 _TONE_ARGS = re.compile(r"(finish_rows_kernel|finish_swap_kernel)"
                         r"I(13__nv_bfloat16|6__half|f)Lb([01])E"
-                        r"(?:L\w*?ToneE(\d)E)?")
+                        r"(?:L\w*?ToneE(\d)E)?(?:Lb([01])E)?")
 # the values each of them tones in its code: a thread's 32, once on the
 # vector path and once on the element path
 _TONE_VALUES = 64
+# the values of one pass of the table form's loop: an item of 4 runs
+_TABLE_VALUES = 32
 _TONE_FORMS = ("gamma1", "pow_rcp", "pow_div")
 # the SASS opcodes counted a toned value (MUFU: LG2, EX2 and RCP on the
 # quarter-rate pipe; F2I the u8 convert; FCHK the division's range test)
@@ -444,17 +460,30 @@ def tone_sass(path):
   finish.cu: static counts over the values toned in the kernel's code,
   every instruction of the kernel (its index arithmetic and stores
   included); the form is "runtime" where gamma was a branch inside the
-  kernel, which then holds both forms' code."""
-  rows = {}
+  kernel, which then holds both forms' code. The rows kernel's table form
+  ("... table") counts its loop instead, an item of 32 values a pass (the
+  next item's loads, the gathers, both store paths): "loop" and "LDS"
+  a value (whole kernel), with "total" the loop's."""
+  rows, loops = {}, None
   for mangled, ops in sass_opcodes(path).items():
     m = _TONE_ARGS.search(mangled)
     if not m:
       continue
-    kernel, t, linear, tone = m.groups()
+    kernel, t, linear, tone, table = m.groups()
     form = "runtime" if tone is None else _TONE_FORMS[int(tone)]
+    name = f"{kernel} {_T_NAMES[t]} linear={linear} {form}"
+    if table == "1":
+      loops = loops or sass_counts(path)
+      loop = loops[mangled][1]
+      rows[f"{name} table"] = {
+          **{op: ops.get(op, 0) / _TABLE_VALUES for op in (*_TONE_OPS,
+                                                           "LDS")},
+          "loop": loop, "total": loop / _TABLE_VALUES,
+          "registers": loops[mangled][2]}
+      continue
     row = {op: ops.get(op, 0) / _TONE_VALUES for op in _TONE_OPS}
     row["total"] = sum(ops.values()) / _TONE_VALUES
-    rows[f"{kernel} {_T_NAMES[t]} linear={linear} {form}"] = row
+    rows[name] = row
   return rows
 
 
@@ -572,7 +601,11 @@ def phase_build():
     log(f"  finish.cu: SASS not measured (cuobjdump: {e})")
     rows = {}
   for name, row in sorted(rows.items()):
-    if "linear=0" in name:
+    if "linear=0" in name and name.endswith("table"):
+      log(f"  {name}: {row['registers']} registers, loop "
+          f"{row['loop']} SASS instructions, {row['total']:.2f} a value, "
+          f"LDS {row['LDS']:.2f} and MUFU {row['MUFU']:.2f} a value")
+    elif "linear=0" in name:
       log(f"  {name}: a value " + ", ".join(
           f"{op} {row[op]:.2f}" for op in (*_TONE_OPS, "total")))
   if rows:
@@ -1032,6 +1065,110 @@ def _check_tone_bits(note):
     del vals, x12, planar
 
 
+def finish_launch(x12, scal, gamma, mode, transform, table):
+  """K4 through its C launcher: the table form with ``table`` (the
+  wrapper's table scratch), the direct form without it, whatever the
+  wrapper would pick."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
+  from taichi_image_tpu_torch.ops.hopper import finish
+  n, _, hh, wh = x12.shape
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  dev = x12.device
+  out = torch.empty((n, 3, 2 * hh, 2 * wh), dtype=torch.uint8, device=dev)
+  linear, tone, inv_gamma = finish.tone_args(gamma, mode)
+  finish.KERNELS[x12.dtype].launch(
+      dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(out), n, hh, wh,
+      linear, tone, inv_gamma, int(swap), int(fy), int(fx),
+      hopper.ptr(finish._tables(dev, n)) if table else None,
+      kernels=2 if table else 1)
+  return out
+
+
+TABLE_GAMMAS = (0.6, 0.9, 2.2, 7.5)
+# small and ragged (n, 12, hh, wh) frames of the table form: one half-res
+# pixel, runs cut short (the element path), 640x480 and 6 x 1920x1080
+TABLE_SMALL = ((1, 12, 1, 1), (2, 12, 3, 5), (1, 12, 17, 37),
+               (1, 12, 240, 320), (N_CAM, 12, 540, 960))
+
+
+def _check_table_form(note):
+  """K4's table form (bf16 and f16): bitwise its plain twins on every bit
+  pattern, under each of TONE_MAXIMA and linear with [0, 1 / m], at each
+  gamma of TABLE_GAMMAS, rows and flip_horiz; then bitwise K4's direct
+  form on random bits at 6x4K, on a 6x8K band and on small and ragged
+  frames (the element path), at the same gammas, Reinhard (six maxima)
+  and linear, no transform and flip_horiz."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import finish
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(24)
+  flips = (ImageTransform.none, ImageTransform.flip_horiz)
+  u = torch.arange(12 * 16 * 352, device=dev) % finish.TABLE_BYTES
+  bits = (u - (u >= 0x8000) * 0x10000).to(torch.int16)
+  mx3 = torch.tensor(TONE_MAXIMA, device=dev).view(3, 1, 1, 1)
+  mx6 = torch.tensor((1e-6, 0.37, 0.999, 1.13, 3.0, 97.5),
+                     device=dev).view(6, 1, 1, 1)
+  for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+    every = bits.view(dtype).view(1, 12, 16, 352).repeat(3, 1, 1, 1)
+    for gamma, t in itertools.product(TABLE_GAMMAS, flips):
+      cases = [("reinhard", every, mx3)]
+      cases += [("linear", every[i:i + 1],
+                 torch.tensor([0.0, 1.0 / m], device=dev))
+                for i, m in enumerate(TONE_MAXIMA)]
+      for mode, x, sc in cases:
+        what = (f"table form {sfx} every pattern {mode} gamma={gamma} "
+                f"{t.value}")
+        ko = finish_launch(x, sc, gamma, mode, t, True)
+        po = finish.finish_planar_u8(x, sc, gamma, mode, t, backend="plain")
+        _check_bitwise(what, ko, po)
+        _check_bitwise(f"{what} (table twin)", ko,
+                       finish.finish_planar_u8_table_plain(x, sc, gamma,
+                                                           mode, t))
+        note(f"finish_{sfx}", ko, po)
+    for shape in ((N_CAM, 12, H // 2, W // 2),
+                  (BAND_8K[0], 12, BAND_8K[1], BAND_8K[2]),
+                  *TABLE_SMALL):
+      x = torch.randint(-32768, 32768, shape, generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int16).view(dtype)
+      for gamma, mode, t in itertools.product(TABLE_GAMMAS,
+                                              ("reinhard", "linear"), flips):
+        sc = (mx6 if mode == "reinhard"
+              else torch.tensor([-0.05, 1 / 1.1], device=dev))
+        _check_bitwise(f"table form {sfx} {tuple(shape)} {mode} "
+                       f"gamma={gamma} {t.value} vs the direct form",
+                       finish_launch(x, sc, gamma, mode, t, True),
+                       finish_launch(x, sc, gamma, mode, t, False))
+      del x
+    log(f"kernels: finish_{sfx}'s table form agrees with its twins on every "
+        f"bit pattern (maxima {', '.join(map(str, TONE_MAXIMA))} and "
+        "linear) and with the direct form on random bits at 6x4K, a "
+        f"6x8K band {BAND_8K[1]}x{BAND_8K[2]} and {TABLE_SMALL}, gamma "
+        f"{', '.join(map(str, TABLE_GAMMAS))}, Reinhard and linear, rows "
+        "and flip_horiz")
+
+
+def _kernel_ms(fn, calls=30):
+  """{kernel: device ms per call of ``fn``} from a profiler trace of
+  ``calls`` calls after a warm-up ({} where it holds no device time)."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  for _ in range(3):
+    fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  return {e.key[:60]: e.self_device_time_total / calls / 1e3
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
 def phase_kernels(results):
   """Each kernel against its plain twin on the card; fills ``results``
   {name: {ms, plain_ms, max_abs_err}} (kernel names, plus extra timed
@@ -1066,6 +1203,7 @@ def phase_kernels(results):
     err[name] = max(err[name], (a.float() - b.float()).abs().max().item())
 
   _check_tone_bits(note)
+  _check_table_form(note)
   for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
     raws = torch.randint(0, 256, shape, generator=gen, device=dev,
                          dtype=torch.uint8)
@@ -1324,6 +1462,16 @@ def phase_kernels(results):
             lambda b, g=gamma, t=t: finish.finish_planar_u8(
                 p_cast, max_out, g, transform=t, backend=b),
             [p_cast, max_out], 8 * 12 * npix)
+      if dtype != torch.float32:
+        # there K4 takes its table form: its direct form beside it
+        for gamma in (0.6, 0.9):
+          calls[f"finish_{sfx} gamma {gamma} direct"] = (
+              lambda b, g=gamma: (
+                  finish_launch(p_cast, max_out, g, "reinhard",
+                                ImageTransform.none, False)
+                  if b == "kernel" else finish.finish_planar_u8(
+                      p_cast, max_out, g, backend=b)),
+              [p_cast, max_out], 8 * 12 * npix)
       # K4's I420 mode: the map's 4 operations per value, then per
       # half-res pixel 4 Y of ~10 and the chroma's ~40
       yuv_ops = (4 * 12 + 80) * npix
@@ -1749,11 +1897,13 @@ _MAIN = ("decode", "demosaic", "meter", "reinhard", "finish")
 _RESIZE = ("decode", "demosaic", "resize", "meter", "reinhard")
 
 
-def _step_launches(stages, sfx, steps):
+def _step_launches(stages, sfx, steps, table=False):
   """{kernel: launches} of ``steps`` steps through ``stages`` of the dtype
   suffix ``sfx``: one launch of each stage a step (M's one cooperative
-  launch too)."""
-  return {f"{st}_{sfx}": steps for st in stages}
+  launch too), two of K4 with ``table`` (its table form: the build and
+  the rows kernel)."""
+  return {f"{st}_{sfx}": steps * (2 if table and st == "finish" else 1)
+          for st in stages}
 
 
 def phase_slice(frames, sfx):
@@ -2078,10 +2228,11 @@ def phase_format_routes(frames):
     handles[2]._force()
     isp.update_metering(handles)
     outs = isp.tonemap_linear(handles, gamma=1.2)
-    # M in update_metering and again in tonemap_linear's staged metering
+    # M in update_metering and again in tonemap_linear's staged metering;
+    # K4 in its table form on bf16 and f16 (gamma 1.2): two kernels
     got = counts(f"staged u16 {name}", {
         f"split_u16_{sfx}": N_CAM, f"demosaic_{sfx}": N_CAM,
-        f"meter_{sfx}": 2, f"finish_{sfx}": 1})
+        f"meter_{sfx}": 2, f"finish_{sfx}": 1 if sfx == "f32" else 2})
     args = _step_args(cls._work_dtype, tonemap="linear", gamma=1.2,
                       fmt="u16")
     m1, _ = ci.fused_isp_step(u16, torch.zeros(9, device="cuda"), 0.0,
@@ -2965,7 +3116,7 @@ def _apps_benches():
   from taichi_image_tpu_torch.bench import shootout
   runs = [
       ("bench.camera_isp", bench_isp.main, ["--iterations", "200"],
-       _step_launches(_MAIN, "f16", 1 + 20 + 200)),
+       _step_launches(_MAIN, "f16", 1 + 20 + 200, table=True)),
       ("bench.bayer", bench_bayer.main,
        ["--iterations", "1000", "--warmup", "50"], {"demosaic_f32": 1050}),
       ("bench.interpolate", bench_interp.main,
@@ -3475,6 +3626,64 @@ def phase_meter_timing(results, card):
           f"{card}")
 
 
+def phase_table_timing(results):
+  """K4's table form at 6x4K on the main path's p, gamma 0.6 and 0.9, bf16
+  and f16: the device time of its table build and of its rows kernel, and
+  the direct form's, from profiler traces (after the apps phase, as
+  :func:`phase_meter_timing`'s), beside the kernels phase's events; then
+  the same at two small frames of TABLE_SMALL."""
+  import torch
+  from taichi_image_tpu_torch.models import camera_isp as ci
+  from taichi_image_tpu_torch.ops.bayer import BayerPattern
+  from taichi_image_tpu_torch.ops.hopper import finish, meter, reinhard
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+
+  raws = _inputs()[0]
+  for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+    phases = ci.load_raw_phases(raws, "packed12", dtype)
+    x12, samp = ci.demosaic_phases(phases, BayerPattern.RGGB,
+                                   out_dtype=dtype, sample_step=4)
+    m = meter.meter(samp, torch.zeros(9, device="cuda"), 0.0).metrics
+    p, mx = reinhard.reinhard_map(x12, reinhard.reinhard_scal(m, 1.0, 1.0),
+                                  False)
+    for gamma in (0.6, 0.9):
+      table = _kernel_ms(lambda g=gamma: finish.finish_planar_u8(p, mx, g))
+      direct = _kernel_ms(lambda g=gamma: finish_launch(
+          p, mx, g, "reinhard", ImageTransform.none, False))
+      r = results[f"finish_{sfx} gamma {gamma}"]
+      r.update(
+          table_build_ms=sum(v for k, v in table.items()
+                             if "tone_table_kernel" in k),
+          table_rows_ms=sum(v for k, v in table.items()
+                            if "finish_rows_kernel" in k),
+          direct_device_ms=sum(direct.values()))
+      if not (r["table_rows_ms"] and r["direct_device_ms"]):
+        log(f"  finish_{sfx} gamma {gamma}: device time not measured (the "
+            f"traces hold {table} and {direct})")
+        continue
+      log(f"  finish_{sfx} gamma {gamma}, device time (profiler): table "
+          f"build {r['table_build_ms']:.4f} ms + table form "
+          f"{r['table_rows_ms']:.4f} ms "
+          f"({r['bound_ms'] / r['table_rows_ms']:.1%} of its bound), direct "
+          f"form {r['direct_device_ms']:.4f} ms "
+          f"({r['bound_ms'] / r['direct_device_ms']:.1%})")
+  # what a small frame pays for its table: 640x480 and 6 x 1920x1080 of
+  # random p in [0, 1) at gamma 0.6
+  gen = torch.Generator(device="cuda").manual_seed(25)
+  for shape in TABLE_SMALL[-2:]:
+    mx = torch.ones(shape[0], 1, 1, 1, device="cuda")
+    for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+      p = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+      table = _kernel_ms(lambda: finish.finish_planar_u8(p, mx, 0.6))
+      direct = _kernel_ms(lambda: finish_launch(
+          p, mx, 0.6, "reinhard", ImageTransform.none, False))
+      build = sum(v for k, v in table.items() if "tone_table_kernel" in k)
+      log(f"  finish_{sfx} {tuple(shape)} gamma 0.6, device time "
+          f"(profiler): table build {build:.4f} ms + table form "
+          f"{sum(table.values()) - build:.4f} ms, direct form "
+          f"{sum(direct.values()):.4f} ms")
+
+
 def phase_route_timing(card):
   """The same step method for the other routes: the resize->1920 step of
   each class, the transform and linear marginals (bf16), the front-fused
@@ -3645,6 +3854,7 @@ def main(argv=None):
     raise AssertionError(f"kernels no route launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
   phase_meter_timing(results, card)
+  phase_table_timing(results)
   timing["routes"] = phase_route_timing(card)
   timing["formats"] = phase_format_timing(card)
   timing["large"] = phase_large_timing(card)

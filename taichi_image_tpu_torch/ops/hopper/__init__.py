@@ -29,9 +29,11 @@ by name (``backend="plain"``).
 A kernel launches on the device of the tensors its wrapper was given,
 with that device current (:meth:`Kernel.launch`), on its current stream.
 
-Every wrapper adds one to its kernel's ``launches`` count where it
-launches the kernel, and nowhere else, so a run can show that the main
-path went through the kernels (``launch_counts``/``reset_launches``).
+Every wrapper adds to its kernel's ``launches`` count the kernels its
+launcher call enqueues (one, or two for K4's table form), where it calls
+the launcher and nowhere else, so a run can show that the main path went
+through the kernels, and a device trace can be held to the count
+(``launch_counts``/``reset_launches``).
 The tracer (``utils/profiling.py``) times each C launcher call while it is
 on (``isp.launch``, ``launch_ns``), and each library's first load in this
 process (``isp.load``, ``load_ns``) and nvcc run (``builds``) always.
@@ -172,12 +174,12 @@ class Kernel:
       self._fn = fn
     return self._fn
 
-  def launch(self, device: torch.device, *args) -> None:
+  def launch(self, device: torch.device, *args, kernels: int = 1) -> None:
     """Call the C launcher with ``args`` and the current stream of
     ``device`` (the device of the tensors it is given), with ``device``
     the current device: the CUDA runtime launches on the current device,
     and the launchers size their grids from it (``tit::resident_blocks``).
-    Count the launch; raise on a CUDA error."""
+    Count the ``kernels`` the call enqueues; raise on a CUDA error."""
     fn = self._launcher()
     with torch.cuda.device(device):
       stream = stream_of(device)
@@ -189,7 +191,7 @@ class Kernel:
     if err != 0:
       raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t "
                          f"{err}")
-    self.launches += 1
+    self.launches += kernels
 
 
 KERNELS: dict[str, Kernel] = {}

@@ -51,6 +51,22 @@
 // the element-by-element loads and byte stores of the same kernel (the
 // launcher picks `vec` from the sizes and pointers).
 //
+// The table form (bf16 or f16 at gamma != 1 without an axis swap, where
+// the wrapper passes a table scratch: ops/hopper/finish.py table_form).
+// tone_u8 is a pure function of a value's bits, its image's scalars and
+// inv_gamma, so tone_table_kernel tones each of the 65,536 bit patterns of
+// T once an image, by the unpack and tone_u8 the direct form runs, into a
+// 64 KB table of bytes, and the rows kernel's table form gives each value
+// its byte by one shared-memory gather at its 16 bits: every byte is the
+// direct form's, NaN, zeros of both signs, negatives and subnormals
+// included, and the pow leaves the per-value path. The same launcher call
+// enqueues both kernels. The table form is a persistent grid, one wave of
+// kTableBlocks blocks an SM shared out evenly over the images: a block
+// copies its image's table into shared memory (cp.async) while its first
+// run's loads are in flight, then walks its share of the image's (channel,
+// row, run) items with the next item's loads in flight, keeping the direct
+// form's loads, interleave, flips, 16-byte stores and element path.
+//
 // The byte is the one of the IEEE quotient (finish.cuh tone_u8) and the u8
 // convert truncates toward zero (XLA's f32->u8 convert, camera_isp.py:1106);
 // fmaxf maps a NaN (log2 of a negative p at gamma != 1) to 0.
@@ -107,21 +123,11 @@ __device__ __forceinline__ uint4 reverse_bytes(uint4 v) {
                     __byte_perm(v.y, 0, 0x0123), __byte_perm(v.x, 0, 0x0123));
 }
 
-// No axis swap: block (16, 16) over (runs, rows).
-template <typename T, bool kLinear, Tone kTone>
-__global__ void __launch_bounds__(256)
-    finish_rows_kernel(const T* __restrict__ x,
-                       const float* __restrict__ scal,
-                       uint8_t* __restrict__ out, Finish f) {
-  const int bc = blockIdx.z, b = bc / 3, c = bc - 3 * b;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kV;
-  if (i >= f.hh || j0 >= f.wh) return;
-  unsigned q[2][2][kV];
-  const T* src[4];
-  run_planes(x, b, c, i, j0, f, src);
-  finish_run<T, kLinear, kTone>(src, f.vec, f.wh - j0,
-                                load_scal<kLinear>(scal, b), f, q);
+// The run's bytes q[pr][pc][k] in the output plane bc (an image's channel):
+// output row 2 i + pr, bytes 2 (j0 + k) + pc, moved by the flips.
+__device__ __forceinline__ void store_run(const unsigned (&q)[2][2][kV],
+                                          uint8_t* __restrict__ out, int bc,
+                                          int i, int j0, const Finish& f) {
   const int h = 2 * f.hh, w = 2 * f.wh;
   uint8_t* ob = out + static_cast<size_t>(bc) * h * w;
 #pragma unroll
@@ -156,6 +162,143 @@ __global__ void __launch_bounds__(256)
       }
     }
   }
+}
+
+// The table form (kTable, below) gives every pattern's byte from shared
+// memory: 64 KB a block, so kTableBlocks blocks an SM.
+constexpr int kTableBytes = 65536;  // a byte per bit pattern of a 16-bit T
+constexpr int kTableBlocks = 3;
+
+// A (channel, row, run) item of the table form: item e of an image is run
+// e % runs of row e / runs of its 3 hh channel rows.
+struct Item {
+  int c, i, j0;
+};
+
+// Item e's coordinates, and its run's loads from the four planes issued
+// into r, where e < items.
+template <typename T>
+__device__ __forceinline__ Item load_item(const T* __restrict__ x, int b,
+                                          int e, int runs, int items,
+                                          const Finish& f,
+                                          RawRun<T> (&r)[4]) {
+  Item it{0, 0, 0};
+  if (e < items) {
+    const int row = e / runs;
+    it.j0 = (e - row * runs) * kV;
+    it.c = row / f.hh;
+    it.i = row - it.c * f.hh;
+    const T* src[4];
+    run_planes(x, b, it.c, it.i, it.j0, f, src);
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {
+      load_run<T>(src[pp], f.vec, f.wh - it.j0, r[pp]);
+    }
+  }
+  return it;
+}
+
+// 16 bytes from device memory into shared memory, without registers
+// (cp.async; cp_async_wait waits for this thread's copies).
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The table form's body: block (256) of grid (blocks an image, n) copies
+// image b's table into shared memory while its first item's loads are in
+// flight, then walks the image's items blockIdx.x * 256 + t, + gridDim.x *
+// 256, ..., the next item's loads in flight while it gathers the bytes of
+// the current one, a value's byte at its 16 bits.
+template <typename T>
+__device__ __forceinline__ void finish_rows_table(
+    const T* __restrict__ x, const uint8_t* __restrict__ table,
+    uint8_t* __restrict__ out, const Finish& f) {
+  extern __shared__ __align__(16) uint8_t tab[];
+  const int b = blockIdx.y;
+  const int runs = (f.wh + kV - 1) / kV;
+  const int items = 3 * f.hh * runs;
+  const int step = gridDim.x * blockDim.x;
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  RawRun<T> raw[4];
+  Item it = load_item(x, b, e, runs, items, f, raw);
+  const uint8_t* tb = table + static_cast<size_t>(b) * kTableBytes;
+  for (int k = threadIdx.x; k < kTableBytes / 16; k += blockDim.x) {
+    copy16_async(tab + 16 * k, tb + 16 * k);
+  }
+  cp_async_wait();
+  __syncthreads();
+  for (; e < items; e += step) {
+    RawRun<T> next[4];
+    const Item nt = load_item(x, b, e + step, runs, items, f, next);
+    unsigned q[2][2][kV];
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        const unsigned wd = raw[pp].w[k >> 1];
+        q[pp >> 1][pp & 1][k] = tab[(k & 1) ? wd >> 16 : wd & 0xFFFFu];
+      }
+    }
+    store_run(q, out, 3 * b + it.c, it.i, it.j0, f);
+    it = nt;
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) raw[pp] = next[pp];
+  }
+}
+
+// No axis swap. The direct form: block (16, 16) over (runs, rows), grid.z
+// = n * 3. The table form (kTable: a 16-bit T and a pow form): each value
+// its byte from the image's table (tone_table_kernel), finish_rows_table.
+template <typename T, bool kLinear, Tone kTone, bool kTable>
+__global__ void __launch_bounds__(256, kTable ? kTableBlocks : 1)
+    finish_rows_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scal,
+                       const uint8_t* __restrict__ table,
+                       uint8_t* __restrict__ out, Finish f) {
+  if constexpr (kTable) {
+    finish_rows_table<T>(x, table, out, f);
+  } else {
+    const int bc = blockIdx.z, b = bc / 3, c = bc - 3 * b;
+    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kV;
+    if (i >= f.hh || j0 >= f.wh) return;
+    unsigned q[2][2][kV];
+    const T* src[4];
+    run_planes(x, b, c, i, j0, f, src);
+    finish_run<T, kLinear, kTone>(src, f.vec, f.wh - j0,
+                                  load_scal<kLinear>(scal, b), f, q);
+    store_run(q, out, bc, i, j0, f);
+  }
+}
+
+// The table of each image b: table[b][u] = tone_u8 of the T whose bits are
+// u, under image b's scalars: the tone of the direct form, by the same
+// unpack and tone_u8 (a thread tones 4 patterns, one 4-byte store). Grid
+// (kTableBytes / (4 * kThreads), n).
+template <typename T, bool kLinear, Tone kTone>
+__global__ void __launch_bounds__(kThreads)
+    tone_table_kernel(const float* __restrict__ scal,
+                      uint8_t* __restrict__ table, Finish f) {
+  const int b = blockIdx.y;
+  const unsigned u = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  const unsigned w[2] = {u | (u + 1) << 16, (u + 2) | (u + 3) << 16};
+  float v[4];
+  Run<T, 4>::unpack(w, v);
+  const Scal sc = load_scal<kLinear>(scal, b);
+  unsigned q = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q |= tone_u8<kLinear, kTone>(v[k], sc, f) << (8 * k);
+  }
+  reinterpret_cast<unsigned*>(table + static_cast<size_t>(b) *
+                                          kTableBytes)[u / 4] = q;
 }
 
 // Axis swap: block (32, 8), a warp per column run, a lane per row. With
@@ -249,9 +392,62 @@ __global__ void __launch_bounds__(256, 5)
   }
 }
 
+// Blocks of the table form that the current device holds at once,
+// kTableBytes of dynamic shared memory each: asked once a device, the
+// kernel's limit of dynamic shared memory raised to kTableBytes before the
+// first ask.
+template <typename Kernel>
+cudaError_t table_blocks(Kernel kernel, PerDevice& cache, int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices ||
+      cache.value[dev].load(std::memory_order_relaxed) == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTableBytes);
+    if (e != cudaSuccess) return e;
+  }
+  return resident_blocks(kernel, 256, kTableBytes, cache, blocks);
+}
+
+// The table form: the tables of the n images, then one wave of the rows
+// kernel's table form shared out evenly over the images (no more blocks
+// an image than 256-item passes of it).
 template <typename T, bool kLinear, Tone kTone>
-cudaError_t launch_mode(const T* x, const float* scal, uint8_t* out, int n,
-                        const Finish& f, int swap, cudaStream_t stream) {
+cudaError_t launch_table(const T* x, const float* scal, uint8_t* table,
+                         uint8_t* out, int n, const Finish& f,
+                         cudaStream_t stream) {
+  static PerDevice resident;
+  int blocks = 0;
+  cudaError_t err = table_blocks(finish_rows_kernel<T, kLinear, kTone, true>,
+                                 resident, blocks);
+  if (err != cudaSuccess) return err;
+  const long long items = 3LL * f.hh * ((f.wh + kV - 1) / kV);
+  long long per_image = blocks / n;
+  if (per_image > (items + 255) / 256) per_image = (items + 255) / 256;
+  if (per_image < 1) per_image = 1;
+  tone_table_kernel<T, kLinear, kTone>
+      <<<dim3(kTableBytes / (4 * kThreads), n), kThreads, 0, stream>>>(
+          scal, table, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  finish_rows_kernel<T, kLinear, kTone, true>
+      <<<dim3(static_cast<unsigned>(per_image), n), 256, kTableBytes,
+         stream>>>(x, scal, table, out, f);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kLinear, Tone kTone>
+cudaError_t launch_mode(const T* x, const float* scal, uint8_t* table,
+                        uint8_t* out, int n, const Finish& f, int swap,
+                        cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
+    if (table != nullptr) {
+      return launch_table<T, kLinear, kTone>(x, scal, table, out, n, f,
+                                             stream);
+    }
+  }
   if (swap) {
     const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
                     (f.hh + kSwapRows - 1) / kSwapRows, n * 3);
@@ -261,21 +457,28 @@ cudaError_t launch_mode(const T* x, const float* scal, uint8_t* out, int n,
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
                     (f.hh + block.y - 1) / block.y, n * 3);
-    finish_rows_kernel<T, kLinear, kTone>
-        <<<grid, block, 0, stream>>>(x, scal, out, f);
+    finish_rows_kernel<T, kLinear, kTone, false>
+        <<<grid, block, 0, stream>>>(x, scal, nullptr, out, f);
   }
   return cudaGetLastError();
 }
 
+// `table`: null for the direct form; else the table form's scratch of n *
+// kTableBytes bytes, 16-byte aligned, which takes a 16-bit T, a pow form
+// and no axis swap (refused otherwise).
 template <typename T>
 int launch(const void* x, const void* scal, void* out, int n, int hh,
            int wh, int linear, int tone, float inv_gamma, int swap,
-           int flip_y, int flip_x, cudaStream_t stream) {
+           int flip_y, int flip_x, void* table, cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
   if (!tit::image_fits_int32(hh, wh) || 3LL * n > 65535 ||
       !tit::tone_ok(tone)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (table != nullptr &&
+      (sizeof(T) != 2 || tone == 0 || swap || !tit::aligned16(table))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each row, and (with a swap) whole 16-byte
@@ -285,10 +488,11 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
   const Finish f{hh, wh, flip_y, flip_x, vec, inv_gamma};
   const auto* xin = static_cast<const T*>(x);
   const auto* s = static_cast<const float*>(scal);
+  auto* tb = static_cast<uint8_t*>(table);
   auto* o = static_cast<uint8_t*>(out);
   return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
     return launch_mode<T, decltype(lin)::value, decltype(tn)::value>(
-        xin, s, o, n, f, swap, stream);
+        xin, s, tb, o, n, f, swap, stream);
   }));
 }
 
@@ -754,9 +958,9 @@ int launch_planar_tone(const void* x, const void* scal, void* out, int n,
   extern "C" int tit_finish_planar_u8_##suffix(                               \
       const void* x, const void* scal, void* out, int n, int hh, int wh,      \
       int linear, int tone, float inv_gamma, int swap, int flip_y,            \
-      int flip_x, cudaStream_t stream) {                                      \
+      int flip_x, void* table, cudaStream_t stream) {                         \
     return launch<T>(x, scal, out, n, hh, wh, linear, tone, inv_gamma, swap,  \
-                     flip_y, flip_x, stream);                                 \
+                     flip_y, flip_x, table, stream);                          \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
 

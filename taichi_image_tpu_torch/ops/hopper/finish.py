@@ -29,6 +29,16 @@ taken without a division for 0 < gamma < 7 (and the linear tone's pow);
 the pow of the true division otherwise. Each gives its twin's byte
 (``csrc/finish.cuh`` ``tone_u8``). While tracing is on, each launch counts
 its form (``utils/profiling.py`` ``tone_forms``).
+
+K4 takes a table form where :func:`table_form` says so (bf16 or f16 at
+gamma != 1, no axis swap): the same launcher call tones each of the 65,536
+bit patterns of the dtype once an image into a table of bytes
+(``tone_table_kernel``, the same ``tone_u8``) and the rows kernel gives
+each value its byte from the table; the call counts as two launches. The
+tables live in a scratch kept per (device, stream) and grown only when the
+images grow in number (:func:`_tables`). Its plain twin is
+:func:`finish_planar_u8_table_plain`; a table launch also counts
+``tone_forms["table"]``.
 """
 
 from __future__ import annotations
@@ -48,10 +58,11 @@ from taichi_image_tpu_torch.ops.interpolate import (ImageTransform,
                                                     transform_axes)
 from taichi_image_tpu_torch.utils import profiling
 
-__all__ = ["finish_planar_u8", "finish_planar_u8_plain", "finish_yuv420",
+__all__ = ["finish_planar_u8", "finish_planar_u8_plain",
+           "finish_planar_u8_table_plain", "finish_yuv420",
            "finish_yuv420_plain", "finish_planar_tone",
            "finish_planar_tone_plain", "gamma_u8", "linear_scal",
-           "linear_u8"]
+           "linear_u8", "table_form", "tone_tables_plain"]
 
 MODES = ("reinhard", "linear")
 
@@ -60,7 +71,8 @@ KERNELS = hopper.register_per_dtype(
     "finish", "finish.cu", "tit_finish_planar_u8",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX, _REPLACES))
 YUV420_KERNELS = hopper.register_per_dtype(
     "finish_yuv420", "finish.cu", "tit_finish_yuv420",
@@ -116,10 +128,43 @@ def tone_args(gamma: float, mode: str) -> tuple[int, int, float]:
           1.0 if inv_gamma is None else inv_gamma)
 
 
-def count_tone(tone: int) -> None:
-  """Count one launch of the tone form ``tone`` while tracing is on."""
+def count_tone(tone: int, table: bool = False) -> None:
+  """Count one launch of the tone form ``tone``, and of the table form
+  where ``table``, while tracing is on."""
   if profiling.ON:
     profiling.count_tone(TONE_FORMS[tone])
+    if table:
+      profiling.count_tone("table")
+
+
+# K4's table form (csrc/finish.cu): a byte per bit pattern of a 16-bit
+# dtype, an image's table
+TABLE_BYTES = 65536
+
+
+def table_form(dtype: torch.dtype, gamma: float, mode: str,
+               transform: ImageTransform) -> bool:
+  """Whether K4 tones ``dtype`` through a byte table: a 16-bit dtype, a
+  pow form of the tone (gamma != 1) and no axis swap."""
+  return (dtype in (torch.bfloat16, torch.float16)
+          and tone_form(gamma, mode) != 0
+          and not _TRANSFORM_SFF[transform][0])
+
+
+# {(device, stream): the table scratch}: launches on one stream run in
+# order, so one scratch serves them all; it is replaced by a larger one
+# only when the images grow in number
+_TABLES: dict = {}
+
+
+def _tables(device: torch.device, n: int) -> torch.Tensor:
+  """The table scratch of ``device``'s current stream, for ``n`` images."""
+  key = (device, hopper.stream_of(device))
+  buf = _TABLES.get(key)
+  if buf is None or buf.numel() < n * TABLE_BYTES:
+    buf = _TABLES[key] = torch.empty(n * TABLE_BYTES, dtype=torch.uint8,
+                                     device=device)
+  return buf
 
 
 def gamma_u8(p: torch.Tensor, max_out: torch.Tensor,
@@ -164,6 +209,30 @@ def finish_planar_u8_plain(x12: torch.Tensor, scal: torch.Tensor,
   :func:`planar_from_phases_transformed`."""
   return planar_from_phases_transformed(_tone_u8(x12, scal, gamma, mode),
                                         transform)
+
+
+def tone_tables_plain(dtype: torch.dtype, scal: torch.Tensor, gamma: float,
+                      mode: str, n: int) -> torch.Tensor:
+  """Plain twin of K4's tables: (n, 65536) u8 whose [b, u] is image b's
+  tone (:func:`gamma_u8` under its max, or :func:`linear_u8`) of the
+  ``dtype`` value with bits u."""
+  u = torch.arange(TABLE_BYTES, dtype=torch.int32, device=scal.device)
+  bits = (u - (u >= 0x8000) * 0x10000).to(torch.int16).view(dtype)
+  return _tone_u8(bits.expand(n, TABLE_BYTES), scal, gamma, mode)
+
+
+def finish_planar_u8_table_plain(x12: torch.Tensor, scal: torch.Tensor,
+                                 gamma: float, mode: str = "reinhard",
+                                 transform: ImageTransform =
+                                 ImageTransform.none) -> torch.Tensor:
+  """Plain twin of K4's table form (bf16 or f16 ``x12``): each image's
+  table (:func:`tone_tables_plain`), each value's byte gathered from it at
+  its 16 bits, then :func:`planar_from_phases_transformed`."""
+  n = x12.shape[0]
+  tables = tone_tables_plain(x12.dtype, scal, gamma, mode, n)
+  bits = x12.contiguous().view(torch.int16).reshape(n, -1).to(torch.int64)
+  u8 = torch.gather(tables, 1, bits & 0xFFFF).reshape(x12.shape)
+  return planar_from_phases_transformed(u8, transform)
 
 
 def finish_yuv420_plain(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
@@ -212,7 +281,8 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
 
   ``mode="reinhard"``: the input is the pre-gamma p and ``scal`` its
   per-image f32 max (N, 1, 1, 1). ``mode="linear"``: the input is x12 and
-  ``scal`` is :func:`linear_scal` of the metrics."""
+  ``scal`` is :func:`linear_scal` of the metrics. Where :func:`table_form`
+  holds, the launch tones through each image's byte table."""
   _check_finish(x12, scal, mode)
   if not hopper.use_kernel(backend, x12):
     return finish_planar_u8_plain(x12, scal, gamma, mode, transform)
@@ -222,10 +292,13 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   shape = (n, 3, 2 * wh, 2 * hh) if swap else (n, 3, 2 * hh, 2 * wh)
   out = torch.empty(shape, dtype=torch.uint8, device=x12.device)
   linear, tone, inv_gamma = tone_args(gamma, mode)
+  table = table_form(x12.dtype, gamma, mode, transform)
   KERNELS[x12.dtype].launch(x12.device, hopper.ptr(x12), hopper.ptr(scal),
                             hopper.ptr(out), n, hh, wh, linear, tone,
-                            inv_gamma, int(swap), int(fy), int(fx))
-  count_tone(tone)
+                            inv_gamma, int(swap), int(fy), int(fx),
+                            hopper.ptr(_tables(x12.device, n)) if table
+                            else None, kernels=2 if table else 1)
+  count_tone(tone, table)
   return out
 
 

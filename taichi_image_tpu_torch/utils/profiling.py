@@ -33,8 +33,10 @@ Counters: ``launch_ns`` per kernel (host ns inside its C launcher while
 tracing is on, a launch held up by a full launch queue included),
 ``tone_forms`` (launches of the tone's kernels while tracing is on, by the
 form their wrapper picked from gamma: ``gamma1``, ``pow_rcp``,
-``pow_div``; ``ops/hopper/finish.py`` ``tone_form``), ``builds`` per
-source (nvcc runs in this process) and ``load_ns`` per source. The load spans and their counters are kept whether tracing is on
+``pow_div``; ``ops/hopper/finish.py`` ``tone_form``; and ``table`` once
+more for each K4 launch through its byte tables, ``table_form``),
+``builds`` per source (nvcc runs in this process) and ``load_ns`` per
+source. The load spans and their counters are kept whether tracing is on
 or off: they run once a source per process, never on the hot path.
 :func:`snapshot` returns the aggregates and counters, :func:`reset`
 clears them.

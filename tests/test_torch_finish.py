@@ -9,6 +9,7 @@ crosses a u8 truncation boundary the outputs differ by one count
 <0.01% of pixels. On the card the kernel and its twin use the same
 CUDA log2f/exp2f and are held bitwise at every gamma."""
 
+import contextlib
 from fractions import Fraction
 
 import numpy as np
@@ -217,3 +218,126 @@ def test_trunc_small_is_the_truncation():
   rz = np.floor(v.astype(np.float64) + 2.0 ** 23).astype(f32)
   got = rz.view(np.uint32) - np.uint32(0x4B000000)
   np.testing.assert_array_equal(got, np.trunc(v).astype(np.uint32))
+
+
+# -- K4's table form ----------------------------------------------------------
+
+def _every_pattern(dtype, n=6, seed=0):
+  """(n, 12, 8, 683) of ``dtype``: each image holds every bit pattern (NaN,
+  zeros of both signs, negatives and subnormals included) in an order of
+  its own, the 32 values past 65,536 repeating patterns."""
+  u = torch.arange(12 * 8 * 683) % th_fin.TABLE_BYTES
+  bits = (u - (u >= 0x8000) * 0x10000).to(torch.int16)
+  g = torch.Generator().manual_seed(seed)
+  x = torch.stack([bits[torch.randperm(bits.numel(), generator=g)]
+                   for _ in range(n)])
+  return x.view(dtype).reshape(n, 12, 8, 683)
+
+
+TABLE_MAX = torch.tensor([1e-6, 0.37, 0.999, 1.13, 3.0, 97.5]).reshape(
+    6, 1, 1, 1)
+
+
+@pytest.mark.parametrize("gamma", [0.6, 0.9, 2.2, 7.5])
+@pytest.mark.parametrize("mode", ["reinhard", "linear"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_table_twin_is_the_tone(dtype, mode, gamma):
+  """The table form's twin, each image's tone of all 65,536 patterns then a
+  gather at each value's bits, is bitwise gamma_u8 / linear_u8 on every
+  pattern, under six maxima (Reinhard; at 7.5 its pow_div form) or the
+  linear vector, and its planar output bitwise K4's twin's under flips."""
+  x = _every_pattern(dtype)
+  sc = TABLE_MAX if mode == "reinhard" else torch.tensor([-0.05, 1 / 1.1])
+  tone = th_fin.gamma_u8 if mode == "reinhard" else th_fin.linear_u8
+  tables = th_fin.tone_tables_plain(dtype, sc, gamma, mode, 6)
+  assert tables.shape == (6, th_fin.TABLE_BYTES)
+  u = torch.arange(th_fin.TABLE_BYTES)
+  patterns = (u - (u >= 0x8000) * 0x10000).to(torch.int16).view(dtype)
+  for b in range(6):
+    want = tone(patterns[None], sc[b:b + 1] if mode == "reinhard" else sc,
+                gamma)[0]
+    assert torch.equal(tables[b], want), b
+  for t in (ImageTransform.none, ImageTransform.flip_horiz,
+            ImageTransform.rotate_180):
+    got = th_fin.finish_planar_u8_table_plain(x, sc, gamma, mode, t)
+    assert torch.equal(got, th_fin.finish_planar_u8_plain(x, sc, gamma, mode,
+                                                          t)), t
+
+
+# (dtype, gamma, mode, transform, frame (hh, wh), table form): the form
+# does not hang on the frame's size, down to one half-res pixel
+FORM_CASES = {
+    "f16 0.6": (torch.float16, 0.6, "reinhard", ImageTransform.none, (2, 3),
+                True),
+    "f16 0.6 one pixel": (torch.float16, 0.6, "reinhard", ImageTransform.none,
+                          (1, 1), True),
+    "bf16 0.9 flip_horiz": (torch.bfloat16, 0.9, "reinhard",
+                            ImageTransform.flip_horiz, (2, 3), True),
+    "bf16 7.5 rotate_180": (torch.bfloat16, 7.5, "reinhard",
+                            ImageTransform.rotate_180, (2, 3), True),
+    "f16 linear 2.2 flip_vert": (torch.float16, 2.2, "linear",
+                                 ImageTransform.flip_vert, (2, 3), True),
+    "bf16 linear 0.6 one pixel": (torch.bfloat16, 0.6, "linear",
+                                  ImageTransform.none, (1, 1), True),
+    "f32 0.6": (torch.float32, 0.6, "reinhard", ImageTransform.none, (2, 3),
+                False),
+    "f16 gamma 1": (torch.float16, 1.0, "reinhard", ImageTransform.none,
+                    (2, 3), False),
+    "bf16 linear gamma 1": (torch.bfloat16, 1.0, "linear",
+                            ImageTransform.none, (2, 3), False),
+    "f16 rotate_90": (torch.float16, 0.6, "reinhard",
+                      ImageTransform.rotate_90, (2, 3), False),
+    "bf16 transpose": (torch.bfloat16, 0.9, "reinhard",
+                       ImageTransform.transpose, (2, 3), False),
+}
+
+
+@pytest.mark.parametrize("case", FORM_CASES)
+def test_wrapper_takes_the_table_form(case, monkeypatch):
+  """K4's wrapper passes the table scratch to its launcher for a 16-bit
+  dtype at gamma != 1 without an axis swap, whatever the frame's size, and
+  null otherwise; the scratch holds a table an image, and the call counts
+  two launches (the table build and the rows kernel) where it passes it."""
+  from taichi_image_tpu_torch.ops import hopper
+  dtype, gamma, mode, t, (hh, wh), want = FORM_CASES[case]
+  assert th_fin.table_form(dtype, gamma, mode, t) is want
+  # the kernel route on CPU tensors: no device to enter, stream 0
+  monkeypatch.setattr(hopper, "use_kernel", lambda backend, x: True)
+  monkeypatch.setattr(torch.cuda, "device",
+                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(hopper, "stream_of", lambda device: 0)
+  sizes, seen = [], []
+  monkeypatch.setattr(th_fin, "_tables", lambda device, n: sizes.append(n)
+                      or torch.zeros(n * th_fin.TABLE_BYTES,
+                                     dtype=torch.uint8))
+  k = th_fin.KERNELS[dtype]
+  monkeypatch.setattr(k, "_fn", lambda *args: seen.append(args) or 0)
+  monkeypatch.setattr(k, "launches", 0)
+  x12 = torch.zeros(2, 12, hh, wh, dtype=dtype)
+  sc = torch.ones(2, 1, 1, 1) if mode == "reinhard" else torch.tensor(
+      [0.0, 1.0])
+  th_fin.finish_planar_u8(x12, sc, gamma, mode, t)
+  (args,) = seen
+  assert (args[12] is not None) is want
+  assert sizes == ([2] if want else [])
+  assert args[6:8] == th_fin.tone_args(gamma, mode)[:2]
+  assert k.launches == (2 if want else 1)
+
+
+def test_table_scratch_is_kept_per_stream(monkeypatch):
+  """One scratch a (device, stream), replaced only by a larger one when
+  the images grow in number: nothing is allocated a launch."""
+  from taichi_image_tpu_torch.ops import hopper
+  stream = [7]
+  monkeypatch.setattr(hopper, "stream_of", lambda device: stream[0])
+  monkeypatch.setattr(th_fin, "_TABLES", {})
+  cpu = torch.device("cpu")
+  a = th_fin._tables(cpu, 6)
+  assert a.numel() == 6 * th_fin.TABLE_BYTES and a.dtype == torch.uint8
+  assert th_fin._tables(cpu, 6) is a and th_fin._tables(cpu, 2) is a
+  b = th_fin._tables(cpu, 8)
+  assert b.numel() == 8 * th_fin.TABLE_BYTES and th_fin._tables(cpu, 6) is b
+  stream[0] = 9
+  c = th_fin._tables(cpu, 1)
+  assert c is not b and c.numel() == th_fin.TABLE_BYTES

@@ -427,7 +427,44 @@ def test_tone_forms_count_each_tone_launch(kernel_route):
   # (linear, tone) as each launcher was given them
   want = [(0, 0), (0, 1), (1, 1), (0, 1), (0, 2), (0, 1), (0, 2), (1, 0)]
   assert tones == want * 2
+  # the f16 linear launch at 7.5 takes K4's table form
   assert profiling.snapshot()["tone_forms"] == {"gamma1": 2, "pow_rcp": 4,
-                                                "pow_div": 2}
+                                                "pow_div": 2, "table": 1}
   profiling.reset()
   assert profiling.snapshot()["tone_forms"] == {}
+
+
+def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
+  """A K4 launch in the table form counts ``tone_forms["table"]`` beside
+  its form while tracing is on, whatever the frame's size; no other tone
+  launch does (gamma 1, an axis swap, f32, K4's I420 mode, P, the planar
+  I420 tonemap form)."""
+  from taichi_image_tpu_torch.ops.hopper import finish, yuv420
+  monkeypatch.setattr(finish, "_tables", lambda device, n: torch.zeros(
+      n * finish.TABLE_BYTES, dtype=torch.uint8))
+  tables = []
+  for k in finish.KERNELS.values():
+    k._fn = lambda *args: tables.append(args[12] is not None) or 0
+  big = torch.rand(1, 12, 1, 43691).to(torch.float16)
+  small = torch.rand(1, 12, 4, 8).to(torch.float16)
+  img = torch.rand(1, 3, 8, 16)
+  mx = torch.ones(1, 1, 1, 1)
+
+  def launch_all():
+    finish.finish_planar_u8(big, mx, 0.6)
+    finish.finish_planar_u8(big, mx, 1.0)
+    finish.finish_planar_u8(big, mx, 0.6,
+                            transform=ImageTransform.rotate_90)
+    finish.finish_planar_u8(big.float(), mx, 0.6)
+    finish.finish_planar_u8(small, mx, 0.6)
+    finish.finish_yuv420(big, mx, 0.6)
+    finish.finish_planar_tone(img, mx, 0.6)
+    yuv420.yuv420_planar_tone(img, mx, 0.6)
+
+  launch_all()   # tracing off: launched, not counted
+  assert profiling.snapshot()["tone_forms"] == {}
+  with profiling.tracing():
+    launch_all()
+  assert tables == [True, False, False, False, True] * 2
+  forms = profiling.snapshot()["tone_forms"]
+  assert forms == {"pow_rcp": 7, "gamma1": 1, "table": 2}
