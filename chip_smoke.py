@@ -36,12 +36,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
             boundaries (16 ulps either side), at gamma 1, 0.6, 0.9, 2.2
             and 7.5, Reinhard under the maxima 1e-6, 0.37 and 1.13, and
             linear; K4's table form (bf16 and f16, its launcher called
-            with the table scratch) bitwise the twin on every bit
-            pattern at each gamma but 1, rows and flip_horiz, and bitwise
-            K4's direct form (the launcher without it) on random bits at
-            6x4K and on a 6x8K band (272 x 3840), gamma 0.6, 0.9, 2.2
-            and 7.5, Reinhard and linear, no transform and flip_horiz.
-            Then
+            with the table scratch, and refusing a call without it)
+            bitwise the twin on every bit pattern at each gamma but 1,
+            rows and flip_horiz, and bitwise its table twin on random
+            bits at 6x4K, on a 6x8K band (272 x 3840) and on small and
+            ragged frames, gamma 0.6, 0.9, 2.2 and 7.5, Reinhard and
+            linear, no transform and flip_horiz. Then
             each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
@@ -74,9 +74,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
             plans and, at x0.5, also on the direct path that any resize
             can take, K3 on the resized planar image, K3 with degenerate
             scalars (range 0, range < 0, every pixel at m0) and with NaN
-            pixels at the small shapes, K7 against K2 -> K3 on the card;
-            K2's banded mode (a band with a zero-padded halo row each
-            side, the finish spec's gates at the image's edges, its own
+            pixels at the small shapes, K7 against K2 -> K3 on the card
+            (K7's only launches: no step route runs it, and they count
+            towards the check that every kernel ran); K2's banded mode (a
+            band with a zero-padded halo row each side, the finish spec's
+            gates at the image's edges, its own
             rows stored) for each band kind (first, interior, last, the
             frame as one band with both gates) at ODD (all 8 variants,
             with and without a CCM) and RAGGED in each dtype, the bands
@@ -89,7 +91,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
             K3 in both adapt modes, K4 under every transform that swaps
             the axes and at gamma 0.6 and 0.9 (without a transform and
             under rotate_90; without a transform in bf16 and f16 its table
-            form, and beside it the direct form),
+            form),
             K12's direct path at x0.5 and, in bf16, K12 at x1.5 and
             x0.37, K4's I420 mode (Reinhard, linear, rotate_90), the
             planar I420 kernel at 6 x 1920 x 1080 and 6x4K, its tonemap
@@ -123,14 +125,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
             resize_width=1920 with rotate_90 for each class (M, K3, P),
             scale 0.37, flip_horiz for each class, the linear tonemap at
             gamma 2.2 for each class, with and without resize_width=1920,
-            metering stride 7, and the front-fused route
-            (TAICHI_IMAGE_TPU_FRONT_FUSED=1 set for that route only); then
-            with color_format="yuv420" on 3 frames: the main path and
-            resize_width=1920 with rotate_90 of each class (the tonemap
-            form once a step, no u8 conversion), resize_width=1920 with
-            the linear tonemap at gamma 2.2, stride 7 and front-fused, each
-            output (Y, VU) against the plain route's. Then the raw
-            formats and the per-image API: each class with packed16, u16,
+            and metering stride 7; then with color_format="yuv420" on 3
+            frames: the main path and resize_width=1920 with rotate_90 of
+            each class (the tonemap form once a step, no u8 conversion),
+            resize_width=1920 with the linear tonemap at gamma 2.2 and
+            stride 7, each output (Y, VU) against the plain route's. Then
+            the raw formats and the per-image API: each class with packed16, u16,
             f16 and f32 raws (5 frames at 6x4K) and with a tiny 2 x 6-pixel
             frame (the demosaic's denominator route in torch, K1, K3 and K4
             on one-row planes) against the all-plain route; the lazy list
@@ -226,13 +226,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
             three launches) beside the cooperative launch's at each
             dtype's 6x4K stride-8 sample and the 6x8K whole frame's. Then
             K4's table form on the 6x4K main path's p (bf16, f16; gamma
-            0.6, 0.9): its table build's and its rows kernel's device time
-            beside the direct form's, from profiler traces. Then
-            the same step method for the resize->1920 step of each class
-            and the front-fused bf16 step, each resize->1920 step and the
-            front-fused step with its profile (busy share, device
-            operations per step) and its host enqueue without the
-            checksum; the I420 marginal of the 6x4K and resize->1920
+            0.6, 0.9): its table build's and its rows kernel's device
+            time, from profiler traces. Then the same step method for the
+            resize->1920 step of each class, each with its profile (busy
+            share, device operations per step) and its host enqueue
+            without the checksum; the I420 marginal of the 6x4K and resize->1920
             steps of each class (RGB and I420 steps in turns, RGB, I420,
             I420, RGB), and the profile of each I420 step (busy share,
             device operations per step). Then each class's 6x4K step with
@@ -243,7 +241,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
             with the band loop (in turns, with and without the checksum),
             each one's profile and its peak of device memory in one step.
 
-The line before the last is the kernel table as JSON; the last line is
+Every kernel must have launched in the route phases or, for K7, in its
+check. The line before the last is the kernel table as JSON; the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -260,13 +260,13 @@ import subprocess
 import sys
 import time
 
+from isp_bench.peaks import F32_FLOPS, HBM_BYTES_S
+
 N_CAM, H, W = 6, 2160, 3840
 WB = W * 3 // 2
 ODD = (3, 38, 150)          # small odd shape: H/2 = 19, W/2 = 50
 RAGGED = (2, 1030, 3009)    # H/2 = 515, W/2 = 1003
 CUT = (2, 1040, 3000)       # H/2 = 520, W/2 = 1000: whole vectors, cut tiles
-HBM_BPS = 3.35e12           # H100 SXM memory rate (data sheet, 700 W)
-F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 FRAMES = 5
 YUV_FRAMES = 3              # frames of each I420 route
 K = 10                      # chained steps per timed run
@@ -277,7 +277,6 @@ CLASSES = {"bf16": "CameraBF16", "f16": "Camera16", "f32": "Camera32"}
 # the 8 transforms at those of TRANSFORM_GAMMAS
 GAMMAS = (1.0, 0.6, 0.9, 2.2, 7.5)
 TRANSFORM_GAMMAS = (0.6, 2.2)
-FRONT_FUSED = "TAICHI_IMAGE_TPU_FRONT_FUSED"
 
 
 def log(msg: str) -> None:
@@ -848,7 +847,7 @@ def _time(results, name, call, inputs, ops=0, shape_note="6x4K",
   for b in order:
     fn = library if b == "library" else (lambda b=b: call(b))
     t.setdefault(b, []).append(median_ms(fn))
-  by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+  by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_FLOPS * 1e3
   r = results[name] = dict(
       ms=min(t["kernel"]), plain_ms=min(t["plain"]), bytes=nbytes, ops=ops,
       bound_ms=max(by_bytes, by_ops),
@@ -1066,9 +1065,8 @@ def _check_tone_bits(note):
 
 
 def finish_launch(x12, scal, gamma, mode, transform, table):
-  """K4 through its C launcher: the table form with ``table`` (the
-  wrapper's table scratch), the direct form without it, whatever the
-  wrapper would pick."""
+  """K4 through its C launcher, given the wrapper's table scratch with
+  ``table`` and none without it, whatever the wrapper would pick."""
   import torch
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
@@ -1094,12 +1092,13 @@ TABLE_SMALL = ((1, 12, 1, 1), (2, 12, 3, 5), (1, 12, 17, 37),
 
 
 def _check_table_form(note):
-  """K4's table form (bf16 and f16): bitwise its plain twins on every bit
-  pattern, under each of TONE_MAXIMA and linear with [0, 1 / m], at each
-  gamma of TABLE_GAMMAS, rows and flip_horiz; then bitwise K4's direct
-  form on random bits at 6x4K, on a 6x8K band and on small and ragged
-  frames (the element path), at the same gammas, Reinhard (six maxima)
-  and linear, no transform and flip_horiz."""
+  """K4's table form (bf16 and f16): its launcher refuses it a null
+  table; bitwise its plain twins on every bit pattern, under each of
+  TONE_MAXIMA and linear with [0, 1 / m], at each gamma of TABLE_GAMMAS,
+  rows and flip_horiz; then bitwise its table twin on random bits at
+  6x4K, on a 6x8K band and on small and ragged frames (the element path),
+  at the same gammas, Reinhard (six maxima) and linear, no transform and
+  flip_horiz."""
   import torch
   from taichi_image_tpu_torch.ops.hopper import finish
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
@@ -1113,6 +1112,14 @@ def _check_table_form(note):
                      device=dev).view(6, 1, 1, 1)
   for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
     every = bits.view(dtype).view(1, 12, 16, 352).repeat(3, 1, 1, 1)
+    try:
+      finish_launch(every, mx3, 0.6, "reinhard", ImageTransform.none, False)
+    except RuntimeError as e:
+      if "cudaError_t 1" not in str(e):  # cudaErrorInvalidValue
+        raise
+    else:
+      raise AssertionError(f"finish_{sfx}: the launcher took gamma 0.6 "
+                           "without a table")
     for gamma, t in itertools.product(TABLE_GAMMAS, flips):
       cases = [("reinhard", every, mx3)]
       cases += [("linear", every[i:i + 1],
@@ -1135,17 +1142,19 @@ def _check_table_form(note):
                         dtype=torch.int32).to(torch.int16).view(dtype)
       for gamma, mode, t in itertools.product(TABLE_GAMMAS,
                                               ("reinhard", "linear"), flips):
-        sc = (mx6 if mode == "reinhard"
+        sc = (mx6[:shape[0]] if mode == "reinhard"
               else torch.tensor([-0.05, 1 / 1.1], device=dev))
         _check_bitwise(f"table form {sfx} {tuple(shape)} {mode} "
-                       f"gamma={gamma} {t.value} vs the direct form",
+                       f"gamma={gamma} {t.value} vs the table twin",
                        finish_launch(x, sc, gamma, mode, t, True),
-                       finish_launch(x, sc, gamma, mode, t, False))
+                       finish.finish_planar_u8_table_plain(x, sc, gamma,
+                                                           mode, t))
       del x
-    log(f"kernels: finish_{sfx}'s table form agrees with its twins on every "
-        f"bit pattern (maxima {', '.join(map(str, TONE_MAXIMA))} and "
-        "linear) and with the direct form on random bits at 6x4K, a "
-        f"6x8K band {BAND_8K[1]}x{BAND_8K[2]} and {TABLE_SMALL}, gamma "
+    log(f"kernels: finish_{sfx}'s table form, refused without its table, "
+        "agrees with its twins on every bit pattern (maxima "
+        f"{', '.join(map(str, TONE_MAXIMA))} and linear) and with its table "
+        f"twin on random bits at 6x4K, a 6x8K band {BAND_8K[1]}x{BAND_8K[2]} "
+        f"and {TABLE_SMALL}, gamma "
         f"{', '.join(map(str, TABLE_GAMMAS))}, Reinhard and linear, rows "
         "and flip_horiz")
 
@@ -1172,7 +1181,10 @@ def _kernel_ms(fn, calls=30):
 def phase_kernels(results):
   """Each kernel against its plain twin on the card; fills ``results``
   {name: {ms, plain_ms, max_abs_err}} (kernel names, plus extra timed
-  modes named "<kernel> <mode>")."""
+  modes named "<kernel> <mode>"). Returns the launches of K7, which no
+  step route runs (its wrapper is ``demosaic_reinhard_front``'s), made
+  where it is checked against K2 -> K3: they count towards the check
+  that every kernel ran, never as route launches."""
   import torch
   from taichi_image_tpu_torch.models.camera_isp import (_plan_scales,
                                                         default_cc,
@@ -1198,6 +1210,7 @@ def phase_kernels(results):
   weights = _demosaic_tables(BayerPattern.RGGB, "mhc")
   err = {name: 0.0 for name in hopper.KERNELS
          if name not in format_kernels()}
+  k7, k7_launches = front_fused.KERNEL, 0
 
   def note(name, a, b):
     err[name] = max(err[name], (a.float() - b.float()).abs().max().item())
@@ -1348,8 +1361,10 @@ def phase_kernels(results):
           cx, _ = demosaic.demosaic_stencil(phases, w, fin_c,
                                             backend="kernel")
           cp, cm = reinhard.reinhard_map(cx, scal0, False, backend="kernel")
+          n0 = k7.launches
           fp, fm = front_fused.front_fused(phases, w, fin_c, scal0,
                                            backend="kernel")
+          k7_launches += k7.launches - n0
           _check_bitwise(f"front_fused {kv} p", fp, cp)
           _check_bitwise(f"front_fused {kv} max", fm, cm)
           pp, pm = front_fused.front_fused(phases, w, fin_c, scal0,
@@ -1462,16 +1477,6 @@ def phase_kernels(results):
             lambda b, g=gamma, t=t: finish.finish_planar_u8(
                 p_cast, max_out, g, transform=t, backend=b),
             [p_cast, max_out], 8 * 12 * npix)
-      if dtype != torch.float32:
-        # there K4 takes its table form: its direct form beside it
-        for gamma in (0.6, 0.9):
-          calls[f"finish_{sfx} gamma {gamma} direct"] = (
-              lambda b, g=gamma: (
-                  finish_launch(p_cast, max_out, g, "reinhard",
-                                ImageTransform.none, False)
-                  if b == "kernel" else finish.finish_planar_u8(
-                      p_cast, max_out, g, backend=b)),
-              [p_cast, max_out], 8 * 12 * npix)
       # K4's I420 mode: the map's 4 operations per value, then per
       # half-res pixel 4 Y of ~10 and the chroma's ~40
       yuv_ops = (4 * 12 + 80) * npix
@@ -1645,6 +1650,7 @@ def phase_kernels(results):
   for name in err:
     results[name]["max_abs_err"] = err[name]
   torch.cuda.synchronize()
+  return {k7.name: k7_launches}
 
 
 def format_kernels():
@@ -1780,33 +1786,13 @@ def _step_args(dtype, plan=None, stride=8, transform=None,
           color_format)
 
 
-class _env:
-  """Set an environment variable inside a ``with`` block only."""
-
-  def __init__(self, env):
-    self.env = env or {}
-
-  def __enter__(self):
-    import os
-    self.old = {k: os.environ.get(k) for k in self.env}
-    os.environ.update(self.env)
-
-  def __exit__(self, *exc):
-    import os
-    for k, v in self.old.items():
-      if v is None:
-        os.environ.pop(k, None)
-      else:
-        os.environ[k] = v
-
-
 def _outputs(out):
   """A step's u8 outputs: (planar RGB,) or (Y, VU)."""
   return out if isinstance(out, tuple) else (out,)
 
 
 def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
-                env=None, extra=()):
+                extra=()):
   """One route of one class: ``process`` over the frames with the launch
   counts set to 0 just before and read just after, each frame against
   the all-plain route (metrics within 1e-5, u8 within 1 count; with
@@ -1826,62 +1812,61 @@ def drive_route(frames, name, sfx, expect, isp_kw=None, proc_kw=None,
   n, h, w_raw = frames[0].shape
   dev = torch.device("cuda")
   isp = cls(BayerPattern.RGGB, device="cuda", **isp_kw)
-  with _env(env):
-    torch.cuda.synchronize()
-    hopper.reset_launches()
-    prevs, outs, metrics = [], [], []
-    for raws in frames:
-      prevs.append(None if isp.metrics is None else isp.metrics.clone())
-      outs.append(isp.process(raws, **proc_kw))
-      metrics.append(isp.metrics.clone())
-    torch.cuda.synchronize()
-    launches = hopper.launch_counts()
-    own = {f"{st}_{sfx}" for st in expect} | set(extra)
-    if (any(launches[n] == 0 for n in own)
-        or any(v for n, v in launches.items() if n not in own)):
-      raise AssertionError(f"{name} {cls.__name__} did not run through "
-                           f"{sorted(own)} alone: {launches}")
-    meter = f"meter_{sfx}"
-    if meter in own and launches[meter] != len(frames):
-      raise AssertionError(f"{name} {cls.__name__}: {meter} launched "
-                           f"{launches[meter]} times in {len(frames)} steps")
-    plan = isp._resize_plan(h, decoded_width(fmt, w_raw))
-    color_format = proc_kw.get("color_format", "rgb")
-    args = _step_args(cls._work_dtype, plan, isp.metering_stride,
-                      isp.transform, proc_kw.get("tonemap", "reinhard"),
-                      proc_kw.get("gamma", 1.0), color_format, fmt)
-    worst = [0.0, 0, 0.0]
-    for f, raws in enumerate(frames):
-      outs_f, m = _outputs(outs[f]), metrics[f]
-      lead = ((n,), (n, 2)) if color_format == "yuv420" else ((n, 3),)
-      for out, head in zip(outs_f, lead, strict=True):
-        if (out.dtype != torch.uint8 or out.ndim != len(head) + 2
-            or out.shape[:len(head)] != head):
-          raise AssertionError(f"{name} frame {f}: output "
-                               f"{tuple(out.shape)} {out.dtype}")
-        if out.max().item() == out.min().item():
-          raise AssertionError(f"{name} frame {f}: constant output")
-      if color_format == "yuv420":
-        y, vu = outs_f
-        if vu.shape[2:] != (y.shape[1] // 2, y.shape[2] // 2):
-          raise AssertionError(f"{name} frame {f}: Y {tuple(y.shape)}, VU "
-                               f"{tuple(vu.shape)}")
-      if not torch.isfinite(m).all():
-        raise AssertionError(f"{name} frame {f}: non-finite metrics {m}")
-      prev = torch.zeros(9, device=dev) if prevs[f] is None else prevs[f]
-      t = 0.0 if prevs[f] is None else 1.0 - isp.moving_alpha
-      pm, po = fused_isp_step(raws, prev, t, *args, backend="plain")
-      dm = (m - pm).abs().max().item()
-      for out, p_out in zip(outs_f, _outputs(po), strict=True):
-        if p_out.shape != out.shape:
-          raise AssertionError(f"{name} frame {f}: {tuple(out.shape)} vs "
-                               f"the plain route's {tuple(p_out.shape)}")
-        d = (out.int() - p_out.int()).abs()
-        if dm > 1e-5 or d.max().item() > 1:
-          raise AssertionError(f"{name} frame {f}: vs plain route metrics "
-                               f"|d| {dm:.3g}, u8 max {d.max().item()}")
-        worst = [max(worst[0], dm), max(worst[1], d.max().item()),
-                 max(worst[2], (d != 0).float().mean().item())]
+  torch.cuda.synchronize()
+  hopper.reset_launches()
+  prevs, outs, metrics = [], [], []
+  for raws in frames:
+    prevs.append(None if isp.metrics is None else isp.metrics.clone())
+    outs.append(isp.process(raws, **proc_kw))
+    metrics.append(isp.metrics.clone())
+  torch.cuda.synchronize()
+  launches = hopper.launch_counts()
+  own = {f"{st}_{sfx}" for st in expect} | set(extra)
+  if (any(launches[n] == 0 for n in own)
+      or any(v for n, v in launches.items() if n not in own)):
+    raise AssertionError(f"{name} {cls.__name__} did not run through "
+                         f"{sorted(own)} alone: {launches}")
+  meter = f"meter_{sfx}"
+  if meter in own and launches[meter] != len(frames):
+    raise AssertionError(f"{name} {cls.__name__}: {meter} launched "
+                         f"{launches[meter]} times in {len(frames)} steps")
+  plan = isp._resize_plan(h, decoded_width(fmt, w_raw))
+  color_format = proc_kw.get("color_format", "rgb")
+  args = _step_args(cls._work_dtype, plan, isp.metering_stride,
+                    isp.transform, proc_kw.get("tonemap", "reinhard"),
+                    proc_kw.get("gamma", 1.0), color_format, fmt)
+  worst = [0.0, 0, 0.0]
+  for f, raws in enumerate(frames):
+    outs_f, m = _outputs(outs[f]), metrics[f]
+    lead = ((n,), (n, 2)) if color_format == "yuv420" else ((n, 3),)
+    for out, head in zip(outs_f, lead, strict=True):
+      if (out.dtype != torch.uint8 or out.ndim != len(head) + 2
+          or out.shape[:len(head)] != head):
+        raise AssertionError(f"{name} frame {f}: output "
+                             f"{tuple(out.shape)} {out.dtype}")
+      if out.max().item() == out.min().item():
+        raise AssertionError(f"{name} frame {f}: constant output")
+    if color_format == "yuv420":
+      y, vu = outs_f
+      if vu.shape[2:] != (y.shape[1] // 2, y.shape[2] // 2):
+        raise AssertionError(f"{name} frame {f}: Y {tuple(y.shape)}, VU "
+                             f"{tuple(vu.shape)}")
+    if not torch.isfinite(m).all():
+      raise AssertionError(f"{name} frame {f}: non-finite metrics {m}")
+    prev = torch.zeros(9, device=dev) if prevs[f] is None else prevs[f]
+    t = 0.0 if prevs[f] is None else 1.0 - isp.moving_alpha
+    pm, po = fused_isp_step(raws, prev, t, *args, backend="plain")
+    dm = (m - pm).abs().max().item()
+    for out, p_out in zip(outs_f, _outputs(po), strict=True):
+      if p_out.shape != out.shape:
+        raise AssertionError(f"{name} frame {f}: {tuple(out.shape)} vs "
+                             f"the plain route's {tuple(p_out.shape)}")
+      d = (out.int() - p_out.int()).abs()
+      if dm > 1e-5 or d.max().item() > 1:
+        raise AssertionError(f"{name} frame {f}: vs plain route metrics "
+                             f"|d| {dm:.3g}, u8 max {d.max().item()}")
+      worst = [max(worst[0], dm), max(worst[1], d.max().item()),
+               max(worst[2], (d != 0).float().mean().item())]
   log(f"route {name} {cls.__name__}: {len(frames)} frames -> "
       f"{' + '.join(str(tuple(o.shape)) for o in _outputs(outs[0]))}, "
       "launches "
@@ -2099,38 +2084,28 @@ def phase_routes(frames):
     _, launches = drive_route(frames, name, sfx, expect, isp_kw, proc_kw)
     for n, v in launches.items():
       total[n] = total.get(n, 0) + v
-  # the front-fused route: the variable set for this route only
-  _, launches = drive_route(frames, "front-fused", "bf16",
-                            ("decode", "meter", "front_fused", "finish"),
-                            env={FRONT_FUSED: "1"})
-  for n, v in launches.items():
-    total[n] = total.get(n, 0) + v
-  # I420 output on fewer frames: K4's I420 mode on the phase and
-  # front-fused routes, the planar kernel on the resize and odd-stride ones
+  # I420 output on fewer frames: K4's I420 mode on the phase route, the
+  # planar kernel on the resize and odd-stride ones
   yuv = dict(color_format="yuv420")
   routes = []
   for sfx in CLASSES:
     routes += [
         ("I420 main", sfx, ("decode", "demosaic", "meter", "reinhard",
-                            "finish_yuv420"), {}, yuv, {}, ()),
+                            "finish_yuv420"), {}, yuv, ()),
         ("I420 resize1920+rotate_90", sfx, (*_RESIZE, "yuv420_planar_tone"),
          dict(resize_width=1920, transform=ImageTransform.rotate_90), yuv,
-         {}, ()),
+         ()),
     ]
   routes += [
       ("I420 resize1920 linear gamma 2.2", "bf16",
        ("decode", "demosaic", "resize", "meter", "yuv420_planar_tone"),
-       dict(resize_width=1920), dict(yuv, tonemap="linear", gamma=2.2), {},
-       ()),
-      ("I420 stride 7", "bf16", _MAIN, dict(metering_stride=7), yuv, {},
+       dict(resize_width=1920), dict(yuv, tonemap="linear", gamma=2.2), ()),
+      ("I420 stride 7", "bf16", _MAIN, dict(metering_stride=7), yuv,
        ("yuv420_planar",)),
-      ("I420 front-fused", "bf16", ("decode", "meter", "front_fused",
-                                    "finish_yuv420"), {}, yuv,
-       {FRONT_FUSED: "1"}, ()),
   ]
-  for name, sfx, expect, isp_kw, proc_kw, env, extra in routes:
+  for name, sfx, expect, isp_kw, proc_kw, extra in routes:
     _, launches = drive_route(frames[:YUV_FRAMES], name, sfx, expect, isp_kw,
-                              proc_kw, env, extra)
+                              proc_kw, extra)
     tone = f"yuv420_planar_tone_{sfx}"
     if tone in launches and launches[tone] != YUV_FRAMES:
       raise AssertionError(f"{name}: {tone} launched {launches[tone]} times "
@@ -3435,7 +3410,7 @@ def _chain_api(inputs, name, lazy):
   return acc
 
 
-def bench_step(inputs, args, checksum=True, env=None, chain=None):
+def bench_step(inputs, args, checksum=True, chain=None):
   """bench.py's method with CUDA events: :func:`_chain` (or ``chain``
   of the inputs) REPS times under torch's sync-debug "error" mode, the
   scalar read at the end. Returns (device ms/step per rep, host enqueue
@@ -3444,30 +3419,29 @@ def bench_step(inputs, args, checksum=True, env=None, chain=None):
   if chain is None:
     def chain(inputs):
       return _chain(inputs, args, checksum)
-  with _env(env):
-    chain(inputs)
-    torch.cuda.synchronize()
-    times, host = [], []
-    torch.cuda.set_sync_debug_mode("error")  # the step must not sync
-    try:
-      for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        t0 = time.perf_counter()
-        acc = chain(inputs)
-        host.append((time.perf_counter() - t0) * 1e3 / K)
-        b.record()
-        torch.cuda.set_sync_debug_mode(0)
-        b.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        times.append(a.elapsed_time(b) / K)
-    finally:
+  chain(inputs)
+  torch.cuda.synchronize()
+  times, host = [], []
+  torch.cuda.set_sync_debug_mode("error")  # the step must not sync
+  try:
+    for _ in range(REPS):
+      a = torch.cuda.Event(enable_timing=True)
+      b = torch.cuda.Event(enable_timing=True)
+      a.record()
+      t0 = time.perf_counter()
+      acc = chain(inputs)
+      host.append((time.perf_counter() - t0) * 1e3 / K)
+      b.record()
       torch.cuda.set_sync_debug_mode(0)
+      b.synchronize()
+      torch.cuda.set_sync_debug_mode("error")
+      times.append(a.elapsed_time(b) / K)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
   return times, host, acc.item()
 
 
-def profile_step(name, inputs, args, env=None, chain=None):
+def profile_step(name, inputs, args, chain=None):
   """Device busy share of K chained steps (no checksum; or ``chain`` of
   the inputs) from a profiler trace, the sum of kernel times on the one
   stream over the window, and the device operations (kernels and
@@ -3479,17 +3453,16 @@ def profile_step(name, inputs, args, env=None, chain=None):
   if chain is None:
     def chain(inputs):
       return _chain(inputs, args, checksum=False)
-  with _env(env):
+  chain(inputs)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     chain(inputs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      a = torch.cuda.Event(enable_timing=True)
-      b = torch.cuda.Event(enable_timing=True)
-      a.record()
-      chain(inputs)
-      b.record()
-      b.synchronize()
+    b.record()
+    b.synchronize()
   window_us = a.elapsed_time(b) * 1e3
   kern = [(e.key, e.self_device_time_total, e.count)
           for e in prof.key_averages()
@@ -3628,15 +3601,14 @@ def phase_meter_timing(results, card):
 
 def phase_table_timing(results):
   """K4's table form at 6x4K on the main path's p, gamma 0.6 and 0.9, bf16
-  and f16: the device time of its table build and of its rows kernel, and
-  the direct form's, from profiler traces (after the apps phase, as
-  :func:`phase_meter_timing`'s), beside the kernels phase's events; then
-  the same at two small frames of TABLE_SMALL."""
+  and f16: the device time of its table build and of its rows kernel from
+  profiler traces (after the apps phase, as :func:`phase_meter_timing`'s),
+  beside the kernels phase's events; then the same at two small frames of
+  TABLE_SMALL."""
   import torch
   from taichi_image_tpu_torch.models import camera_isp as ci
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
   from taichi_image_tpu_torch.ops.hopper import finish, meter, reinhard
-  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
   raws = _inputs()[0]
   for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
@@ -3648,25 +3620,20 @@ def phase_table_timing(results):
                                   False)
     for gamma in (0.6, 0.9):
       table = _kernel_ms(lambda g=gamma: finish.finish_planar_u8(p, mx, g))
-      direct = _kernel_ms(lambda g=gamma: finish_launch(
-          p, mx, g, "reinhard", ImageTransform.none, False))
       r = results[f"finish_{sfx} gamma {gamma}"]
       r.update(
           table_build_ms=sum(v for k, v in table.items()
                              if "tone_table_kernel" in k),
           table_rows_ms=sum(v for k, v in table.items()
-                            if "finish_rows_kernel" in k),
-          direct_device_ms=sum(direct.values()))
-      if not (r["table_rows_ms"] and r["direct_device_ms"]):
+                            if "finish_rows_kernel" in k))
+      if not r["table_rows_ms"]:
         log(f"  finish_{sfx} gamma {gamma}: device time not measured (the "
-            f"traces hold {table} and {direct})")
+            f"trace holds {table})")
         continue
       log(f"  finish_{sfx} gamma {gamma}, device time (profiler): table "
           f"build {r['table_build_ms']:.4f} ms + table form "
           f"{r['table_rows_ms']:.4f} ms "
-          f"({r['bound_ms'] / r['table_rows_ms']:.1%} of its bound), direct "
-          f"form {r['direct_device_ms']:.4f} ms "
-          f"({r['bound_ms'] / r['direct_device_ms']:.1%})")
+          f"({r['bound_ms'] / r['table_rows_ms']:.1%} of its bound)")
   # what a small frame pays for its table: 640x480 and 6 x 1920x1080 of
   # random p in [0, 1) at gamma 0.6
   gen = torch.Generator(device="cuda").manual_seed(25)
@@ -3675,21 +3642,17 @@ def phase_table_timing(results):
     for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
       p = torch.rand(shape, generator=gen, device="cuda").to(dtype)
       table = _kernel_ms(lambda: finish.finish_planar_u8(p, mx, 0.6))
-      direct = _kernel_ms(lambda: finish_launch(
-          p, mx, 0.6, "reinhard", ImageTransform.none, False))
       build = sum(v for k, v in table.items() if "tone_table_kernel" in k)
       log(f"  finish_{sfx} {tuple(shape)} gamma 0.6, device time "
           f"(profiler): table build {build:.4f} ms + table form "
-          f"{sum(table.values()) - build:.4f} ms, direct form "
-          f"{sum(direct.values()):.4f} ms")
+          f"{sum(table.values()) - build:.4f} ms")
 
 
 def phase_route_timing(card):
   """The same step method for the other routes: the resize->1920 step of
-  each class, the transform and linear marginals (bf16), the front-fused
-  bf16 step against the composed one in turns (composed, fused, fused,
-  composed), and the I420 marginal of each class's 6x4K and resize->1920
-  steps the same way."""
+  each class, the transform and linear marginals (bf16), and the I420
+  marginal of each class's 6x4K and resize->1920 steps in turns (RGB,
+  I420, I420, RGB)."""
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.interpolate import ImageTransform
 
@@ -3697,20 +3660,20 @@ def phase_route_timing(card):
   plan = ((1920, 1080), 1920 / W)
   steps = {}
   for dtype, sfx in hopper.DTYPE_SUFFIX.items():
-    steps[f"{CLASSES[sfx]} resize1920"] = (_step_args(dtype, plan), None)
+    steps[f"{CLASSES[sfx]} resize1920"] = _step_args(dtype, plan)
   bf16 = next(d for d, s in hopper.DTYPE_SUFFIX.items() if s == "bf16")
   steps.update({
-      "CameraBF16 resize1920+rotate_90": (_step_args(
-          bf16, plan, transform=ImageTransform.rotate_90), None),
-      "CameraBF16 flip_horiz": (_step_args(
-          bf16, transform=ImageTransform.flip_horiz), None),
-      "CameraBF16 rotate_90": (_step_args(
-          bf16, transform=ImageTransform.rotate_90), None),
-      "CameraBF16 linear": (_step_args(bf16, tonemap="linear"), None),
+      "CameraBF16 resize1920+rotate_90": _step_args(
+          bf16, plan, transform=ImageTransform.rotate_90),
+      "CameraBF16 flip_horiz": _step_args(
+          bf16, transform=ImageTransform.flip_horiz),
+      "CameraBF16 rotate_90": _step_args(
+          bf16, transform=ImageTransform.rotate_90),
+      "CameraBF16 linear": _step_args(bf16, tonemap="linear"),
   })
   out = {}
-  for name, (args, env) in steps.items():
-    times, host, checksum = bench_step(inputs, args, env=env)
+  for name, args in steps.items():
+    times, host, checksum = bench_step(inputs, args)
     out[name] = dict(step_ms=statistics.median(times), times=times,
                      host_ms=host)
     log(f"timing {name}: {out[name]['step_ms']:.4f} ms/step (median of "
@@ -3727,25 +3690,6 @@ def phase_route_timing(card):
       log(f"timing {name}: {statistics.median(bare):.4f} ms/step without "
           f"the checksum, host enqueue {statistics.median(bare_host):.4f} "
           "ms/step")
-  main_args = _step_args(bf16)
-  pair = {"composed": [], "front-fused": []}
-  for which in ("composed", "front-fused", "front-fused", "composed"):
-    env = {FRONT_FUSED: "1"} if which == "front-fused" else None
-    times, _, _ = bench_step(inputs, main_args, env=env)
-    pair[which].append(statistics.median(times))
-  for which, ms in pair.items():
-    out[f"CameraBF16 {which}"] = dict(step_ms=min(ms), runs=ms)
-  ff_env = {FRONT_FUSED: "1"}
-  _, ff_host, _ = bench_step(inputs, main_args, checksum=False, env=ff_env)
-  busy, ops = profile_step("CameraBF16 front-fused", inputs, main_args,
-                           env=ff_env)
-  out["CameraBF16 front-fused"].update(bare_host_ms=ff_host, busy_share=busy,
-                                       ops_per_step=ops)
-  log(f"timing CameraBF16 front-fused: host enqueue "
-      f"{statistics.median(ff_host):.4f} ms/step without the checksum")
-  log(f"timing CameraBF16 front-fused {min(pair['front-fused']):.4f} vs "
-      f"composed {min(pair['composed']):.4f} ms/step (lower of two medians "
-      f"each, taken in turns); {card}")
   # the I420 marginal: the RGB and I420 steps in turns (RGB, I420, I420,
   # RGB), the lower of each side's two medians; with the checksum (which
   # reads half the bytes of RGB's for I420) and without it
@@ -3824,13 +3768,13 @@ def main(argv=None):
   from taichi_image_tpu_torch.ops import hopper
   build = phase_build()
   results = {}
-  phase_kernels(results)
+  launches = dict.fromkeys(hopper.KERNELS, 0)
+  checked = phase_kernels(results)
   phase_format_kernels(results)
   gen = torch.Generator(device="cuda").manual_seed(1)
   frames = [torch.randint(0, 256, (N_CAM, H, WB), generator=gen,
                           device="cuda", dtype=torch.uint8)
             for _ in range(FRAMES)]
-  launches = dict.fromkeys(hopper.KERNELS, 0)
   for sfx in CLASSES:
     for n, v in phase_slice(frames, sfx).items():
       launches[n] += v
@@ -3849,9 +3793,10 @@ def main(argv=None):
   app_launches, app_timing = phase_apps(card)
   for n, v in app_launches.items():
     launches[n] += v
-  never = sorted(n for n, v in launches.items() if v == 0)
+  never = sorted(n for n, v in launches.items()
+                 if v + checked.get(n, 0) == 0)
   if never:
-    raise AssertionError(f"kernels no route launched: {never}")
+    raise AssertionError(f"kernels no route or check launched: {never}")
   timing = {CLASSES[sfx]: phase_timing(card, sfx) for sfx in CLASSES}
   phase_meter_timing(results, card)
   phase_table_timing(results)

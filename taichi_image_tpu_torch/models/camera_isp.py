@@ -29,18 +29,16 @@ stride grid (a strided view, read in place), K3<T> on the planar image,
 then P<T> (``finish_planar_tone``): the gamma (or the linear tonemap)
 and the transform in one pass, where the JAX package leaves them to
 XLA; with I420 output one kernel does that tail and the conversion
-(``yuv420_planar_tone``). The front-fused
-route (bf16, Reinhard, color_adapt 0, no resize, even stride, opt-in
-through ``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, the variable the JAX package
-reads) meters from ``demosaic_samples`` first and then runs K7, the
-stencil and the map in one kernel, before K4.
+(``yuv420_planar_tone``). K7, the JAX package's front-fused stencil
+and map in one kernel, is not a route of the step: it is reached through
+``demosaic_reinhard_front`` alone, whatever the environment holds.
 
 ``color_format="yuv420"`` gives planar I420 ``(Y (N, h', w'), VU (N, 2,
 h'/2, w'/2))`` u8, V then U, as the JAX package computes it: on the phase
-and front-fused routes K4's I420 mode replaces K4 (the u8 RGB is never
-written); the resize route tones, transforms and converts K3's planar p
-(or the resized image) in one kernel, the planar I420 tonemap form, and
-the odd-stride route converts K4's planar u8 RGB with the planar I420
+route K4's I420 mode replaces K4 (the u8 RGB is never written); the
+resize route tones, transforms and converts K3's planar p (or the
+resized image) in one kernel, the planar I420 tonemap form, and the
+odd-stride route converts K4's planar u8 RGB with the planar I420
 kernel (both in ``ops/hopper/yuv420.py``).
 
 Camera16 has the semantics of the JAX package's strict f16 route, which
@@ -72,7 +70,6 @@ batches run K3 and K4 as the step does.
 from __future__ import annotations
 
 import itertools
-import os
 from collections import deque
 from typing import List, Optional
 
@@ -640,17 +637,6 @@ def yuv420_from_planar_u8(out: torch.Tensor, backend: str = "auto"):
   return hopper_yuv420.yuv420_planar(out, backend=backend)
 
 
-def _front_fused_route(wd, resize_plan, stride, tonemap, color_adapt,
-                       phases):
-  """The JAX package's gate of the front-fused route (off unless
-  TAICHI_IMAGE_TPU_FRONT_FUSED=1; frames under 4x4 pixels have no
-  front-fused tiling there and take the composed route)."""
-  return (os.environ.get("TAICHI_IMAGE_TPU_FRONT_FUSED", "") == "1"
-          and wd == types.bf16 and resize_plan is None and stride % 2 == 0
-          and tonemap == "reinhard" and float(color_adapt) == 0.0
-          and min(phases.shape[-2:]) >= 2)
-
-
 def _finish(x12, scal, gamma, mode, transform, color_format, backend):
   """K4 on phase form: transformed planar u8 RGB, or with
   ``color_format="yuv420"`` its I420 mode's ``(Y, VU)``."""
@@ -675,8 +661,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
   ``axis_name`` and ``n_total``: ``raws`` is this rank's share of the
   cameras of a batch split over the ranks of the ``torch.distributed``
   group, and the metering is reduced over it (:func:`metering_update_ca`);
-  each image's max stays its own. The front-fused route is off under a
-  group, as in the JAX package."""
+  each image's max stays its own."""
   if color_format not in ("rgb", "yuv420"):
     raise ValueError(f"unknown color_format {color_format!r}")
   if tonemap not in ("reinhard", "linear"):
@@ -694,30 +679,11 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
       stage("isp.decode")
     phases = _decode_checked(raws, fmt, wd, ids_format, backend)
 
-    def meter(sample, group=None):
+    def meter(sample):
       if stage:
         stage("isp.meter")
       return _meter(sample, prev, t, group, n_total, intensity, light_adapt,
                     color_adapt, backend)
-
-    if group is None and _front_fused_route(wd, resize_plan, stride, tonemap,
-                                           color_adapt, phases):
-      # metering first, from the sample pre-pass; then stencil + map as one
-      # kernel (K7, the map's stage) and the finish
-      if stage:
-        stage("isp.demosaic")
-      mt = meter(bayer_ops.demosaic_samples(phases, pattern, cc=cc,
-                                            out_dtype=wd,
-                                            sample_step=max(stride // 2, 1)))
-      if stage:
-        stage("isp.reinhard")
-      p_cast, max_out = demosaic_reinhard_front(
-          phases, mt.metrics, intensity, light_adapt, pattern, cc,
-          backend=backend, scal=mt.scal)
-      if stage:
-        stage("isp.finish")
-      return mt.metrics, _finish(p_cast, max_out, gamma, "reinhard",
-                                 transform, color_format, backend)
 
     if stage:
       stage("isp.demosaic")
@@ -728,7 +694,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
         stage("isp.resize")
       size, scale = resize_plan
       src = _resize_x12(x12, size, scale, wd, backend=backend)
-      mt = meter(subsample_hw(src, stride, stride), group)
+      mt = meter(subsample_hw(src, stride, stride))
       phase_format = None
     elif stride % 2 != 0:
       # the samples of an odd stride fall on every phase: gather them from
@@ -736,7 +702,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
       # since the map is per pixel and the max runs over the same pixels
       src = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                             backend=backend)
-      mt = meter(bayer_ops.planar_subsample(src, stride), group)
+      mt = meter(bayer_ops.planar_subsample(src, stride))
       # an odd stride's I420 is the JAX package's planar conversion (the
       # matrix before the block mean) of the RGB
       phase_format = "rgb"
@@ -745,7 +711,7 @@ def fused_isp_step(raws: torch.Tensor, prev: torch.Tensor, t, gamma,
       src, strided = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd,
                                      backend=backend,
                                      sample_step=max(stride // 2, 1))
-      mt = meter(strided, group)
+      mt = meter(strided)
       phase_format = color_format
     if tonemap == "reinhard":
       if stage:

@@ -13,10 +13,10 @@ The tables here are built in numpy and equal the JAX package's values
 exactly; ``demosaic_phases`` runs the K2 stencil (``ops/hopper/demosaic``)
 with the finish (renorm, optional CCM, clip, cast) fused in, and
 ``demosaic_samples`` evaluates the same arithmetic on the metering grid
-only (the front-fused route's metering pre-pass). Frames under 4x4
-pixels (a phase plane one row or one column wide) take the JAX package's
-own route for them, the dropped taps' weights divided out per pixel
-(``_demosaic_denominator``), in torch on either device.
+only (the metering pre-pass that K7, the front-fused kernel, needs).
+Frames under 4x4 pixels (a phase plane one row or one column wide) take
+the JAX package's own route for them, the dropped taps' weights divided
+out per pixel (``_demosaic_denominator``), in torch on either device.
 
 The HWC API of the reference (``bayer_to_rgb``, ``bayer_to_rgb_batch``,
 ``rgb_to_bayer``) runs on the same core, on the card by default (a host
@@ -428,8 +428,8 @@ def demosaic_samples(phases: torch.Tensor, pattern: BayerPattern, cc=None,
                      sample_step: int = 4) -> torch.Tensor:
   """Metering-sample pre-pass: the demosaic of output channels 0..2
   evaluated only on the ``(::step, ::step)`` grid, (N, 3, hs, ws) of
-  ``out_dtype``. The front-fused route needs its metrics before its one
-  kernel runs, so it cannot take the stencil's own sample emission.
+  ``out_dtype``. K7 (``demosaic_reinhard_front``) needs its metrics
+  before it runs, so it cannot take the stencil's own sample emission.
 
   The arithmetic is K2's plain twin at the sampled pixels, in its tap
   order (taps in (q, u, v) order, * inv_full, * border factor, CCM as

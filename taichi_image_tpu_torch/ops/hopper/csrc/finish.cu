@@ -51,16 +51,17 @@
 // the element-by-element loads and byte stores of the same kernel (the
 // launcher picks `vec` from the sizes and pointers).
 //
-// The table form (bf16 or f16 at gamma != 1 without an axis swap, where
-// the wrapper passes a table scratch: ops/hopper/finish.py table_form).
-// tone_u8 is a pure function of a value's bits, its image's scalars and
-// inv_gamma, so tone_table_kernel tones each of the 65,536 bit patterns of
-// T once an image, by the unpack and tone_u8 the direct form runs, into a
+// The table form (bf16 or f16 at gamma != 1 without an axis swap) is the
+// only form there: ops/hopper/finish.py table_form passes the scratch, and
+// the launcher refuses a null table. tone_u8 is a pure function of a
+// value's bits, its image's scalars and inv_gamma, so tone_table_kernel
+// tones each of the 65,536 bit patterns of T once an image, by the unpack
+// and tone_u8 of the direct form (f32, gamma 1, the axis swap), into a
 // 64 KB table of bytes, and the rows kernel's table form gives each value
 // its byte by one shared-memory gather at its 16 bits: every byte is the
-// direct form's, NaN, zeros of both signs, negatives and subnormals
-// included, and the pow leaves the per-value path. The same launcher call
-// enqueues both kernels. The table form is a persistent grid, one wave of
+// one tone_u8 gives the value, NaN, zeros of both signs, negatives and
+// subnormals included, and the pow leaves the per-value path. The same
+// launcher call enqueues both kernels. The table form is a persistent grid, one wave of
 // kTableBlocks blocks an SM shared out evenly over the images: a block
 // copies its image's table into shared memory (cp.async) while its first
 // run's loads are in flight, then walks its share of the image's (channel,
@@ -253,9 +254,10 @@ __device__ __forceinline__ void finish_rows_table(
   }
 }
 
-// No axis swap. The direct form: block (16, 16) over (runs, rows), grid.z
-// = n * 3. The table form (kTable: a 16-bit T and a pow form): each value
-// its byte from the image's table (tone_table_kernel), finish_rows_table.
+// No axis swap. The direct form (f32, or gamma 1): block (16, 16) over
+// (runs, rows), grid.z = n * 3. The table form (kTable: a 16-bit T and a
+// pow form): each value its byte from the image's table
+// (tone_table_kernel), finish_rows_table.
 template <typename T, bool kLinear, Tone kTone, bool kTable>
 __global__ void __launch_bounds__(256, kTable ? kTableBlocks : 1)
     finish_rows_kernel(const T* __restrict__ x,
@@ -279,7 +281,7 @@ __global__ void __launch_bounds__(256, kTable ? kTableBlocks : 1)
 }
 
 // The table of each image b: table[b][u] = tone_u8 of the T whose bits are
-// u, under image b's scalars: the tone of the direct form, by the same
+// u, under image b's scalars: the direct form's tone, by the same
 // unpack and tone_u8 (a thread tones 4 patterns, one 4-byte store). Grid
 // (kTableBytes / (4 * kThreads), n).
 template <typename T, bool kLinear, Tone kTone>
@@ -442,30 +444,28 @@ template <typename T, bool kLinear, Tone kTone>
 cudaError_t launch_mode(const T* x, const float* scal, uint8_t* table,
                         uint8_t* out, int n, const Finish& f, int swap,
                         cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
-    if (table != nullptr) {
-      return launch_table<T, kLinear, kTone>(x, scal, table, out, n, f,
-                                             stream);
-    }
-  }
   if (swap) {
     const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
                     (f.hh + kSwapRows - 1) / kSwapRows, n * 3);
     finish_swap_kernel<T, kLinear, kTone>
         <<<grid, dim3(kSwapRows, kSwapRuns), 0, stream>>>(x, scal, out, f);
+    return cudaGetLastError();
+  }
+  if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
+    return launch_table<T, kLinear, kTone>(x, scal, table, out, n, f, stream);
   } else {
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
                     (f.hh + block.y - 1) / block.y, n * 3);
     finish_rows_kernel<T, kLinear, kTone, false>
         <<<grid, block, 0, stream>>>(x, scal, nullptr, out, f);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
-// `table`: null for the direct form; else the table form's scratch of n *
-// kTableBytes bytes, 16-byte aligned, which takes a 16-bit T, a pow form
-// and no axis swap (refused otherwise).
+// `table`: the table form's scratch of n * kTableBytes bytes, 16-byte
+// aligned, which a 16-bit T at a pow form without an axis swap takes and
+// every other launch leaves null (refused otherwise).
 template <typename T>
 int launch(const void* x, const void* scal, void* out, int n, int hh,
            int wh, int linear, int tone, float inv_gamma, int swap,
@@ -477,8 +477,9 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
       !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (table != nullptr &&
-      (sizeof(T) != 2 || tone == 0 || swap || !tit::aligned16(table))) {
+  const bool table_form = sizeof(T) == 2 && tone != 0 && !swap;
+  if ((table != nullptr) != table_form ||
+      (table != nullptr && !tit::aligned16(table))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each row, and (with a swap) whole 16-byte

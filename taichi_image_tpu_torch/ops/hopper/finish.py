@@ -31,10 +31,11 @@ the pow of the true division otherwise. Each gives its twin's byte
 its form (``utils/profiling.py`` ``tone_forms``).
 
 K4 takes a table form where :func:`table_form` says so (bf16 or f16 at
-gamma != 1, no axis swap): the same launcher call tones each of the 65,536
-bit patterns of the dtype once an image into a table of bytes
-(``tone_table_kernel``, the same ``tone_u8``) and the rows kernel gives
-each value its byte from the table; the call counts as two launches. The
+gamma != 1, no axis swap), and no other form there: the same launcher
+call tones each of the 65,536 bit patterns of the dtype once an image
+into a table of bytes (``tone_table_kernel``, the same ``tone_u8``) and
+the rows kernel gives each value its byte from the table; the call counts
+as two launches. The
 tables live in a scratch kept per (device, stream) and grown only when the
 images grow in number (:func:`_tables`). Its plain twin is
 :func:`finish_planar_u8_table_plain`; a table launch also counts

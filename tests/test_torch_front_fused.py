@@ -1,7 +1,8 @@
-"""The front-fused route (K7): the metering pre-pass ``demosaic_samples``,
-K7's plain twin and the route of ``fused_isp_step`` behind
-``TAICHI_IMAGE_TPU_FRONT_FUSED=1``, against the JAX package on the CPU
-and against the port's own composed route.
+"""K7, the front-fused demosaic + Reinhard map: the metering pre-pass
+``demosaic_samples``, K7's plain twin and the chain the JAX package's
+front-fused route runs (pre-pass -> M -> ``demosaic_reinhard_front`` ->
+K4), against the JAX package on the CPU and against ``process``, which
+never takes that chain.
 
 Contracts:
   * ``edge_renorm_factor_sampled``: bitwise (the same numpy).
@@ -18,13 +19,14 @@ Contracts:
     within 1e-6 relative. For every tap-mask variant, p with a CCM is
     held to 2**-8 absolute instead: the moved x12 can turn a p of 0 into
     a tiny one, which is many ulps but not more than that.
-  * the route vs the JAX step with its front-fused gate forced open (K7
+  * the chain vs the JAX step with its front-fused gate forced open (K7
     in interpret mode, as tests/test_pallas.py runs it): as
-    tests/test_torch_resize.py's ``compare_step``; vs the port's composed
-    route: bitwise, metrics and u8 (the samples, x12 rounding and map are
-    the same arithmetic).
-  * the gate: the route runs exactly when JAX's would (bf16, Reinhard,
-    color_adapt 0, no resize, even stride, the variable set to "1").
+    tests/test_torch_resize.py's ``compare_step``; vs ``process``:
+    bitwise, metrics and u8 (the samples, x12 rounding and map are the
+    same arithmetic).
+  * ``TAICHI_IMAGE_TPU_FRONT_FUSED``, the JAX package's opt-in, changes
+    nothing in ``process``: the same metrics and bytes as with it unset,
+    and K7 never runs.
 """
 
 import functools
@@ -261,13 +263,31 @@ def _open_jax_gate(monkeypatch):
                                         interpret=True))
 
 
+def front_fused_step(raws, prev, t, gamma, pattern, cc=None, stride=8,
+                     transform=ttit.ImageTransform.none, color_format="rgb",
+                     intensity=1.0, light_adapt=1.0):
+  """The JAX package's front-fused route on packed12 bf16 raws, chained
+  from the port's stages: the metering pre-pass, M, K7 and K4 (or K4's
+  I420 mode); ``(new metrics, output)`` as ``fused_isp_step`` returns."""
+  wd = torch.bfloat16
+  phases = tci.load_raw_phases(raws, "packed12", wd, False)
+  mt = tci._meter(tbayer.demosaic_samples(phases, pattern, cc=cc,
+                                          out_dtype=wd,
+                                          sample_step=max(stride // 2, 1)),
+                  prev, t, intensity=intensity, light_adapt=light_adapt)
+  p, max_out = tci.demosaic_reinhard_front(phases, mt.metrics, intensity,
+                                           light_adapt, pattern, cc,
+                                           scal=mt.scal)
+  return mt.metrics, tci._finish(p, max_out, gamma, "reinhard", transform,
+                                 color_format, "auto")
+
+
 @pytest.mark.parametrize("kw", [
     {},
     {"gamma": 2.2, "transform": "rotate_90", "cc": CCM},
 ], ids=["default", "gamma-rot90-ccm"])
 def test_front_fused_route_matches_jax(kw, monkeypatch):
   _open_jax_gate(monkeypatch)
-  monkeypatch.setenv(ENV, "1")
   gamma = kw.get("gamma", 1.0)
   cc = kw.get("cc")
   tr = kw.get("transform", "none")
@@ -280,52 +300,53 @@ def test_front_fused_route_matches_jax(kw, monkeypatch):
     raws = _raws(300 + f)
     t = 0.0 if f == 0 else 0.9
     m_j, o_j = jstep(jnp.asarray(raws), m_j, jnp.float32(t))
-    m_t, o_t = tci.fused_isp_step(
-        torch.from_numpy(raws), m_t, t, gamma, 1.0, 1.0, 0.0, "packed12",
-        False, torch.bfloat16, ttit.BayerPattern.RGGB, cc, None, 8,
-        ttit.ImageTransform(tr), "reinhard")
+    m_t, o_t = front_fused_step(torch.from_numpy(raws), m_t, t, gamma,
+                                ttit.BayerPattern.RGGB, cc,
+                                transform=ttit.ImageTransform(tr))
     compare_step(m_t, o_t, m_j, o_j, torch.bfloat16)
 
 
-def test_front_fused_route_equals_composed_route(monkeypatch):
-  fused = ttit.CameraBF16(ttit.BayerPattern.BGGR, correct_colors=True,
-                          device="cpu")
-  composed = ttit.CameraBF16(ttit.BayerPattern.BGGR, correct_colors=True,
-                             device="cpu")
+def test_front_fused_route_equals_composed_route():
+  isp = ttit.CameraBF16(ttit.BayerPattern.BGGR, correct_colors=True,
+                        device="cpu")
   for f in range(3):
     raws = _raws(310 + f)
-    monkeypatch.setenv(ENV, "1")
-    o_f = fused.process(raws, gamma=2.2, intensity=1.3)
-    monkeypatch.delenv(ENV)
-    o_c = composed.process(raws, gamma=2.2, intensity=1.3)
-    assert torch.equal(fused.metrics, composed.metrics)
+    prev, t = isp._prev_t()
+    m_f, o_f = front_fused_step(torch.from_numpy(raws), prev, t, 2.2,
+                                isp.bayer_pattern, isp._cc_tuple(),
+                                isp.metering_stride, isp.transform,
+                                intensity=1.3)
+    o_c = isp.process(raws, gamma=2.2, intensity=1.3)
+    assert torch.equal(m_f, isp.metrics)
     assert torch.equal(o_f, o_c)
 
 
-@pytest.mark.parametrize("env,cls,isp_kw,kw,taken", [
-    ("1", "CameraBF16", {}, {}, True),
-    ("1", "CameraBF16", {"metering_stride": 4}, {"gamma": 0.8}, True),
-    (None, "CameraBF16", {}, {}, False),
-    ("0", "CameraBF16", {}, {}, False),
-    ("1", "Camera16", {}, {}, False),
-    ("1", "Camera32", {}, {}, False),
-    ("1", "CameraBF16", {"scale": 0.5}, {}, False),
-    ("1", "CameraBF16", {"metering_stride": 7}, {}, False),
-    ("1", "CameraBF16", {}, {"tonemap": "linear"}, False),
-    ("1", "CameraBF16", {}, {"color_adapt": 0.5}, False),
+@pytest.mark.parametrize("env,cls,isp_kw,kw", [
+    ("1", "CameraBF16", {}, {}),
+    ("1", "CameraBF16", {"metering_stride": 4}, {"gamma": 0.8}),
+    (None, "CameraBF16", {}, {}),
+    ("0", "CameraBF16", {}, {}),
+    ("1", "Camera16", {}, {}),
+    ("1", "Camera32", {}, {}),
+    ("1", "CameraBF16", {"scale": 0.5}, {}),
+    ("1", "CameraBF16", {"metering_stride": 7}, {}),
+    ("1", "CameraBF16", {}, {"tonemap": "linear"}),
+    ("1", "CameraBF16", {}, {"color_adapt": 0.5}),
 ])
-def test_front_fused_gate(env, cls, isp_kw, kw, taken, monkeypatch):
-  calls = []
-  real = tci.demosaic_reinhard_front
+def test_front_fused_gate(env, cls, isp_kw, kw, monkeypatch):
+  """The JAX package's opt-in leaves ``process`` as it is: the metrics
+  and bytes of the same ISP with the variable unset, and no K7."""
   monkeypatch.setattr(tci, "demosaic_reinhard_front",
-                      lambda *a, **k: calls.append(1) or real(*a, **k))
-  if env is None:
-    monkeypatch.delenv(ENV, raising=False)
-  else:
+                      lambda *a, **k: pytest.fail("process ran K7"))
+  raws = _raws(320)
+  monkeypatch.delenv(ENV, raising=False)
+  unset = getattr(ttit, cls)(ttit.BayerPattern.RGGB, device="cpu", **isp_kw)
+  want = unset.process(raws, **kw)
+  if env is not None:
     monkeypatch.setenv(ENV, env)
   isp = getattr(ttit, cls)(ttit.BayerPattern.RGGB, device="cpu", **isp_kw)
-  out = isp.process(_raws(320), **kw)
-  assert bool(calls) == taken
-  assert out.dtype == torch.uint8 and torch.isfinite(isp.metrics).all()
+  out = isp.process(raws, **kw)
+  assert torch.equal(isp.metrics, unset.metrics)
+  assert torch.equal(out, want)
   if isp_kw.get("scale"):
     assert tuple(out.shape[-2:]) == PLANS["x0.5"][0][::-1]

@@ -10,8 +10,7 @@ the single-device path, on the CPU.
   * ``metering_update_ca`` without a group bitwise its form before the
     group existed (a frozen copy below), and with a one-rank gloo group
     bitwise the same; ``fused_isp_step`` without a group bitwise its
-    stages composed by hand, and with a one-rank group bitwise without
-    (the front-fused route off under a group, as in the JAX package);
+    stages composed by hand, and with a one-rank group bitwise without;
   * the kernels launch on any CUDA device: no refusal of a device index,
     and ``Kernel.launch`` runs its C launcher under the tensor's device
     with that device's stream (checked with the launcher and the device
@@ -276,9 +275,8 @@ def test_step_without_a_group_is_bitwise_its_stages(dtype, tonemap):
 
 
 @pytest.mark.parametrize("route", ["phase", "resize", "stride7", "i420",
-                                   "resize-i420", "front-fused"])
-def test_step_with_a_one_rank_group_is_bitwise_without(world1, route,
-                                                       monkeypatch):
+                                   "resize-i420"])
+def test_step_with_a_one_rank_group_is_bitwise_without(world1, route):
   plan = ((48, 16), 0.5) if route.startswith("resize") else None
   stride = 7 if route == "stride7" else 8
   cf = "yuv420" if route.endswith("i420") else "rgb"
@@ -286,11 +284,6 @@ def test_step_with_a_one_rank_group_is_bitwise_without(world1, route,
   args = (*_ARGS, torch.bfloat16, BayerPattern.GRBG, None, plan, stride,
           ttit.ImageTransform.rotate_90, "reinhard")
   want_m, want = tci.fused_isp_step(raws, prev, 0.9, *args, color_format=cf)
-  if route == "front-fused":
-    # the opt-in route is off under a group: the composed route's bits
-    monkeypatch.setenv("TAICHI_IMAGE_TPU_FRONT_FUSED", "1")
-    assert tci._front_fused_route(torch.bfloat16, None, 8, "reinhard", 0.0,
-                                  torch.zeros(1, 4, 16, 48))
   n_total = 2 * -(-(16 if plan else 32) // stride) * -(-(48 if plan else 96)
                                                         // stride)
   m, out = tci.fused_isp_step(raws, prev, 0.9, *args, color_format=cf,

@@ -126,16 +126,6 @@ def test_each_set_holds_its_stages_in_route_order(route):
   assert set(snap) <= set(profiling.SPANS)
 
 
-def test_the_front_fused_route_counts_k7_as_the_map(monkeypatch):
-  monkeypatch.setenv("TAICHI_IMAGE_TPU_FRONT_FUSED", "1")
-  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu")
-  with profiling.tracing():
-    events = _profiled(lambda: isp.process(_raws()))
-  assert [e[0] for e in events] == ["isp.process", *PHASE]
-  # each stage ends where the next begins
-  assert all(a[4] <= b[3] for a, b in zip(events[1:], events[2:]))
-
-
 def test_process_large_opens_a_set_of_the_same_count():
   isp = ttit.Camera32(ttit.BayerPattern.RGGB, device="cpu")
   with profiling.tracing():

@@ -15,7 +15,8 @@ Contracts:
     addresses under the 8 transforms, the summation orders, the table of
     k / 255): bitwise equal to the kernel's twin.
   * routes (three classes; the phase route, rotate_90, flip_vert,
-    resize_width, stride 7, linear, front-fused): metrics within 1e-5, Y
+    resize_width, stride 7, linear) and the front-fused chain (pre-pass, M,
+    K7, K4's I420 mode) vs JAX's front-fused route: metrics within 1e-5, Y
     and VU each as tests/test_torch_resize.py's ``compare_step`` (within 1
     count on < 2% of bytes, a rare 2 in bf16, for the reason it states).
 """
@@ -37,7 +38,8 @@ from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import finish as th_fin  # noqa: E402
 from taichi_image_tpu_torch.ops.hopper import yuv420 as th_yuv  # noqa: E402
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform  # noqa: E402
-from test_torch_front_fused import ENV, _open_jax_gate  # noqa: E402
+from test_torch_front_fused import (  # noqa: E402
+    _open_jax_gate, front_fused_step)
 from test_torch_resize import (  # noqa: E402
     CLASSES, JDT, _raws as _raws_64x256, _to_torch, compare_step)
 
@@ -501,17 +503,25 @@ def test_resize_yuv420_route_runs_the_tone_form(cls, tonemap, monkeypatch):
 
 
 def test_yuv420_front_fused_route_matches_jax(monkeypatch):
+  """The front-fused chain with K4's I420 mode against the JAX step's
+  front-fused route (the Pallas K7's tiling needs at least 32 x 128
+  phases)."""
   _open_jax_gate(monkeypatch)
-  monkeypatch.setenv(ENV, "1")
-  calls = []
-  real = tci.demosaic_reinhard_front
-  monkeypatch.setattr(tci, "demosaic_reinhard_front",
-                      lambda *a, **k: calls.append(1) or real(*a, **k))
-  # the Pallas K7's tiling needs at least 32 x 128 phases
-  yuv_route_vs_jax("CameraBF16", [_raws_64x256(410 + f) for f in range(2)],
-                   transform=ImageTransform.rotate_270, pattern="RGGB",
-                   gamma=2.2)
-  assert calls
+  gamma, tr = 2.2, ImageTransform.rotate_270
+  jstep = jax.jit(lambda r, prev, t: jci.fused_isp_step(
+      r, prev, t, gamma, 1.0, 1.0, 0.0, "packed12", False, jnp.bfloat16,
+      jtit.BayerPattern.RGGB, None, None, 8, jtit.ImageTransform(tr.value),
+      "reinhard", color_format="yuv420"))
+  m_j, m_t = jnp.zeros(9, jnp.float32), torch.zeros(9)
+  for f in range(2):
+    raws = _raws_64x256(410 + f)
+    t = 0.0 if f == 0 else 0.9
+    m_j, (y_j, vu_j) = jstep(jnp.asarray(raws), m_j, jnp.float32(t))
+    m_t, (y_t, vu_t) = front_fused_step(
+        torch.from_numpy(raws), m_t, t, gamma, ttit.BayerPattern.RGGB,
+        transform=tr, color_format="yuv420")
+    compare_step(m_t, y_t, m_j, y_j, torch.bfloat16)
+    compare_step(m_t, vu_t, m_j, vu_j, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cls", CLASSES)
