@@ -41,7 +41,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
             rows and flip_horiz, and bitwise its table twin on random
             bits at 6x4K, on a 6x8K band (272 x 3840) and on small and
             ragged frames, gamma 0.6, 0.9, 2.2 and 7.5, Reinhard and
-            linear, no transform and flip_horiz. Then
+            linear, no transform and flip_horiz. K4's axis-swap kernel
+            bitwise its plain twin in bf16, f16 and f32 under the four
+            transforms that swap the axes, gamma 1, 0.6, 0.9 and 7.5,
+            Reinhard and linear, at 6x4K, on frames whose tiles are cut,
+            on the element path (runs cut short, an odd side, a plane
+            that is not 16-byte aligned) and at 640x480 and 6 x 1080p.
+            Then
             each kernel against its plain PyTorch twin on the card, at
             the 6 x 2160 x 5760-byte packed12 shape of the main path, at
             a small odd shape, at a ragged mid-size shape (515 x 1003
@@ -254,6 +260,7 @@ import contextlib
 import functools
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -402,6 +409,11 @@ _TONE_FORMS = ("gamma1", "pow_rcp", "pow_div")
 # quarter-rate pipe; F2I the u8 convert; FCHK the division's range test)
 _TONE_OPS = ("MUFU", "F2I", "FCHK", "FFMA", "FADD", "FMUL")
 _I420_KINDS = ("dot", "chains", "planar")
+# a block of K4's axis-swap kernel (csrc/finish.cu): its threads and its
+# dynamic shared memory (SwapTile<T>::kSmem: two stages of the 4 phase
+# planes' 64 x 64 values, two buffers of the tile's 128 x 128 output bytes)
+SWAP_THREADS = 512
+SWAP_SMEM = {"bf16": 98304, "f16": 98304, "f32": 163840}
 # elements per pass of K3's and K1's vector loops, one 16-byte run of T:
 # K3 maps that many pixels, K1 unpacks that many column pairs
 PER_PASS = {"bf16": 8, "f16": 8, "f32": 4}
@@ -534,6 +546,28 @@ def phase_build():
       log(f"  {source} I420 kernels, registers: " + ", ".join(
           f"{k} {lo}-{hi}" if lo != hi else f"{k} {lo}"
           for k, (lo, hi) in sorted(i420.items())))
+    swap = {}  # K4's axis-swap kernel: registers and blocks an SM by T
+    for fn, used in re.findall(r"Compiling entry function '(\S*"
+                               r"finish_swap_kernel\S*)'.*?Used (\d+) "
+                               r"registers", text, re.S):
+      t = _T_NAMES[_TONE_ARGS.search(fn).group(2)]
+      lo, hi = swap.get(t, (999, 0))
+      swap[t] = (min(lo, int(used)), max(hi, int(used)))
+    if swap:
+      rows = {}
+      for t, (lo, hi) in sorted(swap.items()):
+        # a warp's registers come in 256s; the shared memory an SM holds,
+        # 1 KB of it reserved a block; 2048 threads an SM
+        by_regs = 65536 // (SWAP_THREADS * -(-hi // 8) * 8)
+        by_smem = 233472 // (SWAP_SMEM[t] + 1024)
+        rows[t] = dict(registers=[lo, hi], smem=SWAP_SMEM[t],
+                       blocks_per_sm=min(by_regs, by_smem,
+                                         2048 // SWAP_THREADS))
+      sources[source]["swap_kernel"] = rows
+      log(f"  {source} finish_swap_kernel: " + ", ".join(
+          f"{t} {r['registers'][0]}-{r['registers'][1]} registers, "
+          f"{r['smem']} bytes of shared memory, {r['blocks_per_sm']} "
+          "blocks an SM" for t, r in rows.items()))
   # SASS of K3 and K1: the vector loop's instructions (static: the
   # branches around the slow paths included) per pixel or column pair
   for source in ("reinhard.cu", "decode.cu"):
@@ -1159,6 +1193,67 @@ def _check_table_form(note):
         "and flip_horiz")
 
 
+SWAP_GAMMAS = (1.0, 0.6, 0.9, 7.5)
+# (n, 12, hh, wh) frames of K4's axis-swap kernel and whether the plane
+# starts one element past a 16-byte boundary: the main path's 6x4K, tiles
+# cut on both axes, 640x480 (the staged path); 6 x 1080p (an output row of
+# 1080 bytes, not whole vectors), runs cut short, an odd side, one
+# half-res pixel and an unaligned plane (the element path)
+SWAP_SHAPES = (((N_CAM, 12, H // 2, W // 2), False),
+               ((2, 12, 520, 1000), False), ((1, 12, 240, 320), False),
+               ((N_CAM, 12, 540, 960), False), ((2, 12, 515, 1003), False),
+               ((3, 12, 19, 50), False), ((1, 12, 1, 1), False),
+               ((2, 12, 64, 96), True))
+
+
+def _check_swap_form(note):
+  """K4's axis-swap kernel bitwise its plain twin (finish_planar_u8_plain)
+  in each dtype under each transform that swaps the axes, at each gamma of
+  SWAP_GAMMAS (every tone form), Reinhard (six maxima) and linear, on each
+  frame of SWAP_SHAPES: random values over the maxima's range with zeros
+  of both signs, negatives, inf and NaN among them."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
+  from taichi_image_tpu_torch.ops.hopper import finish
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(26)
+  swaps = [t for t in ImageTransform if _TRANSFORM_SFF[t][0]]
+  mx6 = torch.tensor((1e-6, 0.37, 0.999, 1.13, 3.0, 97.5),
+                     device=dev).view(6, 1, 1, 1)
+  lin = torch.tensor([-0.05, 1 / 1.1], device=dev)
+  special = torch.tensor([0.0, -0.0, -0.5, float("inf"), float("-inf"),
+                          float("nan")], device=dev)
+  checks = 0
+  for shape, offset in SWAP_SHAPES:
+    n = shape[0]
+    v = torch.rand((n, math.prod(shape[1:])), generator=gen, device=dev)
+    v = ((v * 1.3 - 0.05) * mx6[:n].view(n, 1)).view(-1)
+    at = torch.randint(0, v.numel(), (max(1, v.numel() // 997),),
+                       generator=gen, device=dev)
+    v[at] = special[at % special.numel()]
+    v = torch.cat([v[:offset], v])  # an offset plane starts at element 1
+    for dtype, sfx in hopper.DTYPE_SUFFIX.items():
+      x = v.to(dtype)[offset:].view(shape)
+      for gamma, mode, t in itertools.product(
+          SWAP_GAMMAS, ("reinhard", "linear"), swaps):
+        sc = mx6[:n] if mode == "reinhard" else lin
+        ko = finish.finish_planar_u8(x, sc, gamma, mode, t, backend="kernel")
+        po = finish.finish_planar_u8_plain(x, sc, gamma, mode, t)
+        _check_bitwise(f"finish swap {sfx} {tuple(shape)} offset={offset} "
+                       f"{mode} gamma={gamma} {t.value}", ko, po)
+        note(f"finish_{sfx}", ko, po)
+        checks += 1
+      del x
+  frames = ", ".join(str(sh) + (" unaligned" if o else "")
+                     for sh, o in SWAP_SHAPES)
+  log(f"kernels: finish's axis-swap kernel agrees with its plain twin in "
+      f"{checks} cases: bf16, f16 and f32, "
+      f"{', '.join(t.value for t in swaps)}, gamma "
+      f"{', '.join(map(str, SWAP_GAMMAS))}, Reinhard and linear, {frames}")
+
+
 def _kernel_ms(fn, calls=30):
   """{kernel: device ms per call of ``fn``} from a profiler trace of
   ``calls`` calls after a warm-up ({} where it holds no device time)."""
@@ -1217,6 +1312,7 @@ def phase_kernels(results):
 
   _check_tone_bits(note)
   _check_table_form(note)
+  _check_swap_form(note)
   for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
     raws = torch.randint(0, 256, shape, generator=gen, device=dev,
                          dtype=torch.uint8)

@@ -38,18 +38,39 @@
 //     bytes, one 16-byte store (a half-warp writes 256 contiguous bytes).
 //     flip_y moves the row; flip_x mirrors the vector's position and
 //     reverses its bytes in registers (__byte_perm).
-//   - Axis swap (transpose, rotate_90, rotate_270, transverse): a warp
-//     takes 32 rows of one column run. The block stages its 32 x 64
-//     input pixels of the 4 planes in shared memory with coalesced
-//     16-byte loads (a lane per row reading device memory directly would
-//     touch 32 rows per load), and its 128 x 64-byte output tile goes
-//     back through shared memory, [x][y] as byte pairs, so that each
-//     output row x' leaves as 64 contiguous bytes in 16-byte stores
-//     (flip_y reverses each vector and mirrors its position).
+//   - Axis swap (transpose, rotate_90, rotate_270, transverse):
+//     finish_swap_kernel, a persistent grid (one wave, the blocks an SM
+//     asked once a device) whose blocks walk tiles of 64 x 64 half-res
+//     pixels by a fixed stride, a run of one row a thread, a warp down 32
+//     rows of one column run. Its input goes through a ring of two stages
+//     in shared memory: while tile k tones from its stage, tile k + 1's
+//     four phase-plane rows are in flight, cp.async.cg 16-byte copies in
+//     commit groups (cp.async.wait_group). Those copies were picked over
+//     cp.async.bulk row copies on an mbarrier: each thread already holds
+//     its share's addresses (8 copies a tile in f32, 4 in bf16/f16), a
+//     tile needs a barrier for its output anyway, a copy past the frame is
+//     simply not issued, and no thread issues 256 row copies or keeps an
+//     mbarrier's phase and byte count. The staged rows are unpadded and
+//     each 16-byte chunk's slot is XORed with its row's place in a bank
+//     line, so that the lanes' reads down 32 rows fall in distinct banks.
+//     The output tile, 128 rows x' of 128 bytes y, goes through one of two
+//     shared buffers [x][y] of byte pairs, so that each output row leaves
+//     as 128 contiguous bytes in 16-byte stores (flip_y reverses each
+//     vector and mirrors its position); tile k's stores leave after the
+//     next barrier, beside tile k + 1's tone, one barrier a tile. The tile
+//     size and the ring's depth are the fastest of A/Bs on an H100 at the
+//     f32 cell's 6 x 4K (PERF.md section 6). Shared memory sets the
+//     blocks: 160 KB a block in f32, one block of 16 warps an SM at 128
+//     registers; 96 KB in bf16 and f16, two blocks at 64 registers. The
+//     copies in flight hide the latency, not resident blocks. At gamma 1
+//     bytes bound it; at gamma != 1 instruction issue does, the pow of 32
+//     values a thread a tile, so the walk advances without a division and
+//     the staged and the element loads share one tone path.
 // A row that is not a whole number of runs, an output side that is not a
 // whole number of vectors, or a plane that is not 16-byte aligned takes
-// the element-by-element loads and byte stores of the same kernel (the
-// launcher picks `vec` from the sizes and pointers).
+// the element-by-element loads and byte stores of the same kernels (the
+// launcher picks `vec` from the sizes and pointers); the swap kernel then
+// copies nothing and each thread loads its run from device memory.
 //
 // The table form (bf16 or f16 at gamma != 1 without an axis swap) is the
 // only form there: ops/hopper/finish.py table_form passes the scratch, and
@@ -61,12 +82,13 @@
 // its byte by one shared-memory gather at its 16 bits: every byte is the
 // one tone_u8 gives the value, NaN, zeros of both signs, negatives and
 // subnormals included, and the pow leaves the per-value path. The same
-// launcher call enqueues both kernels. The table form is a persistent grid, one wave of
-// kTableBlocks blocks an SM shared out evenly over the images: a block
-// copies its image's table into shared memory (cp.async) while its first
-// run's loads are in flight, then walks its share of the image's (channel,
-// row, run) items with the next item's loads in flight, keeping the direct
-// form's loads, interleave, flips, 16-byte stores and element path.
+// launcher call enqueues both kernels. The table form is a persistent grid,
+// one wave of kTableBlocks blocks an SM shared out evenly over the images:
+// a block copies its image's table into shared memory (cp.async) while its
+// first run's loads are in flight, then walks its share of the image's
+// (channel, row, run) items with the next item's loads in flight, keeping
+// the direct form's loads, interleave, flips, 16-byte stores and element
+// path.
 //
 // The byte is the one of the IEEE quotient (finish.cuh tone_u8) and the u8
 // convert truncates toward zero (XLA's f32->u8 convert, camera_isp.py:1106);
@@ -77,9 +99,7 @@ namespace {
 
 using namespace tit;
 
-constexpr int kV = kRun;       // half-res pixels per thread
-constexpr int kSwapRows = 32;  // half-res rows of a swapped tile (a warp)
-constexpr int kSwapRuns = 8;   // column runs of a swapped tile (warps)
+constexpr int kV = kRun;  // half-res pixels per thread
 
 // The bytes q[pr][pc][k] of one run of kV pixels; src[pr * 2 + pc] is the
 // run's first element in the plane of input phase (pr, pc). With `vec`
@@ -212,6 +232,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// This thread's copies issued since the last commit, as one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are still
+// in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // The table form's body: block (256) of grid (blocks an image, n) copies
 // image b's table into shared memory while its first item's loads are in
 // flight, then walks the image's items blockIdx.x * 256 + t, + gridDim.x *
@@ -303,87 +335,164 @@ __global__ void __launch_bounds__(kThreads)
                                           kTableBytes)[u / 4] = q;
 }
 
-// Axis swap: block (32, 8), a warp per column run, a lane per row. With
-// `vec` the block first stages its 32 rows x 64 columns of the 4 planes in
-// shared memory with coalesced 16-byte loads (rows padded by 16 bytes, so
-// the lanes' reads of 32 rows fall in distinct banks); the output tile of
-// 2 * 8 * kV rows x' by 2 * 32 bytes y goes through shared memory too.
-// Five blocks per SM in every T and tone form: the tone and the tile fit in
-// 48 registers without a spill. Left free, the f32 tone took 56 (gamma 1)
-// and 72 (the pow) registers, 4 and 3 blocks an SM: 0.333 against 0.305 ms
-// and 0.499 against 0.377 ms at 6 x 4K (PERF.md section 6).
-template <typename T, bool kLinear, Tone kTone>
-__global__ void __launch_bounds__(256, 5)
-    finish_swap_kernel(const T* __restrict__ x,
-                       const float* __restrict__ scal,
-                       uint8_t* __restrict__ out, Finish f) {
-  constexpr int kPer = 16 / sizeof(T);
-  constexpr int kTileW = kSwapRuns * kV;      // half-res columns of a tile
-  constexpr int kPitch = kTileW + kPer;       // staged row, padded
-  constexpr int kTileX = 2 * kTileW;          // output rows x' of a tile
-  __shared__ alignas(16) T xs[4][kSwapRows][kPitch];
-  // s[x][i]: bytes (y = 2i, 2i + 1) of output row x, tile-local
-  __shared__ alignas(16) uint16_t s[kTileX][kSwapRows];
-  const int bc = blockIdx.z, b = bc / 3, c = bc - 3 * b;
-  const int i0 = blockIdx.y * kSwapRows, jt = blockIdx.x * kTileW;
-  const int i = i0 + threadIdx.x;
-  const int j0 = jt + threadIdx.y * kV;
-  const int tid = threadIdx.y * kSwapRows + threadIdx.x;
-  unsigned q[2][2][kV] = {};
-  if (f.vec) {
-    const int plane = f.hh * f.wh;
-    const T* xb = x + static_cast<size_t>(b) * 12 * plane;
-    constexpr int kCopies = kTileW / kPer;    // 16-byte copies of a row
-#pragma unroll
-    for (int k = tid; k < 4 * kSwapRows * kCopies; k += 256) {
-      const int row = k / kCopies, cv = k - row * kCopies;  // pp * 32 + r
-      const int pp = row / kSwapRows, r = row - pp * kSwapRows;
-      const int y = i0 + r, xc = jt + cv * kPer;
-      if (y < f.hh && xc < f.wh) {
-        const int ch = (pp & 1) * 6 + (pp >> 1) * 3 + c;  // pp = pr*2 + pc
-        *reinterpret_cast<uint4*>(&xs[pp][r][cv * kPer]) =
-            *reinterpret_cast<const uint4*>(xb + ch * plane + y * f.wh + xc);
-      }
-    }
-    __syncthreads();
-    const T* src[4];
-#pragma unroll
-    for (int pp = 0; pp < 4; ++pp) {
-      src[pp] = &xs[pp][threadIdx.x][threadIdx.y * kV];
-    }
-    // rows and columns past the frame compute bytes that are never stored
-    finish_run<T, kLinear, kTone>(src, true, kV, load_scal<kLinear>(scal, b),
-                                  f, q);
-  } else if (i < f.hh && j0 < f.wh) {
-    const T* src[4];
-    run_planes(x, b, c, i, j0, f, src);
-    finish_run<T, kLinear, kTone>(src, false, f.wh - j0,
-                                  load_scal<kLinear>(scal, b), f, q);
+// Axis swap: a persistent grid walks the swapped tiles. A tile is
+// kSwapRows half-res rows by kSwapCols columns of one image's channel, a
+// run of kV pixels a thread: warp wp takes rows 32 (wp / kSwapRuns) + lane
+// of the run wp % kSwapRuns. Tile t of the walk (column tiles fastest,
+// then row tiles, then the images' channels) goes to block t % grid, so
+// that a block walks its tiles by a fixed stride.
+constexpr int kSwapThreads = 512;                         // a block
+constexpr int kSwapRows = 64;                             // half-res rows
+constexpr int kSwapCols = kSwapThreads * kV / kSwapRows;  // and columns
+constexpr int kSwapRuns = kSwapCols / kV;  // runs of a tile row
+constexpr int kSmemPerSm = 233472;  // an sm_90 SM's shared memory, 228 KB
+
+template <typename T>
+struct SwapTile {
+  static constexpr int kPer = 16 / sizeof(T);  // values of a 16-byte chunk
+  static constexpr int kRowChunks = kSwapCols / kPer;  // chunks of a row
+  static constexpr int kCopies = 4 * kSwapRows * kRowChunks / kSwapThreads;
+  static constexpr int kStage = 4 * kSwapRows * kSwapCols;  // values
+  static constexpr int kStages = 2;  // the ring
+  static constexpr int kOutRows = 2 * kSwapCols;       // output rows x'
+  static constexpr int kOutVecs = 2 * kSwapRows / 16;  // 16 bytes a row
+  static constexpr int kStores = kOutRows * kOutVecs / kSwapThreads;
+  static constexpr int kOut = kOutRows * kSwapRows;  // u16 of an s buffer
+  // the ring, then two buffers s[x][i]: bytes (y = 2i, 2i + 1) of output
+  // row x
+  static constexpr int kSmem = kStages * kStage * static_cast<int>(sizeof(T)) +
+                               2 * kOut * static_cast<int>(sizeof(uint16_t));
+  // blocks an SM: as many as its shared memory holds, 1 KB of it reserved
+  // a block, and at most 2048 threads
+  static constexpr int kBlocks =
+      kSmemPerSm / (kSmem + 1024) < 2048 / kSwapThreads
+          ? kSmemPerSm / (kSmem + 1024)
+          : 2048 / kSwapThreads;
+  static_assert(kCopies * kSwapThreads == 4 * kSwapRows * kRowChunks &&
+                    kStores * kSwapThreads == kOutRows * kOutVecs,
+                "whole copies and stores a thread");
+  static_assert(kBlocks >= 1, "a block fits an SM");
+
+  // The offset of chunk `c` of staged row `row` in a stage: unpadded rows,
+  // the chunk's slot XORed with the row's place among the rows of a
+  // 128-byte bank line, so that the eight lanes of a quarter warp, on eight
+  // consecutive rows, read the same chunk from eight distinct 16-byte bank
+  // groups.
+  static __device__ __forceinline__ int chunk_at(int row, int c) {
+    constexpr int kLineRows = kRowChunks < 8 ? 8 / kRowChunks : 1;
+    constexpr int kSwz = kRowChunks < 8 ? kRowChunks : 8;
+    return (row * kRowChunks + (c ^ (row / kLineRows % kSwz))) * kPer;
   }
-#pragma unroll
-  for (int k = 0; k < kV; ++k) {
-#pragma unroll
-    for (int pc = 0; pc < 2; ++pc) {
-      s[2 * (threadIdx.y * kV + k) + pc][threadIdx.x] =
-          static_cast<uint16_t>(q[0][pc][k] | q[1][pc][k] << 8);
+};
+
+// A block's place in its walk: tile t, as its image's channel bc, tile row
+// ty and tile column tx (column tiles fastest, then row tiles, then the
+// channels).
+struct SwapAt {
+  int t, tx, ty, bc;
+};
+
+// The walk's geometry and its fixed stride, taken apart once into whole
+// tile columns, tile rows and channels, so that a block advances its
+// place with two compares and no division.
+struct SwapWalk {
+  int tiles_x, tiles_y, step, dx, dy, dbc;
+
+  __device__ SwapWalk(int tx, int ty, int s)
+      : tiles_x(tx), tiles_y(ty), step(s) {
+    const int q = s / tiles_x;
+    dx = s - q * tiles_x;
+    dbc = q / tiles_y;
+    dy = q - dbc * tiles_y;
+  }
+
+  __device__ __forceinline__ SwapAt at(int t) const {
+    const int row = t / tiles_x;  // bc * tiles_y + ty
+    const int bc = row / tiles_y;
+    return SwapAt{t, t - row * tiles_x, row - bc * tiles_y, bc};
+  }
+
+  __device__ __forceinline__ void advance(SwapAt& a) const {
+    a.t += step;
+    a.tx += dx;
+    a.ty += dy;
+    a.bc += dbc;
+    if (a.tx >= tiles_x) {
+      a.tx -= tiles_x;
+      ++a.ty;
+    }
+    if (a.ty >= tiles_y) {
+      a.ty -= tiles_y;
+      ++a.bc;
     }
   }
-  __syncthreads();
+};
+
+// The first element of tile `a`'s phase plane 0 (input phase (0, 0)) in x:
+// the tile's row i0 and column jt of its image's channel.
+template <typename T>
+__device__ __forceinline__ const T* swap_tile_x(const T* __restrict__ x,
+                                                const Finish& f,
+                                                const SwapAt& a) {
+  const int plane = f.hh * f.wh;
+  const int b = a.bc / 3, c = a.bc - 3 * b;
+  return x + static_cast<size_t>(b * 12 + c) * plane +
+         (a.ty * kSwapRows * f.wh + a.tx * kSwapCols);
+}
+
+// This thread's share of tile `a`'s four phase planes, as 16-byte cp.async
+// copies into the stage xs: staged row pp * kSwapRows + r holds row r of
+// phase plane pp = pr * 2 + pc (channel c + pc * 6 + pr * 3). Rows and
+// columns past the frame are not copied: their stale values tone into
+// bytes that are never stored.
+template <typename T>
+__device__ __forceinline__ void stage_swap(const T* __restrict__ x,
+                                           const Finish& f, const SwapAt& a,
+                                           T* xs) {
+  using Tl = SwapTile<T>;
+  const int plane = f.hh * f.wh;
+  const T* xt = swap_tile_x(x, f, a);
+  const int rows = f.hh - a.ty * kSwapRows;  // the tile's rows in the frame
+  const int cols = f.wh - a.tx * kSwapCols;  // and its columns
+#pragma unroll
+  for (int m = 0; m < Tl::kCopies; ++m) {
+    const int k = threadIdx.x + m * kSwapThreads;
+    const int row = k / Tl::kRowChunks, cv = k - row * Tl::kRowChunks;
+    const int pp = row / kSwapRows, r = row - pp * kSwapRows;
+    if (r < rows && cv * Tl::kPer < cols) {
+      copy16_async(xs + Tl::chunk_at(row, cv),
+                   xt + ((pp & 1) * 6 + (pp >> 1) * 3) * plane + r * f.wh +
+                       cv * Tl::kPer);
+    }
+  }
+}
+
+// Tile `a`'s bytes from s ([x][i] byte pairs) to its 2 kSwapCols output
+// rows x', 2 kSwapRows bytes y each: 16-byte stores with `vec` (flip_y
+// reverses each vector and mirrors its position), else byte by byte.
+template <typename T>
+__device__ __forceinline__ void store_swap(const uint16_t* s, const SwapAt& a,
+                                           uint8_t* __restrict__ out,
+                                           const Finish& f) {
+  using Tl = SwapTile<T>;
   const int h = 2 * f.hh, w = 2 * f.wh;  // output rows are h bytes long
-  uint8_t* ob = out + static_cast<size_t>(bc) * h * w;
-  constexpr int kVecs = 2 * kSwapRows / 16;  // 16-byte vectors of a row
-  for (int k = tid; k < kTileX * kVecs; k += kSwapRows * kSwapRuns) {
-    const int xl = k / kVecs, m = k - xl * kVecs;
-    const int xx = 2 * jt + xl, y0 = 2 * i0 + 16 * m;
+  uint8_t* ob = out + static_cast<size_t>(a.bc) * h * w;
+  const int xt = 2 * a.tx * kSwapCols, yt = 2 * a.ty * kSwapRows;
+#pragma unroll
+  for (int m = 0; m < Tl::kStores; ++m) {
+    const int v = threadIdx.x + m * kSwapThreads;
+    const int xl = v / Tl::kOutVecs, mv = v - xl * Tl::kOutVecs;
+    const int xx = xt + xl, y0 = yt + 16 * mv;
     if (xx >= w || y0 >= h) continue;
     uint8_t* row = ob + (f.flip_x ? w - 1 - xx : xx) * h;
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(&s[xl][8 * m]);
+    const uint8_t* src =
+        reinterpret_cast<const uint8_t*>(s + xl * kSwapRows + 8 * mv);
     if (f.vec) {
-      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      const uint4 vv = *reinterpret_cast<const uint4*>(src);
       if (f.flip_y) {
-        *reinterpret_cast<uint4*>(row + h - y0 - 16) = reverse_bytes(v);
+        *reinterpret_cast<uint4*>(row + h - y0 - 16) = reverse_bytes(vv);
       } else {
-        *reinterpret_cast<uint4*>(row + y0) = v;
+        *reinterpret_cast<uint4*>(row + y0) = vv;
       }
     } else {
       for (int e = 0; e < 16 && y0 + e < h; ++e) {
@@ -394,12 +503,98 @@ __global__ void __launch_bounds__(256, 5)
   }
 }
 
-// Blocks of the table form that the current device holds at once,
-// kTableBytes of dynamic shared memory each: asked once a device, the
-// kernel's limit of dynamic shared memory raised to kTableBytes before the
+// The walk over tiles blockIdx.x, + gridDim.x, ... < tiles, one barrier a
+// tile. With `vec` the input goes through a ring of kStages stages: the
+// copies of the kStages - 1 tiles after tile k are in flight while tile k
+// tones, each thread's run read from the stage. Without it each thread
+// loads its run element by element from device memory. Either way one
+// tone_run a phase plane gives the bytes, which go to one of two buffers
+// s; tile k's stores leave after the next barrier, beside tile k + 1's
+// tone.
+template <typename T, bool kLinear, Tone kTone>
+__global__ void __launch_bounds__(kSwapThreads, SwapTile<T>::kBlocks)
+    finish_swap_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scal,
+                       uint8_t* __restrict__ out, Finish f, int tiles) {
+  using Tl = SwapTile<T>;
+  constexpr int kPer = Tl::kPer;
+  extern __shared__ __align__(16) uint8_t swap_smem[];
+  T* const ring = reinterpret_cast<T*>(swap_smem);
+  uint16_t* const s0 = reinterpret_cast<uint16_t*>(
+      swap_smem + Tl::kStages * Tl::kStage * sizeof(T));
+  const int tid = threadIdx.x, wp = tid >> 5;
+  const int r = wp / kSwapRuns * 32 + (tid & 31);  // the thread's tile row
+  const int cr = wp % kSwapRuns * kV;              // its run's first column
+  const SwapWalk walk((f.wh + kSwapCols - 1) / kSwapCols,
+                      (f.hh + kSwapRows - 1) / kSwapRows, gridDim.x);
+  const int plane = f.hh * f.wh;
+  SwapAt a = walk.at(blockIdx.x);  // tile k
+  SwapAt ahead = a;                // tile k + kStages - 1
+#pragma unroll
+  for (int j = 0; j + 1 < Tl::kStages; ++j) {
+    if (j) walk.advance(ahead);
+    if (f.vec && ahead.t < tiles) {
+      stage_swap(x, f, ahead, ring + j * Tl::kStage);
+    }
+    cp_async_commit();
+  }
+  SwapAt prev = a;  // the tile whose bytes s holds
+  for (int k = 0;; ++k) {
+    cp_async_wait_group<Tl::kStages - 2>();  // this thread's tile k copies
+    __syncthreads();  // everyone's; tile k - 1 toned, its stage free
+    walk.advance(ahead);
+    if (f.vec && ahead.t < tiles) {
+      stage_swap(x, f, ahead,
+                 ring + (k + Tl::kStages - 1) % Tl::kStages * Tl::kStage);
+    }
+    cp_async_commit();
+    if (k > 0) store_swap<T>(s0 + ((k - 1) & 1) * Tl::kOut, prev, out, f);
+    if (a.t >= tiles) break;
+    const Scal sc = load_scal<kLinear>(scal, a.bc / 3);
+    const T* st = ring + k % Tl::kStages * Tl::kStage;
+    const T* xr = swap_tile_x(x, f, a) + r * f.wh + cr;  // element path
+    const int n = f.wh - a.tx * kSwapCols - cr;  // its run's columns
+    const bool in = r < f.hh - a.ty * kSwapRows && n > 0;
+    uint16_t* s = s0 + (k & 1) * Tl::kOut;
+#pragma unroll
+    for (int pc = 0; pc < 2; ++pc) {
+      unsigned q[2][kV];
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int pp = pr * 2 + pc;
+        RawRun<T> raw;
+        if (f.vec) {
+#pragma unroll
+          for (int hv = 0; hv < kV / kPer; ++hv) {
+            Run<T, kPer>::load_words(
+                st + Tl::chunk_at(pp * kSwapRows + r, cr / kPer + hv),
+                raw.w + 4 * hv);
+          }
+        } else {
+          // rows and columns past the frame tone zeros never stored
+          load_run<T>(xr + (pc * 6 + pr * 3) * plane, false, in ? n : 0,
+                      raw);
+        }
+        tone_run<T, kLinear, kTone>(raw, sc, f, q[pr]);
+      }
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        s[(2 * (cr + e) + pc) * kSwapRows + r] =
+            static_cast<uint16_t>(q[0][e] | q[1][e] << 8);
+      }
+    }
+    prev = a;
+    walk.advance(a);
+  }
+}
+
+// Blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory each) that the current device holds at once: asked once a device,
+// the kernel's limit of dynamic shared memory raised to `smem` before the
 // first ask.
 template <typename Kernel>
-cudaError_t table_blocks(Kernel kernel, PerDevice& cache, int& blocks) {
+cudaError_t smem_blocks(Kernel kernel, int threads, int smem,
+                        PerDevice& cache, int& blocks) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -407,10 +602,33 @@ cudaError_t table_blocks(Kernel kernel, PerDevice& cache, int& blocks) {
       cache.value[dev].load(std::memory_order_relaxed) == 0) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTableBytes);
+                             smem);
     if (e != cudaSuccess) return e;
   }
-  return resident_blocks(kernel, 256, kTableBytes, cache, blocks);
+  return resident_blocks(kernel, threads, smem, cache, blocks);
+}
+
+// The axis swap: one wave of finish_swap_kernel, at most a block a tile.
+template <typename T, bool kLinear, Tone kTone>
+cudaError_t launch_swap(const T* x, const float* scal, uint8_t* out, int n,
+                        const Finish& f, cudaStream_t stream) {
+  using Tl = SwapTile<T>;
+  static PerDevice resident;
+  int blocks = 0;
+  cudaError_t err = smem_blocks(finish_swap_kernel<T, kLinear, kTone>,
+                                kSwapThreads, Tl::kSmem, resident, blocks);
+  if (err != cudaSuccess) return err;
+  const long long tiles = 3LL * n * ((f.hh + kSwapRows - 1) / kSwapRows) *
+                          ((f.wh + kSwapCols - 1) / kSwapCols);
+  // a place of the walk runs up to kStages strides past the last tile
+  if (tiles + (Tl::kStages + 1LL) * blocks > 0x7FFFFFFFLL) {
+    return cudaErrorInvalidValue;
+  }
+  const int grid = tiles < blocks ? static_cast<int>(tiles) : blocks;
+  finish_swap_kernel<T, kLinear, kTone>
+      <<<grid, kSwapThreads, Tl::kSmem, stream>>>(x, scal, out, f,
+                                                   static_cast<int>(tiles));
+  return cudaGetLastError();
 }
 
 // The table form: the tables of the n images, then one wave of the rows
@@ -422,8 +640,8 @@ cudaError_t launch_table(const T* x, const float* scal, uint8_t* table,
                          cudaStream_t stream) {
   static PerDevice resident;
   int blocks = 0;
-  cudaError_t err = table_blocks(finish_rows_kernel<T, kLinear, kTone, true>,
-                                 resident, blocks);
+  cudaError_t err = smem_blocks(finish_rows_kernel<T, kLinear, kTone, true>,
+                                256, kTableBytes, resident, blocks);
   if (err != cudaSuccess) return err;
   const long long items = 3LL * f.hh * ((f.wh + kV - 1) / kV);
   long long per_image = blocks / n;
@@ -445,11 +663,7 @@ cudaError_t launch_mode(const T* x, const float* scal, uint8_t* table,
                         uint8_t* out, int n, const Finish& f, int swap,
                         cudaStream_t stream) {
   if (swap) {
-    const dim3 grid((f.wh + kSwapRuns * kV - 1) / (kSwapRuns * kV),
-                    (f.hh + kSwapRows - 1) / kSwapRows, n * 3);
-    finish_swap_kernel<T, kLinear, kTone>
-        <<<grid, dim3(kSwapRows, kSwapRuns), 0, stream>>>(x, scal, out, f);
-    return cudaGetLastError();
+    return launch_swap<T, kLinear, kTone>(x, scal, out, n, f, stream);
   }
   if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
     return launch_table<T, kLinear, kTone>(x, scal, table, out, n, f, stream);

@@ -40,6 +40,12 @@ tables live in a scratch kept per (device, stream) and grown only when the
 images grow in number (:func:`_tables`). Its plain twin is
 :func:`finish_planar_u8_table_plain`; a table launch also counts
 ``tone_forms["table"]``.
+
+Under a transform that swaps the axes K4 runs its axis-swap kernel, a
+persistent grid that walks tiles with the next tile's loads in flight
+(``csrc/finish.cu`` ``finish_swap_kernel``). While tracing is on each K4
+launch also counts the layout of its output, ``rows`` or ``swap``
+(``utils/profiling.py`` ``finish_layouts``).
 """
 
 from __future__ import annotations
@@ -300,6 +306,8 @@ def finish_planar_u8(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
                             hopper.ptr(_tables(x12.device, n)) if table
                             else None, kernels=2 if table else 1)
   count_tone(tone, table)
+  if profiling.ON:
+    profiling.count_finish_layout("swap" if swap else "rows")
   return out
 
 

@@ -35,11 +35,13 @@ tracing is on, a launch held up by a full launch queue included),
 form their wrapper picked from gamma: ``gamma1``, ``pow_rcp``,
 ``pow_div``; ``ops/hopper/finish.py`` ``tone_form``; and ``table`` once
 more for each K4 launch through its byte tables, ``table_form``),
-``builds`` per source (nvcc runs in this process) and ``load_ns`` per
-source. The load spans and their counters are kept whether tracing is on
-or off: they run once a source per process, never on the hot path.
-:func:`snapshot` returns the aggregates and counters, :func:`reset`
-clears them.
+``finish_layouts`` (K4's RGB launches while tracing is on, by the layout of
+their output: ``rows``, or ``swap`` for a launch of its axis-swap kernel
+under a transform that swaps the axes), ``builds`` per source (nvcc runs
+in this process) and ``load_ns`` per source. The load spans and their
+counters are kept whether tracing is on or off: they run once a source per
+process, never on the hot path. :func:`snapshot` returns the aggregates
+and counters, :func:`reset` clears them.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ ON = False
 _spans: dict[str, list] = {}     # name: [calls, total ns, self ns]
 _launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
 _tone_forms: dict[str, int] = {}  # tone form: kernel launches
+_finish_layouts: dict[str, int] = {}  # K4's output layout: launches
 _builds: dict[str, int] = {}     # source: nvcc runs
 _load_ns: dict[str, int] = {}    # source: ns of its library's first load
 _lock = threading.Lock()         # for the aggregates and counters above
@@ -245,6 +248,13 @@ def count_tone(form: str) -> None:
     _tone_forms[form] = _tone_forms.get(form, 0) + 1
 
 
+def count_finish_layout(layout: str) -> None:
+  """Count one K4 launch whose output takes ``layout`` (``rows`` or
+  ``swap``). The caller checks :data:`ON`."""
+  with _lock:
+    _finish_layouts[layout] = _finish_layouts.get(layout, 0) + 1
+
+
 def count_build(source: str) -> None:
   """Count one nvcc run on ``source``."""
   with _lock:
@@ -253,17 +263,20 @@ def count_build(source: str) -> None:
 
 def snapshot() -> dict:
   """The aggregates and counters: ``spans`` {name: {calls, ns, self_ns}},
-  ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches}, ``builds``
-  {source: nvcc runs} and ``load_ns`` {source: ns}."""
+  ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches},
+  ``finish_layouts`` {layout: launches}, ``builds`` {source: nvcc runs} and
+  ``load_ns`` {source: ns}."""
   with _lock:
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
                       for name, (c, ns, self_ns) in _spans.items()},
             "launch_ns": dict(_launch_ns), "tone_forms": dict(_tone_forms),
+            "finish_layouts": dict(_finish_layouts),
             "builds": dict(_builds), "load_ns": dict(_load_ns)}
 
 
 def reset() -> None:
   """Clear the aggregates and counters."""
   with _lock:
-    for d in (_spans, _launch_ns, _tone_forms, _builds, _load_ns):
+    for d in (_spans, _launch_ns, _tone_forms, _finish_layouts, _builds,
+              _load_ns):
       d.clear()

@@ -100,8 +100,8 @@ def test_off_by_default_and_records_nothing(monkeypatch):
   events = _profiled(lambda: [isp.process(_raws()) for _ in range(2)])
   assert events == [] and opened == [] and clock == []
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
-                                  "tone_forms": {}, "builds": {},
-                                  "load_ns": {}}
+                                  "tone_forms": {}, "finish_layouts": {},
+                                  "builds": {}, "load_ns": {}}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -338,8 +338,8 @@ def test_reset_clears_everything(stub_launch):
     profiling.count_tone("pow_rcp")
   profiling.reset()
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
-                                  "tone_forms": {}, "builds": {},
-                                  "load_ns": {}}
+                                  "tone_forms": {}, "finish_layouts": {},
+                                  "builds": {}, "load_ns": {}}
 
 
 @pytest.fixture
@@ -458,3 +458,42 @@ def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
   assert tables == [True, False, False, False, True] * 2
   forms = profiling.snapshot()["tone_forms"]
   assert forms == {"pow_rcp": 7, "gamma1": 1, "table": 2}
+
+
+@pytest.mark.parametrize("transform", list(ImageTransform),
+                         ids=[t.value for t in ImageTransform])
+def test_finish_layouts_count_each_swap_launch(kernel_route, monkeypatch,
+                                               transform):
+  """Each K4 RGB launch counts the layout of its output while tracing is
+  on: ``swap`` (its axis-swap kernel) under each transform that swaps the
+  axes, whatever the dtype and the tone form, ``rows`` under every other;
+  K4's I420 mode and P count no layout, and nothing counts while tracing
+  is off."""
+  from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
+  from taichi_image_tpu_torch.ops.hopper import finish
+  monkeypatch.setattr(finish, "_tables", lambda device, n: torch.zeros(
+      n * finish.TABLE_BYTES, dtype=torch.uint8))
+  swaps = []
+  for k in finish.KERNELS.values():
+    k._fn = lambda *args: swaps.append(args[9]) or 0
+  x12 = torch.rand(2, 12, 4, 8)
+  mx = torch.ones(2, 1, 1, 1)
+  lin = torch.tensor([0.0, 1.0])
+  img = torch.rand(2, 3, 8, 16)
+
+  def launch_all():
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+      finish.finish_planar_u8(x12.to(dtype), mx, 1.0, transform=transform)
+      finish.finish_planar_u8(x12.to(dtype), mx, 0.9, transform=transform)
+    finish.finish_planar_u8(x12, lin, 7.5, "linear", transform=transform)
+    finish.finish_yuv420(x12, mx, 0.9, transform=transform)
+    finish.finish_planar_tone(img, mx, 0.9, transform=transform)
+
+  launch_all()   # tracing off: launched, not counted
+  assert profiling.snapshot()["finish_layouts"] == {}
+  with profiling.tracing():
+    launch_all()
+  swap = _TRANSFORM_SFF[transform][0]
+  assert swaps == [int(swap)] * 14
+  assert profiling.snapshot()["finish_layouts"] == {
+      "swap" if swap else "rows": 7}
