@@ -375,8 +375,9 @@ def linear_apply(image: torch.Tensor, metrics: torch.Tensor,
 def decoded_width(fmt: str, w_raw: int) -> int:
   """Decoded pixel width of a raw plane whose last dim is ``w_raw``
   (bytes for the packed formats, elements otherwise)."""
-  return {"packed12": w_raw * 2 // 3, "packed16": w_raw // 2}.get(fmt,
-                                                                  w_raw)
+  if fmt == "packed12":
+    return w_raw * 2 // 3
+  return w_raw // 2 if fmt == "packed16" else w_raw
 
 
 # the unpacked formats and the CFA dtypes each takes

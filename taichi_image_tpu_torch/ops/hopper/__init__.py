@@ -56,7 +56,8 @@ from taichi_image_tpu_torch.utils import profiling
 __all__ = ["Kernel", "KERNELS", "DTYPE_SUFFIX", "register", "register_per_dtype",
            "nvcc_flags", "build_all", "launch_counts", "reset_launches",
            "use_kernel", "check_dtype", "check_tensor", "check_int32_extent",
-           "check_frame_size", "stream_of", "ptr"]
+           "check_frame_size", "enter_device", "leave_device", "stream_of",
+           "ptr"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -181,13 +182,16 @@ class Kernel:
     and the launchers size their grids from it (``tit::resident_blocks``).
     Count the ``kernels`` the call enqueues; raise on a CUDA error."""
     fn = self._launcher()
-    with torch.cuda.device(device):
+    prev = enter_device(device)
+    try:
       stream = stream_of(device)
       if profiling.ON:
         with profiling.launch(self.name):
           err = fn(*args, stream)
       else:
         err = fn(*args, stream)
+    finally:
+      leave_device(prev)
     if err != 0:
       raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t "
                          f"{err}")
@@ -307,10 +311,34 @@ def check_frame_size(hh: int, wh: int) -> None:
   check_int32_extent(f"a {hh}x{wh} half-res frame's 12 planes", 12 * hh * wh)
 
 
+# A launch's device switch and stream, as ``torch.cuda.device(device)``
+# and ``torch.cuda.current_stream(device).cuda_stream`` give them, without
+# their argument parsing and Stream objects: a few microseconds a launch
+# that the host pays on every kernel of a step.
+
+def _index(device: torch.device) -> int:
+  return torch.cuda.current_device() if device.index is None else device.index
+
+
+def enter_device(device: torch.device) -> int:
+  """Make the CUDA ``device`` current, as ``torch.cuda.device`` enters;
+  returns the device that was current, for :func:`leave_device`."""
+  return torch._C._cuda_exchangeDevice(_index(device))
+
+
+def leave_device(prev: int) -> None:
+  """Make ``prev`` (from :func:`enter_device`) current again, as
+  ``torch.cuda.device`` leaves."""
+  torch._C._cuda_maybeExchangeDevice(prev)
+
+
 def stream_of(device: torch.device) -> int:
   """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
-  return torch.cuda.current_stream(device).cuda_stream
+  return torch._C._cuda_getCurrentRawStream(_index(device))
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-  return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+  """``t``'s device address, for a launcher's ``c_void_p`` argument (the
+  launchers' ``argtypes`` convert it, so no ctypes object is made a
+  pointer)."""
+  return t.data_ptr()

@@ -51,6 +51,7 @@ launch also counts the layout of its output, ``rows`` or ``swap``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -128,8 +129,10 @@ def tone_form(gamma: float, mode: str) -> int:
   return 2
 
 
+@functools.lru_cache(maxsize=64)
 def tone_args(gamma: float, mode: str) -> tuple[int, int, float]:
-  """The launchers' (linear, tone, inv_gamma) for ``gamma`` and ``mode``."""
+  """The launchers' (linear, tone, inv_gamma) for ``gamma`` and ``mode``;
+  cached, as a step asks it every set."""
   inv_gamma = _inv_gamma(gamma)
   return (int(mode == "linear"), tone_form(gamma, mode),
           1.0 if inv_gamma is None else inv_gamma)

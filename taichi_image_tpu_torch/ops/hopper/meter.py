@@ -238,7 +238,7 @@ _SCRATCH: dict = {}
 
 
 def _scratch(device: torch.device) -> torch.Tensor:
-  key = (device, torch.cuda.current_stream(device).cuda_stream)
+  key = (device, hopper.stream_of(device))
   buf = _SCRATCH.get(key)
   if buf is None:
     buf = _SCRATCH[key] = torch.zeros(SCRATCH_BYTES, dtype=torch.uint8,

@@ -14,8 +14,10 @@ step makes no host-to-device copy after its first. :func:`plan` picks
 the kernel's path: a resize that halves both axes exactly (the resize to
 1920 from 3840) has the half-res grid for taps (``ResizeTaps.aligned``)
 and takes the aligned path where its rows are whole 16-byte runs; any
-other takes the direct one. A block's tile is ``TILE_H`` output rows by
-:func:`tile_w` columns, which the kernel is built with (``-D`` flags).
+other takes the direct one; each launch counts its path in the tracer's
+``resize_paths`` while tracing is on. A block's tile is ``TILE_H`` output
+rows by :func:`tile_w` columns, which the kernel is built with (``-D``
+flags).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from taichi_image_tpu_torch.ops import hopper
 from taichi_image_tpu_torch.ops.interpolate import _axis_samples
+from taichi_image_tpu_torch.utils import profiling
 
 __all__ = ["ResizeTaps", "band_taps", "plan", "resize_taps", "resize_x12",
            "resize_x12_plain", "tile_w"]
@@ -202,4 +205,6 @@ def _launch(x12: torch.Tensor, taps: ResizeTaps, path: str) -> torch.Tensor:
       hopper.ptr(taps.r_lo), hopper.ptr(taps.r_hi), hopper.ptr(taps.r_f),
       hopper.ptr(taps.c_lo), hopper.ptr(taps.c_hi), hopper.ptr(taps.c_f),
       int(path == "aligned"))
+  if profiling.ON:
+    profiling.count_resize_path(path)
   return out

@@ -141,7 +141,7 @@ def _norm_scale_hw(h, w, size, scale):
   target size; a scalar applies to both axes."""
   if scale is None:
     return (size[1] / h, size[0] / w)
-  if np.ndim(scale) == 0:
+  if isinstance(scale, (int, float)) or np.ndim(scale) == 0:
     return (float(scale), float(scale))
   return (float(scale[0]), float(scale[1]))
 

@@ -48,6 +48,9 @@ _names = {
     "float32": f32,
 }
 
+# the supported torch dtypes, which canonical_dtype returns as they are
+_TORCH = frozenset(_names.values())
+
 
 def canonical_dtype(dtype: DTypeLike) -> torch.dtype:
   """Normalize a dtype token (torch dtype, string, numpy dtype — JAX's
@@ -56,6 +59,8 @@ def canonical_dtype(dtype: DTypeLike) -> torch.dtype:
   Raises for dtypes outside {u8, u16, i16, f16, bf16, f32}.
   """
   if isinstance(dtype, torch.dtype):
+    if dtype in _TORCH:
+      return dtype
     name = str(dtype).removeprefix("torch.")
   elif isinstance(dtype, str):
     name = dtype

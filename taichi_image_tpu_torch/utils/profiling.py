@@ -37,7 +37,9 @@ form their wrapper picked from gamma: ``gamma1``, ``pow_rcp``,
 more for each K4 launch through its byte tables, ``table_form``),
 ``finish_layouts`` (K4's RGB launches while tracing is on, by the layout of
 their output: ``rows``, or ``swap`` for a launch of its axis-swap kernel
-under a transform that swaps the axes), ``builds`` per source (nvcc runs
+under a transform that swaps the axes), ``resize_paths`` (K12's launches
+while tracing is on, by the path :func:`ops.hopper.resize.plan` picked:
+``aligned`` or ``direct``), ``builds`` per source (nvcc runs
 in this process) and ``load_ns`` per source. The load spans and their
 counters are kept whether tracing is on or off: they run once a source per
 process, never on the hot path. :func:`snapshot` returns the aggregates
@@ -65,6 +67,7 @@ _spans: dict[str, list] = {}     # name: [calls, total ns, self ns]
 _launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
 _tone_forms: dict[str, int] = {}  # tone form: kernel launches
 _finish_layouts: dict[str, int] = {}  # K4's output layout: launches
+_resize_paths: dict[str, int] = {}    # K12's path: launches
 _builds: dict[str, int] = {}     # source: nvcc runs
 _load_ns: dict[str, int] = {}    # source: ns of its library's first load
 _lock = threading.Lock()         # for the aggregates and counters above
@@ -255,6 +258,13 @@ def count_finish_layout(layout: str) -> None:
     _finish_layouts[layout] = _finish_layouts.get(layout, 0) + 1
 
 
+def count_resize_path(path: str) -> None:
+  """Count one K12 launch on ``path`` (``aligned`` or ``direct``). The
+  caller checks :data:`ON`."""
+  with _lock:
+    _resize_paths[path] = _resize_paths.get(path, 0) + 1
+
+
 def count_build(source: str) -> None:
   """Count one nvcc run on ``source``."""
   with _lock:
@@ -264,19 +274,20 @@ def count_build(source: str) -> None:
 def snapshot() -> dict:
   """The aggregates and counters: ``spans`` {name: {calls, ns, self_ns}},
   ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches},
-  ``finish_layouts`` {layout: launches}, ``builds`` {source: nvcc runs} and
-  ``load_ns`` {source: ns}."""
+  ``finish_layouts`` {layout: launches}, ``resize_paths`` {path: launches},
+  ``builds`` {source: nvcc runs} and ``load_ns`` {source: ns}."""
   with _lock:
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
                       for name, (c, ns, self_ns) in _spans.items()},
             "launch_ns": dict(_launch_ns), "tone_forms": dict(_tone_forms),
             "finish_layouts": dict(_finish_layouts),
+            "resize_paths": dict(_resize_paths),
             "builds": dict(_builds), "load_ns": dict(_load_ns)}
 
 
 def reset() -> None:
   """Clear the aggregates and counters."""
   with _lock:
-    for d in (_spans, _launch_ns, _tone_forms, _finish_layouts, _builds,
-              _load_ns):
+    for d in (_spans, _launch_ns, _tone_forms, _finish_layouts,
+              _resize_paths, _builds, _load_ns):
       d.clear()

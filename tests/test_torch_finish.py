@@ -9,7 +9,6 @@ crosses a u8 truncation boundary the outputs differ by one count
 <0.01% of pixels. On the card the kernel and its twin use the same
 CUDA log2f/exp2f and are held bitwise at every gamma."""
 
-import contextlib
 from fractions import Fraction
 
 import numpy as np
@@ -304,8 +303,8 @@ def test_wrapper_takes_the_table_form(case, monkeypatch):
   assert th_fin.table_form(dtype, gamma, mode, t) is want
   # the kernel route on CPU tensors: no device to enter, stream 0
   monkeypatch.setattr(hopper, "use_kernel", lambda backend, x: True)
-  monkeypatch.setattr(torch.cuda, "device",
-                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(hopper, "enter_device", lambda device: None)
+  monkeypatch.setattr(hopper, "leave_device", lambda prev: None)
   monkeypatch.setattr(hopper, "stream_of", lambda device: 0)
   sizes, seen = [], []
   monkeypatch.setattr(th_fin, "_tables", lambda device, n: sizes.append(n)

@@ -258,7 +258,7 @@ class _Recorder:
 
 
 def _ptr(v):
-  return None if v is None else v.value
+  return None if v is None else int(v)
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["no group", "group"])
@@ -280,7 +280,7 @@ def test_meter_launches(monkeypatch, grouped):
                     if grouped else [th_meter._FUSED])
   p = th_meter.plan((2, 3, 10, 7), torch.float16)
   for _, _, a in launches:
-    assert a[0].value == base.data_ptr()
+    assert a[0] == base.data_ptr()
     # the launch block: the shape, the strides and the plan
     block = np.ctypeslib.as_array(
         ctypes.cast(a[1], ctypes.POINTER(ctypes.c_int64)), (11,))
@@ -536,7 +536,7 @@ def test_vectors_launch(monkeypatch):
   scal, lin = th_meter.vectors(m, INTENSITY, LIGHT_ADAPT, 0.0)
   assert scal.shape == (6,) and lin.shape == (2,)
   (kind, name, args), = rec.calls
-  assert name == "vectors" and args[0].value == m.data_ptr()
+  assert name == "vectors" and args[0] == m.data_ptr()
   assert args[1:5] == (pytest.approx(INTENSITY), pytest.approx(LIGHT_ADAPT),
                        0.0, 0)
-  assert args[5].value == scal.data_ptr() == lin.data_ptr() - 40
+  assert args[5] == scal.data_ptr() == lin.data_ptr() - 40

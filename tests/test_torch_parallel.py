@@ -324,30 +324,29 @@ def test_no_device_index_is_refused(monkeypatch):
 def test_launch_runs_under_the_tensors_device(monkeypatch):
   entered, calls = [], []
 
-  class _Device:
-    def __init__(self, device):
-      self.device = device
-
-    def __enter__(self):
-      entered.append(self.device)
-
-    def __exit__(self, *exc):
-      entered.append("exit")
+  def enter(device):
+    entered.append(device)
+    return "the device before"
 
   def launcher(*args):
     calls.append((args, list(entered)))
     return 0
 
-  monkeypatch.setattr(torch.cuda, "device", _Device)
+  monkeypatch.setattr(hopper, "enter_device", enter)
+  monkeypatch.setattr(hopper, "leave_device",
+                      lambda prev: entered.append(("exit", prev)))
   monkeypatch.setattr(hopper, "stream_of", lambda device: 1000 + device.index)
   k = hopper.Kernel("probe", "decode.cu", "tit_probe", [], "here:1")
   k._fn = launcher
   dev = torch.device("cuda", 2)
   k.launch(dev, 7, 8)
-  # the launcher ran inside the device's context, with its stream last
+  # the launcher ran with the device current, with its stream last, and
+  # the device that was current came back after it
   assert calls == [((7, 8, 1002), [dev])]
-  assert entered == [dev, "exit"] and k.launches == 1
+  assert entered == [dev, ("exit", "the device before")]
+  assert k.launches == 1
   k._fn = lambda *args: 700
   with pytest.raises(RuntimeError, match="cudaError_t 700"):
     k.launch(dev, 7, 8)
+  assert entered[-1] == ("exit", "the device before")
   assert k.launches == 1

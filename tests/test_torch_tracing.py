@@ -6,7 +6,6 @@ what children cover, the spans in ``trace(log_dir)``'s Chrome file, and the
 launch, tone-form, build and load counters. The kernels' launchers and nvcc are
 stubbed, as in test_torch_meter.py."""
 
-import contextlib
 import itertools
 import json
 import os
@@ -101,7 +100,8 @@ def test_off_by_default_and_records_nothing(monkeypatch):
   assert events == [] and opened == [] and clock == []
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "resize_paths": {}, "builds": {},
+                                  "load_ns": {}}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -246,8 +246,8 @@ def test_no_span_name_is_one_of_the_benchmarks():
 @pytest.fixture
 def stub_launch(monkeypatch):
   """Kernel.launch on the CPU: no device to enter, stream 0."""
-  monkeypatch.setattr(torch.cuda, "device",
-                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(hopper, "enter_device", lambda device: None)
+  monkeypatch.setattr(hopper, "leave_device", lambda prev: None)
   monkeypatch.setattr(hopper, "stream_of", lambda device: 0)
 
 
@@ -339,7 +339,8 @@ def test_reset_clears_everything(stub_launch):
   profiling.reset()
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "resize_paths": {}, "builds": {},
+                                  "load_ns": {}}
 
 
 @pytest.fixture
@@ -497,3 +498,65 @@ def test_finish_layouts_count_each_swap_launch(kernel_route, monkeypatch,
   assert swaps == [int(swap)] * 14
   assert profiling.snapshot()["finish_layouts"] == {
       "swap" if swap else "rows": 7}
+
+
+# K12's half-res shapes: rows of whole 16-byte runs in every dtype, and
+# rows that are not (150 is 4 mod 8: f32 rows are whole runs, 16-bit not)
+RESIZE_PATH_CASES = {
+    "half, whole runs": ((48, 256), 0.5, torch.float16, "aligned"),
+    "half, f32": ((48, 256), 0.5, torch.float32, "aligned"),
+    "x0.37": ((48, 256), 0.37, torch.float16, "direct"),
+    "half, rows not whole runs": ((19, 150), 0.5, torch.bfloat16, "direct"),
+    "x1.5": ((19, 150), 1.5, torch.float32, "direct"),
+}
+
+
+def _resize_taps(hh, wh, scale):
+  from taichi_image_tpu_torch.models import camera_isp as tci
+  from taichi_image_tpu_torch.ops.hopper import resize
+  size = (max(1, round(2 * wh * scale)), max(1, round(2 * hh * scale)))
+  return resize.resize_taps(hh, wh, size,
+                            tci._plan_scales(2 * hh, 2 * wh, size, scale),
+                            torch.device("cpu"))
+
+
+@pytest.mark.parametrize("case", RESIZE_PATH_CASES)
+def test_resize_paths_count_each_k12_launch(kernel_route, case):
+  """Each K12 launch counts the path its wrapper planned while tracing is
+  on: ``aligned`` where a resize halves both axes and the rows are whole
+  16-byte runs, ``direct`` elsewhere; nothing while tracing is off, and
+  the reset clears the counter."""
+  from taichi_image_tpu_torch.ops.hopper import resize
+  (hh, wh), scale, dtype, path = RESIZE_PATH_CASES[case]
+  x12 = torch.zeros(2, 12, hh, wh, dtype=dtype)
+  taps = _resize_taps(hh, wh, scale)
+  assert resize.plan(x12, taps) == path
+  resize.resize_x12(x12, taps)   # tracing off: launched, not counted
+  assert profiling.snapshot()["resize_paths"] == {}
+  with profiling.tracing():
+    resize.resize_x12(x12, taps)
+    resize.resize_x12(x12, taps)
+  assert kernel_route == [resize.KERNELS[dtype].name] * 3
+  assert profiling.snapshot()["resize_paths"] == {path: 2}
+  profiling.reset()
+  assert profiling.snapshot()["resize_paths"] == {}
+
+
+@pytest.mark.parametrize("cls", [ttit.CameraBF16, ttit.Camera16,
+                                 ttit.Camera32], ids=lambda c: c.__name__)
+def test_resize_paths_count_one_aligned_launch_a_set(kernel_route, cls):
+  """``process`` at a ``resize_width`` of half the frame's width takes
+  K12's aligned path once a set; the other routes launch no K12."""
+  w = 32   # half-res rows of 16 columns: whole 16-byte runs in every dtype
+  rng = np.random.default_rng(0)
+  raws = rng.integers(0, 256, (2, H, w * 3 // 2), dtype=np.uint8)
+  plain = cls(ttit.BayerPattern.RGGB, device="cpu")
+  isp = cls(ttit.BayerPattern.RGGB, device="cpu", resize_width=w // 2)
+  with profiling.tracing():
+    plain.process(raws)
+    assert profiling.snapshot()["resize_paths"] == {}
+    for _ in range(3):
+      isp.process(raws)
+  snap = profiling.snapshot()
+  assert snap["spans"]["isp.process"]["calls"] == 4
+  assert snap["resize_paths"] == {"aligned": 3}
