@@ -393,17 +393,20 @@ _I420_ROWS = re.compile(r"finish_yuv420_kernelI(13__nv_bfloat16|6__half|f)"
 _I420_TILE = re.compile(r"i420_tile_kernelI(13__nv_bfloat16|6__half|f)"
                         r"L\w*?I420E(\d)ELb[01]E(?:L\w*?ToneE\dE)?"
                         r"((?:Lb[01]E){3})")
-# K4's kernels in finish.cu: the kernel, T, the linear tonemap, the tone
-# form (csrc/finish.cuh Tone; none where gamma was a run-time branch) and
-# the rows kernel's table form (none before it had one)
-_TONE_ARGS = re.compile(r"(finish_rows_kernel|finish_swap_kernel)"
+# K4's kernels in finish.cu and P's rows kernel: the kernel, T, the linear
+# tonemap, the tone form (csrc/finish.cuh Tone; none where gamma was a
+# run-time branch) and the rows kernel's table form (none before it had
+# one)
+_TONE_ARGS = re.compile(r"(finish_rows_kernel|finish_swap_kernel|"
+                        r"planar_tone_rows_kernel)"
                         r"I(13__nv_bfloat16|6__half|f)Lb([01])E"
                         r"(?:L\w*?ToneE(\d)E)?(?:Lb([01])E)?")
-# the values each of them tones in its code: a thread's 32, once on the
-# vector path and once on the element path
+# the values each of K4's kernels tones in its code: a thread's 32, once on
+# the vector path and once on the element path
 _TONE_VALUES = 64
-# the values of one pass of the table form's loop: an item of 4 runs
-_TABLE_VALUES = 32
+# the values of one pass of a table form's loop: K4's item of 4 runs, P's
+# of 2 (csrc/finish.cu kPlanarRuns)
+_TABLE_VALUES = {"finish_rows_kernel": 32, "planar_tone_rows_kernel": 16}
 _TONE_FORMS = ("gamma1", "pow_rcp", "pow_div")
 # the SASS opcodes counted a toned value (MUFU: LG2, EX2 and RCP on the
 # quarter-rate pipe; F2I the u8 convert; FCHK the division's range test)
@@ -471,10 +474,11 @@ def tone_sass(path):
   finish.cu: static counts over the values toned in the kernel's code,
   every instruction of the kernel (its index arithmetic and stores
   included); the form is "runtime" where gamma was a branch inside the
-  kernel, which then holds both forms' code. The rows kernel's table form
-  ("... table") counts its loop instead, an item of 32 values a pass (the
-  next item's loads, the gathers, both store paths): "loop" and "LDS"
-  a value (whole kernel), with "total" the loop's."""
+  kernel, which then holds both forms' code. The rows kernels' table forms
+  ("... table": K4's and P's) count their loop instead, an item of
+  _TABLE_VALUES values a pass (the next item's loads, the gathers, both
+  store paths): "loop" and "LDS" a value (whole kernel), with "total" the
+  loop's. P's direct form is not counted."""
   rows, loops = {}, None
   for mangled, ops in sass_opcodes(path).items():
     m = _TONE_ARGS.search(mangled)
@@ -485,12 +489,13 @@ def tone_sass(path):
     name = f"{kernel} {_T_NAMES[t]} linear={linear} {form}"
     if table == "1":
       loops = loops or sass_counts(path)
-      loop = loops[mangled][1]
+      loop, values = loops[mangled][1], _TABLE_VALUES[kernel]
       rows[f"{name} table"] = {
-          **{op: ops.get(op, 0) / _TABLE_VALUES for op in (*_TONE_OPS,
-                                                           "LDS")},
-          "loop": loop, "total": loop / _TABLE_VALUES,
+          **{op: ops.get(op, 0) / values for op in (*_TONE_OPS, "LDS")},
+          "loop": loop, "total": loop / values,
           "registers": loops[mangled][2]}
+      continue
+    if kernel == "planar_tone_rows_kernel":
       continue
     row = {op: ops.get(op, 0) / _TONE_VALUES for op in _TONE_OPS}
     row["total"] = sum(ops.values()) / _TONE_VALUES
@@ -1098,24 +1103,45 @@ def _check_tone_bits(note):
     del vals, x12, planar
 
 
-def finish_launch(x12, scal, gamma, mode, transform, table):
-  """K4 through its C launcher, given the wrapper's table scratch with
+def _table_launch(kernels, x, scal, gamma, mode, transform, table, shape):
+  """K4 or P (``kernels``, its kernels by dtype) through its C launcher
+  into a new u8 ``shape``, given the wrapper's table scratch with
   ``table`` and none without it, whatever the wrapper would pick."""
   import torch
   from taichi_image_tpu_torch.ops import hopper
   from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
   from taichi_image_tpu_torch.ops.hopper import finish
-  n, _, hh, wh = x12.shape
+  n, _, hh, wh = x.shape
   swap, fy, fx = _TRANSFORM_SFF[transform]
-  dev = x12.device
-  out = torch.empty((n, 3, 2 * hh, 2 * wh), dtype=torch.uint8, device=dev)
+  dev = x.device
+  out = torch.empty(shape, dtype=torch.uint8, device=dev)
   linear, tone, inv_gamma = finish.tone_args(gamma, mode)
-  finish.KERNELS[x12.dtype].launch(
-      dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(out), n, hh, wh,
+  kernels[x.dtype].launch(
+      dev, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(out), n, hh, wh,
       linear, tone, inv_gamma, int(swap), int(fy), int(fx),
       hopper.ptr(finish._tables(dev, n)) if table else None,
       kernels=2 if table else 1)
   return out
+
+
+def finish_launch(x12, scal, gamma, mode, transform, table):
+  """K4 through its C launcher (no axis swap), with or without the table
+  scratch (:func:`_table_launch`)."""
+  from taichi_image_tpu_torch.ops.hopper import finish
+  n, _, hh, wh = x12.shape
+  return _table_launch(finish.KERNELS, x12, scal, gamma, mode, transform,
+                       table, (n, 3, 2 * hh, 2 * wh))
+
+
+def _refused(what, fn):
+  """Fail unless ``fn`` raises the launcher's cudaErrorInvalidValue."""
+  try:
+    fn()
+  except RuntimeError as e:
+    if "cudaError_t 1" not in str(e):  # cudaErrorInvalidValue
+      raise
+  else:
+    raise AssertionError(f"{what}: the launcher took it")
 
 
 TABLE_GAMMAS = (0.6, 0.9, 2.2, 7.5)
@@ -1146,14 +1172,9 @@ def _check_table_form(note):
                      device=dev).view(6, 1, 1, 1)
   for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
     every = bits.view(dtype).view(1, 12, 16, 352).repeat(3, 1, 1, 1)
-    try:
-      finish_launch(every, mx3, 0.6, "reinhard", ImageTransform.none, False)
-    except RuntimeError as e:
-      if "cudaError_t 1" not in str(e):  # cudaErrorInvalidValue
-        raise
-    else:
-      raise AssertionError(f"finish_{sfx}: the launcher took gamma 0.6 "
-                           "without a table")
+    _refused(f"finish_{sfx} gamma 0.6 without a table",
+             lambda: finish_launch(every, mx3, 0.6, "reinhard",
+                                   ImageTransform.none, False))
     for gamma, t in itertools.product(TABLE_GAMMAS, flips):
       cases = [("reinhard", every, mx3)]
       cases += [("linear", every[i:i + 1],
@@ -1191,6 +1212,145 @@ def _check_table_form(note):
         f"and {TABLE_SMALL}, gamma "
         f"{', '.join(map(str, TABLE_GAMMAS))}, Reinhard and linear, rows "
         "and flip_horiz")
+
+
+# (n, 3, h, w) frames of P's table form and whether the image starts one
+# element past a 16-byte boundary: the resized cell's 6 x 1080p and a
+# smaller frame of whole 16-byte vectors (16-byte stores); rows of 8-byte
+# vectors whose last item is one run (8-byte stores); one row at the size
+# floor (the tone on any layout's view), an odd width and an unaligned
+# image (the element path)
+PLANAR_TABLE_SHAPES = (((N_CAM, 3, 1080, 1920), False),
+                       ((1, 3, 64, 1024), False), ((2, 3, 40, 552), False),
+                       ((1, 3, 1, 21846), False), ((2, 3, 13, 1681), False),
+                       ((1, 3, 96, 768), True))
+
+
+def planar_tone_launch(x, scal, gamma, mode, transform, table):
+  """P through its C launcher (no axis swap), with or without the table
+  scratch (:func:`_table_launch`)."""
+  from taichi_image_tpu_torch.ops.hopper import finish
+  return _table_launch(finish.PLANAR_TONE_KERNELS, x, scal, gamma, mode,
+                       transform, table, x.shape)
+
+
+def _resized_cell_p(steps=3):
+  """P's inputs (p, max) in the resized cell's configuration
+  (rig6x4k_f16_w1920: Camera16, 6 x 4K packed12 resized to 1920 wide,
+  gamma 0.6, moving_alpha 0.1, stride 8) over ``steps`` chained steps of
+  random raws: the p of the cell's steps."""
+  import torch
+  import taichi_image_tpu_torch as ttit
+  from taichi_image_tpu_torch import BayerPattern
+  from taichi_image_tpu_torch.ops.hopper import finish
+  seen = []
+  direct = finish.finish_planar_tone
+
+  def record(x, scal, *args, **kwargs):
+    seen.append((x.clone(), scal.clone()))
+    return direct(x, scal, *args, **kwargs)
+
+  gen = torch.Generator(device="cuda").manual_seed(28)
+  isp = ttit.Camera16(BayerPattern.RGGB, moving_alpha=0.1, resize_width=1920,
+                      device="cuda")
+  finish.finish_planar_tone = record
+  try:
+    for _ in range(steps):
+      isp.process(torch.randint(0, 256, (N_CAM, H, WB), generator=gen,
+                                device="cuda", dtype=torch.uint8),
+                  gamma=0.6)
+  finally:
+    finish.finish_planar_tone = direct
+  torch.cuda.synchronize()
+  return seen
+
+
+def _check_planar_table_form(note):
+  """P's table form (bf16 and f16): its launcher refuses a null table
+  where the form holds and a table under the size floor; bitwise its
+  direct twin (finish_planar_tone_plain) and its table twin on every bit
+  pattern, under each of TONE_MAXIMA and linear with [0, 1 / m], at each
+  gamma of TABLE_GAMMAS, with no transform, flip_horiz, flip_vert and
+  rotate_180; on random bits on each frame of PLANAR_TABLE_SHAPES at the
+  same gammas, Reinhard (six maxima) and linear, against its table twin;
+  and on the resized cell's p at 6 x 1080p against its direct twin."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import finish
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(28)
+  rows = (ImageTransform.none, ImageTransform.flip_horiz,
+          ImageTransform.flip_vert, ImageTransform.rotate_180)
+  u = torch.arange(3 * 64 * 352, device=dev) % finish.TABLE_BYTES
+  bits = (u - (u >= 0x8000) * 0x10000).to(torch.int16)
+  mx3 = torch.tensor(TONE_MAXIMA, device=dev).view(3, 1, 1, 1)
+  mx6 = torch.tensor((1e-6, 0.37, 0.999, 1.13, 3.0, 97.5),
+                     device=dev).view(6, 1, 1, 1)
+  lin = torch.tensor([-0.05, 1 / 1.1], device=dev)
+  checks = 0
+  for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+    k = finish.PLANAR_TONE_KERNELS[dtype]
+    every = bits.view(dtype).view(1, 3, 64, 352).repeat(3, 1, 1, 1)
+    _refused(f"finish_planar_tone_{sfx} gamma 0.6 without a table",
+             lambda: planar_tone_launch(every, mx3, 0.6, "reinhard",
+                                        ImageTransform.none, False))
+    under = every[:, :, :58].contiguous()  # 61,248 values an image
+    _refused(f"finish_planar_tone_{sfx} a table under the size floor",
+             lambda: planar_tone_launch(under, mx3, 0.6, "reinhard",
+                                        ImageTransform.none, True))
+    for gamma, t in itertools.product(TABLE_GAMMAS, rows):
+      cases = [("reinhard", every, mx3)]
+      cases += [("linear", every[i:i + 1],
+                 torch.tensor([0.0, 1.0 / m], device=dev))
+                for i, m in enumerate(TONE_MAXIMA)]
+      for mode, x, sc in cases:
+        what = (f"P's table form {sfx} every pattern {mode} gamma={gamma} "
+                f"{t.value}")
+        before = k.launches
+        ko = finish.finish_planar_tone(x, sc, gamma, mode, t,
+                                       backend="kernel")
+        if k.launches - before != 2:
+          raise AssertionError(f"{what}: not the table form")
+        po = finish.finish_planar_tone_plain(x, sc, gamma, mode, t)
+        _check_bitwise(what, ko, po)
+        _check_bitwise(f"{what} (table twin)", ko,
+                       finish.finish_planar_tone_table_plain(x, sc, gamma,
+                                                             mode, t))
+        note(f"finish_planar_tone_{sfx}", ko, po)
+        checks += 1
+    for shape, offset in PLANAR_TABLE_SHAPES:
+      v = torch.randint(-32768, 32768, (math.prod(shape) + offset,),
+                        generator=gen, device=dev, dtype=torch.int32)
+      x = v.to(torch.int16).view(dtype)[offset:].view(shape)
+      for gamma, mode, t in itertools.product(
+          TABLE_GAMMAS, ("reinhard", "linear"),
+          (ImageTransform.none, ImageTransform.flip_horiz)):
+        sc = mx6[:shape[0]] if mode == "reinhard" else lin
+        _check_bitwise(f"P's table form {sfx} {tuple(shape)} "
+                       f"offset={offset} {mode} gamma={gamma} {t.value} vs "
+                       "the table twin",
+                       planar_tone_launch(x, sc, gamma, mode, t, True),
+                       finish.finish_planar_tone_table_plain(x, sc, gamma,
+                                                             mode, t))
+        checks += 1
+      del x, v
+  for i, (p, mx) in enumerate(_resized_cell_p()):
+    for t in rows:
+      _check_bitwise(f"P's table form on the resized cell's p, step {i}, "
+                     f"{t.value}",
+                     planar_tone_launch(p, mx, 0.6, "reinhard", t, True),
+                     finish.finish_planar_tone_plain(p, mx, 0.6, "reinhard",
+                                                     t))
+      checks += 1
+  frames = ", ".join(str(sh) + (" unaligned" if o else "")
+                     for sh, o in PLANAR_TABLE_SHAPES)
+  log(f"kernels: finish_planar_tone's table form, refused without its "
+      f"table and under the size floor, agrees with its twins in {checks} "
+      f"cases: every bit pattern (maxima "
+      f"{', '.join(map(str, TONE_MAXIMA))} and linear; rows, flips, "
+      f"rotate_180), random bits on {frames} (rows and flip_horiz), gamma "
+      f"{', '.join(map(str, TABLE_GAMMAS))}, Reinhard and linear; the "
+      f"resized cell's p at 6 x 1080p over 3 chained steps at gamma 0.6")
 
 
 SWAP_GAMMAS = (1.0, 0.6, 0.9, 7.5)
@@ -1312,6 +1472,7 @@ def phase_kernels(results):
 
   _check_tone_bits(note)
   _check_table_form(note)
+  _check_planar_table_form(note)
   _check_swap_form(note)
   for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
     raws = torch.randint(0, 256, shape, generator=gen, device=dev,
@@ -3700,7 +3861,7 @@ def phase_table_timing(results):
   and f16: the device time of its table build and of its rows kernel from
   profiler traces (after the apps phase, as :func:`phase_meter_timing`'s),
   beside the kernels phase's events; then the same at two small frames of
-  TABLE_SMALL."""
+  TABLE_SMALL; then P's table form at 6 x 1080p, gamma 0.6."""
   import torch
   from taichi_image_tpu_torch.models import camera_isp as ci
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
@@ -3742,6 +3903,27 @@ def phase_table_timing(results):
       log(f"  finish_{sfx} {tuple(shape)} gamma 0.6, device time "
           f"(profiler): table build {build:.4f} ms + table form "
           f"{sum(table.values()) - build:.4f} ms")
+  # P's table form at gamma 0.6 on the resized cell's p (f16) and on random
+  # p in [0, 1) at the same 6 x 1080p (bf16)
+  cell = _resized_cell_p(1)[0]
+  rand = (torch.rand(cell[0].shape, generator=gen, device="cuda")
+          .to(torch.bfloat16), cell[1])
+  for sfx, (p, mx) in (("f16", cell), ("bf16", rand)):
+    table = _kernel_ms(lambda: finish.finish_planar_tone(p, mx, 0.6))
+    r = results[f"finish_planar_tone_{sfx}"]
+    t = r["table_form"] = dict(
+        gamma=0.6, p="the resized cell's" if sfx == "f16" else "random",
+        build_ms=sum(v for k, v in table.items() if "tone_table_kernel" in k),
+        rows_ms=sum(v for k, v in table.items()
+                    if "planar_tone_rows_kernel" in k))
+    if not t["rows_ms"]:
+      log(f"  finish_planar_tone_{sfx} gamma 0.6: device time not measured "
+          f"(the trace holds {table})")
+      continue
+    log(f"  finish_planar_tone_{sfx} {tuple(p.shape)} gamma 0.6 on "
+        f"{t['p']} p, device time (profiler): table build "
+        f"{t['build_ms']:.4f} ms + table form {t['rows_ms']:.4f} ms "
+        f"({r['bound_ms'] / t['rows_ms']:.1%} of its bound)")
 
 
 def phase_route_timing(card):

@@ -631,19 +631,24 @@ cudaError_t launch_swap(const T* x, const float* scal, uint8_t* out, int n,
   return cudaGetLastError();
 }
 
-// The table form: the tables of the n images, then one wave of the rows
-// kernel's table form shared out evenly over the images (no more blocks
-// an image than 256-item passes of it).
+// A rows kernel's table form (K4's, P's): block (256) of grid (blocks an
+// image, n).
+template <typename T>
+using TableKernel = void (*)(const T*, const float*, const uint8_t*,
+                             uint8_t*, Finish);
+
+// The table form: the tables of the n images, then one wave of `kernel`
+// (its blocks an SM asked once a device, into `resident`) shared out evenly
+// over the images, no more blocks an image than 256-item passes of its
+// `items`.
 template <typename T, bool kLinear, Tone kTone>
-cudaError_t launch_table(const T* x, const float* scal, uint8_t* table,
-                         uint8_t* out, int n, const Finish& f,
-                         cudaStream_t stream) {
-  static PerDevice resident;
+cudaError_t launch_table(TableKernel<T> kernel, PerDevice& resident,
+                         long long items, const T* x, const float* scal,
+                         uint8_t* table, uint8_t* out, int n,
+                         const Finish& f, cudaStream_t stream) {
   int blocks = 0;
-  cudaError_t err = smem_blocks(finish_rows_kernel<T, kLinear, kTone, true>,
-                                256, kTableBytes, resident, blocks);
+  cudaError_t err = smem_blocks(kernel, 256, kTableBytes, resident, blocks);
   if (err != cudaSuccess) return err;
-  const long long items = 3LL * f.hh * ((f.wh + kV - 1) / kV);
   long long per_image = blocks / n;
   if (per_image > (items + 255) / 256) per_image = (items + 255) / 256;
   if (per_image < 1) per_image = 1;
@@ -652,9 +657,8 @@ cudaError_t launch_table(const T* x, const float* scal, uint8_t* table,
           scal, table, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  finish_rows_kernel<T, kLinear, kTone, true>
-      <<<dim3(static_cast<unsigned>(per_image), n), 256, kTableBytes,
-         stream>>>(x, scal, table, out, f);
+  kernel<<<dim3(static_cast<unsigned>(per_image), n), 256, kTableBytes,
+           stream>>>(x, scal, table, out, f);
   return cudaGetLastError();
 }
 
@@ -666,7 +670,11 @@ cudaError_t launch_mode(const T* x, const float* scal, uint8_t* table,
     return launch_swap<T, kLinear, kTone>(x, scal, out, n, f, stream);
   }
   if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
-    return launch_table<T, kLinear, kTone>(x, scal, table, out, n, f, stream);
+    static PerDevice resident;
+    return launch_table<T, kLinear, kTone>(
+        finish_rows_kernel<T, kLinear, kTone, true>, resident,
+        3LL * f.hh * ((f.wh + kV - 1) / kV), x, scal, table, out, n, f,
+        stream);
   } else {
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
@@ -1002,6 +1010,25 @@ int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
 // runs (or, under a swap, an output row that is not whole 8-byte stores),
 // or an unaligned input, takes the element and byte path of the same
 // kernels. f.hh and f.wh hold the planar h and w here.
+//
+// At gamma != 1 the pow bounds the direct form by instruction issue, as in
+// K4 (48% of its bound at gamma 0.6 on 6 x 1080p f16, PERF.md section 6).
+// P's table form (a 16-bit T at a pow form without an axis swap, each
+// image at least kTableBytes values: ops/hopper/finish.py
+// planar_table_form; the launcher refuses a table anywhere else and a
+// null one there) is K4's: the same launcher call first enqueues
+// tone_table_kernel, each image's 65,536 bit patterns toned once into its
+// table, then the rows kernel's table form, a persistent grid of one wave
+// of kPlanarTableBlocks blocks an SM shared out evenly over the images,
+// gives each value its byte by one shared-memory gather at its 16 bits. A
+// block copies its image's table into shared memory (cp.async) while its
+// first item's loads are in flight, then walks its share of the image's
+// items, kPlanarRuns runs of one row of one channel each, with the next
+// item's loads in flight. It stores an item's bytes as one 16-byte store
+// where the output rows are whole 16-byte vectors (f.vec == 2), else as the
+// direct form stores its runs. The size floor keeps a launch of many small
+// images (the tone on any layout, up to 21,845 images) on the direct form,
+// where the tables would tone more patterns than the images hold values.
 
 constexpr int kTile = 64;  // the swapped tile's rows and columns
 
@@ -1014,23 +1041,13 @@ __device__ __forceinline__ uint2 reverse8(uint2 v) {
   return make_uint2(__byte_perm(v.y, 0, 0x0123), __byte_perm(v.x, 0, 0x0123));
 }
 
-// No axis swap: block (16, 16) over (runs, rows), grid.z = n * 3.
-template <typename T, bool kLinear, Tone kTone>
-__global__ void __launch_bounds__(256)
-    planar_tone_rows_kernel(const T* __restrict__ x,
-                            const float* __restrict__ scal,
-                            uint8_t* __restrict__ out, Finish f) {
-  const int bc = blockIdx.z, b = bc / 3;
-  const int h = f.hh, w = f.wh;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kRun;
-  if (y >= h || x0 >= w) return;
-  const size_t plane = static_cast<size_t>(bc) * h * w;
-  RawRun<T> r;
-  load_run<T>(x + plane + y * w + x0, f.vec, w - x0, r);
-  unsigned q[kRun];
-  tone_run<T, kLinear, kTone>(r, load_scal<kLinear>(scal, b), f, q);
-  uint8_t* row = out + plane + (f.flip_y ? h - 1 - y : y) * w;
+// The bytes q of the kRun values from x0 of an input row in its output
+// row `row` (no axis swap): one 8-byte store with `vec`, flip_x reversing
+// the bytes, else byte by byte up to the row's end.
+__device__ __forceinline__ void store_planar_run(const unsigned* q,
+                                                 uint8_t* row, int x0,
+                                                 const Finish& f) {
+  const int w = f.wh;
   if (f.vec) {
     const uint2 v = pack8(q);
     if (f.flip_x) {
@@ -1045,6 +1062,138 @@ __global__ void __launch_bounds__(256)
       if (xx >= w) break;
       row[f.flip_x ? w - 1 - xx : xx] = static_cast<uint8_t>(q[k]);
     }
+  }
+}
+
+// The table form's blocks an SM and runs an item: the fastest of an A/B on
+// an H100 at the resized cell's 6 x 1080p f16 (2 or 3 blocks, 1, 2 or 4
+// runs; PERF.md section 6).
+constexpr int kPlanarTableBlocks = 3;
+constexpr int kPlanarRuns = 2;
+constexpr int kPlanarItem = kPlanarRuns * kRun;  // an item's values
+
+// The table form's item e of an image whose planes start at xb: values
+// x0 .. x0 + kPlanarItem of its row `row` (c h + y of channel c), `groups`
+// items a row; its runs' loads issued into r where e < items (a run past
+// the row's end holds zeros, never stored).
+template <typename T>
+__device__ __forceinline__ void load_planar_item(
+    const T* __restrict__ xb, int e, int groups, int items, const Finish& f,
+    RawRun<T> (&r)[kPlanarRuns], int& row, int& x0) {
+  if (e >= items) return;
+  row = e / groups;
+  x0 = (e - row * groups) * kPlanarItem;
+  const T* src = xb + row * f.wh + x0;
+#pragma unroll
+  for (int k = 0; k < kPlanarRuns; ++k) {
+    const int n = f.wh - x0 - k * kRun;
+    if (n > 0) {
+      load_run<T>(src + k * kRun, f.vec, n, r[k]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < RawRun<T>::kWords; ++m) r[k].w[m] = 0u;
+    }
+  }
+}
+
+// An item's bytes q in its output row `row`: one 16-byte store where the
+// rows are whole 16-byte vectors (f.vec == 2), flip_x reversing the bytes,
+// else each run as the direct form stores it.
+__device__ __forceinline__ void store_planar_item(
+    const unsigned (&q)[kPlanarItem], uint8_t* row, int x0,
+    const Finish& f) {
+  static_assert(kPlanarItem == 16, "an item is one 16-byte store");
+  const int w = f.wh;
+  if (f.vec == 2) {
+    const uint2 lo = pack8(q), hi = pack8(q + kRun);
+    const uint4 v = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    if (f.flip_x) {
+      *reinterpret_cast<uint4*>(row + w - x0 - 16) = reverse_bytes(v);
+    } else {
+      *reinterpret_cast<uint4*>(row + x0) = v;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kPlanarRuns; ++k) {
+    const int xk = x0 + k * kRun;
+    if (xk < w) store_planar_run(q + k * kRun, row, xk, f);
+  }
+}
+
+// The table form's body: block (256) of grid (blocks an image, n) copies
+// image b's table into shared memory while its first item's loads are in
+// flight, then walks the image's items blockIdx.x * 256 + t, + gridDim.x *
+// 256, ..., the next item's loads in flight while it gathers the bytes of
+// the current one, a value's byte at its 16 bits.
+template <typename T>
+__device__ __forceinline__ void planar_tone_table(
+    const T* __restrict__ x, const uint8_t* __restrict__ table,
+    uint8_t* __restrict__ out, const Finish& f) {
+  extern __shared__ __align__(16) uint8_t ptab[];
+  const int b = blockIdx.y, h = f.hh, w = f.wh;
+  const int groups = (w + kPlanarItem - 1) / kPlanarItem;
+  const int items = 3 * h * groups;
+  const int step = gridDim.x * blockDim.x;
+  const size_t image = static_cast<size_t>(b) * 3 * h * w;
+  const T* xb = x + image;
+  uint8_t* ob = out + image;
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  RawRun<T> raw[kPlanarRuns];
+  int row = 0, x0 = 0;
+  load_planar_item(xb, e, groups, items, f, raw, row, x0);
+  const uint8_t* tb = table + static_cast<size_t>(b) * kTableBytes;
+  for (int k = threadIdx.x; k < kTableBytes / 16; k += blockDim.x) {
+    copy16_async(ptab + 16 * k, tb + 16 * k);
+  }
+  cp_async_wait();
+  __syncthreads();
+  for (; e < items; e += step) {
+    RawRun<T> next[kPlanarRuns];
+    int nrow = 0, nx0 = 0;
+    load_planar_item(xb, e + step, groups, items, f, next, nrow, nx0);
+    unsigned q[kPlanarItem];
+#pragma unroll
+    for (int r = 0; r < kPlanarRuns; ++r) {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const unsigned wd = raw[r].w[k >> 1];
+        q[r * kRun + k] = ptab[(k & 1) ? wd >> 16 : wd & 0xFFFFu];
+      }
+    }
+    const int c = row / h, y = row - c * h;
+    store_planar_item(q, ob + (c * h + (f.flip_y ? h - 1 - y : y)) * w, x0,
+                      f);
+    row = nrow;
+    x0 = nx0;
+#pragma unroll
+    for (int r = 0; r < kPlanarRuns; ++r) raw[r] = next[r];
+  }
+}
+
+// No axis swap. The direct form: block (16, 16) over (runs, rows), grid.z
+// = n * 3. The table form (kTable): each value its byte from its image's
+// table (tone_table_kernel), planar_tone_table.
+template <typename T, bool kLinear, Tone kTone, bool kTable>
+__global__ void __launch_bounds__(256, kTable ? kPlanarTableBlocks : 1)
+    planar_tone_rows_kernel(const T* __restrict__ x,
+                            const float* __restrict__ scal,
+                            const uint8_t* __restrict__ table,
+                            uint8_t* __restrict__ out, Finish f) {
+  if constexpr (kTable) {
+    planar_tone_table<T>(x, table, out, f);
+  } else {
+    const int bc = blockIdx.z, b = bc / 3;
+    const int h = f.hh, w = f.wh;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kRun;
+    if (y >= h || x0 >= w) return;
+    const size_t plane = static_cast<size_t>(bc) * h * w;
+    RawRun<T> r;
+    load_run<T>(x + plane + y * w + x0, f.vec, w - x0, r);
+    unsigned q[kRun];
+    tone_run<T, kLinear, kTone>(r, load_scal<kLinear>(scal, b), f, q);
+    store_planar_run(q, out + plane + (f.flip_y ? h - 1 - y : y) * w, x0, f);
   }
 }
 
@@ -1122,27 +1271,41 @@ __global__ void __launch_bounds__(256)
 
 template <typename T, bool kLinear, Tone kTone>
 cudaError_t launch_planar_tone_mode(const T* x, const float* scal,
-                                    uint8_t* out, int n, const Finish& f,
-                                    int swap, cudaStream_t stream) {
+                                    uint8_t* table, uint8_t* out, int n,
+                                    const Finish& f, int swap,
+                                    cudaStream_t stream) {
   if (swap) {
     const dim3 grid((f.wh + kTile - 1) / kTile, (f.hh + kTile - 1) / kTile,
                     n * 3);
     planar_tone_swap_kernel<T, kLinear, kTone>
         <<<grid, 256, 0, stream>>>(x, scal, out, f);
-  } else {
-    const dim3 block(16, 16);
-    const dim3 grid((f.wh + block.x * kRun - 1) / (block.x * kRun),
-                    (f.hh + block.y - 1) / block.y, n * 3);
-    planar_tone_rows_kernel<T, kLinear, kTone>
-        <<<grid, block, 0, stream>>>(x, scal, out, f);
+    return cudaGetLastError();
   }
+  if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
+    if (table != nullptr) {
+      static PerDevice resident;
+      return launch_table<T, kLinear, kTone>(
+          planar_tone_rows_kernel<T, kLinear, kTone, true>, resident,
+          3LL * f.hh * ((f.wh + kPlanarItem - 1) / kPlanarItem), x, scal,
+          table, out, n, f, stream);
+    }
+  }
+  const dim3 block(16, 16);
+  const dim3 grid((f.wh + block.x * kRun - 1) / (block.x * kRun),
+                  (f.hh + block.y - 1) / block.y, n * 3);
+  planar_tone_rows_kernel<T, kLinear, kTone, false>
+      <<<grid, block, 0, stream>>>(x, scal, nullptr, out, f);
   return cudaGetLastError();
 }
 
+// `table`: the table form's scratch of n * kTableBytes bytes, 16-byte
+// aligned, which a 16-bit T at a pow form without an axis swap takes where
+// an image holds at least kTableBytes values, and every other launch
+// leaves null (refused otherwise).
 template <typename T>
 int launch_planar_tone(const void* x, const void* scal, void* out, int n,
                        int h, int w, int linear, int tone, float inv_gamma,
-                       int swap, int flip_y, int flip_x,
+                       int swap, int flip_y, int flip_x, void* table,
                        cudaStream_t stream) {
   if (static_cast<long long>(n) * h * w == 0) {
     return static_cast<int>(cudaSuccess);
@@ -1151,18 +1314,26 @@ int launch_planar_tone(const void* x, const void* scal, void* out, int n,
       (h + 15) / 16 > 65535 || !tit::tone_ok(tone)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool table_form =
+      sizeof(T) == 2 && tone != 0 && !swap && 3LL * h * w >= kTableBytes;
+  if ((table != nullptr) != table_form ||
+      (table != nullptr && !tit::aligned16(table))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // vectors: whole runs along each input row and, under a swap, whole
-  // 8-byte stores along each output row
-  const int vec = w % kRun == 0 && (!swap || h % kRun == 0) &&
-                  tit::aligned16(x) &&
-                  reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  // 8-byte stores along each output row; 2: also whole 16-byte stores
+  // along each output row (the table form's)
+  int vec = w % kRun == 0 && (!swap || h % kRun == 0) &&
+            tit::aligned16(x) && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  if (vec && w % 16 == 0 && tit::aligned16(out)) vec = 2;
   const Finish f{h, w, flip_y, flip_x, vec, inv_gamma};
   const auto* xin = static_cast<const T*>(x);
   const auto* s = static_cast<const float*>(scal);
+  auto* tb = static_cast<uint8_t*>(table);
   auto* o = static_cast<uint8_t*>(out);
   return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
     return launch_planar_tone_mode<T, decltype(lin)::value,
-                                   decltype(tn)::value>(xin, s, o, n, f,
+                                   decltype(tn)::value>(xin, s, tb, o, n, f,
                                                         swap, stream);
   }));
 }
@@ -1195,9 +1366,9 @@ TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)
   extern "C" int tit_finish_planar_tone_##suffix(                         \
       const void* x, const void* scal, void* out, int n, int h, int w,    \
       int linear, int tone, float inv_gamma, int swap, int flip_y,        \
-      int flip_x, cudaStream_t stream) {                                  \
+      int flip_x, void* table, cudaStream_t stream) {                     \
     return launch_planar_tone<T>(x, scal, out, n, h, w, linear, tone,     \
-                                 inv_gamma, swap, flip_y, flip_x,         \
+                                 inv_gamma, swap, flip_y, flip_x, table,  \
                                  stream);                                 \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_PLANAR_TONE_LAUNCHER)

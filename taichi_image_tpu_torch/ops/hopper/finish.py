@@ -41,6 +41,12 @@ images grow in number (:func:`_tables`). Its plain twin is
 :func:`finish_planar_u8_table_plain`; a table launch also counts
 ``tone_forms["table"]``.
 
+P takes the same table form where :func:`planar_table_form` says so (the
+same rule, and each image at least :data:`TABLE_BYTES` values), and its
+direct form elsewhere; its plain twin is
+:func:`finish_planar_tone_table_plain`, and a table launch counts as K4's
+does.
+
 Under a transform that swaps the axes K4 runs its axis-swap kernel, a
 persistent grid that walks tiles with the next tile's loads in flight
 (``csrc/finish.cu`` ``finish_swap_kernel``). While tracing is on each K4
@@ -69,8 +75,9 @@ from taichi_image_tpu_torch.utils import profiling
 __all__ = ["finish_planar_u8", "finish_planar_u8_plain",
            "finish_planar_u8_table_plain", "finish_yuv420",
            "finish_yuv420_plain", "finish_planar_tone",
-           "finish_planar_tone_plain", "gamma_u8", "linear_scal",
-           "linear_u8", "table_form", "tone_tables_plain"]
+           "finish_planar_tone_plain", "finish_planar_tone_table_plain",
+           "gamma_u8", "linear_scal", "linear_u8", "planar_table_form",
+           "table_form", "tone_tables_plain"]
 
 MODES = ("reinhard", "linear")
 
@@ -94,7 +101,8 @@ PLANAR_TONE_KERNELS = hopper.register_per_dtype(
     "finish_planar_tone", "finish.cu", "tit_finish_planar_tone",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/models/camera_isp.py:1721-1727"))
 
@@ -159,6 +167,16 @@ def table_form(dtype: torch.dtype, gamma: float, mode: str,
   return (dtype in (torch.bfloat16, torch.float16)
           and tone_form(gamma, mode) != 0
           and not _TRANSFORM_SFF[transform][0])
+
+
+def planar_table_form(dtype: torch.dtype, gamma: float, mode: str,
+                      transform: ImageTransform, h: int, w: int) -> bool:
+  """Whether P tones ``dtype`` through a byte table: where
+  :func:`table_form` holds and each (3, h, w) image holds at least
+  :data:`TABLE_BYTES` values, so that its table tones no more patterns than
+  the direct form would tone values."""
+  return (table_form(dtype, gamma, mode, transform)
+          and 3 * h * w >= TABLE_BYTES)
 
 
 # {(device, stream): the table scratch}: launches on one stream run in
@@ -231,18 +249,26 @@ def tone_tables_plain(dtype: torch.dtype, scal: torch.Tensor, gamma: float,
   return _tone_u8(bits.expand(n, TABLE_BYTES), scal, gamma, mode)
 
 
+def _table_u8(x: torch.Tensor, scal: torch.Tensor, gamma: float,
+              mode: str) -> torch.Tensor:
+  """u8 of the bf16 or f16 ``x`` (N, ...) through the tables: each
+  image's table (:func:`tone_tables_plain`), each value's byte gathered
+  from it at its 16 bits."""
+  n = x.shape[0]
+  tables = tone_tables_plain(x.dtype, scal, gamma, mode, n)
+  bits = x.contiguous().view(torch.int16).reshape(n, -1).to(torch.int64)
+  return torch.gather(tables, 1, bits & 0xFFFF).reshape(x.shape)
+
+
 def finish_planar_u8_table_plain(x12: torch.Tensor, scal: torch.Tensor,
                                  gamma: float, mode: str = "reinhard",
                                  transform: ImageTransform =
                                  ImageTransform.none) -> torch.Tensor:
-  """Plain twin of K4's table form (bf16 or f16 ``x12``): each image's
-  table (:func:`tone_tables_plain`), each value's byte gathered from it at
-  its 16 bits, then :func:`planar_from_phases_transformed`."""
-  n = x12.shape[0]
-  tables = tone_tables_plain(x12.dtype, scal, gamma, mode, n)
-  bits = x12.contiguous().view(torch.int16).reshape(n, -1).to(torch.int64)
-  u8 = torch.gather(tables, 1, bits & 0xFFFF).reshape(x12.shape)
-  return planar_from_phases_transformed(u8, transform)
+  """Plain twin of K4's table form (bf16 or f16 ``x12``): each value's
+  byte from its image's table, then
+  :func:`planar_from_phases_transformed`."""
+  return planar_from_phases_transformed(_table_u8(x12, scal, gamma, mode),
+                                        transform)
 
 
 def finish_yuv420_plain(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
@@ -353,6 +379,16 @@ def finish_planar_tone_plain(x: torch.Tensor, scal: torch.Tensor,
                         3).contiguous()
 
 
+def finish_planar_tone_table_plain(x: torch.Tensor, scal: torch.Tensor,
+                                   gamma: float, mode: str = "reinhard",
+                                   transform: ImageTransform =
+                                   ImageTransform.none) -> torch.Tensor:
+  """Plain twin of P's table form (bf16 or f16 planar ``x``): each value's
+  byte from its image's table, then the transform as a contiguous copy."""
+  return transform_axes(_table_u8(x, scal, gamma, mode), transform, 2,
+                        3).contiguous()
+
+
 def finish_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
                        mode: str = "reinhard",
                        transform: ImageTransform = ImageTransform.none,
@@ -363,7 +399,8 @@ def finish_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
 
   ``mode="reinhard"``: ``x`` is K3's p and ``scal`` its per-image f32 max
   (N, 1, 1, 1). ``mode="linear"``: ``x`` is the image and ``scal`` the
-  linear vector [m0, inv_range]."""
+  linear vector [m0, inv_range]. Where :func:`planar_table_form` holds,
+  the launch tones through each image's byte table."""
   _check_finish(x, scal, mode, channels=3)
   if not hopper.use_kernel(backend, x):
     return finish_planar_tone_plain(x, scal, gamma, mode, transform)
@@ -375,8 +412,11 @@ def finish_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
   out = torch.empty((n, 3, w, h) if swap else (n, 3, h, w),
                     dtype=torch.uint8, device=x.device)
   linear, tone, inv_gamma = tone_args(gamma, mode)
+  table = planar_table_form(x.dtype, gamma, mode, transform, h, w)
   PLANAR_TONE_KERNELS[x.dtype].launch(
       x.device, hopper.ptr(x), hopper.ptr(scal), hopper.ptr(out), n, h, w,
-      linear, tone, inv_gamma, int(swap), int(fy), int(fx))
-  count_tone(tone)
+      linear, tone, inv_gamma, int(swap), int(fy), int(fx),
+      hopper.ptr(_tables(x.device, n)) if table else None,
+      kernels=2 if table else 1)
+  count_tone(tone, table)
   return out

@@ -292,16 +292,11 @@ FORM_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", FORM_CASES)
-def test_wrapper_takes_the_table_form(case, monkeypatch):
-  """K4's wrapper passes the table scratch to its launcher for a 16-bit
-  dtype at gamma != 1 without an axis swap, whatever the frame's size, and
-  null otherwise; the scratch holds a table an image, and the call counts
-  two launches (the table build and the rows kernel) where it passes it."""
+def _stub_launch(monkeypatch, k):
+  """The kernel route on CPU tensors through ``k``'s stubbed launcher: no
+  device to enter, stream 0. Returns (the launcher's calls, the table
+  scratch's sizes in images)."""
   from taichi_image_tpu_torch.ops import hopper
-  dtype, gamma, mode, t, (hh, wh), want = FORM_CASES[case]
-  assert th_fin.table_form(dtype, gamma, mode, t) is want
-  # the kernel route on CPU tensors: no device to enter, stream 0
   monkeypatch.setattr(hopper, "use_kernel", lambda backend, x: True)
   monkeypatch.setattr(hopper, "enter_device", lambda device: None)
   monkeypatch.setattr(hopper, "leave_device", lambda prev: None)
@@ -310,9 +305,21 @@ def test_wrapper_takes_the_table_form(case, monkeypatch):
   monkeypatch.setattr(th_fin, "_tables", lambda device, n: sizes.append(n)
                       or torch.zeros(n * th_fin.TABLE_BYTES,
                                      dtype=torch.uint8))
-  k = th_fin.KERNELS[dtype]
   monkeypatch.setattr(k, "_fn", lambda *args: seen.append(args) or 0)
   monkeypatch.setattr(k, "launches", 0)
+  return seen, sizes
+
+
+@pytest.mark.parametrize("case", FORM_CASES)
+def test_wrapper_takes_the_table_form(case, monkeypatch):
+  """K4's wrapper passes the table scratch to its launcher for a 16-bit
+  dtype at gamma != 1 without an axis swap, whatever the frame's size, and
+  null otherwise; the scratch holds a table an image, and the call counts
+  two launches (the table build and the rows kernel) where it passes it."""
+  dtype, gamma, mode, t, (hh, wh), want = FORM_CASES[case]
+  assert th_fin.table_form(dtype, gamma, mode, t) is want
+  k = th_fin.KERNELS[dtype]
+  seen, sizes = _stub_launch(monkeypatch, k)
   x12 = torch.zeros(2, 12, hh, wh, dtype=dtype)
   sc = torch.ones(2, 1, 1, 1) if mode == "reinhard" else torch.tensor(
       [0.0, 1.0])
@@ -340,3 +347,112 @@ def test_table_scratch_is_kept_per_stream(monkeypatch):
   stream[0] = 9
   c = th_fin._tables(cpu, 1)
   assert c is not b and c.numel() == th_fin.TABLE_BYTES
+
+
+# -- P's table form -----------------------------------------------------------
+
+@pytest.mark.parametrize("gamma", [0.6, 0.9, 2.2, 7.5])
+@pytest.mark.parametrize("mode", ["reinhard", "linear"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_planar_table_twin_is_the_tone(dtype, mode, gamma):
+  """P's table twin, each image's tables then a gather at each value's
+  bits then the transform, is bitwise P's twin on planar images that each
+  hold every bit pattern, under six maxima (Reinhard; at 7.5 its pow_div
+  form) or the linear vector, with no transform, flip_horiz and
+  rotate_180."""
+  x = _every_pattern(dtype).reshape(6, 3, 32, 683)
+  sc = TABLE_MAX if mode == "reinhard" else torch.tensor([-0.05, 1 / 1.1])
+  for t in (ImageTransform.none, ImageTransform.flip_horiz,
+            ImageTransform.rotate_180):
+    got = th_fin.finish_planar_tone_table_plain(x, sc, gamma, mode, t)
+    want = th_fin.finish_planar_tone_plain(x, sc, gamma, mode, t)
+    assert got.dtype == torch.uint8 and torch.equal(got, want), t
+
+
+# (dtype, gamma, mode, transform, image (h, w), table form): K4's rule, and
+# each image at least 65,536 values (3 h w); (1, m) is the tone on any
+# layout's (n, 3, 1, m) view
+PLANAR_FORM_CASES = {
+    "f16 0.6 1080p": (torch.float16, 0.6, "reinhard", ImageTransform.none,
+                      (1080, 1920), True),
+    "f16 0.6 at the floor": (torch.float16, 0.6, "reinhard",
+                             ImageTransform.none, (2, 10923), True),
+    "f16 0.6 under the floor": (torch.float16, 0.6, "reinhard",
+                                ImageTransform.none, (5, 4369), False),
+    "bf16 0.6 view at the floor": (torch.bfloat16, 0.6, "reinhard",
+                                   ImageTransform.none, (1, 21846), True),
+    "bf16 0.6 view under the floor": (torch.bfloat16, 0.6, "reinhard",
+                                      ImageTransform.none, (1, 21845),
+                                      False),
+    "bf16 0.9 flip_horiz": (torch.bfloat16, 0.9, "reinhard",
+                            ImageTransform.flip_horiz, (120, 200), True),
+    "f16 7.5 rotate_180": (torch.float16, 7.5, "reinhard",
+                           ImageTransform.rotate_180, (120, 200), True),
+    "f16 linear 2.2 flip_vert": (torch.float16, 2.2, "linear",
+                                 ImageTransform.flip_vert, (120, 200), True),
+    "bf16 linear 0.6 view": (torch.bfloat16, 0.6, "linear",
+                             ImageTransform.none, (1, 30000), True),
+    "f32 0.6": (torch.float32, 0.6, "reinhard", ImageTransform.none,
+                (120, 200), False),
+    "f16 gamma 1": (torch.float16, 1.0, "reinhard", ImageTransform.none,
+                    (120, 200), False),
+    "bf16 linear gamma 1": (torch.bfloat16, 1.0, "linear",
+                            ImageTransform.none, (120, 200), False),
+    "f16 rotate_90": (torch.float16, 0.6, "reinhard",
+                      ImageTransform.rotate_90, (120, 200), False),
+    "bf16 transpose": (torch.bfloat16, 0.9, "reinhard",
+                       ImageTransform.transpose, (120, 200), False),
+}
+
+
+@pytest.mark.parametrize("case", PLANAR_FORM_CASES)
+def test_planar_wrapper_takes_the_table_form(case, monkeypatch):
+  """P's wrapper passes the table scratch to its launcher exactly where
+  :func:`planar_table_form` holds (K4's rule, and each image at least
+  65,536 values) and null otherwise; the scratch holds a table an image,
+  and the call counts two launches (the table build and the rows kernel)
+  where it passes it."""
+  dtype, gamma, mode, t, (h, w), want = PLANAR_FORM_CASES[case]
+  assert th_fin.planar_table_form(dtype, gamma, mode, t, h, w) is want
+  assert th_fin.table_form(dtype, gamma, mode, t) is (
+      want or 3 * h * w < th_fin.TABLE_BYTES)
+  k = th_fin.PLANAR_TONE_KERNELS[dtype]
+  seen, sizes = _stub_launch(monkeypatch, k)
+  x = torch.zeros(2, 3, h, w, dtype=dtype)
+  sc = torch.ones(2, 1, 1, 1) if mode == "reinhard" else torch.tensor(
+      [0.0, 1.0])
+  th_fin.finish_planar_tone(x, sc, gamma, mode, t)
+  (args,) = seen
+  assert len(args) == 14  # the 13 arguments and the stream
+  assert (args[12] is not None) is want
+  assert sizes == ([2] if want else [])
+  assert args[6:8] == th_fin.tone_args(gamma, mode)[:2]
+  assert k.launches == (2 if want else 1)
+
+
+@pytest.mark.parametrize("shape, mode, want", [
+    ((2, 6, 10923), "reinhard", True),      # 65,538 values an image
+    ((2, 3, 21845), "reinhard", False),     # 65,535
+    ((4, 3, 8, 16), "reinhard", False),
+    ((2, 3, 21845), "linear", True),        # one image of 131,070
+    ((1, 3, 7, 3121), "linear", True),
+], ids=["at the floor", "under the floor", "small", "linear whole",
+        "linear odd"])
+def test_tone_any_takes_the_table_form_by_image_size(shape, mode, want,
+                                                     monkeypatch):
+  """The tone on any layout runs P on (n, 3, 1, m) views of its images
+  (the linear tone's whole tensor one image): the table form where an
+  image holds at least 65,536 values, the direct form for smaller ones."""
+  k = th_fin.PLANAR_TONE_KERNELS[torch.float16]
+  seen, sizes = _stub_launch(monkeypatch, k)
+  x = torch.zeros(shape, dtype=torch.float16)
+  sc = torch.ones(shape[0]) if mode == "reinhard" else torch.tensor(
+      [0.0, 1.0])
+  tci._tone_any(x, sc, 0.6, mode)
+  (args,) = seen
+  n = shape[0] if mode == "reinhard" else 1
+  assert args[3:6] == (n, 1, x.numel() // (3 * n))
+  assert (args[12] is not None) is want
+  assert sizes == ([n] if want else [])
+  assert k.launches == (2 if want else 1)

@@ -428,8 +428,8 @@ def test_tone_forms_count_each_tone_launch(kernel_route):
 def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
   """A K4 launch in the table form counts ``tone_forms["table"]`` beside
   its form while tracing is on, whatever the frame's size; no other tone
-  launch does (gamma 1, an axis swap, f32, K4's I420 mode, P, the planar
-  I420 tonemap form)."""
+  launch does (gamma 1, an axis swap, f32, K4's I420 mode, P's direct
+  form, the planar I420 tonemap form)."""
   from taichi_image_tpu_torch.ops.hopper import finish, yuv420
   monkeypatch.setattr(finish, "_tables", lambda device, n: torch.zeros(
       n * finish.TABLE_BYTES, dtype=torch.uint8))
@@ -459,6 +459,49 @@ def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
   assert tables == [True, False, False, False, True] * 2
   forms = profiling.snapshot()["tone_forms"]
   assert forms == {"pow_rcp": 7, "gamma1": 1, "table": 2}
+
+
+def test_tone_forms_count_planar_table_launches(kernel_route, monkeypatch):
+  """A P launch in the table form (a 16-bit image of at least 65,536
+  values at gamma != 1, no axis swap) counts ``tone_forms["table"]``
+  beside its pow form while tracing is on, and two launches; P's direct
+  form (an image under 65,536 values, f32, gamma 1, an axis swap) counts
+  its form and no table."""
+  from taichi_image_tpu_torch.ops.hopper import finish
+  monkeypatch.setattr(finish, "_tables", lambda device, n: torch.zeros(
+      n * finish.TABLE_BYTES, dtype=torch.uint8))
+  tables = []
+  for k in finish.PLANAR_TONE_KERNELS.values():
+    k._fn = lambda *args: tables.append(args[12] is not None) or 0
+  big = torch.rand(2, 3, 96, 240).to(torch.float16)  # 69,120 values
+  small = torch.rand(2, 3, 96, 220).to(torch.float16)  # 63,360
+  mx = torch.ones(2, 1, 1, 1)
+  lin = torch.tensor([0.0, 1.0])
+
+  def launch_all():
+    finish.finish_planar_tone(big, mx, 0.6)
+    finish.finish_planar_tone(big.to(torch.bfloat16), lin, 7.5, "linear")
+    finish.finish_planar_tone(big, mx, 7.5)
+    finish.finish_planar_tone(small, mx, 0.6)
+    finish.finish_planar_tone(big.float(), mx, 0.6)
+    finish.finish_planar_tone(big, mx, 1.0)
+    finish.finish_planar_tone(big, mx, 0.6,
+                              transform=ImageTransform.rotate_90)
+
+  launch_all()   # tracing off: launched, not counted
+  assert profiling.snapshot()["tone_forms"] == {}
+  launches = hopper.launch_counts()
+  with profiling.tracing():
+    launch_all()
+  assert tables == [True, True, True, False, False, False, False] * 2
+  assert profiling.snapshot()["tone_forms"] == {
+      "pow_rcp": 5, "pow_div": 1, "gamma1": 1, "table": 3}
+  counted = {name: n - launches[name]
+             for name, n in hopper.launch_counts().items()
+             if n != launches[name]}
+  assert counted == {"finish_planar_tone_f16": 7,
+                     "finish_planar_tone_bf16": 2,
+                     "finish_planar_tone_f32": 1}
 
 
 @pytest.mark.parametrize("transform", list(ImageTransform),
