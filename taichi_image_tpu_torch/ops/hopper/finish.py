@@ -51,7 +51,9 @@ Under a transform that swaps the axes K4 runs its axis-swap kernel, a
 persistent grid that walks tiles with the next tile's loads in flight
 (``csrc/finish.cu`` ``finish_swap_kernel``). While tracing is on each K4
 launch also counts the layout of its output, ``rows`` or ``swap``
-(``utils/profiling.py`` ``finish_layouts``).
+(``utils/profiling.py`` ``finish_layouts``), and each launch of its I420
+mode counts its path, ``rows``, or ``swap`` for the I420 tile kernel
+(``i420_paths``).
 """
 
 from __future__ import annotations
@@ -366,6 +368,8 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
       yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
       hopper.ptr(yuv420.inv255_table(dev)))
   count_tone(tone)
+  if profiling.ON:
+    profiling.count_i420_path("swap" if swap else "rows")
   return y, vu
 
 

@@ -39,6 +39,10 @@ sum rounded in f32 (the kernels are built with ``--fmad=false``):
 tensor, torch divides by a Python scalar as a multiplication by its
 reciprocal, so the twins divide by a 0-d tensor on the device. The
 kernels read ``u8 / 255`` from :func:`inv255_table`, made once per device.
+
+While tracing is on, each launch of :func:`yuv420_planar` and
+:func:`yuv420_planar_tone` counts its path, ``planar_u8`` or
+``planar_tone`` (``utils/profiling.py`` ``i420_paths``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from taichi_image_tpu_torch.ops.color import _YUV_M, _YUV_OFFSET
 # finish imports this module too; only its functions are used, at call time
 from taichi_image_tpu_torch.ops.hopper import finish
 from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+from taichi_image_tpu_torch.utils import profiling
 
 __all__ = ["yuv420_w6", "yuv420_from_phases_u8", "yuv420_phases_dot_bf16",
            "yuv420_planar", "yuv420_planar_plain", "yuv420_planar_tone",
@@ -250,6 +255,8 @@ def yuv420_planar(rgb: torch.Tensor, backend: str = "auto"):
   KERNEL.launch(rgb.device, hopper.ptr(rgb), hopper.ptr(y), hopper.ptr(vu), n,
                 h, w, coefficients_ptr(False),
                 hopper.ptr(inv255_table(rgb.device)))
+  if profiling.ON:
+    profiling.count_i420_path("planar_u8")
   return y, vu
 
 
@@ -294,4 +301,6 @@ def yuv420_planar_tone(x: torch.Tensor, scal: torch.Tensor, gamma: float,
       h, w, linear, tone, inv_gamma, int(swap), int(fy), int(fx),
       coefficients_ptr(False), hopper.ptr(inv255_table(dev)))
   finish.count_tone(tone)
+  if profiling.ON:
+    profiling.count_i420_path("planar_tone")
   return y, vu

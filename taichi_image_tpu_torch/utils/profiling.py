@@ -39,7 +39,11 @@ more for each K4 launch through its byte tables, ``table_form``),
 their output: ``rows``, or ``swap`` for a launch of its axis-swap kernel
 under a transform that swaps the axes), ``resize_paths`` (K12's launches
 while tracing is on, by the path :func:`ops.hopper.resize.plan` picked:
-``aligned`` or ``direct``), ``builds`` per source (nvcc runs
+``aligned`` or ``direct``), ``i420_paths`` (launches of a step's I420
+kernel while tracing is on, by path: ``rows`` for K4's I420 mode,
+``swap`` for its tile kernel under a transform that swaps the axes,
+``planar_tone`` for the resize route's planar tonemap form and
+``planar_u8`` for the conversion of u8 RGB), ``builds`` per source (nvcc runs
 in this process) and ``load_ns`` per source. The load spans and their
 counters are kept whether tracing is on or off: they run once a source per
 process, never on the hot path. :func:`snapshot` returns the aggregates
@@ -68,6 +72,7 @@ _launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
 _tone_forms: dict[str, int] = {}  # tone form: kernel launches
 _finish_layouts: dict[str, int] = {}  # K4's output layout: launches
 _resize_paths: dict[str, int] = {}    # K12's path: launches
+_i420_paths: dict[str, int] = {}      # the I420 kernel's path: launches
 _builds: dict[str, int] = {}     # source: nvcc runs
 _load_ns: dict[str, int] = {}    # source: ns of its library's first load
 _lock = threading.Lock()         # for the aggregates and counters above
@@ -265,6 +270,14 @@ def count_resize_path(path: str) -> None:
     _resize_paths[path] = _resize_paths.get(path, 0) + 1
 
 
+def count_i420_path(path: str) -> None:
+  """Count one launch of a step's I420 kernel on ``path`` (``rows``,
+  ``swap``, ``planar_tone`` or ``planar_u8``). The caller checks
+  :data:`ON`."""
+  with _lock:
+    _i420_paths[path] = _i420_paths.get(path, 0) + 1
+
+
 def count_build(source: str) -> None:
   """Count one nvcc run on ``source``."""
   with _lock:
@@ -275,13 +288,15 @@ def snapshot() -> dict:
   """The aggregates and counters: ``spans`` {name: {calls, ns, self_ns}},
   ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches},
   ``finish_layouts`` {layout: launches}, ``resize_paths`` {path: launches},
-  ``builds`` {source: nvcc runs} and ``load_ns`` {source: ns}."""
+  ``i420_paths`` {path: launches}, ``builds`` {source: nvcc runs} and
+  ``load_ns`` {source: ns}."""
   with _lock:
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
                       for name, (c, ns, self_ns) in _spans.items()},
             "launch_ns": dict(_launch_ns), "tone_forms": dict(_tone_forms),
             "finish_layouts": dict(_finish_layouts),
             "resize_paths": dict(_resize_paths),
+            "i420_paths": dict(_i420_paths),
             "builds": dict(_builds), "load_ns": dict(_load_ns)}
 
 
@@ -289,5 +304,5 @@ def reset() -> None:
   """Clear the aggregates and counters."""
   with _lock:
     for d in (_spans, _launch_ns, _tone_forms, _finish_layouts,
-              _resize_paths, _builds, _load_ns):
+              _resize_paths, _i420_paths, _builds, _load_ns):
       d.clear()

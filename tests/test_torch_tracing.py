@@ -3,8 +3,8 @@ free of spans, clocks and ``record_function`` while off; while on, one
 ``isp.process`` span a set with the set's id, the stages of the route taken
 in order inside it, each kernel launch inside its stage, self times less
 what children cover, the spans in ``trace(log_dir)``'s Chrome file, and the
-launch, tone-form, build and load counters. The kernels' launchers and nvcc are
-stubbed, as in test_torch_meter.py."""
+launch, tone-form, I420-path, build and load counters. The kernels'
+launchers and nvcc are stubbed, as in test_torch_meter.py."""
 
 import itertools
 import json
@@ -100,8 +100,8 @@ def test_off_by_default_and_records_nothing(monkeypatch):
   assert events == [] and opened == [] and clock == []
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
-                                  "resize_paths": {}, "builds": {},
-                                  "load_ns": {}}
+                                  "resize_paths": {}, "i420_paths": {},
+                                  "builds": {}, "load_ns": {}}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -339,8 +339,8 @@ def test_reset_clears_everything(stub_launch):
   profiling.reset()
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
-                                  "resize_paths": {}, "builds": {},
-                                  "load_ns": {}}
+                                  "resize_paths": {}, "i420_paths": {},
+                                  "builds": {}, "load_ns": {}}
 
 
 @pytest.fixture
@@ -603,3 +603,87 @@ def test_resize_paths_count_one_aligned_launch_a_set(kernel_route, cls):
   snap = profiling.snapshot()
   assert snap["spans"]["isp.process"]["calls"] == 4
   assert snap["resize_paths"] == {"aligned": 3}
+
+
+def _i420_launchers():
+  """{path: a call of the wrapper that launches that path's I420 kernel,
+  and a call of its plain twin}, on small CPU tensors."""
+  from taichi_image_tpu_torch.ops.hopper import finish, yuv420
+  x12 = torch.rand(2, 12, 4, 8).to(torch.float16)
+  img = torch.rand(2, 3, 8, 16)
+  rgb = torch.randint(0, 256, (2, 3, 8, 16), dtype=torch.uint8)
+  mx = torch.ones(2, 1, 1, 1)
+  rot = ImageTransform.rotate_90
+  return {
+      "rows": (lambda: finish.finish_yuv420(x12, mx, 0.6),
+               lambda: finish.finish_yuv420_plain(x12, mx, 0.6)),
+      "swap": (lambda: finish.finish_yuv420(x12, mx, 0.6, transform=rot),
+               lambda: finish.finish_yuv420_plain(x12, mx, 0.6,
+                                                  transform=rot)),
+      "planar_tone": (lambda: yuv420.yuv420_planar_tone(img, mx, 0.6),
+                      lambda: yuv420.yuv420_planar_tone_plain(img, mx, 0.6)),
+      "planar_u8": (lambda: yuv420.yuv420_planar(rgb),
+                    lambda: yuv420.yuv420_planar_plain(rgb)),
+  }
+
+
+I420_KERNELS = {"rows": "finish_yuv420_f16", "swap": "finish_yuv420_f16",
+                "planar_tone": "yuv420_planar_tone_f32",
+                "planar_u8": "yuv420_planar"}
+
+
+@pytest.mark.parametrize("path", I420_KERNELS)
+def test_i420_paths_count_each_launch(kernel_route, path):
+  """Each launch of a step's I420 kernel counts its path while tracing is
+  on: K4's I420 mode ``rows``, or ``swap`` under a transform that swaps
+  the axes, the planar tonemap form ``planar_tone``, the conversion of u8
+  RGB ``planar_u8``; nothing while tracing is off, nothing on the plain
+  twins, and the reset clears the counter."""
+  launch, plain = _i420_launchers()[path]
+  launch()   # tracing off: launched, not counted
+  assert profiling.snapshot()["i420_paths"] == {}
+  with profiling.tracing():
+    plain()
+    assert profiling.snapshot()["i420_paths"] == {}
+    launch()
+    launch()
+  assert kernel_route == [I420_KERNELS[path]] * 3
+  assert profiling.snapshot()["i420_paths"] == {path: 2}
+  profiling.reset()
+  assert profiling.snapshot()["i420_paths"] == {}
+
+
+def test_i420_paths_count_nothing_on_the_plain_route():
+  """On CPU tensors every I420 wrapper takes its plain twin, which counts
+  no path."""
+  with profiling.tracing():
+    for launch, _ in _i420_launchers().values():
+      launch()
+  assert profiling.snapshot()["i420_paths"] == {}
+  assert profiling.snapshot()["tone_forms"] == {}
+
+
+# the I420 path each route of ``process`` takes, by the class's options
+I420_ROUTES = {
+    "rows": dict(metering_stride=8),
+    "swap": dict(transform=ImageTransform.rotate_90),
+    "planar_tone": dict(resize_width=12),
+    "planar_u8": dict(metering_stride=3),
+}
+
+
+@pytest.mark.parametrize("path", I420_ROUTES)
+def test_i420_paths_count_one_launch_a_set(kernel_route, path):
+  """``Camera16.process(..., color_format="yuv420")`` launches one I420
+  kernel a set, on the path of its route: at stride 8 K4's I420 mode;
+  RGB output launches none."""
+  isp = ttit.Camera16(ttit.BayerPattern.RGGB, device="cpu",
+                      **I420_ROUTES[path])
+  with profiling.tracing():
+    isp.process(_raws())
+    assert profiling.snapshot()["i420_paths"] == {}
+    for i in range(3):
+      isp.process(_raws(seed=i), color_format="yuv420")
+  snap = profiling.snapshot()
+  assert snap["spans"]["isp.process"]["calls"] == 4
+  assert snap["i420_paths"] == {path: 3}
