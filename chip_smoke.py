@@ -386,10 +386,11 @@ _RESIZE_ARGS = re.compile(r"resize_kernelI(13__nv_bfloat16|6__half|f)"
 _RESIZE_PATHS = ("direct", "aligned")  # csrc/resize.cu's kAligned
 _FRONT_ARGS = re.compile(r"front_fused_kernelILi(\d)E")
 # the I420 kernels' instantiations: K4's I420 mode without a swap (T, the
-# linear tonemap) and the I420 tile kernel (T, the sum, the linear tonemap,
-# the tone form, the swap, flip_y, flip_x)
+# linear tonemap, the tone form and the table form; none of the last two
+# before it had them) and the I420 tile kernel (T, the sum, the linear
+# tonemap, the tone form, the swap, flip_y, flip_x)
 _I420_ROWS = re.compile(r"finish_yuv420_kernelI(13__nv_bfloat16|6__half|f)"
-                        r"Lb([01])E")
+                        r"Lb([01])E(?:L\w*?ToneE\dE)?(?:Lb([01])E)?")
 _I420_TILE = re.compile(r"i420_tile_kernelI(13__nv_bfloat16|6__half|f)"
                         r"L\w*?I420E(\d)ELb[01]E(?:L\w*?ToneE\dE)?"
                         r"((?:Lb[01]E){3})")
@@ -538,6 +539,7 @@ def phase_build():
       a, t = _I420_ROWS.search(fn), _I420_TILE.search(fn)
       if a:
         key = f"finish_yuv420_{_T_NAMES[a.group(1)]} linear={a.group(2)}"
+        key += " table" if a.group(3) == "1" else ""
       elif t:  # the flips, modes and tone forms of one sum and swap
         swap = re.findall(r"[01]", t.group(3))[0]
         key = (f"tile {_I420_KINDS[int(t.group(2))]}_{_T_NAMES[t.group(1)]}"
@@ -1214,6 +1216,93 @@ def _check_table_form(note):
         "and flip_horiz")
 
 
+def i420_launch(x12, scal, gamma, mode, transform, table):
+  """K4's I420 mode through its C launcher into new (Y, VU), given the
+  wrapper's table scratch with ``table`` and none without it, whatever the
+  wrapper would pick."""
+  import torch
+  from taichi_image_tpu_torch.ops import hopper
+  from taichi_image_tpu_torch.ops.bayer import _TRANSFORM_SFF
+  from taichi_image_tpu_torch.ops.hopper import finish, yuv420
+  n, _, hh, wh = x12.shape
+  swap, fy, fx = _TRANSFORM_SFF[transform]
+  bh, bw = (wh, hh) if swap else (hh, wh)
+  dev = x12.device
+  y = torch.empty((n, 2 * bh, 2 * bw), dtype=torch.uint8, device=dev)
+  vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
+  linear, tone, inv_gamma = finish.tone_args(gamma, mode)
+  finish.YUV420_KERNELS[x12.dtype].launch(
+      dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu),
+      n, hh, wh, linear, tone, inv_gamma, int(swap), int(fy), int(fx),
+      yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
+      hopper.ptr(yuv420.inv255_table(dev)),
+      hopper.ptr(finish._tables(dev, n)) if table else None,
+      kernels=2 if table else 1)
+  return y, vu
+
+
+def _check_i420_table_form(note):
+  """The table form of K4's I420 mode (bf16 and f16): its launcher refuses
+  a null table where the form holds and a table where it does not (gamma
+  1, an axis swap, f32); through the wrapper (two launches a call) bitwise
+  its table twin on random bits at 6x4K, on a 6x8K band and on the small
+  and ragged frames of TABLE_SMALL (the element path), at each gamma of
+  TABLE_GAMMAS, Reinhard (six maxima) and linear, with no transform,
+  flip_horiz and flip_vert."""
+  import torch
+  from taichi_image_tpu_torch.ops.hopper import finish
+  from taichi_image_tpu_torch.ops.interpolate import ImageTransform
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(30)
+  flips = (ImageTransform.none, ImageTransform.flip_horiz,
+           ImageTransform.flip_vert)
+  none, rot = ImageTransform.none, ImageTransform.rotate_90
+  x16 = torch.zeros((1, 12, 16, 352), dtype=torch.float16, device=dev)
+  mx1 = torch.ones(1, 1, 1, 1, device=dev)
+  for what, x, gamma, t, table in (
+      ("f16 gamma 0.6 without a table", x16, 0.6, none, False),
+      ("f16 gamma 1 with a table", x16, 1.0, none, True),
+      ("f16 rotate_90 with a table", x16, 0.6, rot, True),
+      ("f32 gamma 0.6 with a table", x16.float(), 0.6, none, True)):
+    _refused(f"finish_yuv420 {what}",
+             lambda: i420_launch(x, mx1, gamma, "reinhard", t, table))
+  mx6 = torch.tensor((1e-6, 0.37, 0.999, 1.13, 3.0, 97.5),
+                     device=dev).view(6, 1, 1, 1)
+  lin = torch.tensor([-0.05, 1 / 1.1], device=dev)
+  checks = 0
+  for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+    k = finish.YUV420_KERNELS[dtype]
+    for shape in ((N_CAM, 12, H // 2, W // 2),
+                  (BAND_8K[0], 12, BAND_8K[1], BAND_8K[2]),
+                  *TABLE_SMALL):
+      x = torch.randint(-32768, 32768, shape, generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int16).view(dtype)
+      for gamma, mode, t in itertools.product(TABLE_GAMMAS,
+                                              ("reinhard", "linear"), flips):
+        sc = mx6[:shape[0]] if mode == "reinhard" else lin
+        what = (f"finish_yuv420's table form {sfx} {tuple(shape)} {mode} "
+                f"gamma={gamma} {t.value}")
+        before = k.launches
+        ky, kvu = finish.finish_yuv420(x, sc, gamma, mode, t,
+                                       backend="kernel")
+        if k.launches - before != 2:
+          raise AssertionError(f"{what}: not the table form")
+        ty, tvu = finish.finish_yuv420_table_plain(x, sc, gamma, mode, t)
+        _check_bitwise(f"{what} Y vs the table twin", ky, ty)
+        _check_bitwise(f"{what} VU vs the table twin", kvu, tvu)
+        note(f"finish_yuv420_{sfx}", ky, ty)
+        note(f"finish_yuv420_{sfx}", kvu, tvu)
+        checks += 1
+        del ky, kvu, ty, tvu
+      del x
+  log(f"kernels: finish_yuv420's table form, refused without its table "
+      f"and with one where the form does not hold, agrees with its table "
+      f"twin in {checks} cases: random bits at 6x4K, a 6x8K band "
+      f"{BAND_8K[1]}x{BAND_8K[2]} and {TABLE_SMALL}, gamma "
+      f"{', '.join(map(str, TABLE_GAMMAS))}, Reinhard and linear, no "
+      f"transform, flip_horiz and flip_vert")
+
+
 # (n, 3, h, w) frames of P's table form and whether the image starts one
 # element past a 16-byte boundary: the resized cell's 6 x 1080p and a
 # smaller frame of whole 16-byte vectors (16-byte stores); rows of 8-byte
@@ -1472,6 +1561,7 @@ def phase_kernels(results):
 
   _check_tone_bits(note)
   _check_table_form(note)
+  _check_i420_table_form(note)
   _check_planar_table_form(note)
   _check_swap_form(note)
   for shape in ((N_CAM, H, WB), ODD, RAGGED, CUT):
@@ -3860,8 +3950,9 @@ def phase_table_timing(results):
   """K4's table form at 6x4K on the main path's p, gamma 0.6 and 0.9, bf16
   and f16: the device time of its table build and of its rows kernel from
   profiler traces (after the apps phase, as :func:`phase_meter_timing`'s),
-  beside the kernels phase's events; then the same at two small frames of
-  TABLE_SMALL; then P's table form at 6 x 1080p, gamma 0.6."""
+  beside the kernels phase's events, and of its I420 mode's; then the
+  same at two small frames of TABLE_SMALL; then P's table form at 6 x
+  1080p, gamma 0.6."""
   import torch
   from taichi_image_tpu_torch.models import camera_isp as ci
   from taichi_image_tpu_torch.ops.bayer import BayerPattern
@@ -3891,6 +3982,22 @@ def phase_table_timing(results):
           f"build {r['table_build_ms']:.4f} ms + table form "
           f"{r['table_rows_ms']:.4f} ms "
           f"({r['bound_ms'] / r['table_rows_ms']:.1%} of its bound)")
+    # the I420 mode's table form on the same p
+    r = results[f"finish_yuv420_{sfx}"]
+    for gamma in (0.6, 0.9):
+      i420 = _kernel_ms(lambda g=gamma: finish.finish_yuv420(p, mx, g))
+      t = r.setdefault("table_form", {})[str(gamma)] = dict(
+          build_ms=sum(v for k, v in i420.items() if "tone_table_kernel" in k),
+          kernel_ms=sum(v for k, v in i420.items()
+                        if "finish_yuv420_kernel" in k))
+      if not t["kernel_ms"]:
+        log(f"  finish_yuv420_{sfx} gamma {gamma}: device time not measured "
+            f"(the trace holds {i420})")
+        continue
+      log(f"  finish_yuv420_{sfx} gamma {gamma}, device time (profiler): "
+          f"table build {t['build_ms']:.4f} ms + table form "
+          f"{t['kernel_ms']:.4f} ms "
+          f"({r['bound_ms'] / t['kernel_ms']:.1%} of its bound)")
   # what a small frame pays for its table: 640x480 and 6 x 1920x1080 of
   # random p in [0, 1) at gamma 0.6
   gen = torch.Generator(device="cuda").manual_seed(25)

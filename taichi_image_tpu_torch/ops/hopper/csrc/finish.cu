@@ -631,21 +631,18 @@ cudaError_t launch_swap(const T* x, const float* scal, uint8_t* out, int n,
   return cudaGetLastError();
 }
 
-// A rows kernel's table form (K4's, P's): block (256) of grid (blocks an
-// image, n).
-template <typename T>
-using TableKernel = void (*)(const T*, const float*, const uint8_t*,
-                             uint8_t*, Finish);
-
-// The table form: the tables of the n images, then one wave of `kernel`
-// (its blocks an SM asked once a device, into `resident`) shared out evenly
-// over the images, no more blocks an image than 256-item passes of its
-// `items`.
-template <typename T, bool kLinear, Tone kTone>
-cudaError_t launch_table(TableKernel<T> kernel, PerDevice& resident,
-                         long long items, const T* x, const float* scal,
-                         uint8_t* table, uint8_t* out, int n,
-                         const Finish& f, cudaStream_t stream) {
+// The table form of a rows kernel (K4's, its I420 mode's, P's): the tables
+// of the n images, then one wave of `kernel` (its blocks an SM asked once a
+// device, into `resident`) shared out evenly over the images, no more
+// blocks an image than 256-item passes of its `items`, enqueued by
+// launch(kernel, grid): block (256) of grid (blocks an image, n), with
+// kTableBytes of dynamic shared memory.
+template <typename T, bool kLinear, Tone kTone, typename Kernel,
+          typename Launch>
+cudaError_t launch_table(Kernel kernel, PerDevice& resident, long long items,
+                         const float* scal, uint8_t* table, int n,
+                         const Finish& f, cudaStream_t stream,
+                         Launch launch) {
   int blocks = 0;
   cudaError_t err = smem_blocks(kernel, 256, kTableBytes, resident, blocks);
   if (err != cudaSuccess) return err;
@@ -657,8 +654,7 @@ cudaError_t launch_table(TableKernel<T> kernel, PerDevice& resident,
           scal, table, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(static_cast<unsigned>(per_image), n), 256, kTableBytes,
-           stream>>>(x, scal, table, out, f);
+  launch(kernel, dim3(static_cast<unsigned>(per_image), n));
   return cudaGetLastError();
 }
 
@@ -673,8 +669,10 @@ cudaError_t launch_mode(const T* x, const float* scal, uint8_t* table,
     static PerDevice resident;
     return launch_table<T, kLinear, kTone>(
         finish_rows_kernel<T, kLinear, kTone, true>, resident,
-        3LL * f.hh * ((f.wh + kV - 1) / kV), x, scal, table, out, n, f,
-        stream);
+        3LL * f.hh * ((f.wh + kV - 1) / kV), scal, table, n, f, stream,
+        [&](auto kernel, dim3 grid) {
+          kernel<<<grid, 256, kTableBytes, stream>>>(x, scal, table, out, f);
+        });
   } else {
     const dim3 block(16, 16);
     const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
@@ -758,6 +756,29 @@ int launch(const void* x, const void* scal, void* out, int n, int hh,
 // That tile kernel without a swap was slower than this one (PERF.md
 // section 6): the bytes' round trip through shared memory adds to the
 // arithmetic.
+//
+// At gamma != 1 the pow bounds the direct form by instruction issue (37% of
+// its bound at gamma 0.6 on 6 x 4K f16). The table form (bf16 or f16 at a
+// pow form without an axis swap: ops/hopper/finish.py table_form, K4's
+// rule) is the only form there, and the launcher refuses a null table
+// there and a table anywhere else. It is K4's: the same launcher call first
+// enqueues tone_table_kernel, each image's 65,536 bit patterns toned once
+// into its table, then this kernel's table form gives each value its byte
+// by one shared-memory gather at its 16 bits, the byte tone_u8 gives it,
+// which the conversion then takes as it takes the direct form's. The
+// table form is a persistent grid, one wave of kI420TableBlocks blocks an
+// SM shared out evenly over the images, 256 threads a block: a block
+// copies its image's table into shared memory (cp.async) while its first
+// item's loads are in flight, then walks its share of the image's items,
+// an item the direct form's unit (a run of kV half-res pixels of a row, in
+// all 12 planes), one at a time. A grid of (16, 16) blocks each copying
+// 64 KB would read ~400 MB a set from L2. The blocks an SM and the loads in
+// flight are the fastest of an A/B on an H100 at the I420 cell's 6 x 4K
+// f16 and bf16 (PERF.md section 6): two blocks of 128 registers, a thread
+// issuing an item's four phases at once and the next item's after its
+// stores, beat three blocks (80 registers: the loads and sums spilled) and
+// the next item's loads in flight beside the current one's (spilled at
+// 128).
 
 __device__ __forceinline__ uint4 reverse_pairs(uint4 v) {
   return make_uint4(__byte_perm(v.w, 0, 0x1032), __byte_perm(v.z, 0, 0x1032),
@@ -809,81 +830,53 @@ __device__ __forceinline__ void load_phase(const T* xb, int plane, int pp,
   }
 }
 
-template <typename T, bool kLinear, Tone kTone>
-__global__ void __launch_bounds__(256)
-    finish_yuv420_kernel(const T* __restrict__ x,
-                         const float* __restrict__ scal,
-                         const float* __restrict__ inv255g,
-                         uint8_t* __restrict__ yp, uint8_t* __restrict__ vu,
-                         Finish f, Yuv cv) {
-  constexpr bool kDot = std::is_same_v<T, __nv_bfloat16>;
-  __shared__ float inv255[256];  // k / 255 (the f32 chains)
-  const int b = blockIdx.z;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kV;
-  const bool live = i < f.hh && j0 < f.wh;
+// Output phase pp's bytes q[c][k] of a run (c: r, g, b) into the run's Y
+// bytes yw (its output row parity pp & 1, column parity pp >> 1) and the
+// chroma sums acc, which output phase 0 starts.
+template <bool kDot>
+__device__ __forceinline__ void convert_phase(const unsigned (&q)[3][kV],
+                                              int pp, const Yuv& cv,
+                                              const float* inv255,
+                                              unsigned (&yw)[2][kV / 2],
+                                              float (&acc)[3][kV]) {
+  const int opr = pp & 1, opc = pp >> 1;
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    if constexpr (kDot) {
+      const float r = float_small(q[0][k]);
+      const float g = float_small(q[1][k]);
+      const float bl = float_small(q[2][k]);
+      const float s = (r * cv.y[0] + g * cv.y[1]) + bl * cv.y[2];
+      yw[opr][k >> 1] |= yuv_u8(div255(s) + cv.off_y)
+                         << (8 * (2 * (k & 1) + opc));
+      float av = pp ? acc[0][k] + r * cv.v[0] : r * cv.v[0];
+      av = av + g * cv.v[1];
+      acc[0][k] = av + bl * cv.v[2];
+      float au = pp ? acc[1][k] + r * cv.u[0] : r * cv.u[0];
+      au = au + g * cv.u[1];
+      acc[1][k] = au + bl * cv.u[2];
+    } else {
+      const float xbl = inv255[q[2][k]], xg = inv255[q[1][k]];
+      const float xr = inv255[q[0][k]];
+      yw[opr][k >> 1] |=
+          yuv_u8(((cv.y[0] * xbl + cv.y[1] * xg) + cv.y[2] * xr) + cv.off_y)
+          << (8 * (2 * (k & 1) + opc));
+      acc[0][k] = pp ? acc[0][k] + xbl : xbl;
+      acc[1][k] = pp ? acc[1][k] + xg : xg;
+      acc[2][k] = pp ? acc[2][k] + xr : xr;
+    }
+  }
+}
+
+// The run of image b's half-res row i from column j0, converted: its V and
+// U bytes from the chroma sums acc, then its two Y rows (yw) and its
+// chroma bytes stored where the flips put them.
+template <bool kDot>
+__device__ __forceinline__ void store_i420_run(
+    const unsigned (&yw)[2][kV / 2], const float (&acc)[3][kV],
+    uint8_t* __restrict__ yp, uint8_t* __restrict__ vu, int b, int i, int j0,
+    const Finish& f, const Yuv& cv) {
   const int n = f.wh - j0;
-  const int plane = f.hh * f.wh;
-  const T* xb = x + static_cast<size_t>(b) * 12 * plane + i * f.wh + j0;
-  // Y bytes by output row parity, as that row's 16 bytes: (k, col parity)
-  // at byte 2 k + col parity
-  unsigned yw[2][kV / 2] = {};
-  float acc[3][kV];  // chains: b, g, r over the phases; dot: V, U
-  // the runs of the next kRing output phases are in flight: all four for
-  // 16-bit T, two for f32 (48 registers of loads either way)
-  constexpr int kRing = sizeof(T) == 4 ? 2 : 4;
-  RawRun<T> raw[kRing][3];
-  if (live) {
-#pragma unroll
-    for (int pp = 0; pp < kRing; ++pp) {
-      load_phase<T>(xb, plane, pp, f, n, raw[pp]);
-    }
-  }
-  if constexpr (!kDot) {  // the table arrives while the loads are in flight
-    inv255[threadIdx.y * blockDim.x + threadIdx.x] =
-        inv255g[threadIdx.y * blockDim.x + threadIdx.x];
-    __syncthreads();
-  }
-  if (!live) return;
-  const Scal sc = load_scal<kLinear>(scal, b);
-#pragma unroll
-  for (int pp = 0; pp < 4; ++pp) {  // output phase pp: parity (pp & 1, pp >> 1)
-    const int opr = pp & 1, opc = pp >> 1;
-    unsigned q[3][kV];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      tone_run<T, kLinear, kTone>(raw[pp % kRing][c], sc, f, q[c]);
-    }
-    if (pp + kRing < 4) {
-      load_phase<T>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
-    }
-#pragma unroll
-    for (int k = 0; k < kV; ++k) {
-      if constexpr (kDot) {
-        const float r = float_small(q[0][k]);
-        const float g = float_small(q[1][k]);
-        const float bl = float_small(q[2][k]);
-        const float s = (r * cv.y[0] + g * cv.y[1]) + bl * cv.y[2];
-        yw[opr][k >> 1] |= yuv_u8(div255(s) + cv.off_y)
-                           << (8 * (2 * (k & 1) + opc));
-        float av = pp ? acc[0][k] + r * cv.v[0] : r * cv.v[0];
-        av = av + g * cv.v[1];
-        acc[0][k] = av + bl * cv.v[2];
-        float au = pp ? acc[1][k] + r * cv.u[0] : r * cv.u[0];
-        au = au + g * cv.u[1];
-        acc[1][k] = au + bl * cv.u[2];
-      } else {
-        const float xbl = inv255[q[2][k]], xg = inv255[q[1][k]];
-        const float xr = inv255[q[0][k]];
-        yw[opr][k >> 1] |=
-            yuv_u8(((cv.y[0] * xbl + cv.y[1] * xg) + cv.y[2] * xr) + cv.off_y)
-            << (8 * (2 * (k & 1) + opc));
-        acc[0][k] = pp ? acc[0][k] + xbl : xbl;
-        acc[1][k] = pp ? acc[1][k] + xg : xg;
-        acc[2][k] = pp ? acc[2][k] + xr : xr;
-      }
-    }
-  }
   unsigned vw[kV / 4] = {}, uw[kV / 4] = {};  // V and U bytes
 #pragma unroll
   for (int k = 0; k < kV; ++k) {
@@ -935,29 +928,200 @@ __global__ void __launch_bounds__(256)
   store_chroma_run(crow + bh * bw, uw, f, bw, j0, n);
 }
 
-template <typename T, bool kLinear, Tone kTone>
-cudaError_t launch_yuv420_mode(const T* x, const float* scal,
-                               const float* inv255, uint8_t* y, uint8_t* vu,
-                               int n, const Finish& f, const Yuv& cv,
-                               cudaStream_t stream) {
-  const dim3 block(16, 16);
-  const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
-                  (f.hh + block.y - 1) / block.y, n);
-  finish_yuv420_kernel<T, kLinear, kTone>
-      <<<grid, block, 0, stream>>>(x, scal, inv255, y, vu, f, cv);
-  return cudaGetLastError();
+// The table form's blocks an SM: the fastest of an A/B on an H100 at the
+// I420 cell's 6 x 4K (PERF.md section 6). At 3 blocks (80 registers) an
+// item's loads and sums spill; 2 hold them in 128 registers.
+constexpr int kI420TableBlocks = 2;
+
+// Item e of the table form: the run of kV half-res pixels from column j0
+// of row i, e = i * runs + j0 / kV.
+struct I420Item {
+  int i, j0;
+};
+
+__device__ __forceinline__ I420Item i420_item(int e, int runs) {
+  const int i = e / runs;
+  return I420Item{i, (e - i * runs) * kV};
 }
 
+// The bytes of a loaded run, each one gather from the table tab at the
+// value's 16 bits.
+template <typename T>
+__device__ __forceinline__ void gather_run(const uint8_t* tab,
+                                           const RawRun<T>& r,
+                                           unsigned (&q)[kV]) {
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    const unsigned wd = r.w[k >> 1];
+    q[k] = tab[(k & 1) ? wd >> 16 : wd & 0xFFFFu];
+  }
+}
+
+// The table form's body: block (256) of grid (blocks an image, n) copies
+// image b's table into shared memory while its first item's loads are in
+// flight, then walks the image's items blockIdx.x * 256 + t, + gridDim.x *
+// 256, ..., one at a time as the direct form takes its run: the loads of
+// all four output phases issued at once, each value's byte one
+// shared-memory gather at its 16 bits, the direct form's conversion and
+// stores, then the next item's loads.
+template <typename T>
+__device__ __forceinline__ void finish_yuv420_table(
+    const T* __restrict__ x, const float* __restrict__ inv255g,
+    const uint8_t* __restrict__ table, uint8_t* __restrict__ yp,
+    uint8_t* __restrict__ vu, const Finish& f, const Yuv& cv) {
+  constexpr bool kDot = std::is_same_v<T, __nv_bfloat16>;
+  extern __shared__ __align__(16) uint8_t ytab[];
+  __shared__ float inv255[kDot ? 1 : 256];  // k / 255 (the f32 chains)
+  const int b = blockIdx.y;
+  const int runs = (f.wh + kV - 1) / kV;
+  const int items = f.hh * runs;
+  const int step = gridDim.x * blockDim.x;
+  const int plane = f.hh * f.wh;
+  const T* const xi = x + static_cast<size_t>(b) * 12 * plane;
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  I420Item it = i420_item(e, runs);
+  RawRun<T> raw[4][3];
+  if (e < items) {
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {
+      load_phase<T>(xi + it.i * f.wh + it.j0, plane, pp, f, f.wh - it.j0,
+                    raw[pp]);
+    }
+  }
+  const uint8_t* tb = table + static_cast<size_t>(b) * kTableBytes;
+  for (int k = threadIdx.x; k < kTableBytes / 16; k += blockDim.x) {
+    copy16_async(ytab + 16 * k, tb + 16 * k);
+  }
+  if constexpr (!kDot) inv255[threadIdx.x] = inv255g[threadIdx.x];
+  cp_async_wait();
+  __syncthreads();
+  for (; e < items; e += step) {
+    unsigned yw[2][kV / 2] = {};
+    float acc[3][kV];
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {  // output phase pp
+      unsigned q[3][kV];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) gather_run<T>(ytab, raw[pp][c], q[c]);
+      convert_phase<kDot>(q, pp, cv, inv255, yw, acc);
+    }
+    store_i420_run<kDot>(yw, acc, yp, vu, b, it.i, it.j0, f, cv);
+    if (e + step < items) {
+      it = i420_item(e + step, runs);
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {
+        load_phase<T>(xi + it.i * f.wh + it.j0, plane, pp, f, f.wh - it.j0,
+                      raw[pp]);
+      }
+    }
+  }
+}
+
+// No axis swap. The direct form (f32, or gamma 1): block (16, 16) over
+// (runs, rows), grid.z = n. The table form (kTable: a 16-bit T and a pow
+// form): each value's byte from its image's table (tone_table_kernel),
+// finish_yuv420_table. The direct form's bound names no blocks an SM (0),
+// so that ptxas sets its registers as it does without one.
+template <typename T, bool kLinear, Tone kTone, bool kTable>
+__global__ void __launch_bounds__(256, kTable ? kI420TableBlocks : 0)
+    finish_yuv420_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scal,
+                         const float* __restrict__ inv255g,
+                         const uint8_t* __restrict__ table,
+                         uint8_t* __restrict__ yp, uint8_t* __restrict__ vu,
+                         Finish f, Yuv cv) {
+  if constexpr (kTable) {
+    finish_yuv420_table<T>(x, inv255g, table, yp, vu, f, cv);
+  } else {
+    constexpr bool kDot = std::is_same_v<T, __nv_bfloat16>;
+    __shared__ float inv255[256];  // k / 255 (the f32 chains)
+    const int b = blockIdx.z;
+    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kV;
+    const bool live = i < f.hh && j0 < f.wh;
+    const int n = f.wh - j0;
+    const int plane = f.hh * f.wh;
+    const T* xb = x + static_cast<size_t>(b) * 12 * plane + i * f.wh + j0;
+    // Y bytes by output row parity, as that row's 16 bytes: (k, col
+    // parity) at byte 2 k + col parity
+    unsigned yw[2][kV / 2] = {};
+    float acc[3][kV];  // chains: b, g, r over the phases; dot: V, U
+    // the runs of the next kRing output phases are in flight: all four for
+    // 16-bit T, two for f32 (48 registers of loads either way)
+    constexpr int kRing = sizeof(T) == 4 ? 2 : 4;
+    RawRun<T> raw[kRing][3];
+    if (live) {
+#pragma unroll
+      for (int pp = 0; pp < kRing; ++pp) {
+        load_phase<T>(xb, plane, pp, f, n, raw[pp]);
+      }
+    }
+    if constexpr (!kDot) {  // the table arrives while the loads are in flight
+      inv255[threadIdx.y * blockDim.x + threadIdx.x] =
+          inv255g[threadIdx.y * blockDim.x + threadIdx.x];
+      __syncthreads();
+    }
+    if (!live) return;
+    const Scal sc = load_scal<kLinear>(scal, b);
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {  // output phase pp
+      unsigned q[3][kV];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        tone_run<T, kLinear, kTone>(raw[pp % kRing][c], sc, f, q[c]);
+      }
+      if (pp + kRing < 4) {
+        load_phase<T>(xb, plane, pp + kRing, f, n, raw[pp % kRing]);
+      }
+      convert_phase<kDot>(q, pp, cv, inv255, yw, acc);
+    }
+    store_i420_run<kDot>(yw, acc, yp, vu, b, i, j0, f, cv);
+  }
+}
+
+template <typename T, bool kLinear, Tone kTone>
+cudaError_t launch_yuv420_mode(const T* x, const float* scal,
+                               const float* inv255, uint8_t* table,
+                               uint8_t* y, uint8_t* vu, int n,
+                               const Finish& f, const Yuv& cv,
+                               cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && kTone != Tone::kGamma1) {
+    static PerDevice resident;
+    return launch_table<T, kLinear, kTone>(
+        finish_yuv420_kernel<T, kLinear, kTone, true>, resident,
+        static_cast<long long>(f.hh) * ((f.wh + kV - 1) / kV), scal, table,
+        n, f, stream, [&](auto kernel, dim3 grid) {
+          kernel<<<grid, 256, kTableBytes, stream>>>(x, scal, inv255, table,
+                                                     y, vu, f, cv);
+        });
+  } else {
+    const dim3 block(16, 16);
+    const dim3 grid((f.wh + block.x * kV - 1) / (block.x * kV),
+                    (f.hh + block.y - 1) / block.y, n);
+    finish_yuv420_kernel<T, kLinear, kTone, false>
+        <<<grid, block, 0, stream>>>(x, scal, inv255, nullptr, y, vu, f, cv);
+    return cudaGetLastError();
+  }
+}
+
+// `table`: the table form's scratch of n * kTableBytes bytes, 16-byte
+// aligned, which a 16-bit T at a pow form without an axis swap takes and
+// every other launch leaves null (refused otherwise), as K4's.
 template <typename T>
 int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
                   int hh, int wh, int linear, int tone, float inv_gamma,
                   int swap, int flip_y, int flip_x, const float* coef,
-                  const void* inv255, cudaStream_t stream) {
+                  const void* inv255, void* table, cudaStream_t stream) {
   if (static_cast<long long>(n) * hh * wh == 0) {
     return static_cast<int>(cudaSuccess);
   }
   if (!tit::image_fits_int32(hh, wh) || n > 65535 ||
       (hh + 15) / 16 > 65535 || !tit::tone_ok(tone)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool table_form = sizeof(T) == 2 && tone != 0 && !swap;
+  if ((table != nullptr) != table_form ||
+      (table != nullptr && !tit::aligned16(table))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // vectors: whole runs along each row
@@ -978,9 +1142,10 @@ int launch_yuv420(const void* x, const void* scal, void* y, void* vu, int n,
     return static_cast<int>(launch_i420_tiles<T, kKind, true>(
         xin, s, tab, yo, vo, n, f, linear, tone, cv, stream));
   }
+  auto* tb = static_cast<uint8_t*>(table);
   return static_cast<int>(with_tone(linear, tone, [&](auto lin, auto tn) {
     return launch_yuv420_mode<T, decltype(lin)::value, decltype(tn)::value>(
-        xin, s, tab, yo, vo, n, f, cv, stream);
+        xin, s, tab, tb, yo, vo, n, f, cv, stream);
   }));
 }
 
@@ -1286,8 +1451,11 @@ cudaError_t launch_planar_tone_mode(const T* x, const float* scal,
       static PerDevice resident;
       return launch_table<T, kLinear, kTone>(
           planar_tone_rows_kernel<T, kLinear, kTone, true>, resident,
-          3LL * f.hh * ((f.wh + kPlanarItem - 1) / kPlanarItem), x, scal,
-          table, out, n, f, stream);
+          3LL * f.hh * ((f.wh + kPlanarItem - 1) / kPlanarItem), scal, table,
+          n, f, stream, [&](auto kernel, dim3 grid) {
+            kernel<<<grid, 256, kTableBytes, stream>>>(x, scal, table, out,
+                                                       f);
+          });
     }
   }
   const dim3 block(16, 16);
@@ -1354,11 +1522,11 @@ TIT_FOR_EACH_DTYPE(TIT_FINISH_LAUNCHER)
   extern "C" int tit_finish_yuv420_##suffix(                                \
       const void* x, const void* scal, void* y, void* vu, int n, int hh,    \
       int wh, int linear, int tone, float inv_gamma, int swap, int flip_y,  \
-      int flip_x, const float* coef, const void* inv255,                    \
+      int flip_x, const float* coef, const void* inv255, void* table,       \
       cudaStream_t stream) {                                                \
     return launch_yuv420<T>(x, scal, y, vu, n, hh, wh, linear, tone,        \
                             inv_gamma, swap, flip_y, flip_x, coef, inv255,  \
-                            stream);                                        \
+                            table, stream);                                 \
   }
 TIT_FOR_EACH_DTYPE(TIT_FINISH_YUV420_LAUNCHER)
 

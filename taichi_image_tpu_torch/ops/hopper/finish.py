@@ -41,6 +41,10 @@ images grow in number (:func:`_tables`). Its plain twin is
 :func:`finish_planar_u8_table_plain`; a table launch also counts
 ``tone_forms["table"]``.
 
+K4's I420 mode takes the same table form under the same rule, and no
+other form there: the same tables, each value's byte gathered from them,
+then its conversion to Y and VU; its plain twin is
+:func:`finish_yuv420_table_plain`, and a table launch counts as K4's does.
 P takes the same table form where :func:`planar_table_form` says so (the
 same rule, and each image at least :data:`TABLE_BYTES` values), and its
 direct form elsewhere; its plain twin is
@@ -76,7 +80,8 @@ from taichi_image_tpu_torch.utils import profiling
 
 __all__ = ["finish_planar_u8", "finish_planar_u8_plain",
            "finish_planar_u8_table_plain", "finish_yuv420",
-           "finish_yuv420_plain", "finish_planar_tone",
+           "finish_yuv420_plain", "finish_yuv420_table_plain",
+           "finish_planar_tone",
            "finish_planar_tone_plain", "finish_planar_tone_table_plain",
            "gamma_u8", "linear_scal", "linear_u8", "planar_table_form",
            "table_form", "tone_tables_plain"]
@@ -96,7 +101,7 @@ YUV420_KERNELS = hopper.register_per_dtype(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     dict.fromkeys(hopper.DTYPE_SUFFIX,
                   "taichi_image_tpu/models/camera_isp.py:1485"))
 PLANAR_TONE_KERNELS = hopper.register_per_dtype(
@@ -164,8 +169,8 @@ TABLE_BYTES = 65536
 
 def table_form(dtype: torch.dtype, gamma: float, mode: str,
                transform: ImageTransform) -> bool:
-  """Whether K4 tones ``dtype`` through a byte table: a 16-bit dtype, a
-  pow form of the tone (gamma != 1) and no axis swap."""
+  """Whether K4 (RGB or I420) tones ``dtype`` through a byte table: a
+  16-bit dtype, a pow form of the tone (gamma != 1) and no axis swap."""
   return (dtype in (torch.bfloat16, torch.float16)
           and tone_form(gamma, mode) != 0
           and not _TRANSFORM_SFF[transform][0])
@@ -283,6 +288,17 @@ def finish_yuv420_plain(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   return yuv420.yuv420_from_phases_u8(u8, mxu=x12.dtype == torch.bfloat16)
 
 
+def finish_yuv420_table_plain(x12: torch.Tensor, scal: torch.Tensor,
+                              gamma: float, mode: str = "reinhard",
+                              transform: ImageTransform = ImageTransform.none):
+  """Plain twin of the table form of K4's I420 mode (bf16 or f16
+  ``x12``): each value's byte from its image's table, the phase transform,
+  then ``yuv420_from_phases_u8`` as :func:`finish_yuv420_plain` takes
+  it."""
+  u8 = transform_phases(_table_u8(x12, scal, gamma, mode), transform)
+  return yuv420.yuv420_from_phases_u8(u8, mxu=x12.dtype == torch.bfloat16)
+
+
 def _check_finish(x12: torch.Tensor, scal: torch.Tensor, mode: str,
                   channels: int = 12) -> None:
   """The finish's guards on both routes: ``x12``'s layout (12 phase
@@ -350,7 +366,9 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   takes them -> planar I420 u8 ``(Y (N, h', w'), VU (N, 2, h'/2, w'/2))``
   of the transformed image, V then U; bitwise equal to the plain twin.
   A bf16 input takes the bf16 pipeline's dot formulation, f16 and f32
-  the f32 chains (as JAX picks them by the working dtype)."""
+  the f32 chains (as JAX picks them by the working dtype). Where
+  :func:`table_form` holds, the launch tones through each image's byte
+  table."""
   _check_finish(x12, scal, mode)
   if not hopper.use_kernel(backend, x12):
     return finish_yuv420_plain(x12, scal, gamma, mode, transform)
@@ -362,12 +380,15 @@ def finish_yuv420(x12: torch.Tensor, scal: torch.Tensor, gamma: float,
   y = torch.empty((n, 2 * bh, 2 * bw), dtype=torch.uint8, device=dev)
   vu = torch.empty((n, 2, bh, bw), dtype=torch.uint8, device=dev)
   linear, tone, inv_gamma = tone_args(gamma, mode)
+  table = table_form(x12.dtype, gamma, mode, transform)
   YUV420_KERNELS[x12.dtype].launch(
       dev, hopper.ptr(x12), hopper.ptr(scal), hopper.ptr(y), hopper.ptr(vu),
       n, hh, wh, linear, tone, inv_gamma, int(swap), int(fy), int(fx),
       yuv420.coefficients_ptr(x12.dtype == torch.bfloat16),
-      hopper.ptr(yuv420.inv255_table(dev)))
-  count_tone(tone)
+      hopper.ptr(yuv420.inv255_table(dev)),
+      hopper.ptr(_tables(dev, n)) if table else None,
+      kernels=2 if table else 1)
+  count_tone(tone, table)
   if profiling.ON:
     profiling.count_i420_path("swap" if swap else "rows")
   return y, vu

@@ -349,6 +349,55 @@ def test_table_scratch_is_kept_per_stream(monkeypatch):
   assert c is not b and c.numel() == th_fin.TABLE_BYTES
 
 
+# -- the table form of K4's I420 mode -----------------------------------------
+
+# the transforms that swap no axes: the rows kernels' table forms take them
+ROW_TRANSFORMS = (ImageTransform.none, ImageTransform.flip_horiz,
+                  ImageTransform.flip_vert, ImageTransform.rotate_180)
+
+
+@pytest.mark.parametrize("gamma", [0.6, 0.9, 2.2, 7.5])
+@pytest.mark.parametrize("mode", ["reinhard", "linear"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_i420_table_twin_is_the_i420_twin(dtype, mode, gamma):
+  """The twin of the I420 mode's table form (each image's tables, a gather
+  at each value's bits, the phase transform, then the conversion) is
+  bitwise the I420 mode's twin on every bit pattern, under six maxima
+  (Reinhard; at 7.5 its pow_div form) or the linear vector, with each
+  transform that swaps no axes: Y and VU alike."""
+  x = _every_pattern(dtype)
+  sc = TABLE_MAX if mode == "reinhard" else torch.tensor([-0.05, 1 / 1.1])
+  for t in ROW_TRANSFORMS:
+    assert th_fin.table_form(dtype, gamma, mode, t)
+    y, vu = th_fin.finish_yuv420_table_plain(x, sc, gamma, mode, t)
+    want_y, want_vu = th_fin.finish_yuv420_plain(x, sc, gamma, mode, t)
+    assert y.shape == (6, 16, 1366) and vu.shape == (6, 2, 8, 683)
+    assert torch.equal(y, want_y) and torch.equal(vu, want_vu), t
+
+
+@pytest.mark.parametrize("case", FORM_CASES)
+def test_i420_wrapper_takes_the_table_form(case, monkeypatch):
+  """K4's I420 wrapper passes the table scratch to its launcher exactly
+  where :func:`table_form` holds (f32, gamma 1 and an axis swap pass
+  null), whatever the frame's size; the scratch holds a table an image,
+  and the call counts two launches (the table build and the I420 kernel)
+  where it passes it."""
+  dtype, gamma, mode, t, (hh, wh), want = FORM_CASES[case]
+  assert th_fin.table_form(dtype, gamma, mode, t) is want
+  k = th_fin.YUV420_KERNELS[dtype]
+  seen, sizes = _stub_launch(monkeypatch, k)
+  x12 = torch.zeros(2, 12, hh, wh, dtype=dtype)
+  sc = torch.ones(2, 1, 1, 1) if mode == "reinhard" else torch.tensor(
+      [0.0, 1.0])
+  th_fin.finish_yuv420(x12, sc, gamma, mode, t)
+  (args,) = seen
+  assert (args[15] is not None) is want
+  assert sizes == ([2] if want else [])
+  assert args[7:9] == th_fin.tone_args(gamma, mode)[:2]
+  assert k.launches == (2 if want else 1)
+
+
 # -- P's table form -----------------------------------------------------------
 
 @pytest.mark.parametrize("gamma", [0.6, 0.9, 2.2, 7.5])

@@ -418,18 +418,19 @@ def test_tone_forms_count_each_tone_launch(kernel_route):
   # (linear, tone) as each launcher was given them
   want = [(0, 0), (0, 1), (1, 1), (0, 1), (0, 2), (0, 1), (0, 2), (1, 0)]
   assert tones == want * 2
-  # the f16 linear launch at 7.5 takes K4's table form
+  # the f16 linear launch at 7.5 takes K4's table form, and so do the f16
+  # I420 launches at 0.9 and 7.5
   assert profiling.snapshot()["tone_forms"] == {"gamma1": 2, "pow_rcp": 4,
-                                                "pow_div": 2, "table": 1}
+                                                "pow_div": 2, "table": 3}
   profiling.reset()
   assert profiling.snapshot()["tone_forms"] == {}
 
 
 def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
-  """A K4 launch in the table form counts ``tone_forms["table"]`` beside
-  its form while tracing is on, whatever the frame's size; no other tone
-  launch does (gamma 1, an axis swap, f32, K4's I420 mode, P's direct
-  form, the planar I420 tonemap form)."""
+  """A K4 launch in the table form, RGB or I420, counts
+  ``tone_forms["table"]`` beside its form while tracing is on, whatever the
+  frame's size; no other tone launch does (gamma 1, an axis swap, f32, P's
+  direct form, the planar I420 tonemap form)."""
   from taichi_image_tpu_torch.ops.hopper import finish, yuv420
   monkeypatch.setattr(finish, "_tables", lambda device, n: torch.zeros(
       n * finish.TABLE_BYTES, dtype=torch.uint8))
@@ -458,7 +459,7 @@ def test_tone_forms_count_table_launches(kernel_route, monkeypatch):
     launch_all()
   assert tables == [True, False, False, False, True] * 2
   forms = profiling.snapshot()["tone_forms"]
-  assert forms == {"pow_rcp": 7, "gamma1": 1, "table": 2}
+  assert forms == {"pow_rcp": 7, "gamma1": 1, "table": 3}
 
 
 def test_tone_forms_count_planar_table_launches(kernel_route, monkeypatch):
