@@ -1149,7 +1149,7 @@ class _ISPBase:
     planar I420 ``(Y, VU)`` u8 on the device instead (``layout`` ignored;
     even output dims required).
     """
-    with profiling.span("isp.process", self._sets):
+    with profiling.span("isp.process", self._sets, self.device):
       raws = self._upload(raws)
       debug_util.validate_raw(raws, fmt)
       prev, t = self._prev_t()
@@ -1173,7 +1173,7 @@ class _ISPBase:
     runs the whole-frame step, ``"loop"`` and ``"scan"`` the band loop
     over at least ``n_bands`` row bands (models/large.py)."""
     from taichi_image_tpu_torch.models import large
-    with profiling.span("isp.process", self._sets):
+    with profiling.span("isp.process", self._sets, self.device):
       raws = _on_device(raws, self.device)
       debug_util.validate_raw(raws, fmt)
       prev, t = self._prev_t()

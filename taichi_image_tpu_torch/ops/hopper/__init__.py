@@ -36,7 +36,7 @@ through the kernels, and a device trace can be held to the count
 (``launch_counts``/``reset_launches``).
 The tracer (``utils/profiling.py``) times each C launcher call while it is
 on (``isp.launch``, ``launch_ns``), and each library's first load in this
-process (``isp.load``, ``load_ns``) and nvcc run (``builds``) always.
+process (``isp.load``) and nvcc run (``builds``) always.
 """
 
 from __future__ import annotations

@@ -43,15 +43,50 @@ while tracing is on, by the path :func:`ops.hopper.resize.plan` picked:
 kernel while tracing is on, by path: ``rows`` for K4's I420 mode,
 ``swap`` for its tile kernel under a transform that swaps the axes,
 ``planar_tone`` for the resize route's planar tonemap form and
-``planar_u8`` for the conversion of u8 RGB), ``builds`` per source (nvcc runs
-in this process) and ``load_ns`` per source. The load spans and their
-counters are kept whether tracing is on or off: they run once a source per
-process, never on the hot path. :func:`snapshot` returns the aggregates
-and counters, :func:`reset` clears them.
+``planar_u8`` for the conversion of u8 RGB) and ``builds`` per source (nvcc
+runs in this process: after a slow start, the sources nvcc rebuilt). The
+load spans and ``builds`` are kept whether tracing is on or off: they run
+once a source per process, never on the hot path. :func:`snapshot` returns
+the aggregates and counters, :func:`reset` clears them.
+
+Set markers. While tracing is on, an ``isp.process`` span that opens a set
+on a CUDA device records two timing CUDA events on the device's current
+stream: a start marker at its entry, before any device work of the set,
+and an end marker at its exit, after the set's last (both outside any
+``isp.launch`` span). Each device keeps its marked sets in submission
+order, at most :data:`MARKED_SETS` of them (a set beyond that goes
+unmarked: ``unmarked_sets``). They are resolved in order and never waited
+for: at a new set's start, and in :func:`snapshot`, every set from the
+front whose end marker has completed is popped, up to the first that has
+not. A popped set is timed in :func:`snapshot`, off the hot path (at its
+pop only beyond :data:`UNTIMED_SETS` popped and untimed sets a device): it
+adds its start-to-end time to ``set_device_ns``, and the number of the
+device's sets still pending when it opened to ``in_flight``; where the set
+before it on the device was marked in the same stretch of tracing (a
+stretch ends at every switch of :data:`ON` and at :func:`reset`) and had
+ended when it opened (no set nested in another, nor sets of two threads
+overlapping), the time from that set's end marker to its start marker
+goes to ``wait_ns`` and the set to ``waited_sets``. The times are on the
+card's own clock. They put the blame for the card's idle time by
+construction:
+
+- between sets, end(i-1) to start(i) (``wait_ns``) is time when the card
+  had done all of set i-1's work and none of set i's was enqueued: the host
+  was outside the port's set (the caller's loop, or the port returning);
+- within a set, start(i) to end(i) less the set's kernels
+  (``set_device_ns`` beside a trace's kernel time) is time while the host
+  was inside the port: bubbles between its own kernels, or its own enqueue
+  where the launch queue ran dry;
+- ``in_flight`` says which of the two regimes a set ran in: near 0 the
+  launch queue is empty, in the tens it is full.
+
+While tracing is off a set-opening span site makes no event and reads no
+clock, as every other span site.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from time import perf_counter_ns
@@ -67,6 +102,14 @@ SPANS = ("isp.process", "isp.decode", "isp.demosaic", "isp.resize",
 # the one flag every span site checks
 ON = False
 
+# the most sets a device keeps marked and unresolved
+MARKED_SETS = 4096
+# the most resolved sets a device keeps untimed until a snapshot
+UNTIMED_SETS = 65536
+# the set markers' counters (summed over devices)
+MARKERS = ("sets", "set_device_ns", "wait_ns", "waited_sets", "in_flight",
+           "unmarked_sets")
+
 _spans: dict[str, list] = {}     # name: [calls, total ns, self ns]
 _launch_ns: dict[str, int] = {}  # kernel: host ns inside its launcher
 _tone_forms: dict[str, int] = {}  # tone form: kernel launches
@@ -74,7 +117,10 @@ _finish_layouts: dict[str, int] = {}  # K4's output layout: launches
 _resize_paths: dict[str, int] = {}    # K12's path: launches
 _i420_paths: dict[str, int] = {}      # the I420 kernel's path: launches
 _builds: dict[str, int] = {}     # source: nvcc runs
-_load_ns: dict[str, int] = {}    # source: ns of its library's first load
+_markers = dict.fromkeys(MARKERS, 0)
+_devices: dict = {}              # device index: its marked sets (_Marks)
+_stretch = 0                     # the stretch of tracing, bumped by switches
+_streams: dict = {}              # (device index, raw stream): its Stream
 _lock = threading.Lock()         # for the aggregates and counters above
 _recording = torch.autograd._profiler_enabled   # a profiler session records
 
@@ -87,27 +133,33 @@ class _Local(threading.local):
 _local = _Local()
 
 
+def _switch(on: bool) -> None:
+  """Set :data:`ON`, ending the stretch of tracing."""
+  global ON, _stretch
+  with _lock:
+    ON = on
+    _stretch += 1
+
+
 def enable() -> None:
   """Turn the tracer on."""
-  global ON
-  ON = True
+  _switch(True)
 
 
 def disable() -> None:
   """Turn the tracer off (the aggregates stay until :func:`reset`)."""
-  global ON
-  ON = False
+  _switch(False)
 
 
 @contextlib.contextmanager
 def tracing():
   """The tracer on for the enclosed block, then as it was."""
-  global ON
-  was, ON = ON, True
+  was = ON
+  _switch(True)
   try:
     yield
   finally:
-    ON = was
+    _switch(was)
 
 
 @contextlib.contextmanager
@@ -174,7 +226,9 @@ class _Span:
     return self
 
   def __exit__(self, *exc):
-    ns = perf_counter_ns() - self.t0
+    self._close(perf_counter_ns() - self.t0, exc)
+
+  def _close(self, ns: int, exc: tuple) -> None:
     stack = self.stack
     stack.pop()
     if stack:
@@ -192,14 +246,144 @@ class _Span:
       self.mark.__exit__(*exc)
 
 
-def span(name: str, sets=None):
+def _event():
+  """A new timing CUDA event (a seam: the tests make fake ones)."""
+  return torch.cuda.Event(enable_timing=True)
+
+
+def _stream(device: torch.device):
+  """``device``'s current stream, None where it is no CUDA device (a seam:
+  the tests give fake streams). The stream object is kept per raw stream,
+  whose read costs a fraction of ``torch.cuda.current_stream``'s."""
+  if device.type != "cuda":
+    return None
+  index = torch.cuda.current_device() if device.index is None else device.index
+  key = (index, torch._C._cuda_getCurrentRawStream(index))
+  stream = _streams.get(key)
+  if stream is None:
+    stream = _streams[key] = torch.cuda.current_stream(index)
+  return stream
+
+
+class _Set:
+  """One marked set: its start and end markers, the end marker of the set
+  popped before it, the device's sets pending when it opened, and whether
+  the set before it on the device was marked in the same stretch of tracing
+  and had ended when it opened."""
+  __slots__ = ("start", "end", "before", "pending", "paired")
+
+
+class _Marks:
+  """One device's marked sets, in submission order, the popped sets not yet
+  timed, and its spare events. The caller holds the lock."""
+  __slots__ = ("fifo", "untimed", "spare", "last_end", "stretch", "busy")
+
+  def __init__(self):
+    self.fifo = collections.deque()
+    self.untimed = collections.deque()
+    self.spare = []        # events to record again
+    self.last_end = None   # the end marker of the set popped last
+    self.stretch = None    # the last set's stretch, None where unmarked
+    self.busy = 0          # marked sets whose end is not yet recorded
+
+  def event(self):
+    return self.spare.pop() if self.spare else _event()
+
+  def open(self, stream) -> _Set | None:
+    """Mark a new set's start on ``stream``, after popping what has
+    completed; None where the device already keeps MARKED_SETS sets."""
+    self.resolve()
+    if len(self.fifo) >= MARKED_SETS:
+      _markers["unmarked_sets"] += 1
+      self.stretch = None
+      return None
+    mark = _Set()
+    mark.pending = len(self.fifo)
+    mark.paired = self.stretch == _stretch and not self.busy
+    self.stretch = _stretch
+    mark.start, mark.end = self.event(), None
+    mark.start.record(stream)
+    self.fifo.append(mark)
+    self.busy += 1
+    return mark
+
+  def resolve(self) -> None:
+    """Pop, front first, every set whose end marker has completed, up to
+    the first that has not; wait for none, and time none but those beyond
+    UNTIMED_SETS."""
+    fifo, untimed = self.fifo, self.untimed
+    while fifo and fifo[0].end is not None and fifo[0].end.query():
+      mark = fifo.popleft()
+      mark.before, self.last_end = self.last_end, mark.end
+      untimed.append(mark)
+      if len(untimed) > UNTIMED_SETS:
+        self.time(untimed.popleft())
+
+  def time(self, mark: _Set) -> None:
+    """Add a popped set to the counters; its start marker and the end
+    marker before it (which only it still reads) go back to the spares."""
+    m = _markers
+    m["sets"] += 1
+    m["set_device_ns"] += round(mark.start.elapsed_time(mark.end) * 1e6)
+    m["in_flight"] += mark.pending
+    if mark.paired:
+      m["wait_ns"] += round(mark.before.elapsed_time(mark.start) * 1e6)
+      m["waited_sets"] += 1
+    self.spare.append(mark.start)
+    if mark.before is not None:
+      self.spare.append(mark.before)
+
+  def flush(self) -> None:
+    """Pop what has completed and time every popped set."""
+    self.resolve()
+    while self.untimed:
+      self.time(self.untimed.popleft())
+
+
+class _SetSpan(_Span):
+  """A span that opens a set on a CUDA device: its start marker at entry
+  and its end marker at exit, on ``stream``."""
+  __slots__ = ("stream", "marks", "marked")
+
+  def __init__(self, name: str, set_id, stream):
+    super().__init__(name, set_id)
+    self.stream = stream
+
+  def __enter__(self):
+    super().__enter__()
+    with _lock:
+      self.marks = _devices.get(self.stream.device_index)
+      if self.marks is None:
+        self.marks = _devices[self.stream.device_index] = _Marks()
+      self.marked = self.marks.open(self.stream)
+    return self
+
+  def __exit__(self, *exc):
+    mark = self.marked
+    if mark is None:
+      return super().__exit__(*exc)
+    with _lock:
+      end = self.marks.event()
+      end.record(self.stream)
+      mark.end = end
+      self.marks.busy -= 1
+    self._close(perf_counter_ns() - self.t0, exc)
+
+
+def span(name: str, sets=None, device: torch.device | None = None):
   """A span named ``name`` while tracing is on (a no-op while it is off).
   ``sets``: an iterator of set ids (``itertools.count()``): the span opens
   a new set and takes the next id from it; without it the span carries
-  the set id of the span it opens in."""
+  the set id of the span it opens in. ``device``: the set's device; on a
+  CUDA device the span marks the set on its current stream (the module's
+  docstring)."""
   if not ON:
     return _OFF
-  return _Span(name, None if sets is None else next(sets))
+  set_id = None if sets is None else next(sets)
+  stream = None if device is None else _stream(device)
+  if stream is None:
+    return _Span(name, set_id)
+  return _SetSpan(name, set_id, stream)
 
 
 class _Stages:
@@ -243,10 +427,9 @@ def launch(kernel: str) -> _Span:
 
 
 def load(source: str) -> _Span:
-  """The ``isp.load`` span of ``source``'s library's first load, which
-  adds its time to the source's ``load_ns``; kept whether tracing is on or
-  off."""
-  return _Span("isp.load", tag=source, counter=_load_ns)
+  """The ``isp.load`` span of ``source``'s library's first load, kept
+  whether tracing is on or off."""
+  return _Span("isp.load", tag=source)
 
 
 def count_tone(form: str) -> None:
@@ -289,20 +472,28 @@ def snapshot() -> dict:
   ``launch_ns`` {kernel: ns}, ``tone_forms`` {form: launches},
   ``finish_layouts`` {layout: launches}, ``resize_paths`` {path: launches},
   ``i420_paths`` {path: launches}, ``builds`` {source: nvcc runs} and
-  ``load_ns`` {source: ns}."""
+  ``markers`` {counter: value} (:data:`MARKERS`), after popping every
+  marked set that has completed and timing every popped set; it waits for
+  none."""
   with _lock:
+    for marks in _devices.values():
+      marks.flush()
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": self_ns}
                       for name, (c, ns, self_ns) in _spans.items()},
             "launch_ns": dict(_launch_ns), "tone_forms": dict(_tone_forms),
             "finish_layouts": dict(_finish_layouts),
             "resize_paths": dict(_resize_paths),
             "i420_paths": dict(_i420_paths),
-            "builds": dict(_builds), "load_ns": dict(_load_ns)}
+            "builds": dict(_builds), "markers": dict(_markers)}
 
 
 def reset() -> None:
-  """Clear the aggregates and counters."""
+  """Clear the aggregates and counters, and every device's marked sets
+  (ending the stretch of tracing)."""
+  global _stretch
   with _lock:
     for d in (_spans, _launch_ns, _tone_forms, _finish_layouts,
-              _resize_paths, _i420_paths, _builds, _load_ns):
+              _resize_paths, _i420_paths, _builds, _devices):
       d.clear()
+    _markers.update(dict.fromkeys(MARKERS, 0))
+    _stretch += 1

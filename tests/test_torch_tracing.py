@@ -3,8 +3,9 @@ free of spans, clocks and ``record_function`` while off; while on, one
 ``isp.process`` span a set with the set's id, the stages of the route taken
 in order inside it, each kernel launch inside its stage, self times less
 what children cover, the spans in ``trace(log_dir)``'s Chrome file, and the
-launch, tone-form, I420-path, build and load counters. The kernels'
-launchers and nvcc are stubbed, as in test_torch_meter.py."""
+launch, tone-form, I420-path and build counters, the load spans, and the
+set markers on a fake card. The kernels' launchers and nvcc are stubbed, as
+in test_torch_meter.py."""
 
 import itertools
 import json
@@ -12,6 +13,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -26,6 +28,7 @@ from taichi_image_tpu_torch.ops.interpolate import ImageTransform  # noqa: E402
 from taichi_image_tpu_torch.utils import profiling  # noqa: E402
 
 H, W = 16, 24   # a frame's pixels: packed12 rows of 36 bytes
+NO_MARKERS = dict.fromkeys(profiling.MARKERS, 0)
 
 # the stages of each route, in order
 PHASE = ["isp.decode", "isp.demosaic", "isp.meter", "isp.reinhard",
@@ -101,7 +104,7 @@ def test_off_by_default_and_records_nothing(monkeypatch):
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
                                   "resize_paths": {}, "i420_paths": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "builds": {}, "markers": NO_MARKERS}
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -288,10 +291,10 @@ def test_a_build_a_cache_hit_and_the_loads_are_counted(monkeypatch, tmp_path,
   k.launch(torch.device("cpu"), 1, 2)   # tracing off: the load still counts
   snap = profiling.snapshot()
   assert len(runs) == 1 and snap["builds"] == {"decode.cu": 1}
-  assert snap["load_ns"]["decode.cu"] > 0
+  load = snap["spans"]["isp.load"]
+  assert load["ns"] > 0
   assert snap["spans"] == {"isp.load": {
-      "calls": 1, "ns": snap["load_ns"]["decode.cu"],
-      "self_ns": snap["load_ns"]["decode.cu"]}}
+      "calls": 1, "ns": load["ns"], "self_ns": load["ns"]}}
   assert snap["launch_ns"] == {} and k.launches == 1
   # a sibling kernel of the source loads nothing more
   hopper.Kernel("decode_u", "decode.cu", "tit_u", [], "none").launch(
@@ -299,13 +302,13 @@ def test_a_build_a_cache_hit_and_the_loads_are_counted(monkeypatch, tmp_path,
   assert profiling.snapshot()["spans"]["isp.load"]["calls"] == 1
   # a new process: the cache hits, nvcc does not run, the load counts
   monkeypatch.setattr(hopper, "_LIBS", {})
-  first = profiling.snapshot()["load_ns"]["decode.cu"]
+  first = profiling.snapshot()["spans"]["isp.load"]["ns"]
   hopper.Kernel("decode_v", "decode.cu", "tit_v", [], "none").launch(
       torch.device("cpu"))
   snap = profiling.snapshot()
   assert len(runs) == 1 and snap["builds"] == {"decode.cu": 1}
   assert snap["spans"]["isp.load"]["calls"] == 2
-  assert snap["load_ns"]["decode.cu"] > first
+  assert snap["spans"]["isp.load"]["ns"] > first
 
 
 def test_launch_ns_counts_each_launch_while_on(monkeypatch, stub_launch):
@@ -332,15 +335,23 @@ def test_a_failed_launch_still_raises(stub_launch):
   assert k.launches == 0 and profiling.snapshot()["launch_ns"]["finish_t"] >= 0
 
 
-def test_reset_clears_everything(stub_launch):
+def test_reset_clears_everything(stub_launch, card):
   profiling.count_build("x.cu")
   with profiling.tracing(), profiling.span("isp.process"):
     profiling.count_tone("pow_rcp")
+  with profiling.tracing():
+    _mark_sets(2)
+  card.finish(2)    # one set resolved, one pending
+  assert profiling.snapshot()["markers"]["sets"] == 1
   profiling.reset()
   assert profiling.snapshot() == {"spans": {}, "launch_ns": {},
                                   "tone_forms": {}, "finish_layouts": {},
                                   "resize_paths": {}, "i420_paths": {},
-                                  "builds": {}, "load_ns": {}}
+                                  "builds": {}, "markers": NO_MARKERS}
+  # the set left pending is gone with the rest
+  card.finish(len(card.recorded))
+  assert profiling.snapshot()["markers"] == NO_MARKERS
+  assert profiling._devices == {}
 
 
 @pytest.fixture
@@ -688,3 +699,280 @@ def test_i420_paths_count_one_launch_a_set(kernel_route, path):
   snap = profiling.snapshot()
   assert snap["spans"]["isp.process"]["calls"] == 4
   assert snap["i420_paths"] == {path: 3}
+
+
+# -- the set markers, on a fake card ------------------------------------------
+
+CUDA = torch.device("cuda", 0)
+STREAM = types.SimpleNamespace(device_index=0)   # the card's current stream
+
+
+class _Card:
+  """A fake CUDA card for the set markers. Each event recorded on it takes
+  the next of the card's times (us on the card's clock, 0, 10, 20, ...
+  unless the test gives them) and a place in submission order; the test
+  completes records with :meth:`finish`. Waiting on an event fails."""
+
+  def __init__(self):
+    self.made, self.recorded, self.done = 0, [], set()
+    self.times = itertools.count(0, 10)
+
+  def event(self):
+    self.made += 1
+    return _Event(self)
+
+  def finish(self, n: int, *more: int) -> None:
+    """Complete the first ``n`` records, and those at ``more``."""
+    self.done |= set(range(n)) | set(more)
+
+
+class _Event:
+  """A timing event on a :class:`_Card`."""
+
+  def __init__(self, card):
+    self.card, self.seq, self.t = card, None, None
+
+  def record(self, stream):
+    assert stream is STREAM
+    self.seq, self.t = len(self.card.recorded), next(self.card.times)
+    self.card.recorded.append(self)
+
+  def query(self):
+    return self.seq in self.card.done
+
+  def elapsed_time(self, end):
+    assert self.query() and end.query(), "elapsed time of a pending marker"
+    return (end.t - self.t) / 1e3
+
+  def synchronize(self):
+    raise AssertionError("a set marker was waited for")
+
+  wait = synchronize
+
+
+@pytest.fixture
+def card(monkeypatch):
+  """The markers' event factory on a fake card whose one stream is every
+  CUDA device's current stream (a CPU device has none, as on a card)."""
+  card = _Card()
+  monkeypatch.setattr(profiling, "_event", card.event)
+  monkeypatch.setattr(profiling, "_stream",
+                      lambda device: STREAM if device.type == "cuda" else None)
+  return card
+
+
+def _mark_sets(n: int, sets=None) -> None:
+  """``n`` empty sets opened on the CUDA device."""
+  sets = itertools.count() if sets is None else sets
+  for _ in range(n):
+    with profiling.span("isp.process", sets, CUDA):
+      pass
+
+
+def _markers() -> dict:
+  return profiling.snapshot()["markers"]
+
+
+def test_set_markers_off_make_no_event_and_read_no_clock(monkeypatch, card):
+  streams, clock = [], []
+  monkeypatch.setattr(profiling, "_stream", lambda d: streams.append(d))
+  real = profiling.perf_counter_ns
+  monkeypatch.setattr(profiling, "perf_counter_ns",
+                      lambda: clock.append(1) or real())
+  assert profiling.span("isp.process", itertools.count(), CUDA) is \
+      profiling._OFF
+  _mark_sets(3)
+  assert card.made == 0 and streams == [] and clock == []
+  assert _markers() == NO_MARKERS
+
+
+def test_a_cpu_device_records_no_marker(monkeypatch):
+  made = []
+  monkeypatch.setattr(profiling, "_event", lambda: made.append(1))
+  isp = ttit.CameraBF16(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    isp.process(_raws())
+    isp.process_large(_raws(), driver="auto")
+  snap = profiling.snapshot()
+  assert snap["spans"]["isp.process"]["calls"] == 2
+  assert made == [] and snap["markers"] == NO_MARKERS
+  assert profiling._devices == {}
+
+
+def test_sets_resolve_in_order(card):
+  with profiling.tracing():
+    _mark_sets(3)   # set i: start record 2i, end record 2i + 1
+  assert _markers()["sets"] == 0
+  # set 1's end has completed, set 0's has not: set 0 holds both back
+  card.finish(0, 2, 3)
+  assert _markers()["sets"] == 0
+  card.finish(2)
+  m = _markers()
+  assert m["sets"] == 2 and m["set_device_ns"] == 2 * 10_000
+  card.finish(6)
+  m = _markers()
+  assert m["sets"] == 3 and m["set_device_ns"] == 3 * 10_000
+  # in one stretch each set after the first follows its predecessor
+  assert m["waited_sets"] == 2 and m["wait_ns"] == 2 * 10_000
+  assert not profiling._devices[0].fifo
+
+
+def test_the_events_are_reused(card):
+  with profiling.tracing():
+    for i in range(50):
+      _mark_sets(1)
+      card.finish(len(card.recorded))
+      assert _markers()["sets"] == i + 1
+  # a timed set's start goes back at once, an end once the next set is timed
+  assert card.made <= 4
+
+
+def test_sets_are_timed_in_the_snapshot_alone(monkeypatch, card):
+  timed = []
+  real = _Event.elapsed_time
+  monkeypatch.setattr(_Event, "elapsed_time",
+                      lambda self, end: timed.append(1) or real(self, end))
+  with profiling.tracing():
+    for _ in range(5):
+      _mark_sets(1)
+      card.finish(len(card.recorded))
+  # each set popped as the next opened, none timed
+  assert timed == [] and len(profiling._devices[0].untimed) == 4
+  m = _markers()
+  assert m["sets"] == 5 and m["waited_sets"] == 4 and len(timed) == 9
+  assert not profiling._devices[0].untimed
+
+
+def test_sets_beyond_the_untimed_bound_are_timed_at_their_pop(monkeypatch,
+                                                              card):
+  monkeypatch.setattr(profiling, "UNTIMED_SETS", 2)
+  with profiling.tracing():
+    for _ in range(40):
+      _mark_sets(1)
+      card.finish(len(card.recorded))
+    marks = profiling._devices[0]
+    assert len(marks.untimed) == 2
+    # the sets timed at their pop gave their events back
+    assert card.made <= 10
+  m = _markers()
+  assert m["sets"] == 40 and m["set_device_ns"] == 40 * 10_000
+  assert m["waited_sets"] == 39 and m["wait_ns"] == 39 * 10_000
+
+
+def test_a_snapshot_never_waits(monkeypatch, card):
+  monkeypatch.setattr(torch.cuda, "synchronize", _Event.synchronize)
+  with profiling.tracing():
+    _mark_sets(4)
+    card.finish(4)   # sets 0 and 1 done, 2 and 3 in flight
+    m = _markers()
+  assert m["sets"] == 2 and len(profiling._devices[0].fifo) == 2
+  card.finish(8)
+  assert _markers()["sets"] == 4
+
+
+def test_in_flight_counts_the_pending_sets(card):
+  with profiling.tracing():
+    _mark_sets(3)            # 0, 1 and 2 sets pending as each opens
+    card.finish(6)
+    _mark_sets(1)            # the three resolve first: none pending
+    card.finish(8)
+  m = _markers()
+  assert m["sets"] == 4 and m["in_flight"] == 0 + 1 + 2 + 0
+
+
+def test_a_switch_of_the_tracer_breaks_the_pair(card):
+  card.times = iter([0, 10, 14, 20, 30, 40, 45, 50, 60, 61])
+  sets = itertools.count()
+  profiling.enable()
+  _mark_sets(2, sets)          # 0..10, 14..20: a wait of 4 us
+  profiling.disable()
+  _mark_sets(1, sets)          # off: unmarked, a gap that is not counted
+  profiling.enable()
+  _mark_sets(1, sets)          # 30..40: after a switch, no pair
+  with profiling.tracing():    # a switch, though the tracer stays on
+    _mark_sets(1, sets)        # 45..50: no pair
+  _mark_sets(1, sets)          # 60..61: no pair after the block's end
+  card.finish(len(card.recorded))
+  m = _markers()
+  assert m["sets"] == 5
+  assert m["set_device_ns"] == (10 + 6 + 10 + 5 + 1) * 1000
+  assert m["waited_sets"] == 1 and m["wait_ns"] == 4000
+
+
+def test_a_set_opened_inside_another_is_not_paired(card):
+  card.times = iter([0, 2, 3, 10, 12, 13])
+  sets = itertools.count()
+  with profiling.tracing():
+    with profiling.span("isp.process", sets, CUDA):      # 0..10
+      with profiling.span("isp.process", sets, CUDA):    # 2..3
+        pass
+    _mark_sets(1, sets)                                  # 12..13
+  card.finish(len(card.recorded))
+  m = _markers()
+  assert m["sets"] == 3 and m["set_device_ns"] == (10 + 1 + 1) * 1000
+  # the inner set opened with the outer open: the last follows the inner
+  assert m["waited_sets"] == 1 and m["wait_ns"] == (12 - 3) * 1000
+  assert profiling._devices[0].busy == 0
+
+
+def test_reset_breaks_the_pair(card):
+  with profiling.tracing():
+    _mark_sets(1)
+    card.finish(2)
+    profiling.reset()
+    _mark_sets(2)
+  card.finish(len(card.recorded))
+  m = _markers()
+  assert m["sets"] == 2 and m["waited_sets"] == 1
+
+
+def test_the_fifo_is_bounded(monkeypatch, card):
+  monkeypatch.setattr(profiling, "MARKED_SETS", 3)
+  with profiling.tracing():
+    _mark_sets(5)                  # 3 marked, 2 beyond the bound
+    assert len(profiling._devices[0].fifo) == 3 and card.made == 6
+    card.finish(6)
+    _mark_sets(2)                  # room again; the first follows no mark
+  card.finish(len(card.recorded))
+  m = _markers()
+  assert m["unmarked_sets"] == 2 and m["sets"] == 5
+  # pairs 0-1, 1-2 and the last two; not the first after the unmarked
+  assert m["waited_sets"] == 3
+  assert profiling.snapshot()["spans"]["isp.process"]["calls"] == 7
+
+
+def test_process_large_marks_its_set(monkeypatch, card):
+  monkeypatch.setattr(profiling, "_stream", lambda device: STREAM)
+  isp = ttit.Camera32(ttit.BayerPattern.RGGB, device="cpu")
+  with profiling.tracing():
+    isp.process_large(_raws(), driver="auto")
+    assert card.made == 2 and len(card.recorded) == 2
+    isp.process(_raws())
+  card.finish(4)
+  m = _markers()
+  assert m["sets"] == 2 and m["waited_sets"] == 1
+
+
+def test_threads_lose_no_marker(monkeypatch, card):
+  """Sets marked on one card from more threads than cores, switching
+  often: every set resolves once, and none pairs with a set still open on
+  another thread. The bound is raised past the sets: a thread held with
+  the front set open can leave the others any number of sets ahead."""
+  n_threads, n = 4 * (os.cpu_count() or 1), 500
+  monkeypatch.setattr(profiling, "MARKED_SETS", n_threads * n)
+  card.finish(10 ** 7)   # every record completes as it is made
+  interval = sys.getswitchinterval()
+  sys.setswitchinterval(1e-6)
+  try:
+    with profiling.tracing():
+      with ThreadPoolExecutor(n_threads) as pool:
+        for f in [pool.submit(_mark_sets, n, itertools.count())
+                  for _ in range(n_threads)]:
+          f.result(timeout=60)
+  finally:
+    sys.setswitchinterval(interval)
+  m = _markers()
+  assert m["sets"] == n_threads * n and m["unmarked_sets"] == 0
+  assert m["wait_ns"] >= 0 and m["waited_sets"] < m["sets"]
+  assert not profiling._devices[0].fifo
+  assert len(card.recorded) == 2 * n_threads * n
